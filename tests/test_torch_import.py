@@ -1,0 +1,51 @@
+"""The PyTorch port must import without JAX and without the JAX package:
+it runs on GPU machines where JAX need not be installed."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+
+_BLOCKER = """
+import importlib.abc, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "tpu_audio"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import importlib
+for mod in {mods!r}:
+    importlib.import_module(mod)
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_audio")]
+assert not leaked, leaked
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("mods", [
+    ["tpu_audio_torch"],
+    ["tpu_audio_torch.models.stt.whisper", "tpu_audio_torch.models.stt",
+     "tpu_audio_torch.cli.stt", "tpu_audio_torch.convert",
+     "tpu_audio_torch.core.audio_io", "tpu_audio_torch.core.hub"],
+])
+def test_port_imports_without_jax(mods):
+    res = subprocess.run([sys.executable, "-c", _BLOCKER.format(mods=mods)],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_chip_smoke_imports_without_jax():
+    """chip_smoke.py's imports (it exits before any work without a GPU)."""
+    res = subprocess.run(
+        [sys.executable, "-c", _BLOCKER.format(mods=[]) .replace(
+            'print("ok")', 'import runpy; runpy.run_path("chip_smoke.py", '
+            'run_name="not_main"); print("ok")')],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

@@ -1,0 +1,213 @@
+"""PyTorch port kernels' plain versions against the JAX package's Pallas
+kernels (run in interpret mode on the CPU), on the same numpy inputs.
+
+The CUDA kernels themselves run only on a GPU; ``chip_smoke.py`` holds
+each of them against the plain versions tested here.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_audio.core import kv_cache as jkv
+from tpu_audio.core import quant as jquant
+from tpu_audio.models.stt import whisper as JW
+from tpu_audio.ops import pallas_fused_decoder as JF
+from tpu_audio.ops import pallas_kv_attention as JK
+from tpu_audio_torch.convert import from_jax_params
+from tpu_audio_torch.core import kv_cache as tkv
+from tpu_audio_torch.models.stt import whisper as TW
+from tpu_audio_torch.ops import fused_decoder as TF
+from tpu_audio_torch.ops import kv_attention as TK
+from tpu_audio_torch.ops import mel as TM
+
+torch.set_num_threads(1)
+
+# the fused-decoder config of tests/test_fused_decoder.py
+CFG = dict(num_mel_bins=80, d_model=256, encoder_layers=1,
+           encoder_attention_heads=4, encoder_ffn_dim=1024,
+           decoder_layers=2, decoder_attention_heads=4,
+           decoder_ffn_dim=1024, vocab_size=128,
+           max_source_positions=150, max_target_positions=64)
+
+
+def jax_tree_to_numpy(tree):
+    """JAX param tree -> numpy leaves, Int8Tensor leaves as (w, s) pairs."""
+    if isinstance(tree, dict):
+        return {k: jax_tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, jquant.Int8Tensor):
+        return (np.asarray(tree.weight), np.asarray(tree.scale))
+    return np.asarray(tree)
+
+
+@pytest.mark.parametrize("t,f,m", [(300, 201, 128), (37, 101, 80)])
+def test_fused_log_mel_ref_matches_jax(monkeypatch, t, f, m):
+    from jax.experimental import pallas as pl
+
+    from tpu_audio.ops import pallas_mel as PM
+
+    orig = pl.pallas_call
+    monkeypatch.setattr(pl, "pallas_call",
+                        lambda *a, **kw: orig(*a, **{**kw, "interpret": True}))
+    rng = np.random.default_rng(0)
+    re = rng.standard_normal((t, f)).astype(np.float32)
+    im = rng.standard_normal((t, f)).astype(np.float32)
+    fb = np.abs(rng.standard_normal((f, m)).astype(np.float32)) * 0.01
+    want = np.asarray(PM.fused_log_mel(jnp.asarray(re), jnp.asarray(im),
+                                       jnp.asarray(fb)))
+    got = TM.fused_log_mel(torch.from_numpy(re), torch.from_numpy(im),
+                           torch.from_numpy(fb)).numpy()
+    assert got.shape == (t, m)
+    np.testing.assert_allclose(got, want, atol=1e-5)  # the JAX test's bound
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_kv_quantize_codes_match_jax_bit_for_bit(g):
+    """Codes, scales and biases, and their dequantized values."""
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((2, 4, 300, 64)) * 0.7).astype(np.float32)
+    jq, js, jb = jkv._quantize(jnp.asarray(x), n_groups=g, bits=8)
+    tq, ts, tb = tkv._quantize(torch.from_numpy(x), n_groups=g, bits=8)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(
+        tkv._dequantize(tq, ts, tb, torch.float32).numpy(),
+        np.asarray(jkv._dequantize(jq, js, jb, jnp.float32)))
+
+
+@pytest.mark.parametrize("h,s,hd,g,valid", [(4, 300, 64, 1, 300),
+                                            (2, 128, 64, 2, 128),
+                                            (2, 256, 32, 1, 57)])
+def test_decode_attention_int8_ref_matches_jax(h, s, hd, g, valid):
+    rng = np.random.default_rng(0)
+    k = rng.standard_normal((h, s, hd)).astype(np.float32)
+    v = rng.standard_normal((h, s, hd)).astype(np.float32)
+    q = rng.standard_normal((h, 1, hd)).astype(np.float32) * 0.3
+    sm = 1.0 / math.sqrt(hd)
+    kt, ks, kb = JK.quantize_kv_transposed(jnp.asarray(k), n_groups=g)
+    vt, vs, vb = JK.quantize_kv_transposed(jnp.asarray(v), n_groups=g)
+    want = np.asarray(JK.decode_attention_int8(
+        jnp.asarray(q), kt, ks, kb, vt, vs, vb,
+        jnp.asarray([valid], jnp.int32), sm_scale=sm, interpret=True))
+    kq = tkv._quantize(torch.from_numpy(k), n_groups=g)
+    vq = tkv._quantize(torch.from_numpy(v), n_groups=g)
+    got = TK.decode_attention_int8(torch.from_numpy(q), *kq, *vq, valid,
+                                   sm_scale=sm).numpy()
+    assert got.shape == (h, 1, hd) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def fused_setup():
+    cfg = JW.WhisperConfig(**CFG)
+    params = JW.init_params(cfg, seed=3, dtype=jnp.float32)
+    rng = np.random.default_rng(0)
+    enc = jnp.asarray(rng.standard_normal(
+        (1, cfg.max_source_positions, cfg.d_model)).astype(np.float32) * 0.3)
+    cross_k, cross_v = JW._cross_kv(params, enc, cfg)
+    # w8 decoder weights, as the deployment path packs them (quantized
+    # eagerly; the JAX pack re-quantizes dense weights under jit, where XLA
+    # turns the /127 into a multiply and moves scales by one ulp)
+    params["model"]["decoder"] = jquant.quantize_tree(
+        params["model"]["decoder"], scheme="w8a8")
+    jpack = JF.pack_decoder_weights(params, cfg)
+    jcross = JF.quantize_cross_kv(cross_k, cross_v, chunk=cfg.d_model // 2)
+    tcfg = TW.WhisperConfig(**CFG)
+    tparams = from_jax_params(jax_tree_to_numpy(params))
+    tpack = TF.pack_decoder_weights(tparams, tcfg)
+    tcross = TF.quantize_cross_kv(torch.tensor(np.asarray(cross_k)),
+                                  torch.tensor(np.asarray(cross_v)))
+    return cfg, tcfg, jpack, jcross, tpack, tcross
+
+
+def test_fused_pack_and_cross_codes_match_jax(fused_setup):
+    cfg, _, jpack, jcross, tpack, tcross = fused_setup
+    d, ffn = cfg.d_model, cfg.decoder_ffn_dim
+    n_in = 6 * d + ffn
+    ws = np.asarray(jpack.wstream)
+    np.testing.assert_array_equal(tpack.w_in.numpy(), ws[:, :n_in])
+    # the port stores fc2 output-major; the JAX stream holds it input-major
+    np.testing.assert_array_equal(tpack.w_fc2.numpy(),
+                                  ws[:, n_in:].transpose(0, 2, 1))
+    np.testing.assert_array_equal(tpack.scales[:, :n_in].numpy(),
+                                  np.asarray(jpack.row_scales)[:, :n_in])
+    bp = np.asarray(jpack.biaspack)
+    np.testing.assert_array_equal(tpack.scales[:, n_in:].numpy(), bp[:, 12])
+    np.testing.assert_array_equal(tpack.biases[:, n_in:].numpy(), bp[:, 11])
+    np.testing.assert_array_equal(tpack.ln.numpy(), bp[:, [0, 1, 5, 6, 9, 10]])
+    s = cfg.max_source_positions
+    for t, j in zip(tcross, jcross):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j)[:, :s])
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+def test_fused_stack_ref_matches_jax(fused_setup, offset):
+    cfg, tcfg, jpack, jcross, tpack, tcross = fused_setup
+    d, L = cfg.d_model, cfg.decoder_layers
+    rng = np.random.default_rng(1)
+    s_max = 64
+    kc = rng.standard_normal((L, s_max, d)).astype(np.float32) * 0.2
+    vc = rng.standard_normal((L, s_max, d)).astype(np.float32) * 0.2
+    kc[:, offset:] = 0
+    vc[:, offset:] = 0
+    x0 = (rng.standard_normal(d) * 0.5).astype(np.float32)
+    x8 = jnp.zeros((8, d), jnp.float32).at[0].set(jnp.asarray(x0))
+    jy, jk, jv = JF.fused_stack(
+        jpack, *jcross, jnp.asarray(kc, jnp.bfloat16),
+        jnp.asarray(vc, jnp.bfloat16), x8, offset, cfg=cfg,
+        s_src=cfg.max_source_positions, interpret=True)
+    tkc = torch.from_numpy(kc).to(torch.bfloat16)
+    tvc = torch.from_numpy(vc).to(torch.bfloat16)
+    ty, tk, tv = TF.fused_stack(tpack, *tcross, tkc, tvc, torch.from_numpy(x0),
+                                offset, cfg=tcfg, s_src=cfg.max_source_positions)
+    # f32 sums in another order can move an int8 activation code by one
+    # step; 1e-3 of the output's scale bounds a few such flips per layer
+    for got, want in ((ty, np.asarray(jy)[0]), (tk, np.asarray(jk)[:, 0]),
+                      (tv, np.asarray(jv)[:, 0])):
+        err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+        assert err < 1e-3, err
+    # the new rows were written into the caches in place, as bf16
+    np.testing.assert_array_equal(tkc[:, offset].float().numpy(),
+                                  tk.to(torch.bfloat16).float().numpy())
+    np.testing.assert_array_equal(tvc[:, offset].float().numpy(),
+                                  tv.to(torch.bfloat16).float().numpy())
+
+
+def test_int8_matmul_matches_jax():
+    from tpu_audio_torch.core import quant as tquant
+
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((48, 256)).astype(np.float32) * 0.1
+    x = rng.standard_normal((5, 256)).astype(np.float32)
+    jt = jquant.quantize_int8_jax(jnp.asarray(w))
+    tt = tquant.quantize_int8(torch.from_numpy(w))
+    np.testing.assert_array_equal(tt.weight.numpy(), np.asarray(jt.weight))
+    np.testing.assert_array_equal(tt.scale.numpy(), np.asarray(jt.scale))
+    want = np.asarray(jquant.int8_matmul(jnp.asarray(x), jt))
+    got = tquant.int8_matmul(torch.from_numpy(x), tt).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_quantize_tree_selects_the_same_leaves():
+    from tpu_audio_torch.core import quant as tquant
+
+    cfg = JW.WhisperConfig(**CFG)
+    params = JW.init_params(cfg, seed=0, dtype=jnp.float32)
+    jq = jquant.quantize_tree(params["model"]["decoder"], scheme="w8a8")
+    tq = tquant.quantize_tree(from_jax_params(jax_tree_to_numpy(
+        params["model"]["decoder"])))
+
+    def kinds(tree):
+        if isinstance(tree, dict):
+            return {k: kinds(v) for k, v in tree.items()}
+        return isinstance(tree, (jquant.Int8Tensor, tquant.Int8Tensor))
+
+    assert kinds(jq) == kinds(tq)
+    np.testing.assert_array_equal(
+        tq["layers"]["fc1"]["weight"].weight.numpy(),
+        np.asarray(jq["layers"]["fc1"]["weight"].weight))

@@ -1,0 +1,144 @@
+"""Whisper's log-mel frontend (port of the STFT and log-mel parts of
+tpu_audio.core.dsp).
+
+Window and filterbank construction is host-side NumPy, identical to the
+JAX package's; the STFT runs through ``torch.stft``; the mel projection
+and log10 run through ``ops.mel.fused_log_mel`` (the CUDA kernel for CUDA
+tensors). The global ``max - 8`` clamp and ``(x + 4) / 4`` normalisation
+follow as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from tpu_audio_torch.ops.mel import fused_log_mel
+
+__all__ = ["hanning_window", "mel_filters", "stft", "log_mel_spectrogram"]
+
+
+@functools.lru_cache(maxsize=32)
+def hanning_window(size: int, periodic: bool = False) -> np.ndarray:
+    """Hann window; ``periodic=True`` is torch's ``hann_window`` default
+    (denominator ``size``), which Whisper's frontend uses."""
+    if size <= 0:
+        return np.zeros((0,), np.float32)
+    if size == 1:
+        return np.ones((1,), np.float32)
+    n = np.arange(size, dtype=np.float64)
+    denom = float(size if periodic else size - 1)
+    w = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / denom))
+    return w.astype(np.float32)
+
+
+def _hz_to_mel(freq, mel_scale: str, f_min: float = 0.0):
+    freq = np.asarray(freq, dtype=np.float64)
+    if mel_scale == "htk":
+        return 2595.0 * np.log10(1.0 + freq / 700.0)
+    f_sp = 200.0 / 3.0
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    log_step = math.log(6.4) / 27.0
+    lin = (freq - f_min) / f_sp
+    log = min_log_mel + np.log(np.maximum(freq, 1e-12) / min_log_hz) / log_step
+    return np.where(freq < min_log_hz, lin, log)
+
+
+def _mel_to_hz(mel, mel_scale: str, f_min: float = 0.0):
+    mel = np.asarray(mel, dtype=np.float64)
+    if mel_scale == "htk":
+        return 700.0 * (np.power(10.0, mel / 2595.0) - 1.0)
+    f_sp = 200.0 / 3.0
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    log_step = math.log(6.4) / 27.0
+    lin = f_min + f_sp * mel
+    log = min_log_hz * np.exp(log_step * (mel - min_log_mel))
+    return np.where(mel < min_log_mel, lin, log)
+
+
+@functools.lru_cache(maxsize=64)
+def mel_filters(sample_rate: int, n_fft: int, n_mels: int, f_min: float = 0.0,
+                f_max: float | None = None, norm: str | None = "slaney",
+                mel_scale: str = "htk") -> np.ndarray:
+    """Triangular mel filterbank ``[n_freqs, n_mels]``: half-open rising
+    edge, closed falling edge, optional slaney area normalisation."""
+    if mel_scale not in ("htk", "slaney"):
+        raise ValueError(f"unknown mel_scale {mel_scale!r}")
+    f_max_val = f_max if f_max is not None else sample_rate / 2.0
+    n_freqs = n_fft // 2 + 1
+    all_freqs = np.arange(n_freqs, dtype=np.float64) * sample_rate / n_fft
+    m_min = float(_hz_to_mel(f_min, mel_scale, f_min))
+    m_max = float(_hz_to_mel(f_max_val, mel_scale, f_min))
+    m_pts = m_min + np.arange(n_mels + 2, dtype=np.float64) * (m_max - m_min) / (
+        n_mels + 1)
+    f_pts = _mel_to_hz(m_pts, mel_scale, f_min)
+    low = f_pts[:-2][None, :]
+    center = f_pts[1:-1][None, :]
+    high = f_pts[2:][None, :]
+    f = all_freqs[:, None]
+    rising = (f - low) / np.maximum(center - low, 1e-12)
+    falling = (high - f) / np.maximum(high - center, 1e-12)
+    fb = np.where((f >= low) & (f < center), rising, 0.0)
+    fb = np.where((f >= center) & (f <= high), falling, fb)
+    if norm == "slaney":
+        fb = fb * (2.0 / (f_pts[2:] - f_pts[:-2]))[None, :]
+    return fb.astype(np.float32)
+
+
+def _reflect_pad_1d(audio: torch.Tensor, pad: int) -> torch.Tensor:
+    """Reflect-pad without edge duplication, zero-filling where the signal
+    is too short to reflect."""
+    n = audio.shape[0]
+    if n <= 1:
+        return torch.nn.functional.pad(audio, (pad, pad))
+    cnt = min(pad, n - 1)
+    left = audio[1 : cnt + 1].flip(0)
+    right = audio[n - 1 - cnt : n - 1].flip(0)
+    zeros = audio.new_zeros((pad - cnt,))
+    return torch.cat([zeros, left, audio, right, zeros])
+
+
+def stft(audio: torch.Tensor, window: np.ndarray, n_fft: int, hop_length: int,
+         center: bool = True) -> torch.Tensor:
+    """STFT of a 1D signal -> complex ``[n_frames, n_fft//2 + 1]``: reflect
+    centre padding by ``n_fft//2``, frames every ``hop_length``, window,
+    rfft."""
+    x = audio.reshape(-1).to(torch.float32)
+    if center:
+        x = _reflect_pad_1d(x, n_fft // 2)
+    w = torch.from_numpy(np.asarray(window, np.float32)).to(x.device)
+    spec = torch.stft(x, n_fft, hop_length=hop_length, win_length=n_fft,
+                      window=w, center=False, return_complex=True)
+    return spec.transpose(0, 1)
+
+
+def log_mel_spectrogram(audio, n_mels: int = 80, sample_rate: int = 16000,
+                        n_fft: int = 400, hop_length: int = 160,
+                        device=None) -> torch.Tensor:
+    """Whisper log-mel ``[n_mels, n_frames]``: periodic Hann, slaney mel
+    scale and norm, the last STFT frame dropped (torch.stft parity),
+    log10 clamped to ``max - 8`` and normalised as ``(x + 4) / 4``.
+    ``audio`` is a 1D array or tensor; ``device`` (default: the tensor's,
+    or the CPU for arrays) is where it is computed."""
+    if not isinstance(audio, torch.Tensor):
+        audio = torch.from_numpy(np.ascontiguousarray(audio, np.float32))
+    audio = audio.reshape(-1).to(device or audio.device)
+    padded_len = audio.shape[0] + 2 * (n_fft // 2)
+    n_frames = 1 + (padded_len - n_fft) // hop_length if padded_len >= n_fft else 0
+    if n_frames - 1 <= 0:
+        return torch.zeros((n_mels, 0), dtype=torch.float32, device=audio.device)
+    freqs = stft(audio, hanning_window(n_fft, periodic=True), n_fft, hop_length)
+    freqs = freqs[:-1]
+    filters = torch.from_numpy(mel_filters(
+        sample_rate, n_fft, n_mels, f_min=0.0, f_max=sample_rate / 2.0,
+        norm="slaney", mel_scale="slaney")).to(audio.device)
+    log_spec = fused_log_mel(freqs.real.contiguous(), freqs.imag.contiguous(),
+                             filters)
+    log_spec = torch.maximum(log_spec, log_spec.max() - 8.0)
+    log_spec = (log_spec + 4.0) / 4.0
+    return log_spec.t()

@@ -1,0 +1,29 @@
+"""STT task module: model registry + factory (port of
+tpu_audio.models.stt.load_model; Whisper is the only family ported)."""
+
+from __future__ import annotations
+
+import importlib
+
+from tpu_audio_torch.core import hub
+
+_REGISTRY: dict[str, str] = {
+    "whisper": "tpu_audio_torch.models.stt.whisper:Whisper",
+}
+
+
+def load_model(repo_or_path: str, **kwargs):
+    """Load an STT model from a local checkpoint directory; ``kwargs``
+    (``dtype``, ``device``, ``quantize``) go to the family's
+    ``from_pretrained``."""
+    model_dir = hub.resolve_model_dir(repo_or_path)
+    model_type = hub.resolve_model_type(hub.load_config(model_dir))
+    if model_type not in _REGISTRY:
+        name = str(repo_or_path).lower().replace("-", "").replace("_", "")
+        model_type = next((k for k in _REGISTRY if k in name), model_type)
+    if model_type not in _REGISTRY:
+        raise ValueError(f"unsupported STT model_type {model_type!r} "
+                         f"(ported: {sorted(_REGISTRY)})")
+    module_name, cls_name = _REGISTRY[model_type].split(":")
+    cls = getattr(importlib.import_module(module_name), cls_name)
+    return cls.from_pretrained(str(model_dir), **kwargs)
