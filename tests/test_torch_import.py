@@ -33,6 +33,8 @@ print("ok")
     ["tpu_audio_torch.models.stt.whisper", "tpu_audio_torch.models.stt",
      "tpu_audio_torch.cli.stt", "tpu_audio_torch.convert",
      "tpu_audio_torch.core.audio_io", "tpu_audio_torch.core.hub"],
+    ["tpu_audio_torch.parallel.continuous", "tpu_audio_torch.parallel.continuous_stt",
+     "tpu_audio_torch.core.sampling", "tpu_audio_torch.cli.serve"],
 ])
 def test_port_imports_without_jax(mods):
     res = subprocess.run([sys.executable, "-c", _BLOCKER.format(mods=mods)],

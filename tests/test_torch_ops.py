@@ -211,3 +211,148 @@ def test_quantize_tree_selects_the_same_leaves():
     np.testing.assert_array_equal(
         tq["layers"]["fc1"]["weight"].weight.numpy(),
         np.asarray(jq["layers"]["fc1"]["weight"].weight))
+
+
+def _lanes_inputs(cfg, jpack, n, rng):
+    """Per-lane bf16 self caches and int8 cross K/V from distinct encoder
+    outputs (the JAX package's quantisation, padded to its stream chunk)."""
+    d, L = cfg.d_model, cfg.decoder_layers
+    params = JW.init_params(cfg, seed=3, dtype=jnp.float32)
+    kc = (rng.standard_normal((n, L, 64, d)) * 0.2).astype(np.float32)
+    vc = (rng.standard_normal((n, L, 64, d)) * 0.2).astype(np.float32)
+    cross = []
+    for _ in range(n):
+        e = jnp.asarray(rng.standard_normal(
+            (1, cfg.max_source_positions, d)).astype(np.float32) * 0.3)
+        cross.append(JF.quantize_cross_kv(*JW._cross_kv(params, e, cfg), chunk=d // 2))
+    cross = [np.stack([np.asarray(c[i]) for c in cross]) for i in range(4)]
+    x = (rng.standard_normal((n, d)) * 0.5).astype(np.float32)
+    return kc, vc, cross, x
+
+
+def _stacked(lanes, slots, per_lane, fill):
+    """Scatter per-lane arrays into a stacked [slots, ...] torch state."""
+    out = torch.full((slots,) + per_lane.shape[1:], fill, dtype=torch.float32)
+    out[torch.as_tensor(lanes)] = torch.from_numpy(np.ascontiguousarray(per_lane)).float()
+    return out
+
+
+def test_fused_stack_lanes_ref_matches_jax(fused_setup):
+    """Three lanes at slots [2, 0, 3] of a 4-slot state (offsets 5, 0, 33,
+    as tests/test_fused_decoder.py:260) against the JAX lanes kernel in
+    interpret mode; the new rows land at each lane's slot and offset, and
+    nothing else in the caches moves."""
+    cfg, tcfg, jpack, _, tpack, _ = fused_setup
+    d, L, s = cfg.d_model, cfg.decoder_layers, cfg.max_source_positions
+    n, slots, lanes, offs = 3, 4, [2, 0, 3], [5, 0, 33]
+    kc, vc, cross, x = _lanes_inputs(cfg, jpack, n, np.random.default_rng(7))
+    off8 = np.zeros((8,), np.int32)
+    off8[:n] = offs
+    x8 = np.zeros((8, d), np.float32)
+    x8[:n] = x
+    jy, jk, jv = JF.fused_stack_lanes(
+        jpack, *(jnp.asarray(c) for c in cross), jnp.asarray(kc, jnp.bfloat16),
+        jnp.asarray(vc, jnp.bfloat16), jnp.asarray(x8), off8, cfg=cfg, s_src=s,
+        interpret=True)
+    tkc = _stacked(lanes, slots, kc, 0.7).to(torch.bfloat16)
+    tvc = _stacked(lanes, slots, vc, -0.7).to(torch.bfloat16)
+    before_k, before_v = tkc.clone(), tvc.clone()
+    ck, ks, cv, vs = (_stacked(lanes, slots, c[:, :, :s], 0) for c in cross)
+    ck, cv = ck.to(torch.int8), cv.to(torch.int8)
+    ty, tk, tv = TF.fused_stack_lanes(
+        tpack, ck, ks, cv, vs, tkc, tvc, torch.from_numpy(x),
+        torch.tensor(offs, dtype=torch.int32), torch.tensor(lanes, dtype=torch.int32),
+        cfg=tcfg, s_src=s)
+    assert ty.shape == (n, d) and tk.shape == (L, n, d)
+    # the bound of test_fused_stack_ref_matches_jax: f32 sums in another
+    # order can move an int8 activation code by one step
+    for got, want in ((ty, np.asarray(jy)[:n]), (tk, np.asarray(jk)[:, :n]),
+                      (tv, np.asarray(jv)[:, :n])):
+        err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+        assert err < 1e-3, err
+    want_k, want_v = before_k.clone(), before_v.clone()
+    for m, (slot, off) in enumerate(zip(lanes, offs)):
+        want_k[slot, :, off] = tk[:, m].to(torch.bfloat16)
+        want_v[slot, :, off] = tv[:, m].to(torch.bfloat16)
+    assert torch.equal(tkc, want_k) and torch.equal(tvc, want_v)
+
+
+def test_fused_stack_lanes_ref_lanes_equal_b1(fused_setup):
+    """Eight lanes (offsets of tests/test_fused_decoder.py:376, one at the
+    cache's last row) in shuffled slots: each lane equals fused_stack_ref
+    run alone on its inputs, and an offset past the cache clamps to its
+    last row."""
+    cfg, tcfg, jpack, _, tpack, _ = fused_setup
+    d, s = cfg.d_model, cfg.max_source_positions
+    n, lanes = 8, [5, 2, 7, 0, 3, 6, 1, 4]
+    offs = [5, 0, 33, 12, 1, 63, 7, 20]
+    kc, vc, cross, x = _lanes_inputs(cfg, jpack, n, np.random.default_rng(21))
+    tkc = _stacked(lanes, n, kc, 0).to(torch.bfloat16)
+    tvc = _stacked(lanes, n, vc, 0).to(torch.bfloat16)
+    ck, ks, cv, vs = (_stacked(lanes, n, c[:, :, :s], 0) for c in cross)
+    ck, cv = ck.to(torch.int8), cv.to(torch.int8)
+    solo_k, solo_v = tkc.clone(), tvc.clone()
+    over = offs[:5] + [64 + 9] + offs[6:]  # lane 5 past the 64-row cache
+    y, nk, nv = TF.fused_stack_lanes(
+        tpack, ck, ks, cv, vs, tkc, tvc, torch.from_numpy(x),
+        torch.tensor(over, dtype=torch.int32), torch.tensor(lanes, dtype=torch.int32),
+        cfg=tcfg, s_src=s)
+    for m, (slot, off) in enumerate(zip(lanes, offs)):
+        y1, k1, v1 = TF.fused_stack_ref(
+            tpack, ck[slot], ks[slot], cv[slot], vs[slot], solo_k[slot], solo_v[slot],
+            torch.from_numpy(x[m]), off, cfg=tcfg, s_src=s)
+        for got, want in ((y[m], y1), (nk[:, m], k1), (nv[:, m], v1)):
+            assert float((got - want).abs().max() / want.abs().max()) < 1e-5, m
+    assert torch.equal(tkc, solo_k) and torch.equal(tvc, solo_v)
+
+
+def test_fused_stack_lanes_ref_taps_every_gemv_input(fused_setup):
+    """The plain version's tap holds each GEMV input's int8 codes, scale and
+    unrounded values, lane by lane as fused_stack_ref's: the q/k/v codes
+    reproduce the new k rows through the packed weights, and each code is
+    its unrounded value rounded."""
+    cfg, tcfg, jpack, _, tpack, _ = fused_setup
+    d, ffn, L, s = cfg.d_model, cfg.decoder_ffn_dim, cfg.decoder_layers, \
+        cfg.max_source_positions
+    n, lanes, offs = 2, [1, 0], [3, 9]
+    kc, vc, cross, x = _lanes_inputs(cfg, jpack, n, np.random.default_rng(5))
+    tkc = _stacked(lanes, n, kc, 0).to(torch.bfloat16)
+    tvc = _stacked(lanes, n, vc, 0).to(torch.bfloat16)
+    ck, ks, cv, vs = (_stacked(lanes, n, c[:, :, :s], 0) for c in cross)
+    ck, cv = ck.to(torch.int8), cv.to(torch.int8)
+    kmax = max(d, ffn)
+    tap = (torch.zeros((L, 6, n, kmax), dtype=torch.int8), torch.zeros((L, 6, n)),
+           torch.zeros((L, 6, n, kmax)))
+    _, nk, _ = TF.fused_stack_lanes(
+        tpack, ck, ks, cv, vs, tkc.clone(), tvc.clone(), torch.from_numpy(x),
+        torch.tensor(offs, dtype=torch.int32), torch.tensor(lanes, dtype=torch.int32),
+        cfg=tcfg, s_src=s, tap=tap)
+    for m, (slot, off) in enumerate(zip(lanes, offs)):
+        solo = (torch.zeros((L, 6, kmax), dtype=torch.int8), torch.zeros((L, 6)), None)
+        TF.fused_stack_ref(tpack, ck[slot], ks[slot], cv[slot], vs[slot], tkc[slot].clone(),
+                           tvc[slot].clone(), torch.from_numpy(x[m]), off, cfg=tcfg,
+                           s_src=s, tap=solo)
+        assert torch.equal(tap[0][:, :, m], solo[0]) and torch.equal(tap[1][:, :, m], solo[1])
+        for li in range(L):
+            codes, xs = tap[0][li, 0, m, :d].double(), float(tap[1][li, 0, m])
+            w, sc, bi = (tpack.w_in[li, d:2 * d], tpack.scales[li, d:2 * d],
+                         tpack.biases[li, d:2 * d])
+            k = (w.double() @ codes).float() * (sc * xs) + bi
+            assert torch.equal(k, nk[li, m])
+    widths = torch.tensor([d] * 5 + [ffn])
+    used = torch.arange(kmax)[None, :] < widths[:, None]  # [6, kmax]
+    for m in range(n):
+        pre, codes = tap[2][:, :, m], tap[0][:, :, m].float()
+        assert torch.equal(torch.where(used, torch.round(pre), 0.0), codes)
+        assert bool((tap[1][:, :, m] > 0).all())
+
+
+def test_supported_lanes_states_the_kernel_limit():
+    large_v3 = TW.WhisperConfig(num_mel_bins=128, d_model=1280, decoder_layers=32,
+                                decoder_attention_heads=20, decoder_ffn_dim=5120)
+    assert all(TF.supported_lanes(large_v3, n) for n in range(1, TF.MAX_LANES + 1))
+    assert not TF.supported_lanes(large_v3, 0)
+    assert not TF.supported_lanes(large_v3, TF.MAX_LANES + 1)
+    wide = TW.WhisperConfig(d_model=1280, decoder_attention_heads=20,
+                            decoder_ffn_dim=9216)  # 32 x 9216 B > 227 KB
+    assert TF.supported_lanes(wide, 8) and not TF.supported_lanes(wide, 32)

@@ -1,0 +1,311 @@
+"""Transcription HTTP server on the PyTorch port (port of the STT routes of
+tpu_audio.cli.serve). Endpoints follow the OpenAI audio API paths:
+
+- ``POST /v1/audio/transcriptions``: body = raw WAV bytes
+  (``curl --data-binary @in.wav``); JSON out: text/segments/language +
+  wall time.
+- ``POST /v1/audio/transcriptions/stream``: same body; chunked
+  ``application/x-ndjson``: one ``{"type": "token", "text": ...}`` line per
+  transcribed 30 s window, then a final ``{"type": "result", ...}`` line.
+- ``GET /healthz``: liveness + model metadata.
+- ``GET /metrics``: Prometheus text format: per-route request/error counts
+  and wall-time totals.
+
+With ``--slots N`` (N > 1) concurrent transcriptions of up to 30 s share
+the continuously batched decode lanes of
+``tpu_audio_torch.parallel.continuous_stt.STTEngineWorker``; otherwise, and
+for longer audio, requests take turns on the model under a lock. Start
+with:
+
+    python -m tpu_audio_torch.cli.serve --model DIR --task stt --slots 4
+
+The flags are the JAX server's, plus ``--device`` and ``--quantize w8a8``
+(int8 decoder weights: the configuration whose serving tick runs the fused
+lanes kernel). Tasks other than stt, ``--tp > 1`` and ``--warmup`` are not
+ported yet and stop with a message.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import tempfile
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+__all__ = ["main", "build_server"]
+
+
+def _load_wav_body(body: bytes, target_sr: int | None):
+    from tpu_audio_torch.core.audio_io import load_audio
+
+    with tempfile.NamedTemporaryFile(suffix=".wav") as f:
+        f.write(body)
+        f.flush()
+        return load_audio(f.name, sample_rate=target_sr)
+
+
+_KNOWN_ROUTES = (
+    "/v1/audio/transcriptions", "/v1/audio/transcriptions/stream",
+    "/healthz", "/metrics",
+)
+
+
+class _Metrics:
+    """Per-route counters in Prometheus text exposition format.
+
+    Label values are the closed set of known routes (+ ``other``), never
+    the raw request path: unique scanner paths must not grow the label
+    space unboundedly or inject quotes/newlines into the exposition."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.requests: dict[str, int] = {}
+        self.errors: dict[str, int] = {}
+        self.wall: dict[str, float] = {}
+
+    def observe(self, route: str, seconds: float, error: bool) -> None:
+        route = route.split("?", 1)[0].rstrip("/") or "/"
+        if route not in _KNOWN_ROUTES:
+            route = "other"
+        with self._lock:
+            self.requests[route] = self.requests.get(route, 0) + 1
+            self.wall[route] = self.wall.get(route, 0.0) + seconds
+            if error:
+                self.errors[route] = self.errors.get(route, 0) + 1
+
+    def render(self) -> str:
+        lines = [
+            "# TYPE tpu_audio_requests_total counter",
+            "# TYPE tpu_audio_errors_total counter",
+            "# TYPE tpu_audio_request_seconds_total counter",
+        ]
+        with self._lock:
+            for route, n in sorted(self.requests.items()):
+                lines.append(
+                    f'tpu_audio_requests_total{{route="{route}"}} {n}')
+                lines.append(
+                    f'tpu_audio_request_seconds_total{{route="{route}"}} '
+                    f'{self.wall[route]:.6f}')
+            for route, n in sorted(self.errors.items()):
+                lines.append(
+                    f'tpu_audio_errors_total{{route="{route}"}} {n}')
+        return "\n".join(lines) + "\n"
+
+
+class _Server(ThreadingHTTPServer):
+    """The HTTP server; closing it also stops the engine worker."""
+
+    daemon_threads = True
+    stt_worker = None
+
+    def server_close(self) -> None:
+        super().server_close()
+        if self.stt_worker is not None:
+            self.stt_worker.close()
+
+
+def _segments(out) -> list[dict]:
+    return [{"text": s.text, "start": s.start, "end": s.end}
+            for s in (out.segments or [])]
+
+
+def build_server(model, task: str, model_name: str,
+                 host: str = "127.0.0.1", port: int = 8080,
+                 slots: int = 1, generation_parameters=None,
+                 step_tokens: int = 7, fused: str = "auto"):
+    """Construct (but don't start) the HTTP server for a Whisper ``model``.
+
+    ``slots > 1`` routes transcriptions of up to 30 s through a shared
+    :class:`~tpu_audio_torch.parallel.continuous_stt.STTEngineWorker`:
+    concurrent requests decode together in one continuously batched tick
+    instead of serializing on the model lock. ``server_close()`` stops the
+    worker. ``generation_parameters`` is accepted for the JAX signature's
+    sake; the STT routes take none.
+    """
+    if task != "stt":
+        raise NotImplementedError(
+            f"task {task!r} is not ported yet: the PyTorch server serves stt")
+    lock = threading.Lock()
+    metrics = _Metrics()
+    stt_worker = None
+    if slots > 1:
+        from tpu_audio_torch.parallel.continuous_stt import STTEngineWorker
+
+        stt_worker = STTEngineWorker(model, slots=slots, step_tokens=step_tokens,
+                                     fused=fused)
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):  # quiet by default
+            pass
+
+        def _send(self, code: int, payload: bytes,
+                  ctype: str = "application/json") -> None:
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def _json(self, code: int, obj) -> None:
+            self._send(code, json.dumps(obj).encode())
+
+        def _body(self) -> bytes | None:
+            """Request body, or None when no Content-Length was sent
+            (chunked encoding would desync the keep-alive connection)."""
+            if self.headers.get("Content-Length") is None:
+                return None
+            return self.rfile.read(int(self.headers["Content-Length"]))
+
+        def _stream_chunks(self, ctype: str, chunks) -> None:
+            """Chunked transfer encoding: flush each piece as it arrives."""
+            self._streaming = True
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            for piece in chunks:
+                data = bytes(piece)
+                if not data:
+                    continue
+                self.wfile.write(f"{len(data):x}\r\n".encode())
+                self.wfile.write(data)
+                self.wfile.write(b"\r\n")
+                self.wfile.flush()
+            self.wfile.write(b"0\r\n\r\n")
+
+        def do_GET(self):  # noqa: N802 — http.server API
+            if self.path == "/healthz":
+                self._json(200, {"ok": True, "task": task,
+                                 "model": model_name})
+            elif self.path == "/metrics":
+                self._send(200, metrics.render().encode(),
+                           "text/plain; version=0.0.4")
+            else:
+                self._json(404, {"error": f"no route {self.path}"})
+
+        def do_POST(self):  # noqa: N802 — http.server API
+            t_start = time.perf_counter()
+            failed = False
+            self._streaming = False
+            try:
+                body = self._body()
+                if body is None:
+                    self.close_connection = True
+                    failed = True
+                    self._json(411, {"error": "Content-Length required"})
+                    return
+                if self.path == "/v1/audio/transcriptions/stream":
+                    audio, _ = _load_wav_body(body, 16000)
+
+                    def ndjson():
+                        with lock:
+                            for ev in model.generate_stream(audio):
+                                if ev.get("type") == "result":
+                                    out = ev["output"]
+                                    ev = {"type": "result", "text": out.text,
+                                          "language": out.language,
+                                          "segments": _segments(out)}
+                                yield (json.dumps(ev) + "\n").encode()
+
+                    self._stream_chunks("application/x-ndjson", ndjson())
+                elif self.path == "/v1/audio/transcriptions":
+                    audio, _ = _load_wav_body(body, 16000)
+                    t0 = time.perf_counter()
+                    if (stt_worker is not None
+                            and len(audio) <= stt_worker._srv.window):
+                        # window-sized requests share the continuously
+                        # batched decode lanes; long-form takes the
+                        # chunked offline path under the lock
+                        out = stt_worker.transcribe(audio)
+                    else:
+                        with lock:
+                            out = model.generate(audio)
+                    self._json(200, {
+                        "text": out.text,
+                        "language": out.language,
+                        "segments": _segments(out),
+                        "wall_s": round(time.perf_counter() - t0, 3),
+                    })
+                else:
+                    failed = True
+                    self._json(404, {"error":
+                                     f"no route {self.path} for task {task}"})
+            except Exception as e:  # noqa: BLE001 — report, don't kill server
+                failed = True
+                if self._streaming:
+                    # headers already sent: a JSON 500 here would corrupt
+                    # the chunked body; drop the connection instead, which
+                    # the client sees as a truncated (invalid) stream
+                    self.close_connection = True
+                else:
+                    self._json(500, {"error": f"{type(e).__name__}: {e}"})
+            finally:
+                metrics.observe(self.path, time.perf_counter() - t_start,
+                                failed)
+
+    server = _Server((host, port), Handler)
+    server.stt_worker = stt_worker
+    return server
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(
+        "tpu-audio-torch-serve", description=__doc__.splitlines()[0])
+    parser.add_argument("--model", required=True)
+    parser.add_argument("--task", default="auto",
+                        choices=("auto", "stt", "tts", "sts", "lid",
+                                 "codec", "vad"))
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8080)
+    parser.add_argument("--slots", type=int, default=1,
+                        help="continuous-batching decode lanes (>1 lets "
+                             "concurrent requests share the decoder; "
+                             "sampling params become per-server)")
+    parser.add_argument("--fused", default="auto", choices=("auto", "off"),
+                        help="the fused lanes tick for w8a8 whisper (auto "
+                             "takes it when supported and logs why not; off "
+                             "serves with the plain per-lane tick, which a "
+                             "w8a8 decoder on CUDA does not take)")
+    parser.add_argument("--step-tokens", type=int, default=7,
+                        help="decode tokens per tick under --slots "
+                             "(amortizes host work; tokens are identical "
+                             "for any value)")
+    parser.add_argument("--warmup", action="store_true",
+                        help="precompile steady-state graphs before "
+                             "accepting traffic (not ported yet)")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel degree (not ported yet: 1)")
+    parser.add_argument("--device", default="cuda", help="torch device")
+    parser.add_argument("--quantize", default=None, choices=("w8a8",),
+                        help="int8 decoder weights at load time")
+    args = parser.parse_args(argv)
+
+    task = "stt" if args.task == "auto" else args.task
+    if task != "stt":
+        raise SystemExit(f"--task {task}: not ported yet; the PyTorch server "
+                         "serves stt (whisper)")
+    if args.tp > 1:
+        raise SystemExit("--tp > 1: tensor-parallel serving is not ported yet")
+    if args.warmup:
+        raise SystemExit("--warmup: not ported yet")
+
+    from tpu_audio_torch.models.stt import load_model
+
+    model = load_model(args.model, device=args.device, quantize=args.quantize)
+    server = build_server(model, task, args.model, args.host, args.port,
+                          slots=args.slots, step_tokens=args.step_tokens,
+                          fused=args.fused)
+    print(json.dumps({"serving": args.model, "task": task,
+                      "addr": f"http://{args.host}:{args.port}"}), flush=True)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+
+
+if __name__ == "__main__":
+    main()

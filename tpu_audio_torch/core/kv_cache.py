@@ -15,8 +15,8 @@ import torch
 
 from tpu_audio_torch.core.generation import validate_kv_bits
 
-__all__ = ["KVCache", "init_cache", "make_cache_for", "attention_mask",
-           "_quantize", "_dequantize"]
+__all__ = ["KVCache", "FusedLaneRow", "init_cache", "make_cache_for",
+           "attention_mask", "_quantize", "_dequantize"]
 
 
 class KVCache(NamedTuple):
@@ -30,6 +30,21 @@ class KVCache(NamedTuple):
     @property
     def max_len(self) -> int:
         return self.k.shape[3]
+
+
+class FusedLaneRow(NamedTuple):
+    """A serving lane's self-attention cache in the fused decoder's layout
+    (port of tpu_audio.core.kv_cache.FusedLaneRow): ``k``/``v``
+    ``[L, S_max, d]`` bf16 position-major, ``offset`` (rows written, the
+    next write position) and ``valid_from`` (first valid row; whisper
+    prompts are never left-padded, so 0). A serving engine holds its lanes
+    stacked on a leading slot axis: ``k``/``v`` ``[slots, L, S_max, d]``,
+    ``offset`` and ``valid_from`` ``[slots]`` int64 tensors on the device."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    offset: torch.Tensor
+    valid_from: torch.Tensor
 
 
 def init_cache(n_layers: int, batch: int, n_kv_heads: int, head_dim: int,

@@ -50,18 +50,14 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "decoder_common.cuh"
 
 namespace {
 
-constexpr int GEMV_THREADS = 256;
-
-enum GemvMode { STORE = 0, GELU = 1, ADD = 2 };
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * x * (1.0f + tanhf(c * (x + 0.044715f * x * x * x)));
-}
+using tpa::GEMV_THREADS;
+using tpa::GELU;
+using tpa::ADD;
+using tpa::STORE;
 
 // out[o] (=, or +=) epilogue(sum_i xq[i] * w[o, i]) for o < N, where xq is
 // the int8 quantisation of LN(x) (ln_w != nullptr) or of x.
@@ -77,35 +73,9 @@ __global__ void int8_gemv_kernel(const float* __restrict__ x,
   int8_t* xq = reinterpret_cast<int8_t*>(smem_raw);       // [K]
   float* xf = reinterpret_cast<float*>(smem_raw + K);     // [K] (K % 16 == 0)
   __shared__ float red[32];
-  const int tid = threadIdx.x;
+  const float xs = tpa::ln_quantize_row(x, ln_w, ln_b, xf, xq, K, red);
 
-  if (ln_w != nullptr) {
-    float s = 0.0f;
-    for (int i = tid; i < K; i += GEMV_THREADS) s += x[i];
-    const float mean = tpa::block_reduce(s, red, false) / (float)K;
-    float v = 0.0f;
-    for (int i = tid; i < K; i += GEMV_THREADS) {
-      const float z = x[i] - mean;
-      v += z * z;
-    }
-    const float var = tpa::block_reduce(v, red, false) / (float)K;
-    const float rstd = 1.0f / sqrtf(var + 1e-5f);
-    for (int i = tid; i < K; i += GEMV_THREADS)
-      xf[i] = (x[i] - mean) * rstd * ln_w[i] + ln_b[i];
-  } else {
-    for (int i = tid; i < K; i += GEMV_THREADS) xf[i] = x[i];
-  }
-  float amax = 0.0f;
-  for (int i = tid; i < K; i += GEMV_THREADS) amax = fmaxf(amax, fabsf(xf[i]));
-  amax = tpa::block_reduce(amax, red, true);  // also orders the xf writes
-  const float xs = fmaxf(amax / 127.0f, 1e-12f);
-  for (int i = tid; i < K; i += GEMV_THREADS) {
-    const float qv = fminf(fmaxf(rintf(xf[i] / xs), -127.0f), 127.0f);
-    xq[i] = (int8_t)qv;
-  }
-  __syncthreads();
-
-  const int lane = tid & 31, warp = tid >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = GEMV_THREADS / 32;
   const int4* xv = reinterpret_cast<const int4*>(xq);
   const int nvec = K / 16;
@@ -121,39 +91,16 @@ __global__ void int8_gemv_kernel(const float* __restrict__ x,
       acc = __dp4a(a.w, b.w, acc);
     }
     acc = tpa::warp_sum_int(acc);
-    if (lane == 0) {
-      float val = __fmul_rn((float)acc, __fmul_rn(w_scale[row], xs));
-      if (bias != nullptr) val = __fadd_rn(val, bias[row]);
-      if (MODE == GELU) val = gelu_tanh(val);
-      if (MODE == ADD) out[row] = __fadd_rn(out[row], val);
-      else out[row] = val;
-    }
+    if (lane == 0)
+      tpa::gemv_epilogue<MODE>(acc, w_scale[row], xs,
+                               bias != nullptr ? bias + row : nullptr, out + row);
   }
 }
 
-// Self-attention score/value of one head: cache rows below `offset` (bf16),
-// the current token's f32 k/v at `offset`.
-struct SelfScore {
-  const float* q;
-  const float* k_new;
-  const __nv_bfloat16* kc;
-  int offset, d;
-  float sm;
-  __device__ float term(int s, int j) const {
-    const float k = s == offset ? k_new[j] : __bfloat162float(kc[(size_t)s * d + j]);
-    return k * (q[j] * sm);
-  }
-  __device__ float finish(int, float dot) const { return dot; }
-};
-
-struct SelfValue {
-  const float* v_new;
-  const __nv_bfloat16* vc;
-  int offset, d;
-  __device__ float at(int s, int j) const {
-    return s == offset ? v_new[j] : __bfloat162float(vc[(size_t)s * d + j]);
-  }
-};
+using tpa::CrossScore;
+using tpa::CrossValue;
+using tpa::SelfScore;
+using tpa::SelfValue;
 
 // grid (chunks of positions 0..offset, heads). The block holding `offset`
 // then writes this head's new k/v row into the caches (as bf16); no block
@@ -181,30 +128,6 @@ __global__ void self_attn_partial(const float* __restrict__ q,
     vcache[row] = __float2bfloat16(v_new[col + threadIdx.x]);
   }
 }
-
-// Cross-attention score/value of one head over int8 position-major K/V with
-// one f32 scale per position: score = (code . q*sm) * ks[s]; the V scale is
-// folded into the value.
-struct CrossScore {
-  const float* q;
-  const int8_t* ck;
-  const float* ks;
-  int d;
-  float sm;
-  __device__ float term(int s, int j) const {
-    return (float)ck[(size_t)s * d + j] * (q[j] * sm);
-  }
-  __device__ float finish(int s, float dot) const { return dot * ks[s]; }
-};
-
-struct CrossValue {
-  const int8_t* cv;
-  const float* vs;
-  int d;
-  __device__ float at(int s, int j) const {
-    return vs[s] * (float)cv[(size_t)s * d + j];
-  }
-};
 
 __global__ void cross_attn_partial(const float* __restrict__ q,
                                    const int8_t* __restrict__ ck,

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
-All ``csrc/*.cu`` sources compile with one ``nvcc`` call into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds), built at first use into ``tpu_audio_torch/_build/`` under a
-name that hashes the sources, and loaded with ``ctypes``. Every C entry
+Each ``csrc/*.cu`` source compiles in its own ``nvcc`` process, all started
+together, and one more links the objects into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds). It is
+built at first use into ``tpu_audio_torch/_build/`` under a name that
+hashes the sources, and loaded with ``ctypes``. Every C entry
 point returns ``cudaGetLastError()`` after its launches; :func:`check`
 raises on a non-zero code.
 
@@ -31,7 +32,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-lineinfo"]
 
 ATTN_CHUNK = 64  # positions per attention block (csrc/common.cuh)
 
@@ -48,6 +49,7 @@ _SIGNATURES = {
     "tpa_fused_log_mel": [P, P, P, P, I, I, I, P],
     "tpa_decode_attention_int8": [P] * 10 + [I] * 5 + [Fl, P],
     "tpa_fused_stack": [P] * 14 + [I] * 8 + [P],
+    "tpa_fused_stack_lanes": [P] * 19 + [I] * 8 + [P],
 }
 
 
@@ -76,15 +78,27 @@ def _build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)  # atomic against a concurrent build
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{src.stem}.o" for src in sources]
+        procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                   text=True), src)
+                 for src, obj in zip(sources, objs)]
+        failed = []
+        for proc, src in procs:
+            out_text = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{out_text}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = Path(tmpdir) / out.name
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                               f"{res.stdout}\n{res.stderr}")
+        os.replace(tmp, out)  # atomic against a concurrent build
     build_seconds = time.perf_counter() - t0
     return out
 

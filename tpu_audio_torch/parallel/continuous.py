@@ -1,0 +1,596 @@
+"""Continuous batching for autoregressive decode: slot-based serving (port
+of tpu_audio.parallel.continuous: ``GenRequest``, ``coerce_fused_flag``,
+``_sample_one``, ``ContinuousBatcher`` and ``EngineWorkerBase``).
+
+The engine owns ``slots`` decode lanes. Each holds one in-flight request's
+caches, and a lane admits a new request the moment its occupant finishes.
+What differs from the JAX package, which compiles each tick as one graph:
+
+- A tick is a Python loop of ``k`` decode steps of device work, and
+  nothing in it reads a device value on the host: the lanes' active flags,
+  stop checks, offsets and counters stay tensors on the device. The tick
+  ends with ONE packed ``[2k+1, n]`` int32 readback (tokens, per-step
+  validity, final active flags), copied ``non_blocking`` into pinned host
+  memory behind a CUDA event that :meth:`ContinuousBatcher._harvest` waits
+  on; with ``pipeline=True`` that copy overlaps the next tick.
+- A tick runs exactly the occupied lanes: there are no power-of-two lane
+  buckets (they bounded the JAX package's set of compiled graphs). The
+  lanes' small vectors (last token, offset, counters) are gathered by a
+  device index of slots, and scattered back after the tick; the caches and
+  per-request contexts stay stacked ``[slots, ...]``, and the step reads
+  and writes them in place through that index. (One whisper-large-v3 lane
+  holds 73 MB of self caches and 123 MB of int8 cross K/V: a gather would
+  copy them every tick.)
+- Sampling: each step's noise hashes (engine seed, request seed, sample
+  index, vocab id) on the device (``core.sampling.gumbel_noise``), a
+  function of the request alone, as the JAX package's
+  ``fold_in(fold_in(base, request_seed), sample_index)`` key is. A
+  request's tokens are the same alone or packed with others.
+
+The JAX engine's default llama step and its ``token_map`` (restricted
+output heads) wait for the port's llama: an engine is built with a
+``step_fn`` or a ``batch_step_fn``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from tpu_audio_torch.core.sampling import (
+    SamplingParams,
+    _mask_min_p,
+    _mask_top_k,
+    _mask_top_p,
+    apply_repetition_penalty,
+    gumbel_noise,
+)
+
+__all__ = ["ContinuousBatcher", "EngineWorkerBase", "GenRequest",
+           "coerce_fused_flag"]
+
+
+@dataclasses.dataclass
+class GenRequest:
+    """One submitted generation request and its accumulated output."""
+
+    request_id: int
+    prompt: np.ndarray
+    max_new: int
+    seed: int = 0
+    tokens: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    context: object = None   # per-request conditioning tensors (or None)
+
+
+class _Tick(NamedTuple):
+    """One launched decode tick, harvested later (pipelined engines fetch
+    a tick's outputs only after the NEXT tick is already in flight)."""
+
+    packed: torch.Tensor     # host [2K+1, n] int32 (pinned for a CUDA tick)
+    ready: object            # CUDA event recorded after the copy, or None
+    live: list               # slot index of each live lane at launch
+    reqs: list               # the occupying GenRequest per live lane
+    k: int                   # decode steps in the tick
+
+
+@dataclasses.dataclass
+class _Lanes:
+    """Per-lane decode state on the device: ``[slots]`` for the engine,
+    ``[n]`` for the lanes of one tick."""
+
+    last: torch.Tensor       # int64, next input token
+    active: torch.Tensor     # bool
+    n_new: torch.Tensor      # int64, tokens sampled so far
+    max_new: torch.Tensor    # int64, per-request budget
+    seeds: torch.Tensor      # int64, request RNG seeds
+    hist: torch.Tensor       # [., H] int64, logits-space ring buffer
+    hpos: torch.Tensor       # int64, ring write position
+    offset: torch.Tensor     # int64, cache write position
+
+    def tensors(self) -> list[torch.Tensor]:
+        return [getattr(self, f.name) for f in dataclasses.fields(self)]
+
+    def select(self, idx: torch.Tensor) -> "_Lanes":
+        return _Lanes(*(t.index_select(0, idx) for t in self.tensors()))
+
+    def put(self, idx: torch.Tensor, sub: "_Lanes") -> None:
+        for full, part in zip(self.tensors(), sub.tensors()):
+            full.index_copy_(0, idx, part)
+
+
+def coerce_fused_flag(fused) -> bool:
+    """Normalize the engines' ``fused: str | bool`` knob: "auto"/"1"/
+    truthy enable, "0"/"off"/"false"/"no"/"disabled"/"none"/"" disable
+    (bool(str) alone would ENABLE for any non-empty string)."""
+    if isinstance(fused, str):
+        return fused.lower() not in ("0", "off", "false", "no",
+                                     "disabled", "none", "")
+    return bool(fused)
+
+
+def _sample_one(logits: torch.Tensor, seed: int, request_seeds: torch.Tensor,
+                sample_index: torch.Tensor, s: SamplingParams) -> torch.Tensor:
+    """Sample one token from each row of ``logits [n, V]`` (each row on its
+    own; the JAX package vmaps this over rows). Greedy is the argmax;
+    otherwise top-k, top-p and min-p masks, then Gumbel-max at the
+    temperature with the request's own noise. The repetition penalty is
+    applied by the caller."""
+    if s.temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    masked = logits
+    if s.top_k and s.top_k > 0:
+        masked = _mask_top_k(masked, s.top_k)
+    if s.top_p < 1.0:
+        masked = _mask_top_p(masked, s.top_p)
+    if s.min_p > 0.0:
+        masked = _mask_min_p(masked, s.min_p)
+    noise = gumbel_noise(seed, request_seeds, sample_index, logits.shape[-1])
+    return torch.argmax(masked / s.temperature + noise, dim=-1)
+
+
+class ContinuousBatcher:
+    """Slot-based continuous batching over a model's decode step.
+
+    >>> eng = ContinuousBatcher(params, slots=4, max_len=512, stop_token=eos,
+    ...                         batch_step_fn=..., prefill_fn=...,
+    ...                         cache_factory=...)
+    >>> eng.submit(prompt_tokens, max_new=64)
+    >>> for request_id, token in eng.run():
+    ...     ...                         # tokens stream out as lanes step
+
+    A model plugs in through:
+
+    - ``cache_factory(slots)``: the lanes' stacked caches, any object with
+      an ``offset`` attribute, an int64 ``[slots]`` tensor on ``device``
+      that the engine owns (each lane's next write position);
+    - ``prefill_fn(params, cache, slot, ids, valid_from, ctx) -> int``:
+      teacher-forces the prompt ``ids`` (host int32, left-padded with
+      zeros up to ``valid_from``) into lane ``slot``'s caches and returns
+      its offset;
+    - ``batch_step_fn(params, cache, lanes, last, offsets, ctx) ->
+      logits [n, V]``: one decode step of every live lane in one call;
+      ``lanes`` (int64 slot indices), ``last`` (input tokens) and
+      ``offsets`` (write positions) are ``[n]`` device tensors, and the
+      step writes each lane's new rows into its slot of ``cache`` in place;
+    - or ``step_fn(params, cache, slot, tok [1, 1], pos, ctx) ->
+      logits [1, V]``: one lane's step at host position ``pos`` (exact for
+      a live lane; a frozen lane's garbage step is clamped into the cache).
+
+    Per-request conditioning (encoder-decoder serving): pass
+    ``context_template``, a tuple of tensors whose shapes and dtypes (not
+    values; ``meta`` tensors will do) are one request's conditioning, and
+    supply a matching ``context=`` tuple to :meth:`submit`. The engine
+    stacks the contexts on the slot axis (``ctx``, ``[slots, ...]``).
+    ``logits_hook(logits [n, V], n_new [n]) -> logits`` applies model
+    logit rules inside the tick (e.g. whisper suppression; ``n_new == 0``
+    marks the first sampled position).
+
+    ``sampling`` selects greedy/temperature/top-k/top-p/repetition
+    penalty. ``prefill_buckets`` are the padded prompt lengths; prompts
+    longer than the largest bucket pad up to the next multiple of it.
+
+    ``step_tokens=K`` decodes K tokens per tick: the host's per-tick work
+    amortizes K-fold. Sampled tokens are identical for any K: each
+    request's noise depends only on (request seed, sample index), and
+    lanes that hit their stop mid-tick freeze for the rest of it (their
+    garbage k/v lands at their frozen offset, never attended). Admission
+    happens at tick boundaries. ``min_tick_tokens=T`` makes every tick
+    decode at least T live tokens (:meth:`_tick_k`). ``pipeline=True``
+    launches tick N+1 before fetching tick N's tokens, so :meth:`step`
+    returns the previous tick's tokens.
+    """
+
+    def __init__(self, params, *, slots: int = 4, max_len: int = 1024,
+                 stop_token: int = -1, sampling: SamplingParams | None = None,
+                 prefill_buckets: tuple[int, ...] = (32, 64, 128, 256),
+                 seed: int = 0, device=None,
+                 step_fn: Callable | None = None,
+                 batch_step_fn: Callable | None = None,
+                 prefill_fn: Callable | None = None,
+                 cache_factory: Callable | None = None,
+                 step_tokens: int = 1,
+                 context_template=None,
+                 logits_hook: Callable | None = None,
+                 min_tick_tokens: int | None = None,
+                 pipeline: bool = False):
+        if step_fn is None and batch_step_fn is None:
+            raise NotImplementedError(
+                "ContinuousBatcher: the default llama step is not ported yet; "
+                "pass step_fn or batch_step_fn")
+        if prefill_fn is None or cache_factory is None:
+            raise ValueError("ContinuousBatcher: pass prefill_fn and cache_factory")
+        self.params = params
+        self.slots = int(slots)
+        self.max_len = int(max_len)
+        self.stop_token = int(stop_token)
+        self.sampling = sampling or SamplingParams(temperature=0.0)
+        self.step_tokens = int(step_tokens)
+        if self.step_tokens < 1:
+            raise ValueError(f"step_tokens must be >= 1, got {step_tokens}")
+        self.min_tick_tokens = (None if min_tick_tokens is None
+                                else int(min_tick_tokens))
+        self.pipeline = bool(pipeline)
+        self._inflight: _Tick | None = None
+        self.buckets = tuple(sorted(prefill_buckets))
+        self.history_size = max(1, self.sampling.repetition_context_size) \
+            if self.sampling.repetition_penalty != 1.0 else 1
+        self.device = torch.device(device if device is not None else "cpu")
+        self.seed = int(seed)
+        self._step_fn = step_fn
+        self._batch_step_fn = batch_step_fn
+        self._prefill = prefill_fn
+        self._logits_hook = logits_hook
+        self._next_id = 0
+        self._pending: list[GenRequest] = []
+        self._lane: list[GenRequest | None] = [None] * self.slots
+        self._pos = [0] * self.slots  # host bound of each lane's offset
+        self.requests: dict[int, GenRequest] = {}
+        self._cache = cache_factory(self.slots)
+        self._ctx = (None if context_template is None else tuple(
+            torch.zeros((self.slots,) + tuple(t.shape), dtype=t.dtype,
+                        device=self.device) for t in context_template))
+        self._state = self._init_state()
+
+    # -- state ---------------------------------------------------------
+
+    def _init_state(self) -> _Lanes:
+        def zeros(*shape):
+            return torch.zeros(shape or (self.slots,), dtype=torch.int64,
+                               device=self.device)
+
+        return _Lanes(last=zeros(), active=zeros().bool(), n_new=zeros(),
+                      max_new=zeros(), seeds=zeros(),
+                      hist=zeros(self.slots, self.history_size), hpos=zeros(),
+                      offset=self._cache.offset)
+
+    def _bucket(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        big = self.buckets[-1]
+        return ((n + big - 1) // big) * big
+
+    def _to_device(self, values: list[int]) -> torch.Tensor:
+        """int64 tensor on the engine's device; from pinned host memory
+        without waiting for the copy on a CUDA device."""
+        host = torch.tensor(values, dtype=torch.int64)
+        if self.device.type != "cuda":
+            return host.to(self.device)
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    # -- public API ----------------------------------------------------
+
+    def submit(self, prompt, max_new: int, seed: int = 0,
+               context=None) -> GenRequest:
+        """Queue a request; it is admitted at the next :meth:`step` with a
+        free lane. Returns the live :class:`GenRequest` (its ``tokens``
+        list fills in as the engine runs). ``context`` is the request's
+        conditioning tuple, required iff the engine was built with a
+        ``context_template``."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("empty prompt")
+        if max_new < 1:
+            raise ValueError(f"max_new must be >= 1, got {max_new}")
+        # canonicalize into int32 range here, on the caller's thread: an
+        # out-of-range client value must fail or wrap here, not inside the
+        # engine thread's tick (max_new is capped by the cache anyway)
+        max_new = min(int(max_new), self.max_len)
+        seed = int(seed) % (2 ** 31)
+        if (context is None) != (self._ctx is None):
+            raise ValueError(
+                "context must be supplied exactly when the engine has a "
+                "context_template")
+        padded = self._bucket(prompt.size)
+        if padded >= self.max_len:
+            raise ValueError(
+                f"prompt pads to {padded} >= max_len={self.max_len}")
+        req = GenRequest(request_id=self._next_id, prompt=prompt,
+                         max_new=max_new, seed=seed, context=context)
+        self._next_id += 1
+        self._pending.append(req)
+        self.requests[req.request_id] = req
+        return req
+
+    @property
+    def idle(self) -> bool:
+        return (not self._pending and self._inflight is None
+                and all(r is None for r in self._lane))
+
+    def _tick_k(self, live: int) -> int:
+        """Decode steps for a tick over ``live`` occupied lanes: enough
+        that the tick decodes >= ``min_tick_tokens`` live tokens in all,
+        rounded up to a ``step_tokens`` multiple (keeps emission
+        granularity aligned for frame-structured consumers)."""
+        if self.min_tick_tokens is None:
+            return self.step_tokens
+        steps = -(-self.min_tick_tokens // max(1, live))    # ceil div
+        return max(self.step_tokens,
+                   -(-steps // self.step_tokens) * self.step_tokens)
+
+    def release(self, request_id: int) -> None:
+        """Forget a finished/cancelled request (long-running servers must
+        release consumed requests or ``requests`` grows unboundedly)."""
+        req = self.requests.get(request_id)
+        if req is not None and req.done:
+            del self.requests[request_id]
+
+    def cancel(self, request_id: int) -> bool:
+        """Abort a request: a pending one is dequeued; an in-flight one
+        frees its lane at once (its device flag flips so the next tick
+        spends nothing on it). Returns False for unknown/finished ids.
+        Tokens already sampled stay on the request."""
+        req = self.requests.get(request_id)
+        if req is None or req.done:
+            return False
+        if req in self._pending:
+            self._pending.remove(req)
+        for slot, occupant in enumerate(self._lane):
+            if occupant is req:
+                self._state.active[slot] = False
+                self._lane[slot] = None
+        req.done = True
+        if self._inflight is not None and all(r is None for r in self._lane):
+            # the in-flight tick concerns only done/cancelled requests:
+            # drop it unharvested (post-tick device state is current)
+            self._inflight = None
+        return True
+
+    def _admit(self) -> None:
+        """Prefill pending requests into free lanes. The prefill covers
+        the padded prompt *minus its last token*; the first decode step
+        feeds that token, as the offline loop does."""
+        st = self._state
+        for slot in range(self.slots):
+            if self._lane[slot] is not None or not self._pending:
+                continue
+            req = self._pending.pop(0)
+            padded = self._bucket(req.prompt.size)
+            pad = padded - req.prompt.size
+            tokens = np.zeros((padded,), np.int32)
+            tokens[pad:] = req.prompt
+            if self._ctx is not None:
+                for full, row in zip(self._ctx, req.context):
+                    full[slot].copy_(row)
+            offset = self._prefill(self.params, self._cache, slot, tokens[:-1],
+                                   pad, self._ctx)
+            st.last[slot] = int(req.prompt[-1])
+            st.offset[slot] = offset
+            st.active[slot] = req.max_new > 0 and offset < self.max_len
+            st.n_new[slot] = 0
+            st.max_new[slot] = req.max_new
+            st.seeds[slot] = req.seed
+            st.hist[slot] = 0
+            st.hpos[slot] = 0
+            self._pos[slot] = offset
+            req.context = None  # free host reference; rows live on device
+            self._lane[slot] = req
+
+    def _one_step(self, lanes: torch.Tensor, live: list[int], sub: _Lanes,
+                  step: int) -> tuple[_Lanes, torch.Tensor, torch.Tensor]:
+        """One decode step of the tick's lanes, all on the device."""
+        if self._batch_step_fn is not None:
+            logits = self._batch_step_fn(self.params, self._cache, lanes,
+                                         sub.last, sub.offset, self._ctx)
+        else:
+            logits = torch.cat([self._step_fn(
+                self.params, self._cache, slot, sub.last[j:j + 1].view(1, 1),
+                min(self._pos[slot] + step, self.max_len - 1), self._ctx)
+                for j, slot in enumerate(live)])
+        logits = logits.to(torch.float32)
+        if self._logits_hook is not None:
+            logits = self._logits_hook(logits, sub.n_new)
+        H = self.history_size
+        penalty = self.sampling.repetition_penalty
+        if penalty != 1.0:
+            hvalid = (torch.arange(H, device=logits.device)[None, :]
+                      < torch.clamp(sub.hpos, max=H)[:, None])
+            logits = apply_repetition_penalty(logits, sub.hist, hvalid, penalty)
+        idx = _sample_one(logits, self.seed, sub.seeds, sub.n_new, self.sampling)
+        active = sub.active
+        ring = (sub.hpos % H)[:, None]
+        kept = sub.hist.gather(1, ring)[:, 0]
+        hist = sub.hist.scatter(1, ring, torch.where(active, idx, kept)[:, None])
+        toks = torch.where(active, idx, sub.last)
+        # freeze idle lanes: their garbage k/v landed at the (unattended)
+        # old offset; keep it unattended
+        offset = torch.where(active, sub.offset + 1, sub.offset)
+        n_new = sub.n_new + active
+        hpos = sub.hpos + active
+        new_active = (active & (toks != self.stop_token)
+                      & (n_new < sub.max_new) & (offset < self.max_len))
+        return (_Lanes(last=toks, active=new_active, n_new=n_new,
+                       max_new=sub.max_new, seeds=sub.seeds, hist=hist,
+                       hpos=hpos, offset=offset), toks, active)
+
+    def _launch(self) -> _Tick:
+        """Dispatch one decode tick (nothing in it waits for the device)."""
+        live = [s for s, r in enumerate(self._lane) if r is not None]
+        reqs = [self._lane[s] for s in live]
+        k = self._tick_k(len(live))
+        lanes = self._to_device(live)
+        sub = self._state.select(lanes)
+        toks, valid = [], []
+        for step in range(k):
+            sub, t, v = self._one_step(lanes, live, sub, step)
+            toks.append(t)
+            valid.append(v)
+        self._state.put(lanes, sub)
+        for s in live:
+            self._pos[s] += k
+        packed = torch.cat([torch.stack(toks), torch.stack(valid).long(),
+                            sub.active[None].long()]).to(torch.int32)
+        if packed.device.type != "cuda":
+            return _Tick(packed, None, live, reqs, k)
+        host = torch.empty(packed.shape, dtype=torch.int32, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return _Tick(host, ready, live, reqs, k)
+
+    def _harvest(self, tick: _Tick) -> list[tuple[int, int]]:
+        """Fetch a launched tick's outputs and credit them to requests.
+        Requests cancelled (``done``) between launch and harvest are
+        skipped; a lane whose launch-time occupant already moved on (slot
+        reused after cancel) is left untouched."""
+        if tick.ready is not None:
+            tick.ready.synchronize()          # ONE wait per tick
+        packed = tick.packed.numpy()          # [2K+1, n]
+        K = tick.k
+        toks_host = packed[:K]
+        valid_host = packed[K : 2 * K].astype(bool)
+        active_host = packed[2 * K].astype(bool)
+        emitted = []
+        for k in range(K):
+            for j, req in enumerate(tick.reqs):
+                if req.done or not valid_host[k, j]:
+                    continue
+                tok = int(toks_host[k, j])
+                if tok != self.stop_token:
+                    req.tokens.append(tok)
+                    emitted.append((req.request_id, tok))
+        for j, (slot, req) in enumerate(zip(tick.live, tick.reqs)):
+            if not active_host[j] and not req.done:
+                req.done = True
+                if self._lane[slot] is req:
+                    self._lane[slot] = None
+        return emitted
+
+    @torch.no_grad()
+    def step(self) -> list[tuple[int, int]]:
+        """Admit pending requests, then run ONE decode tick
+        (``_tick_k(len(live))`` steps). Returns the ``(request_id,
+        token)`` pairs emitted in per-lane sample order: this tick's with
+        ``pipeline=False``, the PREVIOUS tick's with ``pipeline=True``
+        (the new tick is dispatched before the old tick's readback is
+        waited on, so the copy rides the decode)."""
+        self._admit()
+        prev, self._inflight = self._inflight, None
+        if any(r is not None for r in self._lane):
+            tick = self._launch()
+            if self.pipeline:
+                self._inflight = tick
+            else:
+                emitted = self._harvest(prev) if prev is not None else []
+                return emitted + self._harvest(tick)
+        return self._harvest(prev) if prev is not None else []
+
+    def run(self):
+        """Generator draining the engine: yields ``(request_id, token)``
+        until every submitted request is done."""
+        while not self.idle:
+            yield from self.step()
+
+
+class EngineWorkerBase:
+    """Owns a slot engine on a dedicated thread; callers on any thread
+    hand work in through an inbox and block only on their own queue.
+
+    The engine is single-threaded by design (one device, one stream).
+    Subclasses provide the engine-specific pieces: ``_idle``,
+    ``_handle(item)`` (admit one inbox item), ``_service()`` (one engine
+    tick + result delivery) and ``_fail_item`` (route a drained item's
+    failure to its caller).
+
+    Thread-death safety: ``_enqueue`` atomically checks ``_closing``
+    under ``_lock`` against the death handler's drain, so an item either
+    lands before the drain (and gets the failure) or the caller raises:
+    a dying engine can never strand a caller on an unserviced queue.
+    """
+
+    _thread_name = "engine"
+
+    def __init__(self):
+        self._queue_mod = queue
+        self._inbox: queue.Queue = queue.Queue()
+        self._out: dict[int, queue.Queue] = {}
+        self._closing = False
+        self._lock = threading.Lock()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name=self._thread_name)
+        self._thread.start()
+
+    def _enqueue(self, item) -> None:
+        with self._lock:
+            if self._closing:
+                raise RuntimeError("worker is closed")
+            self._inbox.put(item)
+
+    def close(self) -> None:
+        """Drain in-flight requests, then stop the engine thread."""
+        with self._lock:
+            self._closing = True
+            self._inbox.put(None)
+        self._thread.join()
+
+    def _loop(self) -> None:
+        try:
+            self._run_loop()
+        except BaseException as e:  # noqa: BLE001 — engine died: unblock
+            # every waiting caller gets the failure instead of hanging
+            # forever on its queue; subsequent submissions raise
+            failure = RuntimeError(
+                f"{self._thread_name} thread died: {e!r}")
+            with self._lock:
+                self._closing = True
+                for q in self._out.values():
+                    q.put(failure)
+                self._out.clear()
+                while not self._inbox.empty():
+                    item = self._inbox.get_nowait()
+                    if item is not None:
+                        self._fail_item(item, failure)
+
+    def _fail_item(self, item, failure: Exception) -> None:
+        item[-1].put(failure)
+
+    def _run_loop(self) -> None:
+        stop = False
+        while not (stop and self._idle and self._inbox.empty()):
+            # drain submissions; block only when the engine has no work
+            block = self._idle and not stop
+            while True:
+                try:
+                    item = self._inbox.get(block=block, timeout=None)
+                except queue.Empty:
+                    break
+                block = False
+                if item is None:
+                    stop = True
+                    continue
+                self._handle(item)
+                if self._inbox.empty():
+                    break
+            self._service()
+
+    # -- subclass hooks --------------------------------------------------
+
+    @property
+    def _idle(self) -> bool:
+        raise NotImplementedError
+
+    def _handle(self, item) -> None:
+        raise NotImplementedError
+
+    def _service(self) -> None:
+        raise NotImplementedError
+
+    def _admit(self, submit, outq) -> None:
+        """Run one engine ``submit`` thunk, registering its out-queue;
+        rejections flow to the caller, and even a thread-killing failure
+        mid-submit still unblocks them before propagating."""
+        try:
+            req = submit()
+            self._out[req.request_id] = outq
+        except Exception as e:  # noqa: BLE001 — caller re-raises
+            outq.put(e)
+        except BaseException as e:
+            outq.put(RuntimeError(
+                f"{self._thread_name} thread died: {e!r}"))
+            raise
