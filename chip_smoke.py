@@ -38,24 +38,58 @@ so a kernel that reads the wrong bias or LayerNorm row disagrees), and:
 7. prints, per configuration, the frontend + encoder time and a
    ``torch.profiler`` breakdown of a 32-token window by device kernel.
 
+Then it frees whisper and builds Orpheus-3B (the Llama-3.2-3B backbone,
+w8a8, audio-band head; random weights from seed 0 with seeded non-unit
+RMSNorm weights) and a real-size SNAC 24 kHz decoder, and:
+
+8. holds the Llama decoder stack kernel (``fused_llama_stack``) against
+   its plain version at all 28 layers, at write offsets 0, 63, 64 and
+   1025 (two of them behind left padding), with every GEMV input's int8
+   codes compared, and 2-layer stacks with per-head q/k norms and at
+   Llama-3.1-8B's width the same way;
+9. synthesises 280 tokens through ``LlamaTTS.generate`` (greedy, twice)
+   and ``generate_stream``, each run with the launch counters reset just
+   before and read just after: one kernel launch a decode step and no
+   call of the plain version; checks the waveform, and teacher-forces the
+   first generated tokens through the kernel and the plain version;
+10. measures time to first audio with the JAX package's
+   ``bench_tts_ttfb(fused=True)`` protocol, ms a token, the device busy
+   share and a per-kernel breakdown of a 32-token chunk.
+
+Each kernel's record carries its bound on the H100 (``bound_ms``: the
+larger of its bytes over 3.35 TB/s and its operations over the peak rate
+of their type, from this run's shapes) and ``library_ms``, the time of a
+single PyTorch call computing the same function where one exists (none
+does for these five: null).
+
+``python3 chip_smoke.py --mutations`` instead runs the standing mutation
+check: each kernel's check alone on copies of the checkout with its source
+mutated (``MUTATIONS``; for ``csrc/fused_llama.cu``, phase 8 with a wrong
+RMSNorm row, the RoPE sign on the wrong half, query heads reading the next
+K/V head) beside an unmutated copy, and prints each copy's readings: every
+mutant must fail its check and every sound copy pass.
+
 TF32 is off for matmuls and convolutions, so float32 references are full
 float32. Any failed check raises and ends the run with a non-zero code.
-The last four lines of output are JSON: the generate runs, the serving
-results, the kernels' records, then ``{"ok": true, "device": {...}}``.
-Without a CUDA device, or outside the repository, it exits non-zero
-before printing any of them.
+The last five lines of output are JSON: the generate runs, the serving
+results, the TTS results, the kernels' records, then ``{"ok": true,
+"device": {...}}``. Without a CUDA device, or outside the repository, it
+exits non-zero before printing any of them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -113,7 +147,74 @@ LOGITS_RTOL = 3e-2   # teacher-forced logits of the whole path, relative
 # mutations (PERF.md), so LANES_RTOL lies between.
 FLIP_DIST = 1e-3
 LANES_RTOL = 2.8e-2
+# fused_llama_stack against its plain version. Free-running, the two round
+# an int8 activation code differently somewhere in Orpheus' 28 layers at
+# most offsets, and past it the random-weight stack diverges by up to
+# ~9e-2 (the first chip call: a flip at layer 5 read 5.2e-2 whole-stack,
+# above LANES_RTOL, on a sound kernel). The whole stack is therefore held
+# against the plain version fed the kernel's own int8 codes and scales,
+# which removes rounding from the comparison: only f32 sums in another
+# order (softmax, RoPE's sincosf) remain, ~1e-7.
+FORCED_RTOL = 1e-5
 GEMVS = ("q/k/v", "out", "cross-q", "cross-out", "fc1", "fc2")  # a layer's, in order
+
+# Orpheus-3B: canopylabs/orpheus-3b-0.1-ft, the Llama-3.2-3B backbone at its
+# published width (bench.py:315-319) with its rope_scaling
+ORPHEUS = dict(vocab_size=156940, hidden_size=3072, num_hidden_layers=28,
+               num_attention_heads=24, num_key_value_heads=8, intermediate_size=8192,
+               rope_theta=500000.0, rms_norm_eps=1e-5, tie_word_embeddings=True,
+               max_position_embeddings=131072,
+               rope_scaling={"rope_type": "llama3", "factor": 32.0,
+                             "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                             "original_max_position_embeddings": 8192})
+# SNAC 24 kHz at bench.py:349-353's dims
+SNAC_24K = dict(sampling_rate=24000, encoder_dim=64, encoder_rates=(2, 4, 8, 8),
+                decoder_dim=1024, decoder_rates=(8, 8, 4, 2), vq_strides=(4, 2, 1),
+                codebook_size=4096, codebook_dim=8, noise=True, depthwise=True)
+LLAMA_S_MAX = 1280
+LLAMA_CHECKS = [(0, 0), (63, 5), (64, 0), (1025, 40)]  # (offset, valid_from)
+QK_NORM_CHECKS = [(64, 5), (1025, 0)]  # also the checks of LLAMA_WIDE
+# Llama-3.1-8B's width at 2 layers: the quantise stages its 14336-wide f32
+# gate/up row past 48 KB of shared memory (an opt-in the Orpheus width
+# never needs)
+LLAMA_WIDE = dict(num_hidden_layers=2, hidden_size=4096, num_attention_heads=32,
+                  intermediate_size=14336)
+LLAMA_TIME_OFFSET = 400  # position of the per-call timing and its bound
+TTS_TEXT = "The quick brown fox jumps over the lazy dog, twice."
+TTS_TOKENS = 280         # 40 frames of 7
+TTS_TEACHER_STEPS = 8
+TTFB_CHUNK, TTFB_BUCKET, TTFB_REPEATS = 28, 64, 3  # bench_tts_ttfb's protocol
+TTS_PROFILE_TOKENS = 32
+# the standing mutation check (--mutations): for each kernel, its source,
+# the function here that runs its check alone, and its mutations (name,
+# original text, mutated text); a kernel ported later adds its entry
+MUTATIONS = {
+    "fused_llama_stack": ("tpu_audio_torch/csrc/fused_llama.cu", "fused_llama_only", [
+        ("post-attention norm reads the input norm's row",
+         "quantize(resid, nl + d, QUANT_RMS", "quantize(resid, nl, QUANT_RMS"),
+        ("RoPE sign on the wrong half",
+         "j < HD / 2 ? -1.0f : 1.0f", "j < HD / 2 ? 1.0f : -1.0f"),
+        ("query head h reads K/V head (h / rep + 1) % kv_heads",
+         "const int kv = (h / rep) * HD;",
+         "const int kv = ((h / rep + 1) % (dkv / HD)) * HD;"),
+    ]),
+}
+
+# the card's peak rates (NVIDIA H100 SXM data sheet, dense): HBM bytes/s,
+# int8 tensor-core ops/s, float32 (no tensor cores) ops/s
+HBM_BYTES_S, INT8_OPS_S, F32_OPS_S = 3.35e12, 1.979e15, 67e12
+
+
+def bound(nbytes: float, int8_ops: float = 0.0, f32_ops: float = 0.0) -> tuple[float, str]:
+    """The least ms the card could take: the larger of the bytes over the
+    memory rate and the operations over their types' peak rates."""
+    mem = nbytes / HBM_BYTES_S * 1e3
+    ops = (int8_ops / INT8_OPS_S + f32_ops / F32_OPS_S) * 1e3
+    return (mem, "bytes") if mem >= ops else (ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def fail(msg: str) -> None:
@@ -279,18 +380,19 @@ def profile_window(name, model, audio, gp) -> None:
 @contextlib.contextmanager
 def plain_kernels():
     """Route the paths' kernel wrappers to their plain versions."""
-    from tpu_audio_torch.ops import fused_decoder, kv_attention
+    from tpu_audio_torch.ops import fused_decoder, fused_llama, kv_attention
 
     saved = (fused_decoder.fused_stack, fused_decoder.fused_stack_lanes,
-             kv_attention.decode_attention_int8)
+             kv_attention.decode_attention_int8, fused_llama.fused_llama_stack)
     fused_decoder.fused_stack = fused_decoder.fused_stack_ref
     fused_decoder.fused_stack_lanes = fused_decoder.fused_stack_lanes_ref
     kv_attention.decode_attention_int8 = kv_attention.decode_attention_int8_ref
+    fused_llama.fused_llama_stack = fused_llama.fused_llama_stack_ref
     try:
         yield
     finally:
         (fused_decoder.fused_stack, fused_decoder.fused_stack_lanes,
-         kv_attention.decode_attention_int8) = saved
+         kv_attention.decode_attention_int8, fused_llama.fused_llama_stack) = saved
 
 
 @contextlib.contextmanager
@@ -340,7 +442,7 @@ def check_stack(name: str, errs) -> None:
         check(max(whole) <= FUSED_RTOL, f"{name} lane {m} disagrees: {whole}")
 
 
-def code_flips(ktap, ptap, n: int) -> list:
+def code_flips(ktap, ptap, n: int, gemvs=GEMVS) -> list:
     """Per lane, where the kernel's int8 GEMV input codes (``ktap``, the
     lanes kernel's tap) first differ from the plain version's (``ptap``,
     with its unrounded values): None where all L x 6 inputs agree, else
@@ -357,21 +459,21 @@ def code_flips(ktap, ptap, n: int) -> list:
             out.append(None)
             continue
         i = int(hit[0, 0])
-        layer, g = divmod(i, len(GEMVS))
+        layer, g = divmod(i, len(gemvs))
         row = diff[layer, g, m]
         v = float(ptap[2][layer, g, m, int(row.nonzero()[0, 0])])
         out.append(dict(
-            layer=layer, gemv=GEMVS[g], codes=int(per[i]), step=int(row.abs().max()),
+            layer=layer, gemv=gemvs[g], codes=int(per[i]), step=int(row.abs().max()),
             unrounded=v, boundary_dist=abs(abs(v - math.trunc(v)) - 0.5),
             scale_rel=abs(float(ktap[1][layer, g, m]) / float(ptap[1][layer, g, m]) - 1)))
     return out
 
 
-def exact_layers(flip, n_layers: int) -> int:
+def exact_layers(flip, n_layers: int, gemvs=GEMVS) -> int:
     """The layers whose k/v come before a lane's first code difference."""
     if flip is None:
         return n_layers
-    return flip["layer"] + (flip["gemv"] != GEMVS[0])
+    return flip["layer"] + (flip["gemv"] != gemvs[0])
 
 
 def check_stack_vs_plain(name: str, errs, flips) -> None:
@@ -546,7 +648,16 @@ def lanes_phase(w8, cfg, encs, dev) -> dict:
             return F.fused_stack_lanes_ref(pack, ck, ks, cv, vs, kr, vr, x, offsets,
                                            lanes, cfg=cfg, s_src=1500)
 
+        # the weights once; per lane its cross K/V and scales, the cache rows
+        # it attends, x in, y and the new k/v rows out
+        b_ms, b_by = bound(
+            nbytes(pack.w_in, pack.w_fc2, pack.scales, pack.biases, pack.ln, x, *got)
+            + n * nbytes(ck[0], ks[0], cv[0], vs[0])
+            + sum(2 * L * (o + 1) * d * 2 for o in offs),
+            int8_ops=2 * n * L * (pack.w_in.shape[1] * d + d * cfg.decoder_ffn_dim),
+            f32_ops=4 * L * d * sum(o + 1 + 1500 for o in offs))
         by_n[n] = dict(
+            bound_ms=b_ms, bound_by=b_by,
             max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)),
             rel_err=worst, rel_err_vs_fused_stack=max(max(w) for w, _ in errs_b1),
             bit_equal_to_fused_stack=all(bit_equal), code_flips=flips,
@@ -557,7 +668,7 @@ def lanes_phase(w8, cfg, encs, dev) -> dict:
               f"{fmt(by_n[n]['dev_ms'])}, plain {fmt(by_n[n]['plain_dev_ms'])}")
     top = by_n[max(LANE_COUNTS)]
     return dict(route="cuda", source="tpu_audio_torch/csrc/fused_decoder_lanes.cu",
-                replaces="tpu_audio/ops/pallas_fused_decoder.py:912",
+                replaces="tpu_audio/ops/pallas_fused_decoder.py:912", library_ms=None,
                 **top, by_lanes={str(n): r for n, r in by_n.items()})
 
 
@@ -588,9 +699,13 @@ def kernel_phases(models, cfg, audio, dev) -> tuple[dict, object]:
           f"{fb.shape[1]}]: max abs err {err:.3e} (atol {MEL_ATOL})")
     check(got.shape == (3000, 128) and bool(torch.isfinite(got).all()), "mel output")
     check(err <= MEL_ATOL, f"fused_log_mel disagrees with its plain version: {err}")
+    t, f = re.shape
+    b_ms, b_by = bound(nbytes(re, im, fb, got),
+                       f32_ops=3 * t * f + 2 * t * f * fb.shape[1] + got.numel())
     records["fused_log_mel"] = dict(
         route="cuda", source="tpu_audio_torch/csrc/mel.cu",
         replaces="tpu_audio/ops/pallas_mel.py:50", max_abs_err=err,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
         rel_err=rel_err(got, want), ms=cuda_ms(lambda: M.fused_log_mel(re, im, fb)),
         plain_ms=cuda_ms(lambda: M.fused_log_mel_ref(re, im, fb)),
         dev_ms=device_ms(lambda: M.fused_log_mel(re, im, fb)),
@@ -620,9 +735,11 @@ def kernel_phases(models, cfg, audio, dev) -> tuple[dict, object]:
         print(f"[kv_attention] q [{H},1,{hd}] over int8 [{H},1500,{hd}]: "
               f"rel err {err:.3e} (rtol {KV_RTOL})")
         check(err <= KV_RTOL, f"decode_attention_int8 disagrees: {err}")
+        b_ms, b_by = bound(nbytes(q, *kq, *vq, got), f32_ops=4 * H * 1500 * hd)
         records["decode_attention_int8"] = dict(
             route="cuda", source="tpu_audio_torch/csrc/kv_attention.cu",
             replaces="tpu_audio/ops/pallas_kv_attention.py:120",
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
             max_abs_err=float((got - want).abs().max()), rel_err=err,
             ms=cuda_ms(lambda: K.decode_attention_int8(q, *kq, *vq, 1500, sm_scale=sm)),
             plain_ms=cuda_ms(lambda: K.decode_attention_int8_ref(
@@ -668,9 +785,18 @@ def kernel_phases(models, cfg, audio, dev) -> tuple[dict, object]:
               "fused_stack did not write the new k rows into the cache")
         check(torch.equal(vc[:, off], got[2].to(torch.bfloat16)),
               "fused_stack did not write the new v rows into the cache")
+        d, ffn = cfg.d_model, cfg.decoder_ffn_dim
+        # weights, cross K/V, the cache rows attended (0..off), x in, y and
+        # the new k/v rows out
+        b_ms, b_by = bound(
+            nbytes(pack.w_in, pack.w_fc2, pack.scales, pack.biases, pack.ln,
+                   ck, ks, cv, vs, xt, *got) + 2 * 32 * (off + 1) * d * 2,
+            int8_ops=2 * 32 * (pack.w_in.shape[1] * d + d * ffn),
+            f32_ops=4 * 32 * (off + 1 + 1500) * d)
         records["fused_stack"] = dict(
             route="cuda", source="tpu_audio_torch/csrc/fused_decoder.cu",
             replaces="tpu_audio/ops/pallas_fused_decoder.py:471",
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
             max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)),
             rel_err=max(errs), ms=cuda_ms(lambda: F.fused_stack(pack, ck, ks, cv, vs, kc, vc, xt, off,
                                              cfg=cfg, s_src=1500)),
@@ -1022,6 +1148,612 @@ def http_phase(w8, clips) -> dict:
     return dict(requests=HTTP_REQUESTS, wall_s=wall, text_equal=all(same))
 
 
+class ByteTokenizer:
+    """Byte-level stub tokenizer (bench.py:548-554): one id per UTF-8 byte."""
+
+    class _Ids:
+        def __init__(self, ids):
+            self.ids = ids
+
+    def encode(self, text):
+        return self._Ids([b % 1000 for b in text.encode()])
+
+
+def randomize_norms(tree: dict, gen, names=("input_layernorm", "post_attention_layernorm",
+                                             "norm", "q_norm", "k_norm")) -> None:
+    """Give every RMSNorm weight 1 + N(0, 0.1), in place (init makes them 1,
+    which a kernel reading the wrong norm row would not show)."""
+    import torch
+
+    for k, v in tree.items():
+        if isinstance(v, dict) and k in names:
+            w = v["weight"]
+            v["weight"] = (1.0 + 0.1 * torch.randn(w.shape, generator=gen, device=w.device)
+                           ).to(w.dtype)
+        elif isinstance(v, dict):
+            randomize_norms(v, gen, names)
+
+
+def build_snac(dev, seed: int = 0):
+    """The SNAC 24 kHz decoder and quantizers at SNAC_24K's dims with random
+    weights (already weight-norm folded; the encoder is not built: nothing
+    here encodes)."""
+    import torch
+
+    from tpu_audio_torch.codecs import snac as S
+
+    cfg = S.SNACConfig(**SNAC_24K)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def conv(o, i, k, bias=True):
+        p = {"weight": torch.randn((o, i, k), generator=gen, device=dev)
+             / math.sqrt(i * k)}
+        if bias:
+            p["bias"] = 0.01 * torch.randn((o,), generator=gen, device=dev)
+        return p
+
+    def snake(c):
+        return {"alpha": torch.ones((c,), device=dev)}
+
+    def res_unit(c):
+        return {"block": {"0": snake(c), "1": conv(c, 1, 7), "2": snake(c),
+                          "3": conv(c, c, 1)}}
+
+    latent = cfg.computed_latent_dim
+    model = {"0": conv(latent, 1, 7), "1": conv(cfg.decoder_dim, latent, 1)}
+    idx = 2
+    for i, stride in enumerate(cfg.decoder_rates):
+        c_in, c_out = cfg.decoder_dim // 2 ** i, cfg.decoder_dim // 2 ** (i + 1)
+        up = {"weight": torch.randn((c_in, c_out, 2 * stride), generator=gen, device=dev)
+              / math.sqrt(c_in * stride), "bias": 0.01 * torch.randn((c_out,), generator=gen,
+                                                                     device=dev)}
+        model[str(idx)] = {"block": {"0": snake(c_in), "1": up,
+                                     "2": {"linear": conv(c_out, c_out, 1, bias=False)},
+                                     "3": res_unit(c_out), "4": res_unit(c_out),
+                                     "5": res_unit(c_out)}}
+        idx += 1
+    final = cfg.decoder_dim // 2 ** len(cfg.decoder_rates)
+    model[str(idx)] = snake(final)
+    model[str(idx + 1)] = conv(1, final, 7)
+    quantizers = {str(i): {"in_proj": conv(cfg.codebook_dim, latent, 1),
+                           "out_proj": conv(latent, cfg.codebook_dim, 1),
+                           "codebook": {"weight": torch.randn(
+                               (cfg.codebook_size, cfg.codebook_dim), generator=gen,
+                               device=dev)}}
+                  for i in range(len(cfg.vq_strides))}
+    return S.SNAC(cfg, {"decoder": {"model": model},
+                        "quantizer": {"quantizers": quantizers}})
+
+
+def build_orpheus(dev, **overrides):
+    """Orpheus-3B w8a8 with the audio-band head and the SNAC 24 kHz codec,
+    random weights from seed 0 (on the card), seeded non-unit norms."""
+    import torch
+
+    from tpu_audio_torch.core import quant
+    from tpu_audio_torch.models import llama
+    from tpu_audio_torch.models.tts import llama_tts as TT
+
+    cfg = TT.LlamaTTSConfig(**{**ORPHEUS, **overrides})
+    params = llama.init_random_params(cfg, seed=0, dtype=torch.bfloat16, device=dev,
+                                      on_device=True)
+    randomize_norms(params, torch.Generator(device=dev).manual_seed(3))
+    params = quant.quantize_tree(params, scheme="w8a8")
+    model = TT.LlamaTTS(cfg, params, tokenizer=ByteTokenizer(), codec=build_snac(dev),
+                        dtype=torch.bfloat16, audio_band_head=True)
+    check(model._fused_supported(), "Orpheus w8a8 does not take the fused route")
+    return model
+
+
+def llama_check(name, model, kc, vc, x, off, vf) -> dict:
+    """Kernel 5 against its plain version on the same inputs, both tapping
+    every GEMV input's int8 codes. Run free, newk/newv agree within
+    FUSED_LAYER_RTOL up to the first code that differs, and that code is
+    one step off at a rounding boundary; past it the two are different
+    int8 evaluations, so the whole stack is then held against the plain
+    version fed the kernel's own codes and scales: y/newk/newv within
+    FORCED_RTOL over all layers, and every code the kernel chose within a
+    step of the plain version's unrounded value, differing from the plain
+    rounding only within FLIP_DIST of a boundary. The new rows are written
+    in place."""
+    import torch
+
+    from tpu_audio_torch.ops import fused_llama as FL
+
+    cfg = model.config
+    pack = model.fused_decoder_pack()
+    L = cfg.num_hidden_layers
+    dev = x.device
+    snap_k, snap_v = kc.clone(), vc.clone()
+
+    ktap, ptap, ftap = (llama_taps(cfg, dev, pre) for pre in (False, True, True))
+    got = FL.fused_llama_stack(pack, kc, vc, x, off, cfg=cfg, valid_from=vf, tap=ktap)
+    want = FL.fused_llama_stack_ref(pack, snap_k.clone(), snap_v.clone(), x, off, cfg=cfg,
+                                    valid_from=vf, tap=ptap)
+    forced = FL.fused_llama_stack_ref(pack, snap_k.clone(), snap_v.clone(), x, off,
+                                      cfg=cfg, valid_from=vf, tap=ftap, codes=ktap)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(g).all()) for g in got), f"{name}: non-finite output")
+
+    def lane(t):
+        return (t[0][None], t[1][:, None], t[2][:, None])
+
+    (whole, layers), = stack_errors(lane(got), lane(want), 1)
+    flip, = code_flips((ktap[0][:, :, None], ktap[1][:, :, None]),
+                       tuple(t[:, :, None] for t in ptap), 1, gemvs=FL.GEMVS)
+    forced_err = [rel_err(g, w) for g, w in zip(got, forced)]
+    n_flips, max_step, worst_dist, scale_rel = codes_witness(cfg, ktap, ftap)
+    snap_k[:, off] = got[1].to(torch.bfloat16)
+    snap_v[:, off] = got[2].to(torch.bfloat16)
+    writes_ok = torch.equal(kc, snap_k) and torch.equal(vc, snap_v)
+    until = exact_layers(flip, L, FL.GEMVS)
+    print(f"[{name}] offset {off} valid_from {vf}: free-running vs plain y/newk/newv "
+          + "/".join(f"{e:.3e}" for e in whole) + "; newk/newv by layer "
+          + " ".join(f"{e:.1e}" for e in layers) + "; int8 codes: " + (
+              f"none of the {L} x 4 GEMV inputs differ" if flip is None else
+              f"first differ at layer {flip['layer']} {flip['gemv']}: {flip['codes']} "
+              f"code(s) by up to {flip['step']}, plain unrounded {flip['unrounded']:.7f} "
+              f"({flip['boundary_dist']:.2e} from the boundary)")
+          + f"; plain fed the kernel's codes: y/newk/newv " + "/".join(
+              f"{e:.3e}" for e in forced_err) + f" (rtol {FORCED_RTOL}), {n_flips} "
+          f"code(s) differ from its own rounding, by up to {max_step}, at most "
+          f"{worst_dist:.2e} from a boundary, scales {scale_rel:.1e} apart; cache rows "
+          f"written in place, others untouched: {writes_ok}")
+    check(max(layers[:until], default=0.0) <= FUSED_LAYER_RTOL,
+          f"{name} offset {off}: k/v of layers 0-{until - 1}, before any int8 code "
+          f"differs, disagree: {layers[:until]}")
+    if flip is not None:
+        check(flip["codes"] == 1 and flip["step"] == 1
+              and flip["boundary_dist"] <= FLIP_DIST,
+              f"{name} offset {off}: the first code difference is not one rounding "
+              f"flip: {flip}")
+    check(max(forced_err) <= FORCED_RTOL,
+          f"{name} offset {off}: the stack disagrees with the plain version on the "
+          f"kernel's own codes: {forced_err}")
+    check_witness(f"{name} offset {off}", n_flips, max_step, worst_dist, scale_rel)
+    check(writes_ok, f"{name}: cache rows written wrong")
+    return dict(offset=off, valid_from=vf, rel_err=max(forced_err),
+                free_rel_err=max(whole), code_flips=n_flips, first_flip=flip,
+                max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, forced)))
+
+
+def llama_taps(cfg, dev, pre: bool):
+    """Empty taps of every GEMV input's int8 codes and scales (and, with
+    ``pre``, unrounded values) of kernel 5 or its plain version."""
+    import torch
+
+    L, kmax = cfg.num_hidden_layers, max(cfg.hidden_size, cfg.intermediate_size)
+    return (torch.zeros((L, 4, kmax), dtype=torch.int8, device=dev),
+            torch.zeros((L, 4), device=dev)) + (
+        (torch.zeros((L, 4, kmax), device=dev),) if pre else ())
+
+
+def codes_witness(cfg, ktap, ftap) -> tuple[int, int, float, float]:
+    """The kernel's codes (``ktap``) against the plain version's rounding of
+    the same inputs (``ftap``, with unrounded values; the plain version fed
+    the kernel's codes, so that both see the same upstream state): how
+    many differ, by how much at most, how far from a rounding boundary
+    the farthest of them lies, and how far apart the scales are."""
+    import torch
+
+    kmax = ktap[0].shape[-1]
+    widths = torch.tensor([cfg.hidden_size] * 3 + [cfg.intermediate_size],
+                          device=ktap[0].device)
+    used = torch.arange(kmax, device=widths.device)[None, None, :] < widths[None, :, None]
+    diff = (ktap[0].int() - ftap[0].int()).masked_fill(~used, 0)
+    pre = ftap[2]
+    dist = (pre - pre.trunc()).abs().sub(0.5).abs()
+    n = int((diff != 0).sum())
+    return (n, int(diff.abs().max()), float(dist[diff != 0].max()) if n else 0.0,
+            float((ktap[1] / ftap[1] - 1).abs().max()))
+
+
+def check_witness(name, n_flips, max_step, worst_dist, scale_rel) -> None:
+    check(max_step <= 1 and worst_dist <= FLIP_DIST and scale_rel <= 1e-6,
+          f"{name}: the kernel's codes are not the plain rounding up to boundary "
+          f"flips ({n_flips} differ, by up to {max_step}, {worst_dist:.2e} from a "
+          f"boundary, scales {scale_rel:.1e} apart)")
+
+
+def llama_inputs(model, dev, seed: int):
+    """Random position-major caches (LLAMA_S_MAX rows) and an embedded band
+    token, as the decode step gives them to kernel 5."""
+    import torch
+
+    from tpu_audio_torch.core import nn
+
+    cfg = model.config
+    L, dkv = cfg.num_hidden_layers, cfg.num_key_value_heads * 128
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kc = (torch.randn((L, LLAMA_S_MAX, dkv), generator=gen, device=dev) * 0.7
+          ).to(torch.bfloat16)
+    vc = (torch.randn((L, LLAMA_S_MAX, dkv), generator=gen, device=dev) * 0.7
+          ).to(torch.bfloat16)
+    tok = torch.tensor([model.tokens.audio_token_offset + 4097 + seed], device=dev)
+    x = nn.embedding(model.params["model"]["embed_tokens"], tok)[0].float()
+    return kc, vc, x
+
+
+def fused_llama_phase(model, dev, timing: bool = True) -> dict:
+    """Kernel 5 at Orpheus-3B width (28 layers) against its plain version at
+    LLAMA_CHECKS, and a 2-layer qk_norm stack and a 2-layer LLAMA_WIDE
+    stack at QK_NORM_CHECKS; with ``timing``, both versions timed at offset
+    LLAMA_TIME_OFFSET."""
+    import torch
+
+    from tpu_audio_torch.ops import fused_llama as FL
+
+    cfg = model.config
+    checks = []
+    with torch.inference_mode():
+        for i, (off, vf) in enumerate(LLAMA_CHECKS):
+            kc, vc, x = llama_inputs(model, dev, i)
+            checks.append(llama_check("fused_llama", model, kc, vc, x, off, vf))
+        for name, kw in (("qk_norm L=2", dict(num_hidden_layers=2, qk_norm=True)),
+                         ("Llama-3.1-8B width L=2", LLAMA_WIDE)):
+            small = build_orpheus(dev, **kw)
+            for i, (off, vf) in enumerate(QK_NORM_CHECKS):
+                kc, vc, x = llama_inputs(small, dev, 10 + i)
+                checks.append(llama_check(f"fused_llama {name}", small, kc, vc, x, off, vf))
+            del small
+        rec = dict(route="cuda", source="tpu_audio_torch/csrc/fused_llama.cu",
+                   replaces="tpu_audio/ops/pallas_fused_llama.py:413", library_ms=None,
+                   max_abs_err=max(c["max_abs_err"] for c in checks),
+                   rel_err=max(c["rel_err"] for c in checks), checks=checks)
+        if not timing:
+            return rec
+        pack = model.fused_decoder_pack()
+        kc, vc, x = llama_inputs(model, dev, 7)
+        kr, vr = kc.clone(), vc.clone()
+        off = LLAMA_TIME_OFFSET
+
+        def kern():
+            return FL.fused_llama_stack(pack, kc, vc, x, off, cfg=cfg)
+
+        def plain():
+            return FL.fused_llama_stack_ref(pack, kr, vr, x, off, cfg=cfg)
+
+        out = kern()
+        L, d, dkv = cfg.num_hidden_layers, cfg.hidden_size, cfg.num_key_value_heads * 128
+        # the weights, scales and norms, the cache rows attended (0..off), x
+        # in, y and the new k/v rows out (written to the caches too)
+        b_ms, b_by = bound(
+            nbytes(pack.w_in, pack.w_down, pack.scales, pack.norms, pack.inv_freq, x, *out)
+            + 2 * L * (off + 1) * dkv * 2,
+            int8_ops=2 * L * d * (pack.w_in.shape[1] + cfg.intermediate_size),
+            f32_ops=4 * L * (off + 1) * cfg.num_attention_heads * 128)
+        rec.update(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, reps=3, warmup=1),
+                   dev_ms=device_ms(kern), plain_dev_ms=device_ms(plain, reps=2),
+                   bound_ms=b_ms, bound_by=b_by, time_offset=off)
+    print(f"[time] fused_llama_stack at offset {off}: per call kernel {rec['ms']:.4f} ms, "
+          f"plain {rec['plain_ms']:.4f} ms; device kernel {fmt(rec['dev_ms'])}, plain "
+          f"{fmt(rec['plain_dev_ms'])}; bound {b_ms:.4f} ms ({b_by})")
+    return rec
+
+
+def tts_prefill(model, prompt, max_tokens: int, valid_from: int | None = None):
+    """``_run_generation``'s prefill: the prompt left-padded to its bucket
+    through ``llama.forward`` into the fused route's cache. Returns its
+    decode state and the last prompt token, which the decode loop feeds
+    first."""
+    import numpy as np
+    import torch
+
+    dev = model.device
+    bucket = max(64, 1 << math.ceil(math.log2(max(len(prompt), 2))))
+    pad = bucket - len(prompt)
+    padded = np.full((1, bucket), model.tokens.pad_token, np.int64)
+    padded[0, pad:] = prompt
+    cache, fused = model._fused_cache(bucket + max_tokens + 1,
+                                      pad if valid_from is None else valid_from)
+    _, cache = model._prefill(model.params, torch.from_numpy(padded[:, :-1]).to(dev), cache)
+    return fused._replace(offset=cache.offset), torch.tensor([prompt[-1]], device=dev)
+
+
+def tts_generate_phase(model) -> tuple[list, dict, list]:
+    """LlamaTTS.generate twice (greedy; identical tokens) and
+    generate_stream once, TTS_TOKENS tokens each, every launch counter
+    reset just before and read just after each run: one kernel launch for
+    each decode step the loop took (those past a stop token, up to the
+    loop's next read of its finished flag, included) and no call of the
+    plain version. Returns the runs, the last run's launches and the
+    generated tokens."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.core.ar_loop import SYNC_EVERY
+    from tpu_audio_torch.core.generation import AudioGenerateParameters, AudioGenerationKind
+    from tpu_audio_torch.ops import _lib
+    from tpu_audio_torch.ops import fused_llama as FL
+
+    gp = AudioGenerateParameters(max_tokens=TTS_TOKENS, temperature=0.0,
+                                 repetition_penalty=1.3, repetition_context_size=20)
+    T = model.tokens
+    hop = model.codec.config.hop_length
+    plain_calls = [0]
+    ref = FL.fused_llama_stack_ref
+
+    def counted(*a, **k):
+        plain_calls[0] += 1
+        return ref(*a, **k)
+
+    seen = {}
+    run_generation = model._run_generation
+    step_fn = model._fused_step_fn
+    step_calls = [0]
+
+    def counted_step(*a, **k):
+        step_calls[0] += 1
+        return step_fn(*a, **k)
+
+    def spy(*a, **k):
+        for item in run_generation(*a, **k):
+            seen["item"] = item
+            yield item
+
+    runs, first, launches = [], None, {}
+    FL.fused_llama_stack_ref = counted
+    model._run_generation = spy
+    model._fused_step_fn = counted_step  # the decoders built below call it
+    model._decoders.clear()
+    try:
+        for run in range(3):
+            stream = run == 2
+            _lib.reset_launches()
+            step_calls[0] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if stream:
+                events = list(model.generate_stream(TTS_TEXT, generation_parameters=gp))
+                wav = np.concatenate([e.audio for e in events
+                                      if e.kind == AudioGenerationKind.AUDIO])
+                n_tok = sum(e.kind == AudioGenerationKind.TOKEN for e in events)
+            else:
+                wav = model.generate(TTS_TEXT, generation_parameters=gp)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_lib.launches)
+            _, _, (pt, gt, plen, all_tokens) = seen["item"]
+            toks = all_tokens[plen:]
+            if stream:
+                check(n_tok == len(toks), "generate_stream: token events != tokens")
+            steps = len(toks) + (len(toks) < TTS_TOKENS)  # the stop token's step
+            frames = len(model.parse_output(all_tokens)) // 7
+            print(f"[tts {'generate_stream' if stream else 'generate'} run {run}] "
+                  f"{len(toks)} tokens ({steps} decode steps kept, {step_calls[0]} taken) "
+                  f"in {wall:.3f} s "
+                  f"(prefill {pt * 1e3:.3f} ms, decode {gt * 1e3 / step_calls[0]:.4f} ms a "
+                  f"step); "
+                  f"{wav.shape[0]} samples ({frames} frames); launches {launches}, "
+                  f"plain version calls {plain_calls[0]}")
+            check(launches.get("fused_llama_stack", 0) == step_calls[0],
+                  f"fused_llama_stack launched {launches.get('fused_llama_stack', 0)} "
+                  f"times for {step_calls[0]} decode steps")
+            check(step_calls[0] == steps if len(toks) == TTS_TOKENS
+                  else steps <= step_calls[0] < steps + SYNC_EVERY,
+                  f"{step_calls[0]} decode steps for {steps} kept")
+            check(plain_calls[0] == 0, "the plain version ran on the main path")
+            check(wav.shape == (frames * 4 * hop,) and frames > 0
+                  and bool(np.isfinite(wav).all()), f"waveform {wav.shape}")
+            check(len(toks) < TTS_TOKENS or frames == TTS_TOKENS // 7,
+                  f"{TTS_TOKENS} tokens made {frames} frames")
+            check(all(T.audio_token_offset <= t < T.audio_token_offset + 7 * T.codebook_size
+                      for t in toks), "a token outside the audio band")
+            if first is None:
+                first = (toks, wav)
+            check(toks == first[0], "greedy tokens differ between runs")
+            check(np.array_equal(wav, first[1]) if not stream
+                  else wav.shape == first[1].shape, "waveform differs between runs")
+            runs.append(dict(api="generate_stream" if stream else "generate", run=run,
+                             tokens=len(toks), steps=steps, wall_s=wall, prefill_s=pt,
+                             steps_taken=step_calls[0],
+                             decode_ms_per_step=gt * 1e3 / step_calls[0], samples=int(wav.shape[0]),
+                             realtime_x=wav.shape[0] / model.sample_rate / wall))
+    finally:
+        FL.fused_llama_stack_ref = ref
+        del model._run_generation, model._fused_step_fn
+        model._decoders.clear()
+    print(f"first tokens: {first[0][:14]}")
+    return runs, launches, first[0]
+
+
+def tts_teacher_forced(model, tokens) -> dict:
+    """The first TTS_TEACHER_STEPS generated tokens forced through the
+    decode step three ways from one prefill: with kernel 5 (its codes
+    tapped), with the plain version fed the kernel's codes and scales
+    (band logits within FORCED_RTOL; every kernel code the plain rounding
+    of the same inputs up to boundary flips, as in llama_check), and with
+    the plain version free-running (its band-logit distance is a reading:
+    one rounding flip moves the random-weight stack by up to ~1e-1)."""
+    import torch
+
+    from tpu_audio_torch.ops import fused_llama as FL
+
+    cfg = model.config
+    dev = model.device
+    kernel, ref = FL.fused_llama_stack, FL.fused_llama_stack_ref
+    taps = {}
+
+    def tapped(*a, **k):
+        taps["k"] = llama_taps(cfg, dev, False)
+        return kernel(*a, **k, tap=taps["k"])
+
+    def forced(*a, **k):
+        taps["f"] = llama_taps(cfg, dev, True)
+        return ref(*a, **k, tap=taps["f"], codes=taps["k"])
+
+    prompt = model.prepare_input_ids(TTS_TEXT)
+    worst = dict(forced=0.0, free=0.0, flips=0, step=0, dist=0.0, scale=0.0)
+    try:
+        with torch.inference_mode():
+            fc, last = tts_prefill(model, prompt, TTS_TOKENS)
+            caches = {m: fc._replace(k=fc.k.clone(), v=fc.v.clone())
+                      for m in ("kernel", "forced", "free")}
+            params = {**model.params, "fused_pack": model.fused_decoder_pack()}
+            for t in ([int(last[0])] + list(tokens))[:TTS_TEACHER_STEPS]:
+                tok = torch.tensor([[t]], device=dev)
+                logits = {}
+                for mode, fn in (("kernel", tapped), ("forced", forced), ("free", ref)):
+                    FL.fused_llama_stack = fn
+                    logits[mode], caches[mode] = model._fused_step_fn(params, tok,
+                                                                      caches[mode])
+                check(bool(torch.isfinite(logits["kernel"]).all()), "tts: non-finite logits")
+                flips, step, dist, scale = codes_witness(cfg, taps["k"], taps["f"])
+                check_witness(f"tts teacher-forced token {t}", flips, step, dist, scale)
+                worst = dict(forced=max(worst["forced"], rel_err(logits["kernel"],
+                                                                 logits["forced"])),
+                             free=max(worst["free"], rel_err(logits["kernel"],
+                                                             logits["free"])),
+                             flips=worst["flips"] + flips, step=max(worst["step"], step),
+                             dist=max(worst["dist"], dist), scale=max(worst["scale"], scale))
+    finally:
+        FL.fused_llama_stack = kernel
+    print(f"[tts teacher-forced] {TTS_TEACHER_STEPS} steps: band logits vs the plain "
+          f"version fed the kernel's codes {worst['forced']:.3e} (rtol {FORCED_RTOL}); "
+          f"{worst['flips']} kernel code(s) differ from the plain rounding, by up to "
+          f"{worst['step']}, at most {worst['dist']:.2e} from a boundary, scales "
+          f"{worst['scale']:.1e} apart; vs the free-running plain version "
+          f"{worst['free']:.3e}")
+    check(worst["forced"] <= FORCED_RTOL,
+          "tts: kernel path logits disagree with the plain version on its codes")
+    return worst
+
+
+def tts_ttfb_phase(model) -> dict:
+    """bench.py's bench_tts_ttfb(fused=True) protocol: a 64-token prompt
+    bucket, a TTFB_CHUNK-token chunk sampled at temperature 0.6 and top-p
+    0.9 through kernel 5, then the SNAC decode of its 4 frames; the best of
+    TTFB_REPEATS after a warm-up. Then ms a token (host clock, and device
+    time from torch.profiler), the busy share and a per-kernel breakdown of
+    one TTS_PROFILE_TOKENS-token chunk."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_audio_torch.core.generation import AudioGenerateParameters
+
+    gp = AudioGenerateParameters(temperature=0.6, top_p=0.9, repetition_penalty=1.0)
+    prompt = [0] * (TTFB_BUCKET - 8) + list(range(100, 108))
+    dec = model._get_decoder(gp, fused=True)
+    params = {**model.params, "fused_pack": model.fused_decoder_pack()}
+    dev = model.device
+
+    def state():  # the repetition ring and its write count
+        return (torch.zeros((1, gp.repetition_context_size), dtype=torch.int64, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
+
+    def chunk(n, seed, max_tokens):
+        fc, last = tts_prefill(model, prompt, max_tokens, valid_from=0)
+        return dec(params, fc, last, torch.zeros((n,), dtype=torch.int64, device=dev),
+                   torch.Generator(device=dev).manual_seed(seed), -1, *state())
+
+    def first_audio(seed):
+        toks = chunk(TTFB_CHUNK, seed, TTFB_CHUNK + 1)[0]
+        f = toks.reshape(TTFB_CHUNK // 7, 7) % 4096
+        wav = model.codec.decode([f[:, :1].reshape(1, -1), f[:, 1:3].reshape(1, -1),
+                                  f[:, 3:7].reshape(1, -1)], seed=seed)
+        return wav.float().cpu().numpy()
+
+    with torch.inference_mode():
+        wav = first_audio(0)
+        times = []
+        for r in range(TTFB_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first_audio(r + 1)
+            times.append(time.perf_counter() - t0)
+        check(wav.shape == (1, TTFB_CHUNK // 7 * 4 * model.codec.config.hop_length)
+              and bool(np.isfinite(wav).all()), f"ttfb waveform {wav.shape}")
+        ttfb = min(times)
+        audio_s = wav.size / model.sample_rate
+        # ms a token: the decode chunk alone (its prefill outside the clock)
+        n = TTS_PROFILE_TOKENS
+        fc, last = tts_prefill(model, prompt, n + 1, valid_from=0)
+        def args():
+            return (params, fc._replace(k=fc.k.clone(), v=fc.v.clone()), last,
+                    torch.zeros((n,), dtype=torch.int64, device=dev),
+                    torch.Generator(device=dev).manual_seed(9), -1, *state())
+
+        walls = []
+        for _ in range(3):
+            a = args()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec(*a)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        a = args()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            dec(*a)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+    kernels = by_kernel(prof)
+    busy_ms = sum(c[1] for c in kernels.values()) / 1e3
+    n_events = sum(c[0] for c in kernels.values())
+    k5 = ("rms_quantize_kernel", "int8_gemv_lanes_kernel", "rope_qk_kernel",
+          "gqa_attn_partial", "attn_combine_kernel")
+    k5_ms = sum(us for name, (c, us) in kernels.items() if any(k in name for k in k5)) / 1e3
+    out = dict(ttfb_ms=ttfb * 1e3, ttfb_all_ms=[t * 1e3 for t in times],
+               first_audio_s=audio_s, realtime_x=audio_s / ttfb,
+               ms_per_token=min(walls) * 1e3 / n, device_ms_per_token=busy_ms / n,
+               kernel5_device_ms_per_token=k5_ms / n, busy_share=busy_ms / prof_ms,
+               device_events_per_token=n_events / n)
+    print(f"[tts ttfb] bucket {TTFB_BUCKET}, {TTFB_CHUNK}-token chunk (T 0.6, top-p 0.9) + "
+          f"SNAC decode of {TTFB_CHUNK // 7} frames: TTFB {ttfb * 1e3:.3f} ms (best of "
+          f"{[f'{t * 1e3:.3f}' for t in times]}), {audio_s:.4f} s of audio: realtime x "
+          f"{audio_s / ttfb:.3f}")
+    print(f"[tts decode] {n}-token chunk: {min(walls) * 1e3 / n:.4f} ms a token "
+          f"(best of 3, host clock); under the profiler wall {prof_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms (share {busy_ms / prof_ms:.4f}), {busy_ms / n:.4f} device ms a "
+          f"token of which kernel 5 {k5_ms / n:.4f}; {n_events / n:.1f} device events a token")
+    print_kernels(kernels, n, top=14)
+    return out
+
+
+def mutations_main() -> int:
+    """The standing mutation check: for each kernel of MUTATIONS, its check
+    alone (timing off) on copies of the checkout, one sound and one for
+    each mutation of its source, each in its own process. Every mutant
+    must fail and every sound copy pass."""
+    results = []
+    with tempfile.TemporaryDirectory(prefix="mutants_") as tmp:
+        for kernel, (source, phase, muts) in MUTATIONS.items():
+            for name, old, new in [("sound", None, None)] + muts:
+                dst = Path(tmp) / f"copy{len(results)}"
+                shutil.copytree(ROOT, dst, ignore=shutil.ignore_patterns(
+                    ".git", "_build", "chiprun_out", "_chip", "__pycache__"))
+                if old is not None:
+                    text = (dst / source).read_text()
+                    check(text.count(old) == 1, f"mutation {name!r}: no unique site")
+                    (dst / source).write_text(text.replace(old, new))
+                res = subprocess.run(
+                    [sys.executable, "-c", f"import sys, chip_smoke; "
+                     f"sys.exit(chip_smoke.{phase}())"],
+                    cwd=dst, capture_output=True, text=True, timeout=900)
+                lines = [ln for ln in res.stdout.splitlines() if ln.startswith("[")]
+                err = res.stderr.strip().splitlines()[-1:] if res.returncode else []
+                print(f"[mutation] {kernel}: {name}: exit {res.returncode}")
+                for ln in lines + err:
+                    print("  " + ln)
+                results.append(dict(kernel=kernel, name=name, exit=res.returncode))
+    ok = all((r["exit"] == 0) == (r["name"] == "sound") for r in results)
+    print(json.dumps({"mutations": results, "sound_passes_and_every_mutant_fails": ok}))
+    return 0 if ok else 1
+
+
+def fused_llama_only() -> int:
+    """Phase 8 alone, timing off (kernel 5's check under --mutations)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    fused_llama_phase(build_orpheus(dev), dev, timing=False)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1032,6 +1764,8 @@ def main() -> int:
     if not (ROOT / "tpu_audio_torch" / "csrc").is_dir() or not AUDIO.exists():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--mutations"]:
+        return mutations_main()
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1093,15 +1827,32 @@ def main() -> int:
 
     for cfg_name, model in models.items():
         profile_window(cfg_name, model, audio, gp)
+    del models, model, w8, outputs, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- Orpheus-3B: kernel 5 and offline synthesis ---------------------------
+    t0 = time.perf_counter()
+    orpheus = build_orpheus(dev)
+    orpheus.fused_decoder_pack()
+    torch.cuda.synchronize()
+    print(f"Orpheus-3B w8a8 (band head) and SNAC 24 kHz built on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    records["fused_llama_stack"] = fused_llama_phase(orpheus, dev)
+    tts_runs, tts_launches, tts_tokens = tts_generate_phase(orpheus)
+    records["fused_llama_stack"]["launches"] = tts_launches["fused_llama_stack"]
+    tts = dict(runs=tts_runs, teacher_forced=tts_teacher_forced(orpheus, tts_tokens),
+               ttfb=tts_ttfb_phase(orpheus), checks=records["fused_llama_stack"]["checks"])
 
     kernels = [dict(name=k, **{f: r[f] for f in (
         "route", "source", "replaces", "launches", "max_abs_err", "rel_err", "ms",
-        "plain_ms", "dev_ms", "plain_dev_ms")}, **({"by_lanes": r["by_lanes"]}
-                                                   if "by_lanes" in r else {}))
+        "plain_ms", "bound_ms", "bound_by", "library_ms", "dev_ms", "plain_dev_ms")},
+        **({"by_lanes": r["by_lanes"]} if "by_lanes" in r else {}))
         for k, r in records.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"generate": runs, "smi": smi.splitlines()[0]}))
     print(json.dumps({"serve": serve, "throughput": throughput, "http": http}))
+    print(json.dumps({"tts": tts}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -35,6 +35,10 @@ print("ok")
      "tpu_audio_torch.core.audio_io", "tpu_audio_torch.core.hub"],
     ["tpu_audio_torch.parallel.continuous", "tpu_audio_torch.parallel.continuous_stt",
      "tpu_audio_torch.core.sampling", "tpu_audio_torch.cli.serve"],
+    ["tpu_audio_torch.models.llama", "tpu_audio_torch.models.tts",
+     "tpu_audio_torch.models.tts.llama_tts", "tpu_audio_torch.codecs.snac",
+     "tpu_audio_torch.core.ar_loop", "tpu_audio_torch.ops.fused_llama",
+     "tpu_audio_torch.cli.tts"],
 ])
 def test_port_imports_without_jax(mods):
     res = subprocess.run([sys.executable, "-c", _BLOCKER.format(mods=mods)],

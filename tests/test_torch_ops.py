@@ -356,3 +356,154 @@ def test_supported_lanes_states_the_kernel_limit():
     wide = TW.WhisperConfig(d_model=1280, decoder_attention_heads=20,
                             decoder_ffn_dim=9216)  # 32 x 9216 B > 227 KB
     assert TF.supported_lanes(wide, 8) and not TF.supported_lanes(wide, 32)
+
+
+# -- kernel 5: the Llama decoder stack (fused_llama_stack) ----------------------
+
+from tpu_audio.models import llama as JL  # noqa: E402
+from tpu_audio.ops import pallas_fused_llama as JFL  # noqa: E402
+from tpu_audio_torch.models import llama as TL  # noqa: E402
+from tpu_audio_torch.ops import fused_llama as TFL  # noqa: E402
+
+# the config of tests/test_fused_llama.py:17
+LLAMA = dict(hidden_size=1024, num_hidden_layers=2, intermediate_size=2048,
+             num_attention_heads=8, num_key_value_heads=4, head_dim=128,
+             vocab_size=96, rope_theta=10000.0, tie_word_embeddings=True,
+             max_position_embeddings=128)
+LLAMA3 = {"rope_type": "llama3", "factor": 32.0, "low_freq_factor": 1.0,
+          "high_freq_factor": 4.0, "original_max_position_embeddings": 64}
+_LLAMA_SETUPS = {}
+
+
+def _llama_setup(variant):
+    """JAX and port packs of one w8a8 tree, with non-unit norm weights
+    (unit norms would hide a wrong norm row): ``base``, ``qk_norm`` or
+    ``llama3`` (NTK-scaled RoPE)."""
+    if variant not in _LLAMA_SETUPS:
+        kw = dict(LLAMA, qk_norm=variant == "qk_norm",
+                  rope_scaling=LLAMA3 if variant == "llama3" else None)
+        jcfg, tcfg = JL.LlamaConfig(**kw), TL.LlamaConfig(**kw)
+        params = JL.init_random_params(jcfg, seed=5, dtype=jnp.float32)
+        rng = np.random.default_rng(7)
+        lp = params["model"]["layers"]
+        for name in ("input_layernorm", "post_attention_layernorm"):
+            lp[name]["weight"] = jnp.asarray(1 + 0.2 * rng.standard_normal((2, 1024)),
+                                             jnp.float32)
+        if jcfg.qk_norm:
+            for name in ("q_norm", "k_norm"):
+                lp["self_attn"][name]["weight"] = jnp.asarray(
+                    1 + 0.3 * rng.standard_normal((2, 128)), jnp.float32)
+        params = jquant.quantize_tree(params, scheme="w8a8")
+        tparams = from_jax_params(jax_tree_to_numpy(params))
+        _LLAMA_SETUPS[variant] = (jcfg, tcfg, JFL.pack_llama_weights(params, jcfg),
+                                  TFL.pack_llama_weights(tparams, tcfg))
+    return _LLAMA_SETUPS[variant]
+
+
+@pytest.mark.parametrize("variant", ["base", "qk_norm"])
+def test_fused_llama_pack_matches_jax(variant):
+    """The same int8 rows and scales as the TPU pack, in the checkpoint's
+    head order (the TPU pack permutes q rows and o columns)."""
+    jcfg, _, jpack, tpack = _llama_setup(variant)
+    d, ffn = jcfg.hidden_size, jcfg.intermediate_size
+    dkv = jcfg.num_key_value_heads * 128
+    perm = JFL._gqa_perm(jcfg.num_attention_heads, jcfg.num_key_value_heads, 128)
+    ws, rs = np.asarray(jpack.wstream), np.asarray(jpack.row_scales)
+    norm = np.asarray(jpack.normpack)
+    w, sc = tpack.w_in.numpy(), tpack.scales.numpy()
+    q, o = slice(0, d), slice(d + 2 * dkv, 2 * d + 2 * dkv)
+    np.testing.assert_array_equal(w[:, q][:, perm], ws[:, q])
+    np.testing.assert_array_equal(sc[:, q][:, perm], rs[:, q])
+    np.testing.assert_array_equal(w[:, d:d + 2 * dkv], ws[:, d:d + 2 * dkv])
+    np.testing.assert_array_equal(w[:, o][:, :, perm], ws[:, o])
+    np.testing.assert_array_equal(w[:, o.stop:], ws[:, o.stop:o.stop + 2 * ffn])
+    np.testing.assert_array_equal(sc[:, d:o.stop + 2 * ffn], rs[:, d:o.stop + 2 * ffn])
+    np.testing.assert_array_equal(tpack.w_down.numpy(),
+                                  ws[:, o.stop + 2 * ffn:].transpose(0, 2, 1))
+    np.testing.assert_array_equal(sc[:, o.stop + 2 * ffn:], norm[:, 2])
+    np.testing.assert_array_equal(tpack.norms[:, :2].numpy(), norm[:, :2])
+    if jcfg.qk_norm:
+        np.testing.assert_array_equal(tpack.norms[:, 2].numpy()[:, perm], norm[:, 3])
+        np.testing.assert_array_equal(tpack.norms[:, 3, :dkv].numpy(), norm[:, 4, :dkv])
+    # the JAX pack computes its table under jit, where XLA rewrites the
+    # divisions and moves some entries by one ulp
+    np.testing.assert_allclose(np.tile(tpack.inv_freq.numpy(), 2),
+                               np.asarray(jpack.winv)[0], rtol=3e-7)
+
+
+@pytest.mark.parametrize("variant,offset,valid_from", [
+    ("base", 0, 0), ("base", 5, 0), ("base", 40, 0), ("base", 40, 7),
+    ("qk_norm", 5, 0), ("qk_norm", 40, 7), ("llama3", 40, 7)])
+def test_fused_llama_stack_ref_matches_jax(variant, offset, valid_from):
+    """y, newk and newv against the TPU kernel in interpret mode, and the
+    new rows written into the caches in place as bf16."""
+    jcfg, tcfg, jpack, tpack = _llama_setup(variant)
+    d, L = jcfg.hidden_size, jcfg.num_hidden_layers
+    dkv = jcfg.num_key_value_heads * 128
+    rng = np.random.default_rng(offset + 10 * valid_from)
+    kc = jnp.asarray(rng.standard_normal((L, 64, dkv)) * 0.3, jnp.bfloat16)
+    vc = jnp.asarray(rng.standard_normal((L, 64, dkv)) * 0.3, jnp.bfloat16)
+    x = (rng.standard_normal(d) * 0.5).astype(np.float32)
+    jy, jk, jv = JFL.fused_llama_stack(
+        jpack, kc, vc, jnp.zeros((8, d), jnp.float32).at[0].set(x), offset,
+        cfg=jcfg, valid_from=valid_from, interpret=True)
+    tkc = torch.tensor(np.asarray(kc.astype(jnp.float32))).to(torch.bfloat16)
+    tvc = torch.tensor(np.asarray(vc.astype(jnp.float32))).to(torch.bfloat16)
+    ty, tk, tv = TFL.fused_llama_stack(tpack, tkc, tvc, torch.from_numpy(x), offset,
+                                       cfg=tcfg, valid_from=valid_from)
+    # f32 sums in another order can move an int8 activation code by one
+    # step; 1e-3 of the output's scale bounds a few such flips per layer
+    for got, want in ((ty, np.asarray(jy)[0]), (tk, np.asarray(jk)[:, 0]),
+                      (tv, np.asarray(jv)[:, 0])):
+        err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+        assert err < 1e-3, err
+    np.testing.assert_array_equal(tkc[:, offset].float().numpy(),
+                                  tk.to(torch.bfloat16).float().numpy())
+    np.testing.assert_array_equal(tvc[:, offset].float().numpy(),
+                                  tv.to(torch.bfloat16).float().numpy())
+
+
+def test_fused_llama_stack_ref_taps_every_gemv_input():
+    """The tap holds each GEMV input's int8 codes, scale and unrounded
+    values: the q/k/v codes reproduce the layer's v rows through the
+    packed weights, and each code is its unrounded value rounded."""
+    jcfg, tcfg, _, tpack = _llama_setup("base")
+    d, ffn, L = jcfg.hidden_size, jcfg.intermediate_size, jcfg.num_hidden_layers
+    dkv = jcfg.num_key_value_heads * 128
+    rng = np.random.default_rng(2)
+    kc = torch.from_numpy(rng.standard_normal((L, 64, dkv)).astype(np.float32) * 0.3)
+    kmax = max(d, ffn)
+    tap = (torch.zeros((L, 4, kmax), dtype=torch.int8), torch.zeros((L, 4)),
+           torch.zeros((L, 4, kmax)))
+    _, _, nv = TFL.fused_llama_stack(tpack, kc.to(torch.bfloat16), kc.to(torch.bfloat16),
+                                     torch.from_numpy(rng.standard_normal(d).astype(
+                                         np.float32)), 9, cfg=tcfg, tap=tap)
+    for li in range(L):
+        rows = slice(d + dkv, d + 2 * dkv)
+        v = ((tpack.w_in[li, rows].double() @ tap[0][li, 0, :d].double()).float()
+             * (tpack.scales[li, rows] * tap[1][li, 0]))
+        assert torch.equal(v, nv[li])
+    used = torch.arange(kmax)[None, :] < torch.tensor([d, d, d, ffn])[:, None]
+    assert torch.equal(torch.where(used, torch.round(tap[2]), 0.0), tap[0].float())
+    assert bool((tap[1] > 0).all())
+
+
+def test_fused_llama_supported_states_the_kernel_limits():
+    """The shapes the TPU kernel takes (Orpheus-3B, Llama-3.1-8B's 14336-
+    wide ffn, a 16384-wide one) up to a 57,856-wide f32 row in the
+    quantise's shared memory; no head dim but 128, no ffn of partial
+    16-byte vectors."""
+    orpheus = dict(hidden_size=3072, num_hidden_layers=28, intermediate_size=8192,
+                   num_attention_heads=24, num_key_value_heads=8, vocab_size=156940)
+    llama8b = dict(hidden_size=4096, num_hidden_layers=32, intermediate_size=14336,
+                   num_attention_heads=32, num_key_value_heads=8, vocab_size=128256)
+    for kw in (orpheus, llama8b, dict(LLAMA, qk_norm=True),
+               dict(LLAMA, intermediate_size=16384)):
+        assert JFL.supported(JL.LlamaConfig(**kw))
+        assert TFL.supported(TL.LlamaConfig(**kw))
+    assert not TFL.supported(TL.LlamaConfig(hidden_size=2048, num_attention_heads=32))
+    assert not TFL.supported(TL.LlamaConfig(**dict(LLAMA, intermediate_size=2056)))
+    assert TFL.supported(TL.LlamaConfig(**dict(LLAMA, intermediate_size=57856)))
+    assert not TFL.supported(TL.LlamaConfig(**dict(LLAMA, intermediate_size=57872)))
+    assert not TFL.supported(TL.LlamaConfig(**LLAMA, attention_bias=True))
+    assert not TFL.supported(TL.LlamaConfig(**LLAMA, rope_interleaved=True))

@@ -479,6 +479,22 @@ def test_engine_repetition_penalty_follows_its_window():
     assert reqs[1].tokens[:5] == [7, 3, 40, 21, 7]
 
 
+@pytest.mark.parametrize("where", ["cpu", "meta"])
+def test_engine_without_device_keeps_its_state_beside_the_caches(where):
+    """Built without ``device=``, the engine puts its lane state on the
+    device of the caches ``cache_factory`` returns (it used to take the
+    CPU whatever the caches' device)."""
+    class Cache:
+        def __init__(self, slots):
+            self.offset = torch.zeros((slots,), dtype=torch.int64, device=where)
+
+    eng = TC.ContinuousBatcher(
+        {}, slots=3, batch_step_fn=lambda *a: None,
+        prefill_fn=lambda p, c, slot, ids, vf, ctx: len(ids), cache_factory=Cache)
+    assert eng.device == torch.device(where)
+    assert all(t.device == torch.device(where) for t in eng._state.tensors())
+
+
 def _wav(audio: np.ndarray) -> bytes:
     buf = io.BytesIO()
     with wave.open(buf, "wb") as w:

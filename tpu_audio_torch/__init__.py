@@ -10,7 +10,10 @@ launches the kernel or raises.
 
 Ported so far: Whisper transcription (``models.stt.whisper``) for one
 30 s window, in the dense, bf16-kv8d and w8-kv8d configurations, and its
-continuous-batching server (``parallel.continuous_stt``, ``cli.serve``).
+continuous-batching server (``parallel.continuous_stt``, ``cli.serve``);
+offline Orpheus speech synthesis (``models.tts.llama_tts`` over
+``models.llama`` and ``codecs.snac``, ``cli.tts``), w8a8 decode through the
+fused Llama kernel.
 """
 
 __version__ = "0.1.0"

@@ -1,16 +1,21 @@
-"""WAV reading and resampling on the host (port of the reading half of
-tpu_audio.core.audio_io): PCM 8/16/24/32-bit and IEEE-float WAV, mixed to
-mono, resampled with scipy's polyphase filter."""
+"""WAV reading, writing and resampling on the host (port of
+tpu_audio.core.audio_io's WAV half): PCM 8/16/24/32-bit and IEEE-float WAV
+in, mixed to mono, resampled with scipy's polyphase filter; 16-bit PCM WAV
+out, whole or streamed."""
 
 from __future__ import annotations
 
+import io
 import math
 import os
 import struct
+import wave
+from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["load_audio", "resample_audio"]
+__all__ = ["load_audio", "resample_audio", "float_to_pcm16", "save_wav",
+           "StreamingWAVWriter"]
 
 
 def _pcm24_to_float(raw: bytes) -> np.ndarray:
@@ -91,3 +96,70 @@ def load_audio(path: str, sample_rate: int | None = None,
         x = resample_audio(x, sr, sample_rate)
         sr = sample_rate
     return np.ascontiguousarray(x, np.float32), sr
+
+
+def float_to_pcm16(audio: np.ndarray) -> np.ndarray:
+    """float [-1, 1] -> little-endian int16 (clipped, rounded)."""
+    return np.round(np.clip(np.asarray(audio), -1.0, 1.0) * 32767.0).astype("<i2")
+
+
+def save_wav(path: str, audio: np.ndarray, sample_rate: int) -> None:
+    """Write float32 audio ([-1, 1], shape [T] or [T, C]) as 16-bit PCM WAV."""
+    audio = np.asarray(audio)
+    if audio.ndim == 1:
+        audio = audio[:, None]
+    pcm = float_to_pcm16(audio)
+    with wave.open(os.fspath(path), "wb") as w:
+        w.setnchannels(audio.shape[1])
+        w.setsampwidth(2)
+        w.setframerate(sample_rate)
+        w.writeframes(pcm.tobytes())
+
+
+@dataclass
+class StreamingWAVWriter:
+    """Incremental 16-bit PCM WAV writer: chunks go to disk as they come,
+    and ``close()`` finalises the RIFF header."""
+
+    path: str
+    sample_rate: int
+    n_channels: int = 1
+
+    def __post_init__(self):
+        self._f = open(self.path, "wb")
+        self._bytes_written = 0
+        self._write_header(0)
+
+    def _write_header(self, data_bytes: int) -> None:
+        hdr = io.BytesIO()
+        hdr.write(b"RIFF")
+        hdr.write(struct.pack("<I", 36 + data_bytes))
+        hdr.write(b"WAVEfmt ")
+        hdr.write(struct.pack("<IHHIIHH", 16, 1, self.n_channels, self.sample_rate,
+                              self.sample_rate * self.n_channels * 2,
+                              self.n_channels * 2, 16))
+        hdr.write(b"data")
+        hdr.write(struct.pack("<I", data_bytes))
+        self._f.seek(0)
+        self._f.write(hdr.getvalue())
+
+    def append(self, audio: np.ndarray) -> None:
+        """Append a float32 chunk (shape [T] or [T, C])."""
+        audio = np.asarray(audio)
+        if audio.ndim == 1:
+            audio = audio[:, None]
+        pcm = float_to_pcm16(audio).tobytes()
+        self._f.seek(0, os.SEEK_END)
+        self._f.write(pcm)
+        self._bytes_written += len(pcm)
+
+    def close(self) -> None:
+        self._write_header(self._bytes_written)
+        self._f.flush()
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -1,13 +1,100 @@
-"""STT parameter and result types (port of tpu_audio.core.generation's
-``STTGenerateParameters``, ``STTSegment`` and ``STTOutput``)."""
+"""Generation event, parameter and result types (port of
+tpu_audio.core.generation: the TTS events and parameters, and the STT
+parameters and results)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from enum import Enum
 from typing import Any
 
-__all__ = ["STTGenerateParameters", "STTOutput", "STTSegment",
-           "validate_kv_bits"]
+import numpy as np
+
+__all__ = ["AudioGenerateParameters", "AudioGeneration", "AudioGenerationError",
+           "AudioGenerationInfo", "AudioGenerationKind", "STTGenerateParameters",
+           "STTOutput", "STTSegment", "validate_kv_bits"]
+
+
+class AudioGenerationError(RuntimeError):
+    pass
+
+
+@dataclass
+class AudioGenerationInfo:
+    """Perf stats emitted with generation results."""
+
+    prompt_token_count: int = 0
+    generation_token_count: int = 0
+    prompt_time: float = 0.0
+    generate_time: float = 0.0
+    audio_duration: float = 0.0
+    peak_memory_bytes: int = 0
+
+    @property
+    def prompt_tokens_per_second(self) -> float:
+        return self.prompt_token_count / self.prompt_time if self.prompt_time else 0.0
+
+    @property
+    def tokens_per_second(self) -> float:
+        return (self.generation_token_count / self.generate_time
+                if self.generate_time else 0.0)
+
+    @property
+    def real_time_factor(self) -> float:
+        """generation wall time / audio duration (< 1 is faster than RT)."""
+        total = self.prompt_time + self.generate_time
+        return total / self.audio_duration if self.audio_duration else 0.0
+
+
+class AudioGenerationKind(str, Enum):
+    TOKEN = "token"
+    INFO = "info"
+    AUDIO = "audio"
+    PROGRESS = "progress"
+
+
+@dataclass
+class AudioGeneration:
+    """Streaming event: ``.token(int)``, ``.info(AudioGenerationInfo)``,
+    ``.audio(np.ndarray)``, ``.progress(float)``."""
+
+    kind: AudioGenerationKind
+    token: int | None = None
+    info: AudioGenerationInfo | None = None
+    audio: np.ndarray | None = None
+    progress: float | None = None
+
+    @classmethod
+    def from_token(cls, t: int) -> "AudioGeneration":
+        return cls(AudioGenerationKind.TOKEN, token=t)
+
+    @classmethod
+    def from_info(cls, i: AudioGenerationInfo) -> "AudioGeneration":
+        return cls(AudioGenerationKind.INFO, info=i)
+
+    @classmethod
+    def from_audio(cls, a: np.ndarray) -> "AudioGeneration":
+        return cls(AudioGenerationKind.AUDIO, audio=a)
+
+    @classmethod
+    def from_progress(cls, p: float) -> "AudioGeneration":
+        return cls(AudioGenerationKind.PROGRESS, progress=p)
+
+
+@dataclass
+class AudioGenerateParameters:
+    """TTS generation parameters."""
+
+    max_tokens: int = 1200
+    temperature: float = 0.6
+    top_p: float = 0.8
+    top_k: int = 0
+    repetition_penalty: float = 1.3
+    repetition_context_size: int = 64
+    seed: int | None = None
+    streaming_interval: float = 0.5  # seconds of audio per streamed chunk
+    verbose: bool = False
+    extra: dict[str, Any] = field(default_factory=dict)
 
 
 def validate_kv_bits(kv_bits) -> None:

@@ -2,7 +2,8 @@
 dense and int8 parts of tpu_audio.core.kv_cache).
 
 Caches are fixed-capacity ``[L, B, H, S_max, D]`` buffers updated in
-place at an explicit ``offset``. The int8 code scheme of
+place at an explicit ``offset`` (the JAX package returns updated copies;
+writing in place saves a cache-sized copy a step). The int8 code scheme of
 :func:`_quantize` (symmetric, per-position head-dim groups) is the one
 the int8 cross-attention kernel (``ops.kv_attention``) reads.
 """
@@ -16,16 +17,20 @@ import torch
 from tpu_audio_torch.core.generation import validate_kv_bits
 
 __all__ = ["KVCache", "FusedLaneRow", "init_cache", "make_cache_for",
-           "attention_mask", "_quantize", "_dequantize"]
+           "attention_mask", "make_layer_updater", "update_cache",
+           "_quantize", "_dequantize"]
 
 
 class KVCache(NamedTuple):
     """Stacked-layer dense KV cache. ``k``/``v``: [L, B, H, S_max, D];
-    ``offset``: number of written positions."""
+    ``offset``: number of written positions; ``valid_from``: first
+    attendable position (the positions below it are left padding from
+    prompt bucketing and stay masked)."""
 
     k: torch.Tensor
     v: torch.Tensor
     offset: int
+    valid_from: int = 0
 
     @property
     def max_len(self) -> int:
@@ -48,10 +53,12 @@ class FusedLaneRow(NamedTuple):
 
 
 def init_cache(n_layers: int, batch: int, n_kv_heads: int, head_dim: int,
-               max_len: int, dtype=torch.bfloat16, device=None) -> KVCache:
+               max_len: int, dtype=torch.bfloat16, device=None,
+               valid_from: int = 0) -> KVCache:
     shape = (n_layers, batch, n_kv_heads, max_len, head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device), 0)
+                   torch.zeros(shape, dtype=dtype, device=device), 0,
+                   int(valid_from))
 
 
 def _quantize(x: torch.Tensor, n_groups: int, bits: int = 8):
@@ -84,7 +91,8 @@ def _dequantize(q: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 def make_cache_for(n_layers: int, batch: int, n_kv_heads: int, head_dim: int,
                    max_len: int, dtype=torch.bfloat16,
                    kv_bits: int | None = None, kv_group_size: int = 64,
-                   quantized_kv_start: int = 0, device=None) -> KVCache:
+                   quantized_kv_start: int = 0, device=None,
+                   valid_from: int = 0) -> KVCache:
     """Self-attention cache for the ``kv_bits``/``quantized_kv_start``
     knobs. Ported: dense (``kv_bits=None``) and a dense self cache beside
     int8 cross K/V (``kv_bits=8``, ``quantized_kv_start >= max_len``)."""
@@ -96,13 +104,53 @@ def make_cache_for(n_layers: int, batch: int, n_kv_heads: int, head_dim: int,
             "ported yet; pass quantized_kv_start >= the decode length for a "
             "dense self cache with int8 cross K/V")
     return init_cache(n_layers, batch, n_kv_heads, head_dim, max_len, dtype,
-                      device)
+                      device, valid_from)
 
 
 def attention_mask(cache: KVCache, q_len: int) -> torch.Tensor:
     """Boolean mask ``[1, 1, q_len, S_max]``: causal over the new
-    positions, allowing every cached position."""
+    positions, allowing the cached positions from ``valid_from`` on."""
     device = cache.k.device
     key_pos = torch.arange(cache.max_len, device=device)
     query_pos = cache.offset + torch.arange(q_len, device=device)
-    return (key_pos[None, :] <= query_pos[:, None])[None, None]
+    causal = key_pos[None, :] <= query_pos[:, None]
+    return (causal & (key_pos[None, :] >= cache.valid_from))[None, None]
+
+
+def make_layer_updater(cache: KVCache | None):
+    """Per-layer cache plumbing for a stacked-layer forward (the dense
+    part of the JAX package's helper). Returns ``(xs, update, fold)``:
+    ``xs`` the per-layer ``(k, v)`` views, ``update(cache_l, offset, k_new,
+    v_new, dtype) -> (cache_l, k_full, v_full)`` writing ``k_new/v_new
+    [B, H, T, D]`` at ``offset`` in place and returning the full-capacity
+    views for attention, ``fold(cache, ys) -> cache``. All None without a
+    cache."""
+    if cache is None:
+        return None, None, None
+    if not isinstance(cache, KVCache):
+        raise NotImplementedError(
+            f"{type(cache).__name__}: only the dense KV cache is ported")
+    xs = list(zip(cache.k, cache.v))
+
+    def update(cache_l, offset, k_new, v_new, dtype):
+        k_c, v_c = cache_l
+        t = k_new.shape[2]
+        k_c[:, :, offset:offset + t] = k_new.to(k_c.dtype)
+        v_c[:, :, offset:offset + t] = v_new.to(v_c.dtype)
+        return cache_l, k_c.to(dtype), v_c.to(dtype)
+
+    def fold(cache, ys):
+        return cache
+
+    return xs, update, fold
+
+
+def update_cache(cache: KVCache, layer: int, k_new: torch.Tensor,
+                 v_new: torch.Tensor):
+    """Write ``k_new/v_new [B, H, T, D]`` at the current offset of
+    ``layer`` (in place). Returns the cache and the layer's full-capacity
+    K/V views; the caller advances the offset once per step."""
+    _, update, _ = make_layer_updater(cache)
+    _, k, v = update((cache.k[layer], cache.v[layer]), cache.offset, k_new,
+                     v_new, k_new.dtype)
+    return cache, k, v

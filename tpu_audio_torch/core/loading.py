@@ -24,7 +24,7 @@ from torch import nn
 from tpu_audio_torch.core.quant import Int8Tensor
 
 __all__ = ["load_safetensors", "load_safetensors_file", "unflatten", "flatten",
-           "load_params", "cast_floats", "stack_layer_params", "TreeModule"]
+           "load_params", "cast_floats", "stack_layer_params", "to_device", "TreeModule"]
 
 _ST_DTYPES = {
     "F64": (np.float64, None), "F32": (np.float32, None),
@@ -109,6 +109,15 @@ def cast_floats(tree, dtype):
         return node
 
     return walk(tree)
+
+
+def to_device(tree, device):
+    """Move every tensor leaf of a nested dict to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, Int8Tensor):
+        return Int8Tensor(tree.weight.to(device), tree.scale.to(device))
+    return tree.to(device)
 
 
 def stack_layer_params(tree, container: str = "layers"):

@@ -16,7 +16,8 @@ import torch.nn.functional as F
 from tpu_audio_torch.core import quant
 
 __all__ = ["linear", "embedding", "embedding_as_linear", "layer_norm",
-           "conv1d", "gelu", "sdpa"]
+           "rms_norm", "conv1d", "conv_transpose1d", "gelu", "silu", "snake",
+           "rope_freqs", "apply_rope", "sdpa"]
 
 
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -65,10 +66,32 @@ def layer_norm(p: dict | None, x: torch.Tensor, eps: float = 1e-5) -> torch.Tens
     return y.to(x.dtype)
 
 
-def conv1d(p: dict, x: torch.Tensor, stride: int = 1, padding: int = 0) -> torch.Tensor:
-    """1D conv on channels-last ``[B, L, C_in]`` with ``weight [O, I, K]``."""
+def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm computed in f32, returned in ``x.dtype``."""
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * p["weight"].to(torch.float32)).to(x.dtype)
+
+
+def conv1d(p: dict, x: torch.Tensor, stride: int = 1, padding: int = 0,
+           dilation: int = 1, groups: int = 1) -> torch.Tensor:
+    """1D conv on channels-last ``[B, L, C_in]`` with ``weight [O, I/g, K]``."""
     y = F.conv1d(x.transpose(1, 2), p["weight"].to(x.dtype), stride=stride,
-                 padding=padding).transpose(1, 2)
+                 padding=padding, dilation=dilation, groups=groups).transpose(1, 2)
+    if "bias" in p:
+        y = y + p["bias"].to(y.dtype)
+    return y
+
+
+def conv_transpose1d(p: dict, x: torch.Tensor, stride: int = 1, padding: int = 0,
+                     output_padding: int = 0, groups: int = 1) -> torch.Tensor:
+    """1D transposed conv on channels-last ``[B, L, C_in]`` with
+    ``weight [I, O/g, K]`` (output length ``(L-1)*stride - 2*padding + K +
+    output_padding``)."""
+    y = F.conv_transpose1d(x.transpose(1, 2), p["weight"].to(x.dtype),
+                           stride=stride, padding=padding,
+                           output_padding=output_padding, groups=groups)
+    y = y.transpose(1, 2)
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y
@@ -79,12 +102,74 @@ def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)
+
+
+def snake(x: torch.Tensor, alpha: torch.Tensor, logscale: bool = False) -> torch.Tensor:
+    """Snake activation ``x + sin(a x)^2 / (a + 1e-9)``."""
+    a = torch.exp(alpha) if logscale else alpha
+    a = a.to(x.dtype)
+    return x + torch.sin(a * x) ** 2 / (a + 1e-9)
+
+
+def rope_freqs(head_dim: int, base: float = 10000.0,
+               llama3_scaling: dict | None = None, device=None) -> torch.Tensor:
+    """Inverse frequencies ``[head_dim/2]`` f32, with optional Llama-3 NTK
+    scaling (``factor``, ``low_freq_factor``, ``high_freq_factor``,
+    ``original_max_position_embeddings``)."""
+    inv = 1.0 / (base ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                       device=device) / head_dim))
+    if llama3_scaling:
+        factor = llama3_scaling.get("factor", 8.0)
+        low_factor = llama3_scaling.get("low_freq_factor", 1.0)
+        high_factor = llama3_scaling.get("high_freq_factor", 4.0)
+        old_len = llama3_scaling.get("original_max_position_embeddings", 8192)
+        low_wl = old_len / low_factor
+        high_wl = old_len / high_factor
+        wl = 2 * math.pi / inv
+        smooth = (old_len / wl - low_factor) / (high_factor - low_factor)
+        return torch.where(
+            wl < high_wl, inv,
+            torch.where(wl > low_wl, inv / factor,
+                        (1 - smooth) * inv / factor + smooth * inv))
+    return inv
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               interleaved: bool = False) -> torch.Tensor:
+    """Rotate ``x [B, H, S, D]`` by cos/sin ``[S, D/2]`` (f32 math, result
+    in ``x.dtype``). ``interleaved=False`` is the HF/Llama half split,
+    ``True`` the GPT-NeoX pairing."""
+    xf = x.to(torch.float32)
+    if interleaved:
+        x1, x2 = xf[..., 0::2], xf[..., 1::2]
+        out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                          dim=-1).reshape(x.shape)
+    else:
+        half = x.shape[-1] // 2
+        x1, x2 = xf[..., :half], xf[..., half:]
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         mask: torch.Tensor | None = None, is_causal: bool = False) -> torch.Tensor:
-    """Attention over ``[B, H, S, D]``: f32 scores and softmax, masked
-    positions set to -1e9 (finite, so fully masked rows stay finite),
-    probabilities cast back to ``q.dtype`` before the value product."""
-    scores = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
+         mask: torch.Tensor | None = None, is_causal: bool = False,
+         scale: float | None = None) -> torch.Tensor:
+    """Attention over ``[B, H, S, D]`` (K/V may have fewer heads: grouped
+    query attention, query head ``h`` reading K/V head ``h // (H / H_kv)``):
+    f32 scores and softmax, masked positions set to -1e9 (finite, so fully
+    masked rows stay finite), probabilities cast back to ``q.dtype`` before
+    the value product."""
+    b, n_heads, s_q, d = q.shape
+    n_kv = k.shape[1]
+    if n_kv != n_heads:
+        rep = n_heads // n_kv
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    scores = (q.float() @ k.float().transpose(-1, -2)) * scale
     if is_causal:
         s_q, s_k = q.shape[2], k.shape[2]
         causal = torch.ones((s_q, s_k), dtype=torch.bool,

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["Int8Tensor", "quantize_int8", "quantize_act_int8",
-           "int8_matmul", "quantize_tree"]
+           "int8_matmul", "quantize_tree", "slice_rows"]
 
 
 class Int8Tensor:
@@ -81,6 +81,22 @@ def int8_matmul(x: torch.Tensor, t: Int8Tensor) -> torch.Tensor:
     acc = _int_dot(xq, t)
     y = acc * (xs * t.scale[None, :])
     return y.reshape(*lead, t.weight.shape[0]).to(x.dtype)
+
+
+def slice_rows(p: dict, rows) -> dict:
+    """The output rows ``rows`` of a linear or head param dict
+    (``{"weight": ...}``, dense or :class:`Int8Tensor`, optional
+    ``bias``)."""
+    w = p["weight"]
+    rows = torch.as_tensor(rows, dtype=torch.long, device=w.weight.device
+                           if isinstance(w, Int8Tensor) else w.device)
+    if isinstance(w, Int8Tensor):
+        out = {"weight": Int8Tensor(w.weight[rows], w.scale[rows])}
+    else:
+        out = {"weight": w[rows]}
+    if "bias" in p:
+        out["bias"] = p["bias"][rows]
+    return out
 
 
 def quantize_tree(params: dict, group_size: int = 64,

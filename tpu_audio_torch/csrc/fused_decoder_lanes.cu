@@ -67,9 +67,9 @@ namespace {
 using tpa::ADD;
 using tpa::GELU;
 using tpa::GEMV_THREADS;
+using tpa::MAX_LANES;
 using tpa::STORE;
-
-constexpr int MAX_LANES = 32;
+using tpa::gemv_lanes;
 
 __device__ __forceinline__ int lane_offset(const int* offsets, int m, int s_max) {
   return min(max(offsets[m], 0), s_max - 1);
@@ -88,56 +88,6 @@ __global__ void ln_quantize_rows_kernel(const float* __restrict__ x, int ldx,
   const float s = tpa::ln_quantize_row(x + (size_t)m * ldx, ln_w, ln_b, xf,
                                        xq + (size_t)m * K, K, red);
   if (threadIdx.x == 0) xs[m] = s;
-}
-
-// out[m * ldo + o] (=, or +=) epilogue(sum_i xq[m, i] * w[o, i]) for o < N
-// and every lane m < n (n <= NL).
-template <int MODE, int NL>
-__global__ void __launch_bounds__(GEMV_THREADS)
-int8_gemv_lanes_kernel(const int8_t* __restrict__ xq_g,
-                       const float* __restrict__ xs,
-                       const int8_t* __restrict__ w,
-                       const float* __restrict__ w_scale,
-                       const float* __restrict__ bias, float* __restrict__ out,
-                       int ldo, int N, int K, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int4* xv = reinterpret_cast<int4*>(smem_raw);  // [n, K / 16]
-  const int nvec = K / 16;
-  const int4* src = reinterpret_cast<const int4*>(xq_g);
-  for (int i = threadIdx.x; i < n * nvec; i += GEMV_THREADS) xv[i] = src[i];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = GEMV_THREADS / 32;
-  for (int row = blockIdx.x * nwarps + warp; row < N; row += gridDim.x * nwarps) {
-    const int4* wv = reinterpret_cast<const int4*>(w + (size_t)row * K);
-    int acc[NL];
-#pragma unroll
-    for (int m = 0; m < NL; ++m) acc[m] = 0;
-    for (int c = lane; c < nvec; c += 32) {
-      const int4 a = __ldg(wv + c);  // each weight row is read once for all lanes
-#pragma unroll
-      for (int m = 0; m < NL; ++m) {
-        if (m < n) {
-          const int4 b = xv[m * nvec + c];
-          acc[m] = __dp4a(a.x, b.x, acc[m]);
-          acc[m] = __dp4a(a.y, b.y, acc[m]);
-          acc[m] = __dp4a(a.z, b.z, acc[m]);
-          acc[m] = __dp4a(a.w, b.w, acc[m]);
-        }
-      }
-    }
-    const float ws = w_scale[row];
-#pragma unroll
-    for (int m = 0; m < NL; ++m) {
-      if (m < n) {
-        const int s = tpa::warp_sum_int(acc[m]);
-        if (lane == 0)
-          tpa::gemv_epilogue<MODE>(s, ws, xs[m], bias != nullptr ? bias + row : nullptr,
-                                   out + (size_t)m * ldo + row);
-      }
-    }
-  }
 }
 
 // grid (chunks of 0..s_max, heads, lanes). qkv is this layer's [n, 3d] q/k/v;
@@ -224,38 +174,6 @@ __global__ void attn_combine_lanes(const float* __restrict__ part_o,
     o += part_o[(base + c) * hd + j] * w;
   }
   out[(size_t)m * heads * hd + (size_t)h * hd + j] = o / l;
-}
-
-template <int MODE, int NL>
-cudaError_t gemv_lanes_nl(const int8_t* xq, const float* xs, const int8_t* w,
-                          const float* scale, const float* bias, float* out,
-                          int ldo, int N, int K, int n, cudaStream_t stream) {
-  const auto kernel = int8_gemv_lanes_kernel<MODE, NL>;
-  const size_t smem = (size_t)n * K;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const int rows_per_block = GEMV_THREADS / 32;
-  const int blocks = (N + rows_per_block - 1) / rows_per_block;
-  kernel<<<blocks, GEMV_THREADS, smem, stream>>>(xq, xs, w, scale, bias, out,
-                                                 ldo, N, K, n);
-  return cudaSuccess;
-}
-
-// The accumulator count is a template parameter so the sums stay in
-// registers; n picks the smallest of 1, 2, 4, 8, 16, 32 that holds it.
-template <int MODE>
-cudaError_t gemv_lanes(const int8_t* xq, const float* xs, const int8_t* w,
-                       const float* scale, const float* bias, float* out, int ldo,
-                       int N, int K, int n, cudaStream_t stream) {
-  if (n <= 1) return gemv_lanes_nl<MODE, 1>(xq, xs, w, scale, bias, out, ldo, N, K, n, stream);
-  if (n <= 2) return gemv_lanes_nl<MODE, 2>(xq, xs, w, scale, bias, out, ldo, N, K, n, stream);
-  if (n <= 4) return gemv_lanes_nl<MODE, 4>(xq, xs, w, scale, bias, out, ldo, N, K, n, stream);
-  if (n <= 8) return gemv_lanes_nl<MODE, 8>(xq, xs, w, scale, bias, out, ldo, N, K, n, stream);
-  if (n <= 16) return gemv_lanes_nl<MODE, 16>(xq, xs, w, scale, bias, out, ldo, N, K, n, stream);
-  return gemv_lanes_nl<MODE, MAX_LANES>(xq, xs, w, scale, bias, out, ldo, N, K, n, stream);
 }
 
 void ln_quantize(const float* x, int ldx, const float* ln_w, const float* ln_b,

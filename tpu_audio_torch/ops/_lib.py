@@ -50,6 +50,7 @@ _SIGNATURES = {
     "tpa_decode_attention_int8": [P] * 10 + [I] * 5 + [Fl, P],
     "tpa_fused_stack": [P] * 14 + [I] * 8 + [P],
     "tpa_fused_stack_lanes": [P] * 19 + [I] * 8 + [P],
+    "tpa_fused_llama_stack": [P] * 13 + [I] * 9 + [Fl, P],
 }
 
 

@@ -220,7 +220,10 @@ class ContinuousBatcher:
         self.buckets = tuple(sorted(prefill_buckets))
         self.history_size = max(1, self.sampling.repetition_context_size) \
             if self.sampling.repetition_penalty != 1.0 else 1
-        self.device = torch.device(device if device is not None else "cpu")
+        self._cache = cache_factory(self.slots)
+        # the lane state lives beside the caches unless the caller says
+        self.device = (torch.device(device) if device is not None
+                       else self._cache.offset.device)
         self.seed = int(seed)
         self._step_fn = step_fn
         self._batch_step_fn = batch_step_fn
@@ -231,7 +234,6 @@ class ContinuousBatcher:
         self._lane: list[GenRequest | None] = [None] * self.slots
         self._pos = [0] * self.slots  # host bound of each lane's offset
         self.requests: dict[int, GenRequest] = {}
-        self._cache = cache_factory(self.slots)
         self._ctx = (None if context_template is None else tuple(
             torch.zeros((self.slots,) + tuple(t.shape), dtype=t.dtype,
                         device=self.device) for t in context_template))
