@@ -39,6 +39,9 @@ print("ok")
      "tpu_audio_torch.models.tts.llama_tts", "tpu_audio_torch.codecs.snac",
      "tpu_audio_torch.core.ar_loop", "tpu_audio_torch.ops.fused_llama",
      "tpu_audio_torch.cli.tts"],
+    ["tpu_audio_torch.parallel.continuous", "tpu_audio_torch.ops.fused_llama",
+     "tpu_audio_torch.models.tts.llama_tts", "tpu_audio_torch.core.generation",
+     "tpu_audio_torch.cli.serve"],
 ])
 def test_port_imports_without_jax(mods):
     res = subprocess.run([sys.executable, "-c", _BLOCKER.format(mods=mods)],

@@ -507,3 +507,98 @@ def test_fused_llama_supported_states_the_kernel_limits():
     assert not TFL.supported(TL.LlamaConfig(**dict(LLAMA, intermediate_size=57872)))
     assert not TFL.supported(TL.LlamaConfig(**LLAMA, attention_bias=True))
     assert not TFL.supported(TL.LlamaConfig(**LLAMA, rope_interleaved=True))
+
+
+# -- kernel 6: the Llama serving lanes stack (fused_llama_stack_lanes) ---------
+
+
+def _llama_lanes_inputs(jcfg, n, slots, seed):
+    """Random bf16 caches in every row of every slot of a stacked state
+    (rows below a lane's valid_from and above its offset included, so a
+    masking or slot error shows), the lanes' shuffled slots and their
+    embedded tokens."""
+    L, d, dkv = jcfg.num_hidden_layers, jcfg.hidden_size, jcfg.num_key_value_heads * 128
+    rng = np.random.default_rng(seed)
+    kc, vc = (np.array(jnp.asarray(rng.standard_normal((slots, L, 64, dkv)) * 0.3,
+                                     jnp.bfloat16).astype(jnp.float32)) for _ in range(2))
+    lanes = rng.permutation(slots)[:n]
+    x = (rng.standard_normal((n, d)) * 0.5).astype(np.float32)
+    return kc, vc, lanes, x
+
+
+@pytest.mark.parametrize("variant,offsets,starts", [
+    ("base", [9, 0, 33], [2, 0, 0]),          # tests/test_fused_llama.py:300
+    ("base", [3, 0, 40, 63], [0, 0, 8, 0]),   # tests/test_fused_llama.py:434
+    ("qk_norm", [5, 17, 63], [0, 4, 5]),      # tests/test_fused_llama.py:349, with left pads
+    ("llama3", [63, 0, 40], [5, 0, 7])])
+def test_fused_llama_stack_lanes_ref_matches_jax(variant, offsets, starts):
+    """Lanes at shuffled slots of a stacked state, against the TPU lanes
+    kernel in interpret mode (which takes each lane's cache in lane order):
+    y, newk and newv, the new rows at each lane's slot and offset, and no
+    other row of any slot moved."""
+    jcfg, tcfg, jpack, tpack = _llama_setup(variant)
+    d, n = jcfg.hidden_size, len(offsets)
+    kc, vc, lanes, x = _llama_lanes_inputs(jcfg, n, n + 2, sum(offsets) + n)
+    pad8 = np.zeros((8,), np.int32)
+    off8, st8 = pad8.copy(), pad8.copy()
+    off8[:n], st8[:n] = offsets, starts
+    jy, jk, jv = JFL.fused_llama_stack_lanes(
+        jpack, jnp.asarray(kc[lanes], jnp.bfloat16), jnp.asarray(vc[lanes], jnp.bfloat16),
+        jnp.zeros((8, d), jnp.float32).at[:n].set(x), off8, st8, cfg=jcfg, interpret=True)
+    tkc, tvc = (torch.from_numpy(c).to(torch.bfloat16) for c in (kc, vc))
+    before_k, before_v = tkc.clone(), tvc.clone()
+    ty, tk, tv = TFL.fused_llama_stack_lanes(
+        tpack, tkc, tvc, torch.from_numpy(lanes), torch.from_numpy(x),
+        torch.tensor(offsets), torch.tensor(starts), cfg=tcfg)
+    # the bound of test_fused_llama_stack_ref_matches_jax
+    errs = []
+    for got, want in ((ty, np.asarray(jy)[:n]), (tk, np.asarray(jk)[:, :n]),
+                      (tv, np.asarray(jv)[:, :n])):
+        errs.append(float(np.abs(got.numpy() - want).max() / np.abs(want).max()))
+    print(f"lanes vs JAX interpret, {variant} offsets {offsets}: y/newk/newv rel "
+          + "/".join(f"{e:.2e}" for e in errs))
+    assert max(errs) < 1e-3, errs
+    for m, (slot, off) in enumerate(zip(lanes, offsets)):
+        before_k[slot, :, off] = tk[:, m].to(torch.bfloat16)
+        before_v[slot, :, off] = tv[:, m].to(torch.bfloat16)
+    assert torch.equal(tkc, before_k) and torch.equal(tvc, before_v)
+
+
+def test_fused_llama_stack_lanes_ref_lanes_equal_b1():
+    """Lanes in shuffled slots of a 6-slot state, one past the cache's end:
+    each lane equals fused_llama_stack_ref alone on its inputs (the past-end
+    offset clamped to the last row), taps included, lane by lane."""
+    jcfg, tcfg, _, tpack = _llama_setup("qk_norm")
+    L, kmax = jcfg.num_hidden_layers, max(jcfg.hidden_size, jcfg.intermediate_size)
+    offsets, starts = [0, 63, 40, 64 + 9], [0, 5, 8, 3]
+    n = len(offsets)
+    kc, vc, lanes, x = _llama_lanes_inputs(jcfg, n, 6, 4)
+    tkc, tvc = (torch.from_numpy(c).to(torch.bfloat16) for c in (kc, vc))
+    solo_k, solo_v = tkc.clone(), tvc.clone()
+    tap = (torch.zeros((L, 4, n, kmax), dtype=torch.int8), torch.zeros((L, 4, n)))
+    y, nk, nv = TFL.fused_llama_stack_lanes(
+        tpack, tkc, tvc, torch.from_numpy(lanes), torch.from_numpy(x), torch.tensor(offsets),
+        torch.tensor(starts), cfg=tcfg, tap=tap)
+    for m, (slot, off, vf) in enumerate(zip(lanes, offsets, starts)):
+        solo = (torch.zeros((L, 4, kmax), dtype=torch.int8), torch.zeros((L, 4)))
+        y1, k1, v1 = TFL.fused_llama_stack_ref(tpack, solo_k[slot], solo_v[slot],
+                                               torch.from_numpy(x[m]), min(off, 63), cfg=tcfg,
+                                               valid_from=vf, tap=solo)
+        for got, want in ((y[m], y1), (nk[:, m], k1), (nv[:, m], v1)):
+            assert float((got - want).abs().max() / want.abs().max()) <= 1e-6, m
+        assert torch.equal(tap[0][:, :, m], solo[0]) and torch.equal(tap[1][:, :, m], solo[1])
+    assert torch.equal(tkc, solo_k) and torch.equal(tvc, solo_v)
+
+
+def test_supported_lanes_llama_states_the_kernel_limit():
+    """The lanes GEMV stages n int8 rows of the widest input in shared
+    memory: at Orpheus-3B's ffn 8192, 28 lanes fit in the 227 KB a block may
+    opt into and 29 do not."""
+    orpheus = TL.LlamaConfig(hidden_size=3072, num_hidden_layers=28, intermediate_size=8192,
+                             num_attention_heads=24, num_key_value_heads=8)
+    assert all(TFL.supported_lanes(orpheus, n) for n in range(1, 29))
+    assert not TFL.supported_lanes(orpheus, 29) and not TFL.supported_lanes(orpheus, 0)
+    small = TL.LlamaConfig(**LLAMA)
+    assert TFL.supported_lanes(small, TFL.MAX_LANES)
+    assert not TFL.supported_lanes(small, TFL.MAX_LANES + 1)
+    assert not TFL.supported_lanes(TL.LlamaConfig(hidden_size=2048, num_attention_heads=32), 1)

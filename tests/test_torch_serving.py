@@ -289,7 +289,9 @@ def test_submit_validation_and_out_of_int32_values(rich):
 
 
 def test_engine_needs_a_step_function():
-    with pytest.raises(NotImplementedError, match="llama"):
+    """Without a step function the engine runs the default llama step,
+    which needs the llama config."""
+    with pytest.raises(ValueError, match="cfg for the default llama step"):
         TC.ContinuousBatcher({}, slots=1)
 
 
@@ -582,10 +584,10 @@ def test_worker_engine_death_unblocks_callers(rich):
 def test_serve_cli_refuses_what_is_not_ported(tmp_path):
     from tpu_audio_torch.cli import serve
 
-    for argv, what in ((["--task", "tts"], "not ported"),
+    for argv, what in ((["--task", "sts"], "not ported"),
                        (["--tp", "2"], "tensor-parallel"),
                        (["--warmup"], "warmup")):
         with pytest.raises(SystemExit, match=what):
             serve.main(["--model", str(tmp_path), *argv])
-    with pytest.raises(NotImplementedError, match="tts"):
-        serve.build_server(None, "tts", "x", port=0)
+    with pytest.raises(NotImplementedError, match="sts"):
+        serve.build_server(None, "sts", "x", port=0)

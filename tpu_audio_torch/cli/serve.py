@@ -1,40 +1,67 @@
-"""Transcription HTTP server on the PyTorch port (port of the STT routes of
-tpu_audio.cli.serve). Endpoints follow the OpenAI audio API paths:
+"""Transcription and speech HTTP server on the PyTorch port (port of the
+STT and TTS routes of tpu_audio.cli.serve). Endpoints follow the OpenAI
+audio API paths:
 
 - ``POST /v1/audio/transcriptions``: body = raw WAV bytes
   (``curl --data-binary @in.wav``); JSON out: text/segments/language +
-  wall time.
+  wall time. STT models.
 - ``POST /v1/audio/transcriptions/stream``: same body; chunked
   ``application/x-ndjson``: one ``{"type": "token", "text": ...}`` line per
   transcribed 30 s window, then a final ``{"type": "result", ...}`` line.
+- ``POST /v1/audio/speech``: JSON body ``{"input": "...", "voice": ...,
+  "max_tokens": ..., "seed": ...}``; WAV bytes out. TTS models. Voice
+  cloning: ``"ref_audio_b64"`` (base64 WAV bytes) + ``"ref_text"``.
+- ``POST /v1/audio/speech/stream``: same body; chunked raw PCM16
+  (``Content-Type: audio/L16; rate=<sr>``), each synthesized chunk flushed
+  as the model emits it.
 - ``GET /healthz``: liveness + model metadata.
 - ``GET /metrics``: Prometheus text format: per-route request/error counts
   and wall-time totals.
 
-With ``--slots N`` (N > 1) concurrent transcriptions of up to 30 s share
-the continuously batched decode lanes of
-``tpu_audio_torch.parallel.continuous_stt.STTEngineWorker``; otherwise, and
-for longer audio, requests take turns on the model under a lock. Start
-with:
+With ``--slots N`` (N > 1) concurrent requests share continuously batched
+decode lanes: transcriptions of up to 30 s through
+``parallel.continuous_stt.STTEngineWorker``, speech through
+``parallel.continuous.TTSEngineWorker`` (sampling parameters then fixed
+per server); otherwise, and for longer audio, requests take turns on the
+model under a lock. Start with:
 
-    python -m tpu_audio_torch.cli.serve --model DIR --task stt --slots 4
+    python -m tpu_audio_torch.cli.serve --model DIR --task tts --quantize w8a8 --slots 4
 
 The flags are the JAX server's, plus ``--device`` and ``--quantize w8a8``
-(int8 decoder weights: the configuration whose serving tick runs the fused
-lanes kernel). Tasks other than stt, ``--tp > 1`` and ``--warmup`` are not
-ported yet and stop with a message.
+(int8 weights: the configuration whose serving tick runs a fused lanes
+kernel). ``--task auto`` finds the task through the port's STT and TTS
+registries. Other tasks, ``--tp > 1`` and ``--warmup`` are not ported yet
+and stop with a message.
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import tempfile
 import threading
 import time
+import wave
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+import numpy as np
+
 __all__ = ["main", "build_server"]
+
+TASKS = ("stt", "tts")  # the tasks the port serves
+
+
+def _wav_bytes(audio: np.ndarray, sample_rate: int) -> bytes:
+    from tpu_audio_torch.core.audio_io import float_to_pcm16
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sample_rate)
+        w.writeframes(float_to_pcm16(audio).tobytes())
+    return buf.getvalue()
 
 
 def _load_wav_body(body: bytes, target_sr: int | None):
@@ -46,8 +73,20 @@ def _load_wav_body(body: bytes, target_sr: int | None):
         return load_audio(f.name, sample_rate=target_sr)
 
 
+def _ref_audio(req: dict, model):
+    """Decode the request's base64-WAV cloning reference, if any."""
+    if not req.get("ref_audio_b64"):
+        return None
+    import base64
+
+    audio, _ = _load_wav_body(base64.b64decode(req["ref_audio_b64"]),
+                              getattr(model, "sample_rate", 24000))
+    return audio
+
+
 _KNOWN_ROUTES = (
     "/v1/audio/transcriptions", "/v1/audio/transcriptions/stream",
+    "/v1/audio/speech", "/v1/audio/speech/stream",
     "/healthz", "/metrics",
 )
 
@@ -95,15 +134,17 @@ class _Metrics:
 
 
 class _Server(ThreadingHTTPServer):
-    """The HTTP server; closing it also stops the engine worker."""
+    """The HTTP server; closing it also stops the engine workers."""
 
     daemon_threads = True
     stt_worker = None
+    tts_worker = None
 
     def server_close(self) -> None:
         super().server_close()
-        if self.stt_worker is not None:
-            self.stt_worker.close()
+        for worker in (self.stt_worker, self.tts_worker):
+            if worker is not None:
+                worker.close()
 
 
 def _segments(out) -> list[dict]:
@@ -115,26 +156,35 @@ def build_server(model, task: str, model_name: str,
                  host: str = "127.0.0.1", port: int = 8080,
                  slots: int = 1, generation_parameters=None,
                  step_tokens: int = 7, fused: str = "auto"):
-    """Construct (but don't start) the HTTP server for a Whisper ``model``.
+    """Construct (but don't start) the HTTP server for a Whisper (``task``
+    "stt") or Orpheus (``task`` "tts") ``model``.
 
     ``slots > 1`` routes transcriptions of up to 30 s through a shared
-    :class:`~tpu_audio_torch.parallel.continuous_stt.STTEngineWorker`:
-    concurrent requests decode together in one continuously batched tick
-    instead of serializing on the model lock. ``server_close()`` stops the
-    worker. ``generation_parameters`` is accepted for the JAX signature's
-    sake; the STT routes take none.
+    :class:`~tpu_audio_torch.parallel.continuous_stt.STTEngineWorker`, and
+    speech through a shared
+    :class:`~tpu_audio_torch.parallel.continuous.TTSEngineWorker` (with
+    ``generation_parameters`` fixed per server; ``max_tokens``, ``seed`` and
+    ``voice`` stay per request): concurrent requests decode together in one
+    continuously batched tick instead of serializing on the model lock.
+    ``server_close()`` stops the workers.
     """
-    if task != "stt":
+    if task not in TASKS:
         raise NotImplementedError(
-            f"task {task!r} is not ported yet: the PyTorch server serves stt")
+            f"task {task!r} is not ported yet: the PyTorch server serves {TASKS}")
     lock = threading.Lock()
     metrics = _Metrics()
-    stt_worker = None
-    if slots > 1:
+    stt_worker = tts_worker = None
+    if slots > 1 and task == "stt":
         from tpu_audio_torch.parallel.continuous_stt import STTEngineWorker
 
         stt_worker = STTEngineWorker(model, slots=slots, step_tokens=step_tokens,
                                      fused=fused)
+    elif slots > 1:
+        from tpu_audio_torch.parallel.continuous import TTSEngineWorker
+
+        tts_worker = TTSEngineWorker(model, slots=slots,
+                                     generation_parameters=generation_parameters,
+                                     step_tokens=step_tokens, fused=fused)
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -177,6 +227,64 @@ def build_server(model, task: str, model_name: str,
                 self.wfile.flush()
             self.wfile.write(b"0\r\n\r\n")
 
+        def _speech_batched(self, req: dict) -> None:
+            """A speech request through the continuous-batching worker: its
+            events arrive as the shared engine steps, so many connections
+            synthesize at once on one device."""
+            from tpu_audio_torch.core.audio_io import float_to_pcm16
+            from tpu_audio_torch.core.generation import AudioGenerationKind
+
+            events = tts_worker.synthesize(
+                req.get("input", ""), voice=req.get("voice"),
+                ref_audio=_ref_audio(req, model), ref_text=req.get("ref_text"),
+                max_tokens=(int(req["max_tokens"])
+                            if req.get("max_tokens") is not None else None),
+                seed=int(req.get("seed") or 0))
+            try:
+                chunks = (np.asarray(ev.audio) for ev in events
+                          if ev.kind == AudioGenerationKind.AUDIO)
+                if self.path.endswith("/stream"):
+                    self._stream_chunks(f"audio/L16; rate={model.sample_rate}",
+                                        (float_to_pcm16(c).tobytes() for c in chunks))
+                else:
+                    parts = [c for c in chunks if c.size]
+                    wav = np.concatenate(parts) if parts else np.zeros((0,), np.float32)
+                    self._send(200, _wav_bytes(wav, model.sample_rate), "audio/wav")
+            finally:
+                # a client gone mid-stream cancels the request and frees its
+                # decode lane at once
+                events.close()
+
+        def _speech(self, req: dict) -> None:
+            """A speech request on the model itself, under the lock."""
+            from tpu_audio_torch.core.audio_io import float_to_pcm16
+            from tpu_audio_torch.core.generation import samples_stream
+
+            # cloning arguments only when supplied
+            clone = {}
+            ra = _ref_audio(req, model)
+            if ra is not None:
+                clone = {"ref_audio": ra, "ref_text": req.get("ref_text")}
+            params = model.default_generation_parameters()
+            if req.get("max_tokens") is not None:
+                params.max_tokens = int(req["max_tokens"])
+            if req.get("seed") is not None:
+                params.seed = int(req["seed"])
+            if self.path.endswith("/stream"):
+                def pcm_chunks():
+                    with lock:
+                        for chunk in samples_stream(model, req.get("input", ""),
+                                                    voice=req.get("voice"),
+                                                    generation_parameters=params, **clone):
+                            yield float_to_pcm16(chunk).tobytes()
+
+                self._stream_chunks(f"audio/L16; rate={model.sample_rate}", pcm_chunks())
+            else:
+                with lock:
+                    wav = model.generate(req.get("input", ""), voice=req.get("voice"),
+                                         generation_parameters=params, **clone)
+                self._send(200, _wav_bytes(wav, model.sample_rate), "audio/wav")
+
         def do_GET(self):  # noqa: N802 — http.server API
             if self.path == "/healthz":
                 self._json(200, {"ok": True, "task": task,
@@ -198,7 +306,7 @@ def build_server(model, task: str, model_name: str,
                     failed = True
                     self._json(411, {"error": "Content-Length required"})
                     return
-                if self.path == "/v1/audio/transcriptions/stream":
+                if self.path == "/v1/audio/transcriptions/stream" and task == "stt":
                     audio, _ = _load_wav_body(body, 16000)
 
                     def ndjson():
@@ -212,7 +320,7 @@ def build_server(model, task: str, model_name: str,
                                 yield (json.dumps(ev) + "\n").encode()
 
                     self._stream_chunks("application/x-ndjson", ndjson())
-                elif self.path == "/v1/audio/transcriptions":
+                elif self.path == "/v1/audio/transcriptions" and task == "stt":
                     audio, _ = _load_wav_body(body, 16000)
                     t0 = time.perf_counter()
                     if (stt_worker is not None
@@ -230,6 +338,13 @@ def build_server(model, task: str, model_name: str,
                         "segments": _segments(out),
                         "wall_s": round(time.perf_counter() - t0, 3),
                     })
+                elif (self.path in ("/v1/audio/speech", "/v1/audio/speech/stream")
+                      and task == "tts"):
+                    req = json.loads(body or b"{}")
+                    if tts_worker is not None:
+                        self._speech_batched(req)
+                    else:
+                        self._speech(req)
                 else:
                     failed = True
                     self._json(404, {"error":
@@ -248,8 +363,22 @@ def build_server(model, task: str, model_name: str,
                                 failed)
 
     server = _Server((host, port), Handler)
-    server.stt_worker = stt_worker
+    server.stt_worker, server.tts_worker = stt_worker, tts_worker
     return server
+
+
+def detect_task(model_dir: str) -> str | None:
+    """The task whose model registry (``tpu_audio_torch.models.<task>``)
+    holds the checkpoint's ``model_type``, or None."""
+    import importlib
+
+    from tpu_audio_torch.core import hub
+
+    model_type = hub.resolve_model_type(hub.load_config(model_dir))
+    for task in TASKS:
+        if model_type in importlib.import_module(f"tpu_audio_torch.models.{task}")._REGISTRY:
+            return task
+    return None
 
 
 def main(argv=None) -> None:
@@ -266,10 +395,10 @@ def main(argv=None) -> None:
                              "concurrent requests share the decoder; "
                              "sampling params become per-server)")
     parser.add_argument("--fused", default="auto", choices=("auto", "off"),
-                        help="the fused lanes tick for w8a8 whisper (auto "
-                             "takes it when supported and logs why not; off "
+                        help="the fused lanes tick for w8a8 whisper and "
+                             "Orpheus (auto takes it when supported; off "
                              "serves with the plain per-lane tick, which a "
-                             "w8a8 decoder on CUDA does not take)")
+                             "w8a8 tree on CUDA does not take)")
     parser.add_argument("--step-tokens", type=int, default=7,
                         help="decode tokens per tick under --slots "
                              "(amortizes host work; tokens are identical "
@@ -281,21 +410,32 @@ def main(argv=None) -> None:
                         help="tensor-parallel degree (not ported yet: 1)")
     parser.add_argument("--device", default="cuda", help="torch device")
     parser.add_argument("--quantize", default=None, choices=("w8a8",),
-                        help="int8 decoder weights at load time")
+                        help="int8 weights at load time")
     args = parser.parse_args(argv)
 
-    task = "stt" if args.task == "auto" else args.task
-    if task != "stt":
-        raise SystemExit(f"--task {task}: not ported yet; the PyTorch server "
-                         "serves stt (whisper)")
     if args.tp > 1:
         raise SystemExit("--tp > 1: tensor-parallel serving is not ported yet")
     if args.warmup:
         raise SystemExit("--warmup: not ported yet")
+    task = args.task
+    if task == "auto":
+        from tpu_audio_torch.core import hub
 
-    from tpu_audio_torch.models.stt import load_model
+        task = detect_task(hub.resolve_model_dir(args.model))
+        if task is None:
+            raise SystemExit("cannot infer a servable task; pass --task")
+    if task not in TASKS:
+        raise SystemExit(f"--task {task}: not ported yet; the PyTorch server "
+                         f"serves {' and '.join(TASKS)}")
 
-    model = load_model(args.model, device=args.device, quantize=args.quantize)
+    if task == "stt":
+        from tpu_audio_torch.models.stt import load_model
+
+        model = load_model(args.model, device=args.device, quantize=args.quantize)
+    else:
+        from tpu_audio_torch.models.tts import load_model
+
+        model = load_model(args.model, device=args.device, quantize_bits=args.quantize)
     server = build_server(model, task, args.model, args.host, args.port,
                           slots=args.slots, step_tokens=args.step_tokens,
                           fused=args.fused)

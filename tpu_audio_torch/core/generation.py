@@ -1,18 +1,18 @@
 """Generation event, parameter and result types (port of
-tpu_audio.core.generation: the TTS events and parameters, and the STT
-parameters and results)."""
+tpu_audio.core.generation: the TTS events and parameters, ``samples_stream``,
+and the STT parameters and results)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from enum import Enum
-from typing import Any
+from typing import Any, Iterator
 
 import numpy as np
 
 __all__ = ["AudioGenerateParameters", "AudioGeneration", "AudioGenerationError",
            "AudioGenerationInfo", "AudioGenerationKind", "STTGenerateParameters",
-           "STTOutput", "STTSegment", "validate_kv_bits"]
+           "STTOutput", "STTSegment", "samples_stream", "validate_kv_bits"]
 
 
 class AudioGenerationError(RuntimeError):
@@ -79,6 +79,14 @@ class AudioGeneration:
     @classmethod
     def from_progress(cls, p: float) -> "AudioGeneration":
         return cls(AudioGenerationKind.PROGRESS, progress=p)
+
+
+def samples_stream(model, text: str, **kwargs) -> Iterator[np.ndarray]:
+    """Yield the raw float32 sample chunks of ``model.generate_stream``:
+    its audio events only, tokens and info dropped."""
+    for event in model.generate_stream(text, **kwargs):
+        if event.kind == AudioGenerationKind.AUDIO and event.audio is not None:
+            yield np.asarray(event.audio, np.float32)
 
 
 @dataclass

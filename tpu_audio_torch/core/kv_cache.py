@@ -44,7 +44,9 @@ class FusedLaneRow(NamedTuple):
     next write position) and ``valid_from`` (first valid row; whisper
     prompts are never left-padded, so 0). A serving engine holds its lanes
     stacked on a leading slot axis: ``k``/``v`` ``[slots, L, S_max, d]``,
-    ``offset`` and ``valid_from`` ``[slots]`` int64 tensors on the device."""
+    ``offset`` and ``valid_from`` ``[slots]`` int64 tensors on the device.
+    The plain llama serving tick stacks head-major ``KVCache`` rows in the
+    same tuple (``parallel.continuous.llama_lanes``)."""
 
     k: torch.Tensor
     v: torch.Tensor

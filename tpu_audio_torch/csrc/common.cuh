@@ -110,14 +110,11 @@ __device__ void attn_partial(const Score& score, const Value& value, int s0,
   }
 }
 
-// out[h * hd + j] for head h = blockIdx.x, j = threadIdx.x (hd threads),
-// from nc partials per head laid out [H, nc, hd] and [H, nc, 2].
-static __global__ void attn_combine_kernel(const float* __restrict__ part_o,
-                                           const float* __restrict__ part_ml,
-                                           float* __restrict__ out, int nc,
-                                           int hd) {
-  const int h = blockIdx.x, j = threadIdx.x;
-  const float* ml = part_ml + (size_t)h * nc * 2;
+// Element j of one head's attention output from its nc partials, laid out
+// [nc, hd] (part_o) and [nc, 2] (part_ml).
+__device__ __forceinline__ float combine_partials(const float* __restrict__ part_o,
+                                                  const float* __restrict__ ml,
+                                                  int nc, int hd, int j) {
   float m = -INFINITY;
 #pragma unroll 8
   for (int c = 0; c < nc; ++c) m = fmaxf(m, ml[2 * c]);
@@ -126,9 +123,20 @@ static __global__ void attn_combine_kernel(const float* __restrict__ part_o,
   for (int c = 0; c < nc; ++c) {
     const float w = expf(ml[2 * c] - m);
     l += ml[2 * c + 1] * w;
-    o += part_o[((size_t)h * nc + c) * hd + j] * w;
+    o += part_o[(size_t)c * hd + j] * w;
   }
-  out[(size_t)h * hd + j] = o / l;
+  return o / l;
+}
+
+// out[h * hd + j] for head h = blockIdx.x, j = threadIdx.x (hd threads),
+// from nc partials per head laid out [H, nc, hd] and [H, nc, 2].
+static __global__ void attn_combine_kernel(const float* __restrict__ part_o,
+                                           const float* __restrict__ part_ml,
+                                           float* __restrict__ out, int nc,
+                                           int hd) {
+  const int h = blockIdx.x, j = threadIdx.x;
+  out[(size_t)h * hd + j] = combine_partials(part_o + (size_t)h * nc * hd,
+                                             part_ml + (size_t)h * nc * 2, nc, hd, j);
 }
 
 inline int attn_chunks(int n) { return (n + ATTN_CHUNK - 1) / ATTN_CHUNK; }

@@ -1,8 +1,9 @@
 // Device pieces shared by the decoder stacks: Whisper's one-token stack
 // (fused_decoder.cu) and serving lanes stack (fused_decoder_lanes.cu), and
-// the Llama stack (fused_llama.cu). The Whisper stacks compute every
-// per-row quantity with these same functions, in the same order, so a
-// serving lane agrees with the one-token kernel on the same inputs.
+// the Llama one-token and serving lanes stacks (fused_llama.cu,
+// fused_llama_lanes.cu). Each pair computes every per-row quantity with
+// these same functions, in the same order, so a serving lane agrees with
+// the one-token kernel on the same inputs.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -216,6 +217,134 @@ static cudaError_t gemv_lanes(const int8_t* xq, const float* xs, const int8_t* w
   if (n <= 8) return gemv_lanes_nl<MODE, 8>(xq, xs, w, scale, bias, out, ldo, N, K, n, stream);
   if (n <= 16) return gemv_lanes_nl<MODE, 16>(xq, xs, w, scale, bias, out, ldo, N, K, n, stream);
   return gemv_lanes_nl<MODE, MAX_LANES>(xq, xs, w, scale, bias, out, ldo, N, K, n, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The Llama stacks' per-token pieces: the one-token kernel (fused_llama.cu)
+// and the serving lanes kernel (fused_llama_lanes.cu) run each lane row
+// through these same functions, so a lane agrees bit for bit with the
+// one-token kernel on the same inputs.
+// ---------------------------------------------------------------------------
+
+constexpr int LLAMA_HD = 128;  // head dim
+constexpr int QUANT_PLAIN = 0, QUANT_RMS = 1, QUANT_SWIGLU = 2;
+
+// A Llama GEMV input: xf = RMSNorm(x) * w (QUANT_RMS), x (QUANT_PLAIN) or
+// silu(x[:K]) * x[K:2K] (QUANT_SWIGLU) into xf [K], then its int8 codes xq
+// [K] and scale (the return value) by quantize_staged_row. Every thread of
+// a GEMV_THREADS block calls it.
+__device__ __forceinline__ float llama_quantize_row(const float* __restrict__ x,
+                                                    const float* __restrict__ w,
+                                                    int mode, float eps, float* xf,
+                                                    int8_t* xq, int K, float* red) {
+  const int tid = threadIdx.x;
+  if (mode == QUANT_RMS) {
+    float ss = 0.0f;
+    for (int i = tid; i < K; i += GEMV_THREADS) ss += x[i] * x[i];
+    const float ms = block_reduce(ss, red, false) / (float)K;
+    const float r = 1.0f / sqrtf(ms + eps);
+    for (int i = tid; i < K; i += GEMV_THREADS) xf[i] = x[i] * r * w[i];
+  } else if (mode == QUANT_SWIGLU) {
+    for (int i = tid; i < K; i += GEMV_THREADS) {
+      const float g = x[i];
+      xf[i] = g * (1.0f / (1.0f + expf(-g))) * x[K + i];
+    }
+  } else {
+    for (int i = tid; i < K; i += GEMV_THREADS) xf[i] = x[i];
+  }
+  return quantize_staged_row(xf, xq, K, red);
+}
+
+// Row m = blockIdx.x of x (row stride ldx): the int8 codes xq[m, :K] and
+// scale xs[m] of a GEMV input (llama_quantize_row); the staged f32 row
+// takes K floats of dynamic shared memory.
+static __global__ void rms_quantize_rows_kernel(const float* __restrict__ x, int ldx,
+                                                const float* __restrict__ w, int mode,
+                                                float eps, int8_t* __restrict__ xq,
+                                                float* __restrict__ xs, int K) {
+  extern __shared__ float xf[];  // [K]
+  __shared__ float red[32];
+  const int m = blockIdx.x;
+  const float s = llama_quantize_row(x + (size_t)m * ldx, w, mode, eps, xf,
+                                     xq + (size_t)m * K, K, red);
+  if (threadIdx.x == 0) xs[m] = s;
+}
+
+// rms_quantize_rows_kernel over n rows, past 48 KB of shared memory by
+// opt-in (up to the 227 KB a block may have).
+static cudaError_t quantize_rows(const float* x, int ldx, const float* w, int mode,
+                                 float eps, int8_t* xq, float* xs, int K, int n,
+                                 cudaStream_t stream) {
+  const size_t smem = (size_t)K * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rms_quantize_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  rms_quantize_rows_kernel<<<n, GEMV_THREADS, smem, stream>>>(x, ldx, w, mode, eps, xq,
+                                                              xs, K);
+  return cudaSuccess;
+}
+
+// Head b of one token's q/k/v row qkv = [q (d), k (dkv), v (dkv)], in
+// place, by a block of LLAMA_HD threads: b < heads is q head b, else k head
+// b - heads. The optional per-head RMSNorm (qn_w / kn_w, null without
+// qk_norm; the weights broadcast over the heads), then half-split RoPE at
+// angle float(offset) * inv_freq (full-range sincosf). The k heads also
+// write the rotated k row and the v row of their head, as bf16, into the
+// cache rows kc_row / vc_row.
+__device__ __forceinline__ void llama_rope_head(float* qkv, const float* qn_w,
+                                                const float* kn_w,
+                                                const float* __restrict__ inv_freq,
+                                                __nv_bfloat16* kc_row,
+                                                __nv_bfloat16* vc_row, int d, int dkv,
+                                                int heads, float eps, int offset, int b) {
+  constexpr int HD = LLAMA_HD;
+  __shared__ float sh[HD];
+  __shared__ float red[32];
+  const int j = threadIdx.x;
+  const bool is_k = b >= heads;
+  const int col = is_k ? d + (b - heads) * HD : b * HD;
+  float v = qkv[col + j];
+  const float* nw = is_k ? kn_w : qn_w;
+  if (nw != nullptr) {
+    const float ms = block_reduce(v * v, red, false) / (float)HD;
+    v = v * (1.0f / sqrtf(ms + eps)) * nw[col - (is_k ? d : 0) + j];
+  }
+  sh[j] = v;
+  __syncthreads();
+  const float rot = sh[(j + HD / 2) % HD];
+  float sn, cs;
+  sincosf((float)offset * inv_freq[j % (HD / 2)], &sn, &cs);
+  const float sign = j < HD / 2 ? -1.0f : 1.0f;
+  const float out = v * cs + rot * (sign * sn);
+  qkv[col + j] = out;
+  if (is_k) {
+    const int g = (b - heads) * HD + j;
+    kc_row[g] = __float2bfloat16(out);
+    vc_row[g] = __float2bfloat16(qkv[d + dkv + g]);
+  }
+}
+
+// Chunk c (ATTN_CHUNK positions from valid_from) of split-S GQA attention
+// for query head h, which reads K/V head h / rep, of one token's rotated
+// qkv over one layer's position-major bf16 caches kc/vc [s_max, dkv]
+// (K after RoPE); the token's own f32 k/v stand at row offset. Writes the
+// block's partial to part_o [LLAMA_HD] and part_ml [2].
+__device__ __forceinline__ void llama_attn_partial(const float* __restrict__ qkv,
+                                                   const __nv_bfloat16* __restrict__ kc,
+                                                   const __nv_bfloat16* __restrict__ vc,
+                                                   float* part_o, float* part_ml,
+                                                   int offset, int valid_from, int c,
+                                                   int h, int d, int dkv, int rep,
+                                                   float sm) {
+  constexpr int HD = LLAMA_HD;
+  const int kv = (h / rep) * HD;
+  const SelfScore score{qkv + h * HD, qkv + d + kv, kc + kv, offset, dkv, sm};
+  const SelfValue value{qkv + d + dkv + kv, vc + kv, offset, dkv};
+  const int s0 = valid_from + c * ATTN_CHUNK;
+  const int s1 = min(offset + 1, s0 + ATTN_CHUNK);
+  attn_partial<HD>(score, value, s0, s1, part_o, part_ml);
 }
 
 }  // namespace tpa

@@ -150,8 +150,8 @@ __global__ void cross_attn_partial_lanes(const float* __restrict__ q2,
 // out[m, h * hd + j] for head h = blockIdx.x, lane m = blockIdx.y,
 // j = threadIdx.x, from the partials laid out [n, heads, nc_stride, hd] and
 // [n, heads, nc_stride, 2]: lane m's first offset_m / 64 + 1 chunks (self)
-// or nc_fixed chunks (cross, offsets == nullptr). The same sums, in the same
-// order, as tpa::attn_combine_kernel.
+// or nc_fixed chunks (cross, offsets == nullptr), by tpa::combine_partials
+// as tpa::attn_combine_kernel.
 __global__ void attn_combine_lanes(const float* __restrict__ part_o,
                                    const float* __restrict__ part_ml,
                                    float* __restrict__ out, int nc_stride,
@@ -162,18 +162,8 @@ __global__ void attn_combine_lanes(const float* __restrict__ part_o,
                      ? lane_offset(offsets, m, s_max) / tpa::ATTN_CHUNK + 1
                      : nc_fixed;
   const size_t base = ((size_t)m * heads + h) * nc_stride;
-  const float* ml = part_ml + base * 2;
-  float mx = -INFINITY;
-#pragma unroll 8
-  for (int c = 0; c < nc; ++c) mx = fmaxf(mx, ml[2 * c]);
-  float l = 0.0f, o = 0.0f;
-#pragma unroll 8
-  for (int c = 0; c < nc; ++c) {
-    const float w = expf(ml[2 * c] - mx);
-    l += ml[2 * c + 1] * w;
-    o += part_o[(base + c) * hd + j] * w;
-  }
-  out[(size_t)m * heads * hd + (size_t)h * hd + j] = o / l;
+  out[(size_t)m * heads * hd + (size_t)h * hd + j] =
+      tpa::combine_partials(part_o + base * hd, part_ml + base * 2, nc, hd, j);
 }
 
 void ln_quantize(const float* x, int ldx, const float* ln_w, const float* ln_b,

@@ -44,10 +44,13 @@
 //   attention     - split-S partials (common.cuh: 64 positions x one query
 //                   head a block; query head h reads K/V head h / rep) and
 //                   one combine block per head.
-// The TPU kernel's pack-time GQA permutation of q rows and o columns is a
-// lane-layout device and is left out: the pack keeps the checkpoint's head
-// order, so newk/newv come out in it too. CUDA graphs, wgmma and TMA are
-// left for later work.
+// The stages' device code lives in decoder_common.cuh (the row quantise
+// kernel, llama_rope_head, llama_attn_partial), shared with the serving lanes
+// kernel (fused_llama_lanes.cu), whose lanes agree with this kernel bit for
+// bit. The TPU kernel's pack-time GQA permutation of q rows and o columns
+// is a lane-layout device and is left out: the pack keeps the checkpoint's
+// head order, so newk/newv come out in it too. CUDA graphs, wgmma and TMA
+// are left for later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,76 +61,26 @@
 namespace {
 
 using tpa::ADD;
-using tpa::GEMV_THREADS;
+using tpa::QUANT_PLAIN;
+using tpa::QUANT_RMS;
+using tpa::QUANT_SWIGLU;
 using tpa::STORE;
 using tpa::gemv_lanes;
 
-constexpr int HD = 128;  // head dim
-constexpr int QUANT_PLAIN = 0, QUANT_RMS = 1, QUANT_SWIGLU = 2;
-
-// One block of GEMV_THREADS: xf = RMSNorm(x) * w (QUANT_RMS), x
-// (QUANT_PLAIN) or silu(x[:K]) * x[K:2K] (QUANT_SWIGLU), then its int8
-// codes xq [K] and scale *xs.
-__global__ void rms_quantize_kernel(const float* __restrict__ x,
-                                    const float* __restrict__ w, int mode,
-                                    float eps, int8_t* __restrict__ xq,
-                                    float* __restrict__ xs, int K) {
-  extern __shared__ float xf[];  // [K]
-  __shared__ float red[32];
-  const int tid = threadIdx.x;
-  if (mode == QUANT_RMS) {
-    float ss = 0.0f;
-    for (int i = tid; i < K; i += GEMV_THREADS) ss += x[i] * x[i];
-    const float ms = tpa::block_reduce(ss, red, false) / (float)K;
-    const float r = 1.0f / sqrtf(ms + eps);
-    for (int i = tid; i < K; i += GEMV_THREADS) xf[i] = x[i] * r * w[i];
-  } else if (mode == QUANT_SWIGLU) {
-    for (int i = tid; i < K; i += GEMV_THREADS) {
-      const float g = x[i];
-      xf[i] = g * (1.0f / (1.0f + expf(-g))) * x[K + i];
-    }
-  } else {
-    for (int i = tid; i < K; i += GEMV_THREADS) xf[i] = x[i];
-  }
-  const float s = tpa::quantize_staged_row(xf, xq, K, red);
-  if (tid == 0) *xs = s;
-}
+constexpr int HD = tpa::LLAMA_HD;
 
 // Block b < heads rotates q head b, block heads + g rotates k head g (in
 // place in qkv = [q (d), k (dkv), v (dkv)]) and writes the rotated k row
 // and the v row of head g into the caches' row at the offset (kc_row,
-// vc_row). qn_w / kn_w (null without qk_norm) are the per-head RMSNorm
-// weights, broadcast over the heads.
+// vc_row): tpa::llama_rope_head.
 __global__ void rope_qk_kernel(float* __restrict__ qkv, const float* __restrict__ qn_w,
                                const float* __restrict__ kn_w,
                                const float* __restrict__ inv_freq,
                                __nv_bfloat16* __restrict__ kc_row,
                                __nv_bfloat16* __restrict__ vc_row, int d, int dkv,
                                int heads, float eps, int offset) {
-  __shared__ float sh[HD];
-  __shared__ float red[32];
-  const int b = blockIdx.x, j = threadIdx.x;
-  const bool is_k = b >= heads;
-  const int col = is_k ? d + (b - heads) * HD : b * HD;
-  float v = qkv[col + j];
-  const float* nw = is_k ? kn_w : qn_w;
-  if (nw != nullptr) {
-    const float ms = tpa::block_reduce(v * v, red, false) / (float)HD;
-    v = v * (1.0f / sqrtf(ms + eps)) * nw[col - (is_k ? d : 0) + j];
-  }
-  sh[j] = v;
-  __syncthreads();
-  const float rot = sh[(j + HD / 2) % HD];
-  float sn, cs;
-  sincosf((float)offset * inv_freq[j % (HD / 2)], &sn, &cs);
-  const float sign = j < HD / 2 ? -1.0f : 1.0f;
-  const float out = v * cs + rot * (sign * sn);
-  qkv[col + j] = out;
-  if (is_k) {
-    const int g = (b - heads) * HD + j;
-    kc_row[g] = __float2bfloat16(out);
-    vc_row[g] = __float2bfloat16(qkv[d + dkv + g]);
-  }
+  tpa::llama_rope_head(qkv, qn_w, kn_w, inv_freq, kc_row, vc_row, d, dkv, heads, eps,
+                       offset, blockIdx.x);
 }
 
 // grid (chunks of valid_from..offset, query heads). qkv is this layer's
@@ -138,26 +91,16 @@ __global__ void gqa_attn_partial(const float* __restrict__ qkv,
                                  float* __restrict__ part_o,
                                  float* __restrict__ part_ml, int offset,
                                  int valid_from, int d, int dkv, int rep, float sm) {
-  const int c = blockIdx.x, h = blockIdx.y, nc = gridDim.x;
-  const int kv = (h / rep) * HD;
-  const tpa::SelfScore score{qkv + h * HD, qkv + d + kv, kc + kv, offset, dkv, sm};
-  const tpa::SelfValue value{qkv + d + dkv + kv, vc + kv, offset, dkv};
-  const int s0 = valid_from + c * tpa::ATTN_CHUNK;
-  const int s1 = min(offset + 1, s0 + tpa::ATTN_CHUNK);
-  const size_t slot = (size_t)h * nc + c;
-  tpa::attn_partial<HD>(score, value, s0, s1, part_o + slot * HD, part_ml + slot * 2);
+  const int c = blockIdx.x, h = blockIdx.y;
+  const size_t slot = (size_t)h * gridDim.x + c;
+  tpa::llama_attn_partial(qkv, kc, vc, part_o + slot * HD, part_ml + slot * 2, offset,
+                          valid_from, c, h, d, dkv, rep, sm);
 }
 
+// The one-row quantise (decoder_common.cuh) of a GEMV input.
 cudaError_t quantize(const float* x, const float* w, int mode, float eps, int8_t* xq,
                      float* xs, int K, cudaStream_t stream) {
-  const size_t smem = (size_t)K * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        rms_quantize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  rms_quantize_kernel<<<1, GEMV_THREADS, smem, stream>>>(x, w, mode, eps, xq, xs, K);
-  return cudaSuccess;
+  return tpa::quantize_rows(x, K, w, mode, eps, xq, xs, K, 1, stream);
 }
 
 }  // namespace

@@ -13,7 +13,9 @@ version on the CPU); on the card any other w8a8 tree raises rather than
 decode without the kernel. The prefill and a dense tree run
 ``llama.forward``. The fused cache holds the whole request (``max_total``
 rows), so the JAX package's mid-generation hand-off to its XLA loop (a TPU
-VMEM cap) has no counterpart here.
+VMEM cap) has no counterpart here. ``_fused_lane_hooks`` gives the serving
+engine (``parallel.continuous.ContinuousTTS``) the same route for every
+live lane at once, through ``fused_llama_stack_lanes``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from tpu_audio_torch.core import hub, loading, nn, quant
 from tpu_audio_torch.core.ar_loop import make_decode_chunk
 from tpu_audio_torch.core.generation import (AudioGenerateParameters, AudioGeneration,
                                              AudioGenerationError, AudioGenerationInfo)
-from tpu_audio_torch.core.kv_cache import KVCache
+from tpu_audio_torch.core.kv_cache import FusedLaneRow, KVCache
 from tpu_audio_torch.core.sampling import SamplingParams
 from tpu_audio_torch.models import llama
 from tpu_audio_torch.ops import fused_llama as FL
@@ -208,6 +210,63 @@ class LlamaTTS:
 
         return (KVCache(heads(k), heads(v), 0, valid_from),
                 FusedDecodeKV(k, v, 0, valid_from))
+
+    def _fused_lane_hooks(self, max_len: int) -> dict | None:
+        """Engine pieces routing :class:`parallel.continuous.ContinuousTTS`
+        ticks through ``fused_llama_stack_lanes`` (one sweep of the int8
+        weights a decode step, shared by every live lane; one call per
+        group past the kernel's lane limit), for ``ContinuousBatcher``.
+        None for a tree the fused kernels do not take.
+
+        - ``cache_factory(slots)``: ``kv_cache.FusedLaneRow`` stacked
+          ``[slots, L, max_len, dkv]`` position-major, with the lanes'
+          offsets and ``valid_from`` on the device;
+        - ``prefill_fn``: ``llama.forward(return_hidden=True)`` writing
+          straight into the lane's slot through head-major strided views of
+          its buffers (as :meth:`_fused_cache` does offline);
+        - ``batch_step_fn``: embed the lanes' tokens, the kernel over the
+          lane groups, the final RMSNorm and the band or full head."""
+        if not self._fused_supported():
+            return None
+        cfg = self.config
+        L, n_kv, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.resolved_head_dim
+        dev, dtype = self.device, self.dtype
+        pack = self.fused_decoder_pack()
+        group = max(g for g in range(1, FL.MAX_LANES + 1) if FL.supported_lanes(cfg, g))
+
+        def batch_step_fn(params, cache, lanes, last, offsets, ctx):
+            x = nn.embedding(params["model"]["embed_tokens"], last)
+            if cfg.embedding_multiplier != 1.0:
+                x = x * cfg.embedding_multiplier
+            valid_from = cache.valid_from.index_select(0, lanes)
+            y = torch.cat([FL.fused_llama_stack_lanes(
+                pack, cache.k, cache.v, lanes[i:i + group], x[i:i + group],
+                offsets[i:i + group], valid_from[i:i + group], cfg=cfg)[0]
+                for i in range(0, last.shape[0], group)])
+            h = nn.rms_norm(params["model"]["norm"], y.to(dtype), cfg.rms_norm_eps)
+            return self._head(params, h).to(torch.float32)
+
+        def prefill_fn(params, cache, slot, ids, valid_from, ctx):
+            def heads(t):
+                return t.view(L, max_len, n_kv, hd).permute(0, 2, 1, 3).unsqueeze(1)
+
+            row = KVCache(heads(cache.k[slot]), heads(cache.v[slot]), 0, int(valid_from))
+            ids = torch.from_numpy(ids.astype(np.int64)).to(dev)[None]
+            _, row = llama.forward(params, ids, row, cfg, return_hidden=True)
+            cache.valid_from[slot] = int(valid_from)
+            return row.offset
+
+        def cache_factory(slots):
+            def zeros(dt, *shape):
+                return torch.zeros(shape, dtype=dt, device=dev)
+
+            return FusedLaneRow(k=zeros(dtype, slots, L, max_len, n_kv * hd),
+                                v=zeros(dtype, slots, L, max_len, n_kv * hd),
+                                offset=zeros(torch.int64, slots),
+                                valid_from=zeros(torch.int64, slots))
+
+        return dict(params=self.params, batch_step_fn=batch_step_fn, prefill_fn=prefill_fn,
+                    cache_factory=cache_factory)
 
     # -- loading --------------------------------------------------------------
 
@@ -469,7 +528,7 @@ def _fused_route(params: dict, cfg, device: torch.device) -> bool:
     if device.type == "cuda" and any(t.dtype == torch.int8 for t in
                                      llama._leaves(params["model"]["layers"])):
         raise NotImplementedError(
-            "w8a8 decode on CUDA runs only through the fused_llama_stack kernel, which "
-            "takes stacked, unfused layer projections of a shape "
-            "ops.fused_llama.supported accepts; this tree is not one of them")
+            "w8a8 decode on CUDA runs only through the fused_llama_stack kernels (one "
+            "token, serving lanes), which take stacked, unfused layer projections of a "
+            "shape ops.fused_llama.supported accepts; this tree is not one of them")
     return False

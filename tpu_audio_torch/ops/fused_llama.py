@@ -2,9 +2,12 @@
 int8 activations (the w8a8 decode of Orpheus / Llama-3 TTS backbones).
 
 Port of tpu_audio/ops/pallas_fused_llama.py: ``supported``,
-``pack_llama_weights`` and ``fused_llama_stack``. The CUDA implementation
-is ``csrc/fused_llama.cu`` (a short sequence of small kernels a layer,
-driven from C); :func:`fused_llama_stack_ref` is the plain PyTorch version.
+``pack_llama_weights``, ``fused_llama_stack`` (one token) and
+``fused_llama_stack_lanes`` (one token for each of n serving lanes). The
+CUDA implementations are ``csrc/fused_llama.cu`` and
+``csrc/fused_llama_lanes.cu`` (a short sequence of small kernels a layer,
+driven from C); :func:`fused_llama_stack_ref` and
+:func:`fused_llama_stack_lanes_ref` are the plain PyTorch versions.
 
 The pack keeps the checkpoint's head order: the TPU kernel's pack-time GQA
 permutation of the q rows and o columns (a lane-layout device) is left
@@ -26,9 +29,11 @@ import torch
 
 from tpu_audio_torch.core import nn, quant
 from tpu_audio_torch.ops import _lib
+from tpu_audio_torch.ops.fused_decoder import MAX_LANES, SMEM_OPT_IN
 
-__all__ = ["LlamaFusedPack", "supported", "pack_llama_weights",
-           "fused_llama_stack", "fused_llama_stack_ref", "GEMVS"]
+__all__ = ["LlamaFusedPack", "supported", "supported_lanes", "pack_llama_weights",
+           "fused_llama_stack", "fused_llama_stack_ref", "fused_llama_stack_lanes",
+           "fused_llama_stack_lanes_ref", "GEMVS"]
 
 HEAD_DIM = 128
 # shared memory of the one-block quantise: the H100 lets a block opt into
@@ -68,6 +73,15 @@ def supported(cfg) -> bool:
             and not cfg.attention_bias and not cfg.rope_interleaved
             and cfg.residual_multiplier == 1.0 and cfg.attention_multiplier is None
             and ffn % 16 == 0 and 4 * max(d, ffn) <= QUANT_SMEM)
+
+
+def supported_lanes(cfg, n: int) -> bool:
+    """The lanes kernel takes ``n`` lanes: the shapes of :func:`supported`,
+    ``1 <= n <= MAX_LANES``, and the n staged int8 rows of the widest GEMV
+    input (``n * max(d, ffn)`` bytes) within the shared memory a block may
+    opt into. At Orpheus-3B (ffn 8192) that is n <= 28."""
+    return (supported(cfg) and 1 <= n <= MAX_LANES
+            and n * max(cfg.hidden_size, cfg.intermediate_size) <= SMEM_OPT_IN)
 
 
 def _as_int8(w) -> tuple[torch.Tensor, torch.Tensor]:
@@ -212,6 +226,19 @@ def fused_llama_stack_ref(pack: LlamaFusedPack, kcache, vcache, x: torch.Tensor,
     return resid, torch.stack(newk), torch.stack(newv)
 
 
+def _require_pack(pack: LlamaFusedPack, cfg, dev) -> None:
+    """Check the pack's devices, dtypes, shapes and contiguity for the CUDA
+    kernels."""
+    d, ffn, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    rows = 2 * d + 2 * cfg.num_key_value_heads * HEAD_DIM + 2 * ffn
+    req = _lib.require
+    req(pack.w_in, "w_in", torch.int8, (L, rows, d), dev)
+    req(pack.w_down, "w_down", torch.int8, (L, d, ffn), dev)
+    req(pack.scales, "scales", torch.float32, (L, rows + d), dev)
+    req(pack.norms, "norms", torch.float32, (L, 4, d), dev)
+    req(pack.inv_freq, "inv_freq", torch.float32, (HEAD_DIM // 2,), dev)
+
+
 def fused_llama_stack(pack: LlamaFusedPack, kcache, vcache, x: torch.Tensor,
                       offset: int, *, cfg, valid_from: int = 0, tap=None):
     """Run the layer stack for ONE token.
@@ -238,14 +265,9 @@ def fused_llama_stack(pack: LlamaFusedPack, kcache, vcache, x: torch.Tensor,
     if not 0 <= valid_from <= offset < s_max:
         raise ValueError(f"fused_llama_stack: need 0 <= valid_from ({valid_from}) "
                          f"<= offset ({offset}) < {s_max}")
-    rows = 2 * d + 2 * dkv + 2 * ffn
     req = _lib.require
     req(x, "x", torch.float32, (d,), dev)
-    req(pack.w_in, "w_in", torch.int8, (L, rows, d), dev)
-    req(pack.w_down, "w_down", torch.int8, (L, d, ffn), dev)
-    req(pack.scales, "scales", torch.float32, (L, rows + d), dev)
-    req(pack.norms, "norms", torch.float32, (L, 4, d), dev)
-    req(pack.inv_freq, "inv_freq", torch.float32, (HEAD_DIM // 2,), dev)
+    _require_pack(pack, cfg, dev)
     for name, t in (("kcache", kcache), ("vcache", vcache)):
         req(t, name, torch.bfloat16, (L, s_max, dkv), dev)
     kmax = max(d, ffn)
@@ -273,3 +295,97 @@ def fused_llama_stack(pack: LlamaFusedPack, kcache, vcache, x: torch.Tensor,
     _lib.check(err, "fused_llama_stack")
     _lib.launches["fused_llama_stack"] += 1
     return y, qkv[:, d:d + dkv], qkv[:, d + dkv:]
+
+
+def fused_llama_stack_lanes_ref(pack: LlamaFusedPack, kcache, vcache, lanes: torch.Tensor,
+                                x: torch.Tensor, offsets: torch.Tensor,
+                                valid_from: torch.Tensor, *, cfg, tap=None, codes=None):
+    """Plain version of :func:`fused_llama_stack_lanes` (same signature and
+    effects): each lane through :func:`fused_llama_stack_ref` on its own
+    slot, one after another; the lanes are independent, so this computes
+    the kernel's function. ``tap`` as the kernel's, with an optional third
+    f32 tensor of the codes' shape for the unrounded values; ``codes``, a
+    tap of the kernel's layout, supplies each lane's GEMV codes and scales
+    (see :func:`fused_llama_stack_ref`)."""
+    s_max = kcache.shape[2]
+    ys, nks, nvs = [], [], []
+    for m, (slot, off, vf) in enumerate(zip(lanes.tolist(), offsets.tolist(),
+                                            valid_from.tolist())):
+        off = min(max(off, 0), s_max - 1)
+        lane_tap = None if tap is None else tuple(
+            None if t is None else t[:, :, m] for t in tap)
+        lane_codes = None if codes is None else (codes[0][:, :, m], codes[1][:, :, m])
+        y, nk, nv = fused_llama_stack_ref(pack, kcache[slot], vcache[slot], x[m], off,
+                                          cfg=cfg, valid_from=min(max(vf, 0), off),
+                                          tap=lane_tap, codes=lane_codes)
+        ys.append(y)
+        nks.append(nk)
+        nvs.append(nv)
+    return torch.stack(ys), torch.stack(nks, dim=1), torch.stack(nvs, dim=1)
+
+
+def fused_llama_stack_lanes(pack: LlamaFusedPack, kcache, vcache, lanes: torch.Tensor,
+                            x: torch.Tensor, offsets: torch.Tensor,
+                            valid_from: torch.Tensor, *, cfg, tap=None):
+    """Run the layer stack for ONE token on EACH of n lanes, with one sweep
+    of the weights shared by all of them.
+
+    kcache/vcache: the engine's stacked ``[slots, L, S_max, dkv]`` bf16
+    position-major caches (K after RoPE); lanes, offsets and valid_from:
+    ``[n]`` int64 on x's device, lane m's slot (distinct slots), write
+    position and first attended row (the rows below it are left padding);
+    x: ``[n, d]`` f32 embedded tokens. Each activation row gets its own
+    int8 scale, so lane m's outputs are those of :func:`fused_llama_stack`
+    on its own inputs. An offset outside ``[0, S_max)`` is clamped to it.
+    Writes each lane's new k/v rows into its slot at its offset (other
+    slots and rows stay untouched) and returns ``(y [n, d] f32 before the
+    final norm, newk [L, n, dkv] f32, newv [L, n, dkv] f32)``. Nothing
+    here reads a device value on the host. ``tap = (codes, scales)``, int8
+    ``[L, 4, n, max(d, ffn)]`` and f32 ``[L, 4, n]``, receives every GEMV
+    input's int8 codes and scale. The plain version runs for CPU tensors,
+    the CUDA kernels for CUDA tensors."""
+    if x.device.type == "cpu":
+        return fused_llama_stack_lanes_ref(pack, kcache, vcache, lanes, x, offsets,
+                                           valid_from, cfg=cfg, tap=tap)
+    d, ffn, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    H, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
+    dkv = n_kv * HEAD_DIM
+    n = x.shape[0]
+    slots, s_max = kcache.shape[0], kcache.shape[2]
+    dev = x.device
+    if not supported_lanes(cfg, n):
+        raise ValueError(f"fused_llama_stack_lanes: unsupported decoder shape or n={n}")
+    if n > slots:
+        raise ValueError(f"fused_llama_stack_lanes: {n} lanes over {slots} slots")
+    req = _lib.require
+    req(x, "x", torch.float32, (n, d), dev)
+    for name, t in (("lanes", lanes), ("offsets", offsets), ("valid_from", valid_from)):
+        req(t, name, torch.int64, (n,), dev)
+    _require_pack(pack, cfg, dev)
+    for name, t in (("kcache", kcache), ("vcache", vcache)):
+        req(t, name, torch.bfloat16, (slots, L, s_max, dkv), dev)
+    kmax = max(d, ffn)
+    tap_q = tap_s = 0
+    if tap is not None:
+        req(tap[0], "tap codes", torch.int8, (L, 4, n, kmax), dev)
+        req(tap[1], "tap scales", torch.float32, (L, 4, n), dev)
+        tap_q, tap_s = tap[0].data_ptr(), tap[1].data_ptr()
+    y = x.clone()
+    qkv = torch.empty((L, n, d + 2 * dkv), dtype=torch.float32, device=dev)
+    # attn [n, d], gate/up [n, 2 ffn], xs [n] (padded to 4), then the
+    # split-S attention partials of every lane over the whole cache
+    nc = -(-s_max // _lib.ATTN_CHUNK)
+    scratch = torch.empty((n * (d + 2 * ffn) + -(-n // 4) * 4 + n * H * nc * (HEAD_DIM + 2),),
+                          dtype=torch.float32, device=dev)
+    xq = torch.empty((n * kmax,), dtype=torch.int8, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib.lib().tpa_fused_llama_stack_lanes(
+            y.data_ptr(), offsets.data_ptr(), valid_from.data_ptr(), lanes.data_ptr(),
+            pack.w_in.data_ptr(), pack.w_down.data_ptr(), pack.scales.data_ptr(),
+            pack.norms.data_ptr(), pack.inv_freq.data_ptr(), kcache.data_ptr(),
+            vcache.data_ptr(), qkv.data_ptr(), scratch.data_ptr(), xq.data_ptr(), tap_q,
+            tap_s, n, L, d, ffn, H, n_kv, s_max, int(bool(cfg.qk_norm)),
+            float(cfg.rms_norm_eps), _lib.stream(x))
+    _lib.check(err, "fused_llama_stack_lanes")
+    _lib.launches["fused_llama_stack_lanes"] += 1
+    return y, qkv[:, :, d:d + dkv], qkv[:, :, d + dkv:]

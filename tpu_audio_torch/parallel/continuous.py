@@ -1,6 +1,7 @@
 """Continuous batching for autoregressive decode: slot-based serving (port
 of tpu_audio.parallel.continuous: ``GenRequest``, ``coerce_fused_flag``,
-``_sample_one``, ``ContinuousBatcher`` and ``EngineWorkerBase``).
+``_sample_one``, ``ContinuousBatcher``, ``ContinuousTTS``,
+``EngineWorkerBase`` and ``TTSEngineWorker``).
 
 The engine owns ``slots`` decode lanes. Each holds one in-flight request's
 caches, and a lane admits a new request the moment its occupant finishes.
@@ -27,9 +28,14 @@ What differs from the JAX package, which compiles each tick as one graph:
   ``fold_in(fold_in(base, request_seed), sample_index)`` key is. A
   request's tokens are the same alone or packed with others.
 
-The JAX engine's default llama step and its ``token_map`` (restricted
-output heads) wait for the port's llama: an engine is built with a
-``step_fn`` or a ``batch_step_fn``.
+Built with a llama config and no step function, the engine decodes a
+llama tree through ``llama.forward``, one lane after another (the JAX
+package's default step); ``token_map`` maps a sampled logits-space index
+to a model id (restricted heads; the repetition history stays in logits
+space). ``ContinuousTTS`` and ``TTSEngineWorker`` serve Orpheus-family
+speech over it: a w8a8 tree decodes every step of every live lane through
+``ops.fused_llama.fused_llama_stack_lanes`` (``LlamaTTS._fused_lane_hooks``),
+any other through the plain tick.
 """
 
 from __future__ import annotations
@@ -42,6 +48,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from tpu_audio_torch.core import kv_cache
+from tpu_audio_torch.core.generation import AudioGeneration, AudioGenerationError
 from tpu_audio_torch.core.sampling import (
     SamplingParams,
     _mask_min_p,
@@ -50,9 +58,10 @@ from tpu_audio_torch.core.sampling import (
     apply_repetition_penalty,
     gumbel_noise,
 )
+from tpu_audio_torch.models import llama
 
-__all__ = ["ContinuousBatcher", "EngineWorkerBase", "GenRequest",
-           "coerce_fused_flag"]
+__all__ = ["ContinuousBatcher", "ContinuousTTS", "EngineWorkerBase", "GenRequest",
+           "TTSEngineWorker", "coerce_fused_flag", "llama_lanes"]
 
 
 @dataclasses.dataclass
@@ -134,25 +143,72 @@ def _sample_one(logits: torch.Tensor, seed: int, request_seeds: torch.Tensor,
     return torch.argmax(masked / s.temperature + noise, dim=-1)
 
 
+def llama_lanes(cfg, max_len: int, params, dtype=None, step: Callable | None = None,
+                prefill: Callable | None = None) -> dict:
+    """``step_fn``, ``prefill_fn`` and ``cache_factory`` of the plain tick
+    over a llama tree, each lane on its own ``KVCache`` row of stacked
+    caches: ``step(params, tok [1, 1], cache) -> (logits [1, V], cache)``
+    (default: ``llama.forward``'s last-position logits) and
+    ``prefill(params, ids [1, T], cache) -> (_, cache)`` (default:
+    ``llama.forward``). The caches are a ``kv_cache.FusedLaneRow`` whose
+    ``k``/``v`` are head-major ``[slots, L, 1, n_kv, S, hd]`` (one
+    ``KVCache`` row per slot, not the fused kernels' position-major
+    layout), with ``offset`` and ``valid_from`` ``[slots]`` int64. They
+    take the device of the tree's first floating leaf, and its dtype unless
+    ``dtype`` is given."""
+    lead = next(t for t in llama._leaves(params) if t.is_floating_point())
+    dtype = dtype or lead.dtype
+    L, n_kv, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.resolved_head_dim
+    if step is None:
+        def step(params, tok, cache):
+            logits, cache = llama.forward(params, tok, cache, cfg)
+            return logits[:, -1], cache
+    if prefill is None:
+        def prefill(params, ids, cache):
+            return llama.forward(params, ids, cache, cfg)
+
+    def row(cache, slot, pos):
+        return kv_cache.KVCache(cache.k[slot], cache.v[slot], pos, cache.valid_from[slot])
+
+    def step_fn(params, cache, slot, tok, pos, ctx):
+        return step(params, tok, row(cache, slot, pos))[0]
+
+    def prefill_fn(params, cache, slot, ids, valid_from, ctx):
+        cache.valid_from[slot] = int(valid_from)
+        ids = torch.from_numpy(ids.astype(np.int64)).to(lead.device)[None]
+        return prefill(params, ids, row(cache, slot, 0))[1].offset
+
+    def cache_factory(slots):
+        def zeros(dt, *shape):
+            return torch.zeros(shape, dtype=dt, device=lead.device)
+
+        shape = (slots, L, 1, n_kv, max_len, hd)
+        return kv_cache.FusedLaneRow(zeros(dtype, *shape), zeros(dtype, *shape),
+                                     zeros(torch.int64, slots), zeros(torch.int64, slots))
+
+    return dict(step_fn=step_fn, prefill_fn=prefill_fn, cache_factory=cache_factory)
+
+
 class ContinuousBatcher:
     """Slot-based continuous batching over a model's decode step.
 
-    >>> eng = ContinuousBatcher(params, slots=4, max_len=512, stop_token=eos,
-    ...                         batch_step_fn=..., prefill_fn=...,
-    ...                         cache_factory=...)
+    >>> eng = ContinuousBatcher(params, cfg, slots=4, max_len=512,
+    ...                         stop_token=eos)
     >>> eng.submit(prompt_tokens, max_new=64)
     >>> for request_id, token in eng.run():
     ...     ...                         # tokens stream out as lanes step
 
-    A model plugs in through:
+    By default (a llama ``cfg`` and no step function) the engine decodes a
+    stacked-layer llama tree with its full-vocab head through
+    :func:`llama_lanes`. Other models plug in through:
 
     - ``cache_factory(slots)``: the lanes' stacked caches, any object with
       an ``offset`` attribute, an int64 ``[slots]`` tensor on ``device``
       that the engine owns (each lane's next write position);
     - ``prefill_fn(params, cache, slot, ids, valid_from, ctx) -> int``:
       teacher-forces the prompt ``ids`` (host int32, left-padded with
-      zeros up to ``valid_from``) into lane ``slot``'s caches and returns
-      its offset;
+      ``pad_token`` up to ``valid_from``) into lane ``slot``'s caches and
+      returns its offset;
     - ``batch_step_fn(params, cache, lanes, last, offsets, ctx) ->
       logits [n, V]``: one decode step of every live lane in one call;
       ``lanes`` (int64 slot indices), ``last`` (input tokens) and
@@ -160,7 +216,10 @@ class ContinuousBatcher:
       step writes each lane's new rows into its slot of ``cache`` in place;
     - or ``step_fn(params, cache, slot, tok [1, 1], pos, ctx) ->
       logits [1, V]``: one lane's step at host position ``pos`` (exact for
-      a live lane; a frozen lane's garbage step is clamped into the cache).
+      a live lane; a frozen lane's garbage step is clamped into the cache);
+    - ``token_map(idx) -> ids``: a sampled logits-space index to the model
+      id fed back and emitted (restricted heads); the repetition history
+      keeps the logits-space index.
 
     Per-request conditioning (encoder-decoder serving): pass
     ``context_template``, a tuple of tensors whose shapes and dtypes (not
@@ -186,7 +245,7 @@ class ContinuousBatcher:
     returns the previous tick's tokens.
     """
 
-    def __init__(self, params, *, slots: int = 4, max_len: int = 1024,
+    def __init__(self, params, cfg=None, *, slots: int = 4, max_len: int = 1024,
                  stop_token: int = -1, sampling: SamplingParams | None = None,
                  prefill_buckets: tuple[int, ...] = (32, 64, 128, 256),
                  seed: int = 0, device=None,
@@ -194,20 +253,26 @@ class ContinuousBatcher:
                  batch_step_fn: Callable | None = None,
                  prefill_fn: Callable | None = None,
                  cache_factory: Callable | None = None,
-                 step_tokens: int = 1,
+                 token_map: Callable | None = None,
+                 pad_token: int = 0, step_tokens: int = 1,
                  context_template=None,
                  logits_hook: Callable | None = None,
                  min_tick_tokens: int | None = None,
                  pipeline: bool = False):
-        if step_fn is None and batch_step_fn is None:
-            raise NotImplementedError(
-                "ContinuousBatcher: the default llama step is not ported yet; "
-                "pass step_fn or batch_step_fn")
-        if prefill_fn is None or cache_factory is None:
-            raise ValueError("ContinuousBatcher: pass prefill_fn and cache_factory")
         self.params = params
         self.slots = int(slots)
         self.max_len = int(max_len)
+        if (step_fn is None and batch_step_fn is None) or prefill_fn is None \
+                or cache_factory is None:
+            if cfg is None:
+                raise ValueError("ContinuousBatcher: pass cfg for the default llama "
+                                 "step, or step_fn / batch_step_fn with prefill_fn "
+                                 "and cache_factory")
+            plain = llama_lanes(cfg, self.max_len, params)
+            if step_fn is None and batch_step_fn is None:
+                step_fn = plain["step_fn"]
+            prefill_fn = prefill_fn or plain["prefill_fn"]
+            cache_factory = cache_factory or plain["cache_factory"]
         self.stop_token = int(stop_token)
         self.sampling = sampling or SamplingParams(temperature=0.0)
         self.step_tokens = int(step_tokens)
@@ -218,6 +283,8 @@ class ContinuousBatcher:
         self.pipeline = bool(pipeline)
         self._inflight: _Tick | None = None
         self.buckets = tuple(sorted(prefill_buckets))
+        self.pad_token = int(pad_token)
+        self._token_map = token_map
         self.history_size = max(1, self.sampling.repetition_context_size) \
             if self.sampling.repetition_penalty != 1.0 else 1
         self._cache = cache_factory(self.slots)
@@ -355,7 +422,7 @@ class ContinuousBatcher:
             req = self._pending.pop(0)
             padded = self._bucket(req.prompt.size)
             pad = padded - req.prompt.size
-            tokens = np.zeros((padded,), np.int32)
+            tokens = np.full((padded,), self.pad_token, np.int32)
             tokens[pad:] = req.prompt
             if self._ctx is not None:
                 for full, row in zip(self._ctx, req.context):
@@ -399,7 +466,8 @@ class ContinuousBatcher:
         ring = (sub.hpos % H)[:, None]
         kept = sub.hist.gather(1, ring)[:, 0]
         hist = sub.hist.scatter(1, ring, torch.where(active, idx, kept)[:, None])
-        toks = torch.where(active, idx, sub.last)
+        toks = idx if self._token_map is None else self._token_map(idx)
+        toks = torch.where(active, toks, sub.last)
         # freeze idle lanes: their garbage k/v landed at the (unattended)
         # old offset; keep it unattended
         offset = torch.where(active, sub.offset + 1, sub.offset)
@@ -596,3 +664,256 @@ class EngineWorkerBase:
             outq.put(RuntimeError(
                 f"{self._thread_name} thread died: {e!r}"))
             raise
+
+
+class ContinuousTTS:
+    """Continuous-batching front end for Orpheus-family TTS serving.
+
+    Wraps a loaded :class:`~tpu_audio_torch.models.tts.llama_tts.LlamaTTS`:
+    text requests share the model trunk through a :class:`ContinuousBatcher`
+    (band head, repetition penalty and stop token as in the offline loop),
+    while each request's SNAC frames decode to waveform on its own as they
+    accumulate: the multi-request analog of ``generate_stream``.
+
+    >>> srv = ContinuousTTS(model, slots=4)
+    >>> r = srv.submit("Hello there.", voice="tara")
+    >>> for request_id, event in srv.run():
+    ...     ...  # AudioGeneration token/audio events per request
+
+    One sampling configuration per server; ``max_tokens`` and ``seed`` stay
+    per request. ``fused="auto"`` takes the fused tick (one
+    ``fused_llama_stack_lanes`` call per decode step for every live lane)
+    whenever the model's tree is w8a8 of a shape the kernel takes, at any
+    ``slots``; any other tree serves through the plain tick (each live lane
+    through ``model._step_fn`` in turn). On a CUDA device a w8a8 tree only
+    serves through the kernel: ``fused="off"``, or a shape the kernel does
+    not take, raises.
+    """
+
+    def __init__(self, model, *, slots: int = 4, generation_parameters=None,
+                 seed: int = 0, max_len: int | None = None,
+                 prefill_buckets: tuple[int, ...] = (64, 128, 256, 512),
+                 step_tokens: int = 7, pipeline: bool = True,
+                 fused: str | bool = "auto"):
+        if model.tokenizer is None:
+            raise AudioGenerationError("tokenizer not loaded")
+        if model.codec is None:
+            raise AudioGenerationError("SNAC codec not loaded")
+        self.model = model
+        p = generation_parameters or model.default_generation_parameters()
+        self.gen_params = p
+        if max_len is None:
+            max_len = max(prefill_buckets) + p.max_tokens + 1
+        sampling = SamplingParams(
+            temperature=p.temperature, top_p=p.top_p, top_k=p.top_k,
+            repetition_penalty=p.repetition_penalty,
+            repetition_context_size=p.repetition_context_size)
+        self.fused = self._fused_route(fused)
+        if self.fused:
+            engine_kw = model._fused_lane_hooks(max_len)
+        else:
+            engine_kw = dict(params=model.params, **llama_lanes(
+                model.config, max_len, model.params, model.dtype, step=model._step_fn,
+                prefill=model._prefill))
+        self.engine = ContinuousBatcher(
+            engine_kw.pop("params"), model.config, slots=slots, max_len=max_len,
+            stop_token=model.tokens.end_of_speech, sampling=sampling,
+            prefill_buckets=prefill_buckets, seed=seed, **engine_kw,
+            token_map=model._token_map, pad_token=model.tokens.pad_token,
+            # one SNAC code group a tick: frame-aligned emission (tokens do
+            # not depend on it); pipelined ticks overlap the token readback
+            # with the next tick's decode, at one tick of emission latency
+            step_tokens=step_tokens, pipeline=pipeline)
+        ccfg = getattr(model.codec, "config", None)
+        self._spg = 4 * (ccfg.hop_length if ccfg else 512)  # samples a 7-token group
+        self.chunk_tokens = 7 * max(
+            1, int(p.streaming_interval * model.sample_rate / self._spg))
+        # bounded SNAC decode window: a long request decodes only the last
+        # ~decode_window_s of frames a flush (constant work a flush instead
+        # of work growing with the request, which would hold every lane's
+        # tick as any one request grows). The window start aligns to the
+        # decoder's local-attention blocks (block-local attention is then
+        # exact for the suffix) and ~7 s of overlap context absorbs the
+        # convolutions' edge transients; below the threshold the decode
+        # covers the whole prefix, as a solo generate_stream does.
+        decode_window_s = 8.0
+        strides = getattr(ccfg, "vq_strides", None) or [4, 2, 1]
+        attn = getattr(ccfg, "attn_window_size", None)
+        self._align_groups = max(1, (attn or 1) // strides[0])
+        self.decode_window_groups = max(
+            2 * (self.chunk_tokens // 7) + self._align_groups,
+            int(decode_window_s * model.sample_rate / self._spg))
+        self._meta: dict[int, dict] = {}
+
+    def _fused_route(self, fused) -> bool:
+        """Whether to build the fused tick; see the class docstring."""
+        from tpu_audio_torch.models.tts.llama_tts import _fused_route
+
+        model = self.model
+        # raises on CUDA for a w8a8 tree the kernels do not take
+        fused_tree = _fused_route(model.params, model.config, model.device)
+        if coerce_fused_flag(fused):
+            return fused_tree
+        if fused_tree and model.device.type == "cuda":
+            raise ValueError(
+                "ContinuousTTS(fused='off'): a w8a8 tree on CUDA decodes through the "
+                "fused_llama_stack_lanes kernel; the plain tick has no kernel for it")
+        return False
+
+    def submit(self, text: str, voice: str | None = None, ref_audio=None,
+               ref_text: str | None = None, max_tokens: int | None = None,
+               seed: int = 0) -> GenRequest:
+        prompt = self.model.prepare_input_ids(text, voice, ref_audio, ref_text)
+        req = self.engine.submit(np.asarray(prompt, np.int32),
+                                 max_new=max_tokens or self.gen_params.max_tokens,
+                                 seed=seed)
+        self._meta[req.request_id] = {"prompt": list(prompt), "decoded_samples": 0,
+                                      "last_decode": 0}
+        return req
+
+    def _audio_delta(self, req: GenRequest) -> np.ndarray | None:
+        """Decode the request's pending frames (a bounded suffix window, see
+        ``decode_window_groups``); return the new samples."""
+        from tpu_audio_torch.models.tts.llama_tts import ungroup_codes
+
+        meta = self._meta[req.request_id]
+        code_list = self.model.parse_output(meta["prompt"] + req.tokens)
+        n_groups = len(code_list) // 7
+        if n_groups < 1:
+            return None
+        start = 0
+        if n_groups > self.decode_window_groups:
+            start = n_groups - self.decode_window_groups
+            # the window must still cover everything not yet emitted
+            start = min(start, meta["decoded_samples"] // self._spg)
+            start -= start % self._align_groups
+        l1, l2, l3 = ungroup_codes(code_list[start * 7: n_groups * 7],
+                                   self.model.tokens.codebook_size)
+        wav = self.model.codec.decode([np.asarray([l1], np.int32), np.asarray([l2], np.int32),
+                                       np.asarray([l3], np.int32)])
+        wav = wav[0].to(torch.float32).cpu().numpy()
+        emitted_in_window = meta["decoded_samples"] - start * self._spg
+        if wav.shape[0] <= emitted_in_window:
+            return None
+        meta["decoded_samples"] = start * self._spg + wav.shape[0]
+        return wav[emitted_in_window:]
+
+    def step(self) -> list[tuple[int, AudioGeneration]]:
+        """One engine tick. Returns ``(request_id, AudioGeneration)`` events:
+        a token event a sampled token, and an audio event for each request
+        whose pending frames crossed the streaming interval or that
+        finished."""
+        events = [(rid, AudioGeneration.from_token(tok)) for rid, tok in self.engine.step()]
+        for rid, meta in list(self._meta.items()):
+            req = self.engine.requests[rid]
+            if req.done or len(req.tokens) - meta["last_decode"] >= self.chunk_tokens:
+                meta["last_decode"] = len(req.tokens)
+                delta = self._audio_delta(req)
+                if delta is not None:
+                    events.append((rid, AudioGeneration.from_audio(delta)))
+                if req.done:
+                    del self._meta[rid]
+        return events
+
+    def is_finished(self, request_id: int) -> bool:
+        """True once the request's tokens are done and its audio flushed
+        (no further events will arrive for it)."""
+        req = self.engine.requests.get(request_id)
+        return req is not None and req.done and request_id not in self._meta
+
+    def cancel(self, request_id: int) -> bool:
+        """Abort a request (e.g. the client hung up): frees its decode lane
+        and drops its unflushed audio."""
+        out = self.engine.cancel(request_id)
+        self._meta.pop(request_id, None)
+        return out
+
+    @property
+    def idle(self) -> bool:
+        return self.engine.idle and not self._meta
+
+    def run(self):
+        """Generator draining the server: yields ``(request_id, event)``
+        until every submitted request has finished (audio flushed)."""
+        while not self.idle:
+            yield from self.step()
+
+
+class TTSEngineWorker(EngineWorkerBase):
+    """Thread multiplexing concurrent callers onto one :class:`ContinuousTTS`:
+
+    >>> worker = TTSEngineWorker(model, slots=4)
+    >>> for event in worker.synthesize("hello"):   # any thread
+    ...     ...                     # AudioGeneration token/audio events
+
+    Requests admit as lanes free up; callers block only on their own queue.
+    ``close()`` stops the thread after in-flight work drains.
+    """
+
+    _thread_name = "tts-engine"
+
+    def __init__(self, model, *, slots: int = 4, generation_parameters=None,
+                 seed: int = 0, **kw):
+        self._srv = ContinuousTTS(model, slots=slots,
+                                  generation_parameters=generation_parameters, seed=seed,
+                                  **kw)
+        super().__init__()
+
+    def synthesize(self, text: str, voice: str | None = None, ref_audio=None,
+                   ref_text: str | None = None, max_tokens: int | None = None,
+                   seed: int = 0):
+        """Submit a request; yields its AudioGeneration events (token and
+        audio) as the shared engine produces them. Raises here if the engine
+        rejected the request (e.g. a prompt too long). Closing the generator
+        early (a client hang-up) cancels the request and frees its lane."""
+        outq = self._queue_mod.Queue()
+        self._enqueue(("submit", (text, voice, ref_audio, ref_text, max_tokens, seed),
+                       outq))
+        finished = False
+        try:
+            while True:
+                ev = outq.get()
+                if ev is None:
+                    finished = True
+                    return
+                if isinstance(ev, Exception):
+                    finished = True
+                    raise ev
+                yield ev
+        finally:
+            if not finished:
+                try:
+                    self._enqueue(("cancel", None, outq))
+                except RuntimeError:
+                    pass  # the worker is closed or dead: nothing to cancel
+
+    def _fail_item(self, item, failure: Exception) -> None:
+        if item[0] == "submit":
+            item[2].put(failure)
+
+    @property
+    def _idle(self) -> bool:
+        return self._srv.idle
+
+    def _handle(self, item) -> None:
+        kind, payload, outq = item
+        if kind == "cancel":
+            # FIFO inbox: this queue's submit was handled before, so the
+            # reverse lookup is exact
+            for rid, q in list(self._out.items()):
+                if q is outq:
+                    self._srv.cancel(rid)
+                    self._srv.engine.release(rid)
+                    del self._out[rid]
+            return
+        text, voice, ref_audio, ref_text, max_tokens, seed = payload
+        self._admit(lambda: self._srv.submit(text, voice, ref_audio, ref_text, max_tokens,
+                                             seed), outq)
+
+    def _service(self) -> None:
+        for rid, ev in self._srv.step():
+            if rid in self._out:
+                self._out[rid].put(ev)
+        for rid in [r for r in self._out if self._srv.is_finished(r)]:
+            self._out.pop(rid).put(None)
+            self._srv.engine.release(rid)
