@@ -83,11 +83,40 @@ Then Orpheus serving, on the same model:
 14. answers three concurrent speech requests (one of them streamed)
    through ``cli.serve.build_server(model, "tts", slots=4)``.
 
+Then it frees the w8a8 model and runs MLX grouped-affine 4-bit. (Phase 15
+runs first of all, right after the build: late in the process
+``torch.profiler`` loses device events, and kernel 7's short calls then
+read "not measured".)
+
+15. holds the GEMV kernel (``quantized_matvec``, kernel 7) against its
+   plain version at every GEMV shape of the Orpheus-3B 4-bit path (q/k/v,
+   o, gate/up, down, the band head and the full tied head), at 1 and 63
+   rows, 4 and 8 bits, f32 and bf16 scales, then groups of 32 and 128, 2
+   bits, bf16 x, odd row counts and rows that are not 16-byte aligned; and
+   times it, its plain version and ``torch._weight_int4pack_mm`` at each
+   path shape;
+16. builds Orpheus-3B quantized on the card to 4 bits in groups of 64 and
+   synthesises 280 tokens through ``LlamaTTS.generate`` (greedy, twice) and
+   ``generate_stream``, then 21 tokens with the full tied head: kernel 7
+   launched 4 x 28 times for the prefill and 4 x 28 + 1 times a decode step,
+   no other kernel of the port, no call of the plain version; teacher-forces
+   the band logits against the plain route; measures TTFB with the
+   ``bench_tts_ttfb(quantize_bits=4)`` protocol, ms a token and the
+   per-kernel breakdown;
+17. serves four staggered requests through ``ContinuousTTS`` (the plain
+   tick) at 4 slots, each alone giving the same tokens, and transcribes one
+   window through ``Whisper.generate`` on a whisper-large-v3-width q4 tree
+   (quantized on the card from the first phases' weights): kernel 7
+   launched 8 x 32 + 1 times a decoder step, and the tokens of the plain
+   route.
+
 Each kernel's record carries its bound on the H100 (``bound_ms``: the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate
 of their type, from this run's shapes) and ``library_ms``, the time of a
-single PyTorch call computing the same function where one exists (none
-does for these six: null).
+single PyTorch call computing the same function where one exists: for
+kernel 7 at 4 bits ``torch._weight_int4pack_mm`` (bf16), null for the
+other six. Kernel 7's record sums the GEMVs of one decode step at 1 row,
+with each shape's readings in ``by_shape``.
 
 ``python3 chip_smoke.py --mutations`` instead runs the standing mutation
 check: each kernel's check alone on copies of the checkout with its source
@@ -95,14 +124,16 @@ mutated (``MUTATIONS``; for kernel 5, phase 8 with a wrong RMSNorm row, the
 RoPE sign on the wrong half, query heads reading the next K/V head; for
 kernel 6, phase 11 with lane m's RoPE angle from lane 0's offset, attention
 from row 0 instead of the lane's valid_from, lane m reading the next lane's
-slot) beside an unmutated copy, and prints each copy's readings: every
+slot; for kernel 7, phase 15 with the codes read most significant first,
+the scale of the neighbouring group, the bias added without its group sum)
+beside an unmutated copy, and prints each copy's readings: every
 mutant must fail its check and every sound copy pass.
 
 TF32 is off for matmuls and convolutions, so float32 references are full
 float32. Any failed check raises and ends the run with a non-zero code.
-The last six lines of output are JSON: the generate runs, the serving
-results, the TTS results, the TTS serving results, the kernels' records,
-then ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
+The last seven lines of output are JSON: the generate runs, the serving
+results, the TTS results, the TTS serving results, the MLX 4-bit results,
+the kernels' records, then ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 the repository, it exits non-zero before printing any of them.
 """
 
@@ -248,6 +279,28 @@ TTS_SERVE_TEXTS = ["Hello there.", "The quick brown fox jumps over the lazy dog.
                    "Serving six requests at once.", "A fourth, rather shorter one.",
                    "Number five waits for a free lane to open up.", "And the sixth."]
 TTS_THROUGHPUT_SLOTS = (1, 4, 8)
+# MLX grouped-affine 4-bit (kernel 7): every GEMV shape of the Orpheus-3B
+# 4-bit path, (O, I): the fused q/k/v, o, fused gate/up and down
+# projections, the band head and the full tied head
+QMM_SHAPES = {"q/k/v": (5120, 3072), "o": (3072, 3072), "gate/up": (16384, 3072),
+              "down": (3072, 8192), "band head": (28673, 3072), "full head": (156940, 3072)}
+# kernel 7 against its plain version, relative to the largest output: both
+# sum the same f32 products in another order (readings ~1e-6 of max|y|);
+# with bf16 x the result is bf16, and the two may round an output to
+# neighbouring bf16 values: one unit of the largest output's last place
+QMM_RTOL = 1e-4
+QMM_BF16_RTOL = 2.0 ** -7
+# teacher-forced band logits of the 4-bit path, kernel 7 against its plain
+# version on its own cache: f32 activations throughout (no int8 rounding of
+# activations), but the K/V rows are stored in bf16, and a row the two
+# round to neighbouring bf16 values moves the later logits (reading 6.2e-5
+# over 8 steps on an H100)
+Q4_LOGITS_RTOL = 1e-3
+Q4_FULL_TOKENS = 21  # the full-head run
+Q4_SERVE_SLOTS, Q4_SERVE_MAX_TOKENS = 4, 70
+Q4_SERVE_TEXTS = TTS_SERVE_TEXTS[:4]
+Q4_WHISPER_TOKENS = 24
+Q4_PROFILE_TOKENS = 8  # ~1,600 device events a token: a short profiled chunk
 # the standing mutation check (--mutations): for each kernel, its source,
 # the function here that runs its check alone, and its mutations (name,
 # original text, mutated text); a kernel ported later adds its entry
@@ -273,6 +326,15 @@ MUTATIONS = {
         ("lane m's attention reads slot lanes[(m + 1) % n]",
          "const size_t base = (size_t)lanes[m] * slot_stride;",
          "const size_t base = (size_t)lanes[(m + 1) % gridDim.z] * slot_stride;"),
+    ]),
+    "quantized_matvec": ("tpu_audio_torch/csrc/qmm.cu", "qmm_only", [
+        ("codes read most significant first",
+         "const int shift = BITS * n;", "const int shift = BITS * (32 / BITS - 1 - n);"),
+        ("the scale of the neighbouring group",
+         "sc0[r] = load_f(scales, srow[r] + grp0, s_dt);",
+         "sc0[r] = load_f(scales, srow[r] + (grp0 > 0 ? grp0 - 1 : 1), s_dt);"),
+        ("the bias added without its group sum",
+         "v += cur.bi0[r] * xg[b * G + grp0];", "v += cur.bi0[r];"),
     ]),
 }
 
@@ -488,22 +550,23 @@ def profile_window(name, model, audio, gp) -> None:
 @contextlib.contextmanager
 def plain_kernels():
     """Route the paths' kernel wrappers to their plain versions."""
-    from tpu_audio_torch.ops import fused_decoder, fused_llama, kv_attention
+    from tpu_audio_torch.ops import fused_decoder, fused_llama, kv_attention, qmm
 
     saved = (fused_decoder.fused_stack, fused_decoder.fused_stack_lanes,
              kv_attention.decode_attention_int8, fused_llama.fused_llama_stack,
-             fused_llama.fused_llama_stack_lanes)
+             fused_llama.fused_llama_stack_lanes, qmm.quantized_matvec)
     fused_decoder.fused_stack = fused_decoder.fused_stack_ref
     fused_decoder.fused_stack_lanes = fused_decoder.fused_stack_lanes_ref
     kv_attention.decode_attention_int8 = kv_attention.decode_attention_int8_ref
     fused_llama.fused_llama_stack = fused_llama.fused_llama_stack_ref
     fused_llama.fused_llama_stack_lanes = fused_llama.fused_llama_stack_lanes_ref
+    qmm.quantized_matvec = qmm.quantized_matvec_ref
     try:
         yield
     finally:
         (fused_decoder.fused_stack, fused_decoder.fused_stack_lanes,
          kv_attention.decode_attention_int8, fused_llama.fused_llama_stack,
-         fused_llama.fused_llama_stack_lanes) = saved
+         fused_llama.fused_llama_stack_lanes, qmm.quantized_matvec) = saved
 
 
 @contextlib.contextmanager
@@ -2366,6 +2429,621 @@ def tts_http_phase(model) -> dict:
     return dict(requests=HTTP_REQUESTS, wall_s=wall, samples=samples)
 
 
+# -- MLX grouped-affine 4/8-bit: kernel 7 and Orpheus-3B 4-bit ----------------------
+
+
+def qmm_bound(rows: int, o: int, i: int, bits: int, group_size: int,
+              scale_bytes: int = 4) -> tuple[float, str]:
+    """Kernel 7's least time: the words, scales and biases, x and y once,
+    and a multiply-add a weight and row in f32 (no tensor cores)."""
+    return bound(o * i * bits / 8 + 2 * o * (i // group_size) * scale_bytes
+                 + 4 * rows * (i + o), f32_ops=2 * rows * o * i)
+
+
+def qmm_inputs(o: int, i: int, rows: int, bits: int, group_size: int, gen, dev,
+               scale_dtype=None, x_dtype=None):
+    """N(0, 0.02) weights quantized on the card (f32 scales and biases, or
+    cast to ``scale_dtype``) and N(0, 1) rows of x."""
+    import torch
+
+    from tpu_audio_torch.core import quant
+
+    words, s, b = quant.quantize_mlx(
+        torch.randn((o, i), generator=gen, device=dev) * 0.02, group_size, bits)
+    if scale_dtype is not None:
+        s, b = s.to(scale_dtype), b.to(scale_dtype)
+    x = torch.randn((rows, i), generator=gen, device=dev).to(x_dtype or torch.float32)
+    return x, words, s, b
+
+
+def qmm_check(name: str, x, words, s, b, group_size: int, bits: int) -> tuple[float, bool]:
+    """Kernel 7 against its plain version on the same inputs, relative to
+    the largest output: QMM_RTOL in f32; for bf16 x (a bf16 result) one
+    bf16 unit of the largest output, QMM_BF16_RTOL. Returns the error and
+    whether x was bf16."""
+    import torch
+
+    from tpu_audio_torch.ops import qmm
+
+    got = qmm.quantized_matvec(x, words, s, b, group_size, bits)
+    want = qmm.quantized_matvec_ref(x, words, s, b, group_size, bits)
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    tol = QMM_BF16_RTOL if x.dtype == torch.bfloat16 else QMM_RTOL
+    check(got.shape == want.shape and got.dtype == x.dtype and bool(torch.isfinite(got).all()),
+          f"{name}: output {tuple(got.shape)} {got.dtype}")
+    check(err <= tol, f"{name}: kernel 7 disagrees with its plain version: {err:.3e} "
+          f"(rtol {tol})")
+    return err, x.dtype == torch.bfloat16
+
+
+def int4pack_library(x, words, s, b, group_size: int):
+    """``torch._weight_int4pack_mm`` on the same 4-bit weights (bf16 x; the
+    codes repacked at load with ``_convert_weight_to_int4pack``, rows padded
+    to a multiple of 8, zeros = biases + 8 * scales, since the library
+    dequantizes (q - 8) * scale + zero): a function of the bf16 inputs
+    returning ``[rows, O]`` bf16. None and the error where this torch does
+    not run it."""
+    import torch
+
+    from tpu_audio_torch.core import quant
+
+    try:
+        o, i = words.shape[0], words.shape[1] * 8
+        pad = -o % 8
+        codes = quant._unpack(words, 4)
+        codes = torch.cat([codes, codes.new_zeros((pad, i))])
+        packed = torch._convert_weight_to_int4pack(
+            (codes[:, ::2] << 4 | codes[:, 1::2]).to(torch.uint8), 8)
+        sz = torch.stack([torch.cat([s, s.new_zeros((pad, s.shape[1]))]),
+                          torch.cat([b + 8 * s, b.new_zeros((pad, b.shape[1]))])], -1)
+        sz = sz.transpose(0, 1).contiguous().to(torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+
+        def call():
+            return torch._weight_int4pack_mm(xb, packed, group_size, sz)
+
+        out = call()[:, :o]
+        torch.cuda.synchronize()
+        return call, out, None
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return None, None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+
+def qmm_phase(dev, timing: bool = True) -> dict:
+    """Phase 15: kernel 7 against its plain version at every GEMV shape of
+    the Orpheus-3B 4-bit path (QMM_SHAPES), at 1 and 63 rows, 4 and 8 bits,
+    group size 64, f32 and bf16 scales; then groups of 32 and 128, 2 bits,
+    bf16 x and odd row counts at the o-projection's shape, and rows that are
+    not 16-byte aligned. With ``timing``: kernel, plain and library times a
+    call (CUDA events) and as device time, at 4 bits, g 64, f32 scales, the
+    path's configuration, and the decode step's sum (the layers' GEMVs
+    times 28 and the band head, at 1 row)."""
+    import torch
+
+    from tpu_audio_torch.ops import qmm
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    errs, shapes = [], []
+    with torch.inference_mode():
+        for name, (o, i) in QMM_SHAPES.items():
+            for bits in (4, 8):
+                for sdt in (torch.float32, torch.bfloat16):
+                    for rows in (1, 63):
+                        x, words, s, b = qmm_inputs(o, i, rows, bits, 64, gen, dev, sdt)
+                        errs.append(qmm_check(f"qmm {name} [{rows},{i}]x[{o},{i}] bits "
+                                              f"{bits} scales {sdt}", x, words, s, b, 64, bits))
+                        del x, words, s, b
+        o, i = QMM_SHAPES["o"]
+        extra = [(rows, bits, g, xdt, sdt)
+                 for rows, bits, g in ((1, 4, 32), (63, 4, 32), (1, 4, 128), (63, 4, 128),
+                                       (5, 2, 32), (9, 2, 64), (17, 8, 128))
+                 for xdt, sdt in ((torch.float32, torch.float16),)]
+        extra += [(rows, 4, 64, torch.bfloat16, torch.bfloat16) for rows in (2, 3, 33, 64)]
+        extra += [(rows, 8, 64, torch.float32, torch.float32) for rows in (7, 13, 40)]
+        for rows, bits, g, xdt, sdt in extra:
+            x, words, s, b = qmm_inputs(o, i, rows, bits, g, gen, dev, sdt, xdt)
+            errs.append(qmm_check(f"qmm o [{rows},{i}] bits {bits} g {g} x {xdt} scales {sdt}",
+                                  x, words, s, b, g, bits))
+        # rows of 6 words are not 16-byte aligned: one word at a time
+        x, words, s, b = qmm_inputs(333, 96, 3, 2, 32, gen, dev)
+        errs.append(qmm_check("qmm [3,96]x[333,96] bits 2 g 32 (unaligned rows)",
+                              x, words, s, b, 32, 2))
+        f32 = [e for e, bf16 in errs if not bf16]
+        bf16 = [e for e, bf16 in errs if bf16]
+        print(f"[qmm] {len(errs)} checks against the plain version: rel err up to "
+              f"{max(f32):.3e} with f32 x (rtol {QMM_RTOL}), {max(bf16):.3e} with bf16 x "
+              f"(rtol {QMM_BF16_RTOL})")
+        rec = dict(route="cuda", source="tpu_audio_torch/csrc/qmm.cu",
+                   replaces="tpu_audio/ops/pallas_qmm.py:100", checks=len(errs),
+                   rel_err=max(f32), rel_err_bf16_x=max(bf16))
+        if not timing:
+            return rec
+        lib_errs, lib_why = [], None
+        for name, (o, i) in QMM_SHAPES.items():
+            for rows in (1, 63):
+                x, words, s, b = qmm_inputs(o, i, rows, 4, 64, gen, dev)
+                want = qmm.quantized_matvec_ref(x, words, s, b, 64, 4)
+                err = float((qmm.quantized_matvec(x, words, s, b, 64, 4) - want).abs().max())
+                b_ms, b_by = qmm_bound(rows, o, i, 4, 64)
+                row = dict(shape=name, rows=rows, o=o, i=i, bound_ms=b_ms, bound_by=b_by,
+                           max_abs_err=err,
+                           ms=cuda_ms(lambda: qmm.quantized_matvec(x, words, s, b, 64, 4)),
+                           plain_ms=cuda_ms(lambda: qmm.quantized_matvec_ref(
+                               x, words, s, b, 64, 4), reps=5, warmup=1),
+                           dev_ms=device_ms(lambda: qmm.quantized_matvec(
+                               x, words, s, b, 64, 4), launches=1),
+                           plain_dev_ms=device_ms(lambda: qmm.quantized_matvec_ref(
+                               x, words, s, b, 64, 4), reps=3))
+                call, lib_out, why = int4pack_library(x, words, s, b, 64)
+                if call is None:
+                    lib_why = why
+                    row.update(library_ms=None, library_dev_ms=None, library_rel_err=None)
+                else:
+                    lib_errs.append(rel_err(lib_out, want))
+                    row.update(library_ms=cuda_ms(call), library_dev_ms=device_ms(call),
+                               library_rel_err=lib_errs[-1])
+                shapes.append(row)
+                print(f"[time] qmm {name} [{rows},{i}]x[{o},{i}] 4-bit g 64: per call kernel "
+                      f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+                      f"{fmt(row['library_ms'])}; device kernel {fmt(row['dev_ms'])}, plain "
+                      f"{fmt(row['plain_dev_ms'])}, library {fmt(row['library_dev_ms'])}; bound "
+                      f"{b_ms:.4f} ms ({b_by})"
+                      + (f"; library rel err {row['library_rel_err']:.3e}"
+                         if row["library_rel_err"] is not None else f"; library: {why}"))
+                del x, words, s, b, want
+    L = ORPHEUS["num_hidden_layers"]
+
+    def step(field):  # a decode step: 28 x the layers' four GEMVs + the band head
+        vals = [r[field] for r in shapes if r["rows"] == 1 and r["shape"] != "full head"]
+        if any(v is None for v in vals):
+            return None
+        return sum(v * (1 if r["shape"] == "band head" else L)
+                   for v, r in zip(vals, [r for r in shapes if r["rows"] == 1
+                                          and r["shape"] != "full head"]))
+
+    rec.update(ms=step("ms"), plain_ms=step("plain_ms"), dev_ms=step("dev_ms"),
+               plain_dev_ms=step("plain_dev_ms"), bound_ms=step("bound_ms"),
+               bound_by="bytes", library_ms=step("library_ms"),
+               library_dev_ms=step("library_dev_ms"),
+               library_rel_err=max(lib_errs) if lib_errs else None, library_error=lib_why,
+               max_abs_err=max(r["max_abs_err"] for r in shapes), by_shape=shapes)
+    print(f"[time] quantized_matvec, a decode step's {4 * L + 1} GEMVs (4-bit, g 64, 1 row): "
+          f"per call kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
+          f"{fmt(rec['library_ms'])}; device kernel {fmt(rec['dev_ms'])}, plain "
+          f"{fmt(rec['plain_dev_ms'])}, library {fmt(rec['library_dev_ms'])}; bound "
+          f"{rec['bound_ms']:.4f} ms (bytes)")
+    return rec
+
+
+def build_orpheus_q4(dev):
+    """Orpheus-3B with seed-0 random weights quantized on the card to MLX
+    4-bit in groups of 64 (``quantize_tree(bits=4, group_size=64)``, every
+    projection and the embedding), q/k/v and gate/up fused, seeded non-unit
+    norms: the band-head model and a full-head model over the same
+    tensors, both with the SNAC 24 kHz codec."""
+    import torch
+
+    from tpu_audio_torch.core import quant
+    from tpu_audio_torch.models import llama
+    from tpu_audio_torch.models.tts import llama_tts as TT
+
+    cfg = TT.LlamaTTSConfig(**ORPHEUS)
+    params = llama.init_random_params(cfg, seed=0, dtype=torch.bfloat16, device=dev,
+                                      on_device=True)
+    randomize_norms(params, torch.Generator(device=dev).manual_seed(3))
+    params = llama.fuse_projections(quant.quantize_tree(params, bits=4, group_size=64,
+                                                        scheme="mlx"))
+    qkv = params["model"]["layers"]["self_attn"]["qkv_proj"]["weight"]
+    check(isinstance(qkv, quant.QuantizedTensor) and isinstance(
+        params["model"]["embed_tokens"]["weight"], quant.QuantizedTensor),
+        "Orpheus 4-bit: the projections or the embedding are not packed")
+    codec = build_snac(dev)
+    band = TT.LlamaTTS(cfg, params, tokenizer=ByteTokenizer(), codec=codec,
+                       dtype=torch.bfloat16, audio_band_head=True)
+    full = TT.LlamaTTS(cfg, params, tokenizer=ByteTokenizer(), codec=codec,
+                       dtype=torch.bfloat16)
+    check(not TT._fused_route(band.params, cfg, band.device), "a 4-bit tree took the fused route")
+    return band, full
+
+
+@contextlib.contextmanager
+def counting(module, name: str, counter: list):
+    """Count the calls of ``module.name`` (one slot of ``counter``)."""
+    fn = getattr(module, name)
+
+    def call(*a, **k):
+        counter[0] += 1
+        return fn(*a, **k)
+
+    setattr(module, name, call)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def q4_generate_phase(model, full) -> tuple[list, dict, list]:
+    """Phase 16's offline runs: ``generate`` twice (greedy, TTS_TOKENS
+    tokens, identical tokens and waveforms) and ``generate_stream``, each
+    with the launch counters reset just before and read just after: kernel
+    7 launched 4 x 28 times for the prefill and 4 x 28 + 1 times for each
+    decode step the loop took, no launch of kernels 5 or 6 and no call of
+    the plain version; then a short run of the full-head model, whose head
+    covers all 156,940 rows, on the same counts (and one more launch for the
+    prefill's logits), through ``_run_generation``: its greedy tokens need
+    not be audio codes."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.core.generation import AudioGenerateParameters, AudioGenerationKind
+    from tpu_audio_torch.ops import _lib, qmm
+
+    L = model.config.num_hidden_layers
+    T = model.tokens
+    hop = model.codec.config.hop_length
+    plain = [0]
+    runs, first, launches = [], None, {}
+    for run, (m, n, stream) in enumerate([(model, TTS_TOKENS, False), (model, TTS_TOKENS, False),
+                                          (model, TTS_TOKENS, True), (full, Q4_FULL_TOKENS, False)]):
+        gp = AudioGenerateParameters(max_tokens=n, temperature=0.0, repetition_penalty=1.3,
+                                     repetition_context_size=20)
+        steps, seen = [0], {}
+        plain[0] = 0
+        run_generation = m._run_generation
+
+        def spy(*a, **k):
+            for item in run_generation(*a, **k):
+                seen["item"] = item
+                yield item
+
+        m._run_generation = spy
+        m._decoders.clear()
+        try:
+            with counting(m, "_step_fn", steps), counting(qmm, "quantized_matvec_ref", plain):
+                _lib.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if stream:
+                    events = list(m.generate_stream(TTS_TEXT, generation_parameters=gp))
+                    wav = np.concatenate([e.audio for e in events
+                                          if e.kind == AudioGenerationKind.AUDIO])
+                elif m is full:  # its greedy tokens need not be audio codes: no waveform
+                    list(m._run_generation(TTS_TEXT, None, None, None, gp, n))
+                    wav = np.zeros(0, np.float32)
+                else:
+                    wav = m.generate(TTS_TEXT, generation_parameters=gp)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = dict(_lib.launches)
+        finally:
+            del m._run_generation
+            m._decoders.clear()
+        _, _, (pt, gt, plen, all_tokens) = seen["item"]
+        toks = all_tokens[plen:]
+        frames = len(m.parse_output(all_tokens)) // 7
+        want = 4 * L + (4 * L + 1) * steps[0] + (m is full)  # the full head's prefill logits
+        label = "full head" if m is full else "generate_stream" if stream else "generate"
+        print(f"[tts q4 {label} run {run}] {len(toks)} tokens ({steps[0]} decode steps taken) "
+              f"in {wall:.3f} s (prefill {pt * 1e3:.3f} ms, decode "
+              f"{gt * 1e3 / steps[0]:.4f} ms a step); {wav.shape[0]} samples ({frames} "
+              f"frames); launches {launches} ({want} expected), plain version calls {plain[0]}")
+        check(launches.get("quantized_matvec", 0) == want,
+              f"quantized_matvec launched {launches.get('quantized_matvec', 0)} times, "
+              f"{want} expected for {steps[0]} decode steps")
+        check(not any(launches.get(k, 0) for k in ("fused_llama_stack",
+                                                   "fused_llama_stack_lanes")),
+              "a w8a8 kernel ran on the 4-bit path")
+        check(plain[0] == 0, "the plain version ran on the 4-bit path")
+        check(len(toks) == n or steps[0] >= len(toks), f"{len(toks)} tokens in {steps[0]} steps")
+        if m is full:
+            runs.append(dict(api="generate (full head)", run=run, tokens=len(toks),
+                             wall_s=wall, prefill_s=pt, decode_ms_per_step=gt * 1e3 / steps[0]))
+            continue
+        check(bool(np.isfinite(wav).all()) and wav.shape == (frames * 4 * hop,),
+              f"waveform {wav.shape} for {frames} frames")
+        check(frames > 0 and all(T.audio_token_offset <= t < T.audio_token_offset
+                                 + 7 * T.codebook_size for t in toks),
+              "no frames, or a token outside the audio band")
+        if first is None:
+            first = (toks, wav, launches)
+        check(toks == first[0], "greedy tokens differ between runs")
+        check(np.array_equal(wav, first[1]) if not stream else wav.shape == first[1].shape,
+              "waveform differs between runs")
+        runs.append(dict(api="generate_stream" if stream else "generate", run=run,
+                         tokens=len(toks), steps_taken=steps[0], wall_s=wall, prefill_s=pt,
+                         decode_ms_per_step=gt * 1e3 / steps[0], samples=int(wav.shape[0]),
+                         realtime_x=wav.shape[0] / model.sample_rate / wall))
+    print(f"first tokens: {first[0][:14]}")
+    return runs, first[2], first[0]
+
+
+def q4_prefill(model, prompt, max_tokens: int, valid_from: int | None = None):
+    """``_run_generation``'s prefill on the plain route: the prompt
+    left-padded to its bucket through ``llama.forward`` into a dense cache.
+    Returns the cache and the last prompt token."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.models import llama
+
+    dev = model.device
+    bucket = max(64, 1 << math.ceil(math.log2(max(len(prompt), 2))))
+    pad = bucket - len(prompt)
+    padded = np.full((1, bucket), model.tokens.pad_token, np.int64)
+    padded[0, pad:] = prompt
+    cache = llama.make_cache(model.config, 1, bucket + max_tokens + 1, model.dtype,
+                             valid_from=pad if valid_from is None else valid_from, device=dev)
+    _, cache = model._prefill(model.params, torch.from_numpy(padded[:, :-1]).to(dev), cache)
+    return cache, torch.tensor([prompt[-1]], device=dev)
+
+
+def q4_teacher_forced(model, tokens) -> float:
+    """The first TTS_TEACHER_STEPS generated tokens forced through the
+    decode step from one prefill, with kernel 7 and with its plain version,
+    each on its own copy of the cache: band logits within Q4_LOGITS_RTOL."""
+    import torch
+
+    from tpu_audio_torch.ops import qmm
+
+    prompt = model.prepare_input_ids(TTS_TEXT)
+    worst = 0.0
+    with torch.inference_mode():
+        cache, last = q4_prefill(model, prompt, TTS_TOKENS)
+        caches = {m: cache._replace(k=cache.k.clone(), v=cache.v.clone())
+                  for m in ("kernel", "plain")}
+        kernel = qmm.quantized_matvec
+        for t in ([int(last[0])] + list(tokens))[:TTS_TEACHER_STEPS]:
+            tok = torch.tensor([[t]], device=model.device)
+            lk, caches["kernel"] = model._step_fn(model.params, tok, caches["kernel"])
+            qmm.quantized_matvec = qmm.quantized_matvec_ref
+            try:
+                lp, caches["plain"] = model._step_fn(model.params, tok, caches["plain"])
+            finally:
+                qmm.quantized_matvec = kernel
+            check(bool(torch.isfinite(lk).all()), "tts q4: non-finite logits")
+            worst = max(worst, rel_err(lk, lp))
+    print(f"[tts q4 teacher-forced] {TTS_TEACHER_STEPS} steps: band logits, kernel 7 vs its "
+          f"plain version, rel err up to {worst:.3e} (rtol {Q4_LOGITS_RTOL})")
+    check(worst <= Q4_LOGITS_RTOL, "tts q4: kernel path logits disagree with the plain route")
+    return worst
+
+
+def q4_ttfb_phase(model) -> dict:
+    """bench.py's bench_tts_ttfb(quantize_bits=4) protocol on the band-head
+    model: a 64-token prompt bucket, a TTFB_CHUNK-token chunk sampled at T
+    0.6 and top-p 0.9 through ``llama.forward`` (kernel 7 for every
+    projection and the head), then the SNAC decode of its 4 frames; the
+    best of TTFB_REPEATS after a warm-up. Then ms a token (host clock, and
+    device time), the busy share and a per-kernel breakdown of one
+    Q4_PROFILE_TOKENS-token chunk, and the prefill's time alone."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_audio_torch.core.generation import AudioGenerateParameters
+
+    gp = AudioGenerateParameters(temperature=0.6, top_p=0.9, repetition_penalty=1.0)
+    prompt = [0] * (TTFB_BUCKET - 8) + list(range(100, 108))
+    dec = model._get_decoder(gp)
+    dev = model.device
+
+    def state():
+        return (torch.zeros((1, gp.repetition_context_size), dtype=torch.int64, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
+
+    def chunk(n, seed, max_tokens):
+        cache, last = q4_prefill(model, prompt, max_tokens, valid_from=0)
+        return dec(model.params, cache, last, torch.zeros((n,), dtype=torch.int64, device=dev),
+                   torch.Generator(device=dev).manual_seed(seed), -1, *state())
+
+    def first_audio(seed):
+        toks = chunk(TTFB_CHUNK, seed, TTFB_CHUNK + 1)[0]
+        f = toks.reshape(TTFB_CHUNK // 7, 7) % 4096
+        wav = model.codec.decode([f[:, :1].reshape(1, -1), f[:, 1:3].reshape(1, -1),
+                                  f[:, 3:7].reshape(1, -1)], seed=seed)
+        return wav.float().cpu().numpy()
+
+    with torch.inference_mode():
+        wav = first_audio(0)
+        times = []
+        for r in range(TTFB_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first_audio(r + 1)
+            times.append(time.perf_counter() - t0)
+        check(wav.shape == (1, TTFB_CHUNK // 7 * 4 * model.codec.config.hop_length)
+              and bool(np.isfinite(wav).all()), f"q4 ttfb waveform {wav.shape}")
+        ttfb = min(times)
+        audio_s = wav.size / model.sample_rate
+        prefills = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q4_prefill(model, prompt, TTFB_CHUNK + 1, valid_from=0)
+            torch.cuda.synchronize()
+            prefills.append(time.perf_counter() - t0)
+        n = Q4_PROFILE_TOKENS
+        cache, last = q4_prefill(model, prompt, n + 1, valid_from=0)
+
+        def args():
+            return (model.params, cache._replace(k=cache.k.clone(), v=cache.v.clone()), last,
+                    torch.zeros((n,), dtype=torch.int64, device=dev),
+                    torch.Generator(device=dev).manual_seed(9), -1, *state())
+
+        walls = []
+        for _ in range(3):
+            a = args()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec(*a)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        a = args()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            dec(*a)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+    kernels = by_kernel(prof)
+    busy_ms = sum(c[1] for c in kernels.values()) / 1e3
+    n_events = sum(c[0] for c in kernels.values())
+    k7 = [c for name, c in kernels.items() if "quantized_matvec_kernel" in name]
+    k7_ms, k7_n = sum(c[1] for c in k7) / 1e3, sum(c[0] for c in k7)
+    out = dict(ttfb_ms=ttfb * 1e3, ttfb_all_ms=[t * 1e3 for t in times],
+               prefill_ms=min(prefills) * 1e3, first_audio_s=audio_s,
+               realtime_x=audio_s / ttfb, ms_per_token=min(walls) * 1e3 / n,
+               device_ms_per_token=busy_ms / n, kernel7_device_ms_per_token=k7_ms / n,
+               kernel7_launches_per_token=k7_n / n, busy_share=busy_ms / prof_ms,
+               device_events_per_token=n_events / n)
+    print(f"[tts q4 ttfb] bucket {TTFB_BUCKET}, {TTFB_CHUNK}-token chunk (T 0.6, top-p 0.9) + "
+          f"SNAC decode of {TTFB_CHUNK // 7} frames: TTFB {ttfb * 1e3:.3f} ms (best of "
+          f"{[f'{t * 1e3:.3f}' for t in times]}), {audio_s:.4f} s of audio: realtime x "
+          f"{audio_s / ttfb:.3f}; the 63-row prefill alone {min(prefills) * 1e3:.3f} ms")
+    print(f"[tts q4 decode] {n}-token chunk: {min(walls) * 1e3 / n:.4f} ms a token (best of 3, "
+          f"host clock); under the profiler wall {prof_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"(share {busy_ms / prof_ms:.4f}), {busy_ms / n:.4f} device ms a token of which kernel "
+          f"7 {k7_ms / n:.4f} ({k7_n / n:.1f} launches a token); {n_events / n:.1f} device "
+          f"events a token")
+    print_kernels(kernels, n, top=14)
+    return out
+
+
+def q4_serve_phase(model) -> dict:
+    """Phase 17's serving: Q4_SERVE_TEXTS staggered greedy requests through
+    ``ContinuousTTS`` (the plain tick: each live lane's step through
+    ``llama.forward``) at Q4_SERVE_SLOTS slots, with the counters reset just
+    before and read just after: kernel 7 launched 4 x 28 times a prefill and
+    4 x 28 + 1 times a lane step, no other kernel of the port, no plain
+    call; each request alone in a fresh engine gives the same tokens, and
+    every request's audio is finite whole frames."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.core.generation import AudioGenerateParameters
+    from tpu_audio_torch.ops import _lib, qmm
+    from tpu_audio_torch.parallel.continuous import ContinuousTTS
+
+    L = model.config.num_hidden_layers
+    gp = AudioGenerateParameters(max_tokens=Q4_SERVE_MAX_TOKENS, temperature=0.0,
+                                 repetition_penalty=1.3, repetition_context_size=20)
+    spg = 4 * model.codec.config.hop_length
+    prefills, steps, plain = [0], [0], [0]
+
+    def serve(texts):
+        srv = ContinuousTTS(model, slots=Q4_SERVE_SLOTS, generation_parameters=gp)
+        check(not srv.fused, "a 4-bit tree took the fused tick")
+        reqs = [srv.submit(t, seed=i) for i, t in enumerate(texts[:2])]
+        audio = {}
+        events = list(srv.step())
+        reqs += [srv.submit(t, seed=i) for i, t in enumerate(texts[2:], 2)]
+        events += list(srv.run())
+        for rid, ev in events:
+            if ev.audio is not None:
+                audio.setdefault(rid, []).append(np.asarray(ev.audio))
+        check(all(r.done for r in reqs), "a served request did not finish")
+        return [list(r.tokens) for r in reqs], [
+            np.concatenate(audio[r.request_id]) if r.request_id in audio else np.zeros(0)
+            for r in reqs]
+
+    with counting(model, "_prefill", prefills), counting(model, "_step_fn", steps), \
+            counting(qmm, "quantized_matvec_ref", plain):
+        _lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served, audio = serve(Q4_SERVE_TEXTS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_lib.launches)
+    n_tok = sum(len(t) for t in served)
+    want = 4 * L * prefills[0] + (4 * L + 1) * steps[0]
+    print(f"[tts q4 serve] {len(served)} requests, {Q4_SERVE_SLOTS} slots, max_tokens "
+          f"{Q4_SERVE_MAX_TOKENS}: {n_tok} tokens in {wall:.3f} s ({steps[0]} lane steps, "
+          f"{prefills[0]} prefills); launches {launches} ({want} expected), plain version "
+          f"calls {plain[0]}; samples by request {[a.shape[0] for a in audio]}")
+    check(launches == {"quantized_matvec": want},
+          f"serving launches {launches}, {want} of kernel 7 and no other expected")
+    check(plain[0] == 0, "the plain version ran on the 4-bit serving path")
+    for toks, wav in zip(served, audio):
+        frames = len(model.parse_output(toks)) // 7
+        check(frames > 0 and wav.shape == (frames * spg,) and bool(np.isfinite(wav).all()),
+              f"served audio {wav.shape} for {frames} frames")
+    alone = []
+    for i, (text, want_toks) in enumerate(zip(Q4_SERVE_TEXTS, served)):
+        srv = ContinuousTTS(model, slots=Q4_SERVE_SLOTS, generation_parameters=gp)
+        r = srv.submit(text, seed=i)
+        for _ in srv.engine.run():
+            pass
+        alone.append(list(r.tokens) == want_toks)
+    print(f"[tts q4 serve] each request alone in a fresh engine gives the same tokens: {alone}")
+    check(all(alone), "served 4-bit tokens depend on the other requests")
+    return dict(requests=len(served), tokens=n_tok, wall_s=wall, lane_steps=steps[0],
+                alone_equal=all(alone), launches=launches)
+
+
+def build_whisper_q4(params, cfg, dev):
+    """whisper-large-v3 at full width from the bf16 phases' seed-0 weights,
+    quantized on the card to MLX 4-bit in groups of 64 (every linear of the
+    encoder and decoder and the tied embedding), as an mlx-community q4
+    checkpoint ships them."""
+    import torch
+
+    from tpu_audio_torch.core import quant
+    from tpu_audio_torch.models.stt import whisper as W
+
+    q4 = quant.quantize_tree(params, bits=4, group_size=64, scheme="mlx")
+    check(isinstance(q4["model"]["decoder"]["embed_tokens"]["weight"], quant.QuantizedTensor)
+          and isinstance(q4["model"]["encoder"]["layers"]["fc1"]["weight"],
+                         quant.QuantizedTensor), "whisper q4: linears not packed")
+    model = W.Whisper(cfg, q4, LargeV3Tokenizer(), dtype=torch.bfloat16, device=dev)
+    check(not model._fused_supported(), "whisper q4 takes the fused route")
+    return model
+
+
+def q4_whisper_phase(model, audio) -> dict:
+    """Phase 17's transcription: one window through ``Whisper.generate``
+    on the whisper-large-v3-width q4 tree (kv8d: int8 cross K/V), with the
+    counters reset just before and read just after: kernel 7 launched 8 x 32
+    + 1 times a decoder step (q, k, v, out, cross-q, cross-out, fc1, fc2 and
+    the 51,866-row head), no plain call; then the same window on the plain
+    route (every kernel's plain version) gives the same tokens."""
+    import torch
+
+    from tpu_audio_torch.core.generation import STTGenerateParameters
+    from tpu_audio_torch.models.stt import whisper as W
+    from tpu_audio_torch.ops import _lib, qmm
+
+    gp = STTGenerateParameters(kv_bits=8, quantized_kv_start=448,
+                               max_tokens=Q4_WHISPER_TOKENS)
+    steps, plain = [0], [0]
+    with counting(W, "decoder_step", steps), counting(qmm, "quantized_matvec_ref", plain):
+        _lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.generate(audio, gp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_lib.launches)
+    with plain_kernels():
+        ref = model.generate(audio, gp)
+    toks, want = out.segments[0].tokens, ref.segments[0].tokens
+    n_layers = model.config.decoder_layers
+    print(f"[whisper q4] {len(toks)} tokens in {wall:.3f} s ({steps[0]} decoder steps, "
+          f"{wall * 1e3 / steps[0]:.3f} ms a step, the encoder's products dequantized); "
+          f"launches {launches}, plain version calls {plain[0]}; tokens equal the plain "
+          f"route's: {toks == want}; first tokens {toks[:12]}")
+    check(launches.get("quantized_matvec", 0) == (8 * n_layers + 1) * steps[0],
+          f"quantized_matvec launched {launches.get('quantized_matvec', 0)} times for "
+          f"{steps[0]} decoder steps")
+    check(launches.get("fused_log_mel", 0) > 0 and launches.get("decode_attention_int8", 0) > 0,
+          "whisper q4: the frontend or the int8 cross attention kernel did not launch")
+    check(plain[0] == 0, "the plain version ran on the whisper q4 path")
+    check(len(toks) > 0 and toks == want, "whisper q4 tokens differ from the plain route's")
+    return dict(tokens=len(toks), steps=steps[0], wall_s=wall, launches=launches,
+                equal_to_plain=toks == want)
+
+
 def mutations_main() -> int:
     """The standing mutation check: for each kernel of MUTATIONS, its check
     alone (timing off) on copies of the checkout, one sound and one for
@@ -2420,6 +3098,16 @@ def fused_llama_lanes_only() -> int:
     return 0
 
 
+def qmm_only() -> int:
+    """Phase 15 alone, timing off (kernel 7's check under --mutations)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qmm_phase(torch.device("cuda", 0), timing=False)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2455,6 +3143,10 @@ def main() -> int:
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_lib.build_seconds if _lib.build_seconds is not None else 0:.2f} s)")
 
+    # phase 15 first: late in this process torch.profiler loses device
+    # events, and kernel 7's short calls then read "not measured"
+    records = {"quantized_matvec": qmm_phase(dev)}
+
     t0 = time.perf_counter()
     cfg, models = build_models(dev)
     torch.cuda.synchronize()
@@ -2467,11 +3159,14 @@ def main() -> int:
     rng = np.random.default_rng(0)
     clips = serve_clips(speech, rng)
 
-    records, enc = kernel_phases(models, cfg, audio, dev)
+    kernel_records, enc = kernel_phases(models, cfg, audio, dev)
+    records.update(kernel_records)
     w8 = models["w8_kv8d"]
     records["fused_stack_lanes"] = lanes_phase(w8, cfg, lane_encoders(w8, enc, clips, rng),
                                                dev)
     for k, r in records.items():
+        if k == "quantized_matvec":
+            continue
         print(f"[time] {k}: per call (CUDA events) kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms; device time (profiler) kernel "
               f"{fmt(r['dev_ms'])}, plain {fmt(r['plain_dev_ms'])}")
@@ -2493,6 +3188,7 @@ def main() -> int:
 
     for cfg_name, model in models.items():
         profile_window(cfg_name, model, audio, gp)
+    whisper_q4 = build_whisper_q4(models["bf16_kv8d"].params, cfg, dev)  # for phase 17
     del models, model, w8, outputs, enc
     gc.collect()
     torch.cuda.empty_cache()
@@ -2517,17 +3213,35 @@ def main() -> int:
     tts_serving = dict(serve=tts_serve, throughput=tts_throughput_phase(orpheus),
                        http=tts_http_phase(orpheus),
                        checks=records["fused_llama_stack_lanes"]["checks"])
+    del orpheus
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- MLX 4-bit: Orpheus-3B 4-bit offline and served, Whisper q4 ----------
+    t0 = time.perf_counter()
+    q4, q4_full = build_orpheus_q4(dev)
+    torch.cuda.synchronize()
+    print(f"Orpheus-3B MLX 4-bit (g 64, band and full heads) built on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    q4_runs, q4_launches, q4_tokens = q4_generate_phase(q4, q4_full)
+    records["quantized_matvec"]["launches"] = q4_launches["quantized_matvec"]
+    mlx = dict(runs=q4_runs, teacher_forced_rel_err=q4_teacher_forced(q4, q4_tokens),
+               ttfb=q4_ttfb_phase(q4), serve=q4_serve_phase(q4),
+               whisper=q4_whisper_phase(whisper_q4, audio))
+    del q4, q4_full, whisper_q4
 
     kernels = [dict(name=k, **{f: r[f] for f in (
         "route", "source", "replaces", "launches", "max_abs_err", "rel_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms", "dev_ms", "plain_dev_ms")},
-        **({"by_lanes": r["by_lanes"]} if "by_lanes" in r else {}))
+        **{f: r[f] for f in ("by_lanes", "by_shape", "rel_err_bf16_x", "library_dev_ms",
+                             "library_rel_err", "library_error") if f in r})
         for k, r in records.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"generate": runs, "smi": smi.splitlines()[0]}))
     print(json.dumps({"serve": serve, "throughput": throughput, "http": http}))
     print(json.dumps({"tts": tts}))
     print(json.dumps({"tts_serving": tts_serving}))
+    print(json.dumps({"mlx_4bit": mlx}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

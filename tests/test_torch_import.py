@@ -42,6 +42,8 @@ print("ok")
     ["tpu_audio_torch.parallel.continuous", "tpu_audio_torch.ops.fused_llama",
      "tpu_audio_torch.models.tts.llama_tts", "tpu_audio_torch.core.generation",
      "tpu_audio_torch.cli.serve"],
+    ["tpu_audio_torch.ops.qmm", "tpu_audio_torch.core.quant", "tpu_audio_torch.core.nn",
+     "tpu_audio_torch.core.loading", "tpu_audio_torch.convert"],
 ])
 def test_port_imports_without_jax(mods):
     res = subprocess.run([sys.executable, "-c", _BLOCKER.format(mods=mods)],

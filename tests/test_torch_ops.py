@@ -18,7 +18,7 @@ from tpu_audio.core import quant as jquant
 from tpu_audio.models.stt import whisper as JW
 from tpu_audio.ops import pallas_fused_decoder as JF
 from tpu_audio.ops import pallas_kv_attention as JK
-from tpu_audio_torch.convert import from_jax_params
+from tpu_audio_torch.convert import MLXLeaf, from_jax_params
 from tpu_audio_torch.core import kv_cache as tkv
 from tpu_audio_torch.models.stt import whisper as TW
 from tpu_audio_torch.ops import fused_decoder as TF
@@ -36,11 +36,15 @@ CFG = dict(num_mel_bins=80, d_model=256, encoder_layers=1,
 
 
 def jax_tree_to_numpy(tree):
-    """JAX param tree -> numpy leaves, Int8Tensor leaves as (w, s) pairs."""
+    """JAX param tree -> numpy leaves, Int8Tensor leaves as (w, s) pairs and
+    QuantizedTensor leaves as ``convert.MLXLeaf``."""
     if isinstance(tree, dict):
         return {k: jax_tree_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, jquant.Int8Tensor):
         return (np.asarray(tree.weight), np.asarray(tree.scale))
+    if isinstance(tree, jquant.QuantizedTensor):
+        return MLXLeaf(np.asarray(tree.weight), np.asarray(tree.scales),
+                       np.asarray(tree.biases), tree.group_size, tree.bits)
     return np.asarray(tree)
 
 

@@ -281,10 +281,8 @@ def test_unported_options_raise(fused_model):
         tm.generate(audio, TParams(max_tokens=2, kv_bits=8))
     with pytest.raises(NotImplementedError, match="longer than 30 s"):
         tm.generate(np.zeros(16000 * 31, np.float32), TParams(max_tokens=2))
-    with pytest.raises(NotImplementedError, match="MLX"):
-        TW.Whisper(TW.WhisperConfig(**FUSED, quantization={"bits": 4}), {})
-    with pytest.raises(NotImplementedError):
-        tquant.quantize_tree({}, scheme="mlx")
+    with pytest.raises(ValueError, match="scheme"):
+        tquant.quantize_tree({}, scheme="int3")
     with pytest.raises(FileNotFoundError):
         TW.Whisper.from_pretrained("openai/whisper-large-v3", device="cpu")
 

@@ -3,7 +3,9 @@
 Usage: ``python -m tpu_audio_torch.cli.tts "Hello" --model <dir> -o out.wav``
 (``--quantize w8a8 --band-head`` is the Orpheus deployment configuration:
 int8 weights decoded through the fused kernel, the head cut to the audio
-band). ``--stream`` writes the audio as it is generated; ``--benchmark``
+band; ``--quantize 4|8`` quantizes a full-precision checkpoint to MLX
+grouped-affine 4/8-bit, the layout of the reference's own Orpheus
+checkpoints, which load as they are). ``--stream`` writes the audio as it is generated; ``--benchmark``
 reports the time to the first audio (TTFB) and the real-time multiple.
 Runs on ``cuda`` unless ``--device`` says otherwise.
 """
@@ -41,17 +43,14 @@ def main(argv=None):
     parser.add_argument("--raw-ipa", action="store_true",
                         help="treat the input text as raw IPA phonemes")
     parser.add_argument("--quantize", choices=("4", "8", "w8a8"), default=None,
-                        help="post-load quantization: w8a8 = per-channel int8 "
-                             "(4/8 = MLX grouped-affine, not ported yet)")
+                        help="post-load quantization: 4/8 = MLX grouped-affine, "
+                             "w8a8 = per-channel int8")
     parser.add_argument("--band-head", action="store_true",
                         help="decode with the head sliced to the audio token band "
                              "+ EOS (Orpheus-family)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the plain versions)")
     args = parser.parse_args(argv)
-    if args.quantize in ("4", "8"):
-        raise SystemExit(f"--quantize {args.quantize}: not ported yet (MLX "
-                         "grouped-affine, kernel 7); use --quantize w8a8")
     if args.timestamps:
         raise SystemExit("--timestamps: not ported yet (needs the Qwen3 forced aligner)")
 
@@ -67,7 +66,8 @@ def main(argv=None):
     if args.band_head:
         kwargs["audio_band_head"] = True
     if args.quantize:
-        kwargs["quantize_bits"] = args.quantize
+        kwargs["quantize_bits"] = (args.quantize if args.quantize == "w8a8"
+                                   else int(args.quantize))
     model = load_model(args.model, **kwargs)
     if args.raw_ipa and hasattr(model, "text_processor"):
         model.text_processor = None

@@ -2,23 +2,41 @@
 
 :func:`from_jax_params` takes a ``tpu_audio`` parameter tree whose leaves
 are numpy arrays (an ``Int8Tensor`` leaf given as a ``(weight, scale)``
-pair) and returns the same tree of torch tensors (``Int8Tensor`` leaves of
-:mod:`tpu_audio_torch.core.quant`), so that both packages compute from the
-same weights. bfloat16 arrays (numpy dtype ``bfloat16``) keep their bits.
+pair, a ``QuantizedTensor`` leaf as a :class:`MLXLeaf`) and returns the
+same tree of torch tensors (``Int8Tensor`` and ``QuantizedTensor`` leaves
+of :mod:`tpu_audio_torch.core.quant`), so that both packages compute from
+the same weights. bfloat16 arrays (numpy dtype ``bfloat16``) keep their
+bits, and uint32 words become int32 of the same bits. The JAX package's
+word-scale planes (``scales_w``) have no counterpart and are dropped.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from tpu_audio_torch.core.quant import Int8Tensor
+from tpu_audio_torch.core.quant import Int8Tensor, QuantizedTensor
 
-__all__ = ["from_jax_params", "to_tensor"]
+__all__ = ["from_jax_params", "to_tensor", "MLXLeaf"]
+
+
+class MLXLeaf(NamedTuple):
+    """A JAX ``QuantizedTensor`` as numpy: packed uint32 words, scales,
+    biases, and its group size and bits."""
+
+    weight: np.ndarray
+    scales: np.ndarray
+    biases: np.ndarray
+    group_size: int
+    bits: int
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
     a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
         return t.view(torch.bfloat16).to(device)
@@ -29,6 +47,9 @@ def from_jax_params(tree, device=None):
     """Convert a JAX-package parameter tree (numpy leaves) to the port's."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v, device) for k, v in tree.items()}
+    if isinstance(tree, MLXLeaf):
+        return QuantizedTensor(to_tensor(tree.weight, device), to_tensor(tree.scales, device),
+                               to_tensor(tree.biases, device), tree.group_size, tree.bits)
     if isinstance(tree, tuple) and len(tree) == 2:
         return Int8Tensor(to_tensor(tree[0], device), to_tensor(tree[1], device))
     return to_tensor(tree, device)

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpu_audio_torch.core.quant import Int8Tensor
+from tpu_audio_torch.core.quant import Int8Tensor, QuantizedTensor
 
 __all__ = ["load_safetensors", "load_safetensors_file", "unflatten", "flatten",
            "load_params", "cast_floats", "stack_layer_params", "to_device", "TreeModule"]
@@ -32,6 +32,7 @@ _ST_DTYPES = {
     "I64": (np.int64, None), "I32": (np.int32, None),
     "I16": (np.int16, None), "I8": (np.int8, None),
     "U8": (np.uint8, None), "BOOL": (np.bool_, None),
+    "U32": (np.int32, None),  # packed words: the same bits as int32
 }
 def load_safetensors_file(path: str | Path) -> dict[str, torch.Tensor]:
     """Read one ``.safetensors`` file into CPU tensors."""
@@ -99,8 +100,8 @@ def flatten(tree: dict, prefix: str = "") -> dict:
 
 
 def cast_floats(tree, dtype):
-    """Cast float leaves to ``dtype``; int8 codes and their f32 scales
-    stay as they are."""
+    """Cast float leaves to ``dtype`` (MLX scales and biases too, as the
+    JAX package does); integer leaves stay as they are."""
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
@@ -117,6 +118,8 @@ def to_device(tree, device):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, Int8Tensor):
         return Int8Tensor(tree.weight.to(device), tree.scale.to(device))
+    if isinstance(tree, QuantizedTensor):
+        return tree.map(lambda t: t.to(device))
     return tree.to(device)
 
 
@@ -163,18 +166,25 @@ def load_params(model_dir: str | Path,
 class TreeModule(nn.Module):
     """A nested parameter dict held as module buffers. :meth:`tree`
     rebuilds the dict from the current buffers (after ``.to(...)``);
-    :class:`Int8Tensor` leaves round-trip as ``weight``/``scale`` pairs."""
+    :class:`Int8Tensor` leaves round-trip as ``weight``/``scale`` pairs and
+    :class:`QuantizedTensor` leaves as ``weight``/``scales``/``biases``
+    triples with their group size and bits."""
 
     def __init__(self, tree: dict):
         super().__init__()
-        self._int8 = False
+        self._leaf = None  # (class, static args) of a quantized leaf
         self._cached = None
         for k, v in tree.items():
             if isinstance(v, dict):
                 self.add_module(k, TreeModule(v))
             elif isinstance(v, Int8Tensor):
                 child = TreeModule({"weight": v.weight, "scale": v.scale})
-                child._int8 = True
+                child._leaf = (Int8Tensor, ())
+                self.add_module(k, child)
+            elif isinstance(v, QuantizedTensor):
+                child = TreeModule({"weight": v.weight, "scales": v.scales,
+                                    "biases": v.biases})
+                child._leaf = (QuantizedTensor, (v.group_size, v.bits))
                 self.add_module(k, child)
             else:
                 self.register_buffer(k, v)
@@ -187,8 +197,9 @@ class TreeModule(nn.Module):
         """The dict view, cached until the buffers move (an
         :class:`Int8Tensor` keeps its padded-weight cache across calls)."""
         if self._cached is None:
-            if self._int8:
-                self._cached = Int8Tensor(self.weight, self.scale)
+            if self._leaf is not None:
+                cls, static = self._leaf
+                self._cached = cls(*self._buffers.values(), *static)
             else:
                 out = dict(self._buffers)
                 out.update({k: m.tree() for k, m in self._modules.items()})

@@ -22,10 +22,13 @@ __all__ = ["linear", "embedding", "embedding_as_linear", "layer_norm",
 
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     """``x @ W.T + b``; an :class:`quant.Int8Tensor` weight runs the
-    w8a8 product."""
+    w8a8 product, a :class:`quant.QuantizedTensor` the MLX grouped-affine
+    one."""
     w = p["weight"]
     if isinstance(w, quant.Int8Tensor):
         y = quant.int8_matmul(x, w)
+    elif isinstance(w, quant.QuantizedTensor):
+        y = quant.quantized_matmul_qt(x, w).to(x.dtype)
     else:
         y = x @ w.to(x.dtype).t()
     if "bias" in p:
@@ -34,12 +37,18 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def embedding(p: dict, ids: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    """Token embedding lookup; int8 tables dequantize only the gathered
-    rows (to ``dtype``)."""
+    """Token embedding lookup; int8 and MLX-packed tables dequantize only
+    the gathered rows, to ``dtype`` (f32 by default, as in the JAX package:
+    a model whose embedding is packed then runs its residual stream in
+    f32)."""
     w = p["weight"]
     if isinstance(w, quant.Int8Tensor):
         flat = ids.reshape(-1)
         d = w.weight[flat].to(dtype) * w.scale[flat][:, None].to(dtype)
+        return d.reshape(*ids.shape, d.shape[-1])
+    if isinstance(w, quant.QuantizedTensor):
+        flat = ids.reshape(-1)
+        d = w.map(lambda t: t[flat]).dequantize(dtype)
         return d.reshape(*ids.shape, d.shape[-1])
     return w[ids]
 
@@ -49,6 +58,8 @@ def embedding_as_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     w = p["weight"]
     if isinstance(w, quant.Int8Tensor):
         return quant.int8_matmul(x, w)
+    if isinstance(w, quant.QuantizedTensor):
+        return quant.quantized_matmul_qt(x, w).to(x.dtype)
     return x @ w.to(x.dtype).t()
 
 

@@ -2,7 +2,8 @@
 tpu_audio.models.llama).
 
 GQA, Llama-3 NTK rope scaling, optional per-head q/k RMSNorm (Qwen3),
-attention bias, tied embeddings and per-channel int8 (w8a8) weights. The
+attention bias, tied embeddings, per-channel int8 (w8a8) and MLX
+grouped-affine 4/8-bit weights. The
 parameter tree is a nested dict with the decoder layers stacked
 (``[L, ...]`` leaves) or kept per layer (``{"0": ..., "1": ...}``).
 """
@@ -72,12 +73,16 @@ def _leaves(tree) -> list:
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
     if isinstance(tree, quant.Int8Tensor):
         return [tree.weight, tree.scale]
+    if isinstance(tree, quant.QuantizedTensor):
+        return [tree.weight, tree.scales, tree.biases]
     return [tree]
 
 
 def _structure(tree):
     if isinstance(tree, dict):
         return tuple((k, _structure(tree[k])) for k in sorted(tree))
+    if isinstance(tree, quant.QuantizedTensor):
+        return ("QuantizedTensor", tree.group_size, tree.bits)
     return type(tree).__name__
 
 
@@ -88,6 +93,10 @@ def _map(fn, *trees):
     if isinstance(first, quant.Int8Tensor):
         return quant.Int8Tensor(fn(*[t.weight for t in trees]),
                                 fn(*[t.scale for t in trees]))
+    if isinstance(first, quant.QuantizedTensor):
+        return quant.QuantizedTensor(*(fn(*[getattr(t, f) for t in trees])
+                                       for f in ("weight", "scales", "biases")),
+                                     first.group_size, first.bits)
     return fn(*trees)
 
 
@@ -108,25 +117,35 @@ def maybe_stack(params: dict) -> dict:
 
 
 def _concat_weights(parts, axis):
-    """Concatenate linear weights along the output axis (dense tensors or
-    :class:`quant.Int8Tensor`); None when the parts are of mixed kinds."""
-    if len({isinstance(p, quant.Int8Tensor) for p in parts}) > 1:
+    """Concatenate linear weights along the output axis (dense tensors,
+    :class:`quant.Int8Tensor` or :class:`quant.QuantizedTensor`, whose
+    words, scales and biases all share the output axis); None when the
+    parts are of mixed kinds or MLX parts differ in group size or bits."""
+    if len({type(p) for p in parts}) > 1:
         return None
     if isinstance(parts[0], quant.Int8Tensor):
         return quant.Int8Tensor(torch.cat([p.weight for p in parts], dim=axis),
                                 torch.cat([p.scale for p in parts], dim=-1))
+    if isinstance(parts[0], quant.QuantizedTensor):
+        if len({(p.group_size, p.bits) for p in parts}) > 1:
+            return None
+        return _map(lambda *ts: torch.cat(ts, dim=axis), *parts)
     return torch.cat(parts, dim=axis)
 
 
 def fuse_projections(params: dict) -> dict:
     """Fuse q/k/v -> ``qkv_proj`` and gate/up -> ``gate_up_proj`` along the
     output-features axis (one product instead of three / two); biases are
-    fused too when every part has one."""
+    fused too when every part has one. Raw (untagged) MLX triples stay
+    apart: fusing their words would drop the scales and biases
+    (``quant.tag_quantized`` first)."""
     p = params["model"] if "model" in params else params
     layers = p.get("layers")
 
     def fuse_group(container, names, fused_name, axis):
         if not all(n in container for n in names):
+            return container
+        if any("scales" in container[n] for n in names):
             return container
         with_bias = ["bias" in container[n] for n in names]
         if any(with_bias) and not all(with_bias):

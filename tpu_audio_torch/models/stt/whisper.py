@@ -13,9 +13,13 @@ them for every published whisper size:
 - w8 kv8d (kv8d with int8 decoder weights from ``quant.quantize_tree``):
   the whole layer stack per token in ``ops.fused_decoder.fused_stack``.
 
+An MLX 4/8-bit checkpoint (``quantization`` in its config) decodes on the
+first two routes: each linear of a decode step runs the grouped-affine
+GEMV kernel (``ops.qmm``), and the encoder's 1,500-row products
+dequantize and multiply.
+
 Not ported yet (each raises ``NotImplementedError``): batched long-form
-windows, ``kv_bits=4``, int8/hybrid self caches, MLX grouped-affine
-checkpoints.
+windows, ``kv_bits=4``, int8/hybrid self caches.
 """
 
 from __future__ import annotations
@@ -164,6 +168,8 @@ def layer_params(stacked: dict, i: int) -> dict:
         return {k: layer_params(v, i) for k, v in stacked.items()}
     if isinstance(stacked, quant.Int8Tensor):
         return quant.Int8Tensor(stacked.weight[i], stacked.scale[i])
+    if isinstance(stacked, quant.QuantizedTensor):
+        return stacked.map(lambda t: t[i])
     return stacked[i]
 
 
@@ -171,7 +177,8 @@ def _split_layers(stacked: dict) -> list[dict]:
     leaf = stacked
     while isinstance(leaf, dict):
         leaf = next(iter(leaf.values()))
-    n = (leaf.weight if isinstance(leaf, quant.Int8Tensor) else leaf).shape[0]
+    n = (leaf.weight if isinstance(leaf, (quant.Int8Tensor, quant.QuantizedTensor))
+         else leaf).shape[0]
     return [layer_params(stacked, i) for i in range(n)]
 
 
@@ -602,10 +609,11 @@ class Whisper(tnn.Module):
                  dtype=torch.bfloat16, device=None):
         super().__init__()
         if config.quantization:
-            raise NotImplementedError(
-                "MLX grouped-affine quantized whisper checkpoints are not "
-                "ported yet; load a full-precision checkpoint and quantize "
-                "with core.quant.quantize_tree(scheme='w8a8')")
+            # an MLX 4/8-bit checkpoint: its {weight, scales, biases} triples
+            # become QuantizedTensor leaves (the encoder's products then
+            # dequantize and multiply, the decoder step's run the GEMV kernel)
+            q = config.quantization
+            params = quant.tag_quantized(params, q.get("group_size", 64), q.get("bits", 4))
         self.config = config
         self.tokenizer = tokenizer
         self.generation_config = generation_config or WhisperGenerationConfig()

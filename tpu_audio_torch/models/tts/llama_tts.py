@@ -10,10 +10,14 @@ head to the 7 x 4096 audio band plus ``end_of_speech``.
 A w8a8 tree of a shape ``ops.fused_llama.supported`` takes decodes every
 token through ``fused_llama_stack`` (the CUDA kernel on the card, its plain
 version on the CPU); on the card any other w8a8 tree raises rather than
-decode without the kernel. The prefill and a dense tree run
-``llama.forward``. The fused cache holds the whole request (``max_total``
-rows), so the JAX package's mid-generation hand-off to its XLA loop (a TPU
-VMEM cap) has no counterpart here. ``_fused_lane_hooks`` gives the serving
+decode without the kernel. The prefill, a dense tree and an MLX 4/8-bit
+tree (a checkpoint's ``quantization``, or ``quantize_bits=4|8``) run
+``llama.forward``; on an MLX tree every projection and the head of a step
+or of the prefill's 63 rows run the grouped-affine GEMV kernel
+(``ops.qmm``), and the residual stream is f32 from the packed embedding
+on, as in the JAX package. The fused cache holds the whole request
+(``max_total`` rows), so the JAX package's mid-generation hand-off to its
+XLA loop (a TPU VMEM cap) has no counterpart here. ``_fused_lane_hooks`` gives the serving
 engine (``parallel.continuous.ContinuousTTS``) the same route for every
 live lane at once, through ``fused_llama_stack_lanes``.
 """
@@ -273,32 +277,38 @@ class LlamaTTS:
     @property
     def device(self) -> torch.device:
         w = self.params["model"]["embed_tokens"]["weight"]
-        return w.weight.device if isinstance(w, quant.Int8Tensor) else w.device
+        return (w.weight.device if isinstance(w, (quant.Int8Tensor, quant.QuantizedTensor))
+                else w.device)
 
     @classmethod
     def from_pretrained(cls, repo_or_path: str, codec=None, snac_repo: str | None = None,
                         dtype=torch.bfloat16, quantize_bits: int | str | None = None,
                         audio_band_head: bool = False, device="cuda") -> "LlamaTTS":
-        """Load a local checkpoint directory onto ``device``.
-        ``quantize_bits="w8a8"`` stores every eligible weight (the layer
-        projections and the embedding) as per-channel int8, which routes
-        decode through the fused kernel; MLX grouped-affine 4/8-bit
-        (``quantize_bits=4|8`` or a checkpoint's ``quantization``) is not
-        ported yet. Off the fused route, q/k/v and gate/up are fused into
-        one product each."""
+        """Load a local checkpoint directory onto ``device``. A checkpoint
+        with ``quantization`` in its config is MLX grouped-affine 4/8-bit
+        (its packed triples become ``quant.QuantizedTensor`` leaves, and
+        ``quantize_bits`` is ignored, as in the JAX package); otherwise
+        ``quantize_bits=4|8`` quantizes every eligible weight that way
+        (group size 64), and ``quantize_bits="w8a8"`` stores them as
+        per-channel int8, which routes decode through the fused kernel. Off
+        the fused route, q/k/v and gate/up are fused into one product
+        each."""
         model_dir = hub.resolve_model_dir(repo_or_path)
         cfg_dict = hub.load_config(model_dir)
         config = LlamaTTSConfig.from_dict(cfg_dict)
         config.quantization = cfg_dict.get("quantization")
-        if config.quantization or quantize_bits not in (None, "w8a8"):
-            raise NotImplementedError(
-                "MLX grouped-affine quantized weights are not ported yet (kernel 7); "
-                "use quantize_bits='w8a8' or a full-precision checkpoint")
+        if quantize_bits not in (None, "w8a8", 4, 8):
+            raise ValueError(f"quantize_bits={quantize_bits!r}: 4, 8 or 'w8a8'")
         params = loading.load_params(model_dir, sanitize=lambda w: llama.sanitize(w, config),
                                      dtype=dtype, expected_prefixes=("model",))
         params = loading.to_device(llama.maybe_stack(params), device)
-        if quantize_bits == "w8a8":
+        if config.quantization:
+            q = config.quantization
+            params = quant.tag_quantized(params, q.get("group_size", 64), q.get("bits", 4))
+        elif quantize_bits == "w8a8":
             params = quant.quantize_tree(params, scheme="w8a8")
+        elif quantize_bits:
+            params = quant.quantize_tree(params, bits=quantize_bits, scheme="mlx")
         if not _fused_route(params, config, torch.device(device)):
             params = llama.fuse_projections(params)
         tokenizer = None
