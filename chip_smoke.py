@@ -88,18 +88,22 @@ runs first of all, right after the build: late in the process
 ``torch.profiler`` loses device events, and kernel 7's short calls then
 read "not measured".)
 
-15. holds the GEMV kernel (``quantized_matvec``, kernel 7) against its
+15. holds kernel 7 (``quantized_matvec``: the GEMV for 1 row and rows that
+   are not 16-byte aligned, the tensor-core tile for 2-64 rows) against its
    plain version at every GEMV shape of the Orpheus-3B 4-bit path (q/k/v,
    o, gate/up, down, the band head and the full tied head), at 1 and 63
-   rows, 4 and 8 bits, f32 and bf16 scales, then groups of 32 and 128, 2
-   bits, bf16 x, odd row counts and rows that are not 16-byte aligned; and
-   times it, its plain version and ``torch._weight_int4pack_mm`` at each
-   path shape;
+   rows, 4 and 8 bits, f32 and bf16 scales, at every row count 2-64, then
+   groups of 32 and 128, 2 bits, bf16 x, odd row counts, the GEMV at 63
+   rows and rows that are not 16-byte aligned; and times both kernels,
+   their plain version and ``torch._weight_int4pack_mm`` at each path
+   shape with the weights outside the L2, the tile at 8 bits, and the tile
+   against the GEMV at 2-63 rows (where the tile takes over);
 16. builds Orpheus-3B quantized on the card to 4 bits in groups of 64 and
    synthesises 280 tokens through ``LlamaTTS.generate`` (greedy, twice) and
-   ``generate_stream``, then 21 tokens with the full tied head: kernel 7
-   launched 4 x 28 times for the prefill and 4 x 28 + 1 times a decode step,
-   no other kernel of the port, no call of the plain version; teacher-forces
+   ``generate_stream``, then 21 tokens with the full tied head: kernel 7's
+   tile launched 4 x 28 times for the prefill and its GEMV 4 x 28 + 1 times
+   a decode step, no other kernel of the port, no call of the plain
+   version; teacher-forces
    the band logits against the plain route; measures TTFB with the
    ``bench_tts_ttfb(quantize_bits=4)`` protocol, ms a token and the
    per-kernel breakdown;
@@ -115,8 +119,12 @@ larger of its bytes over 3.35 TB/s and its operations over the peak rate
 of their type, from this run's shapes) and ``library_ms``, the time of a
 single PyTorch call computing the same function where one exists: for
 kernel 7 at 4 bits ``torch._weight_int4pack_mm`` (bf16), null for the
-other six. Kernel 7's record sums the GEMVs of one decode step at 1 row,
-with each shape's readings in ``by_shape``.
+other six. Kernel 7 has two records: the GEMV's sums the GEMVs of one
+decode step at 1 row, the tile's (``quantized_matvec_tile``) those of one
+63-row prefill, with each shape's readings in ``by_shape``.
+
+``python3 chip_smoke.py --qmm`` runs phase 15 alone with its timing and
+prints kernel 7's two records (a minute's work a round on the kernel).
 
 ``python3 chip_smoke.py --mutations`` instead runs the standing mutation
 check: each kernel's check alone on copies of the checkout with its source
@@ -125,7 +133,8 @@ RoPE sign on the wrong half, query heads reading the next K/V head; for
 kernel 6, phase 11 with lane m's RoPE angle from lane 0's offset, attention
 from row 0 instead of the lane's valid_from, lane m reading the next lane's
 slot; for kernel 7, phase 15 with the codes read most significant first,
-the scale of the neighbouring group, the bias added without its group sum)
+the scale of the neighbouring group, the bias added without its group sum,
+in the GEMV and in the tile, and the tile without x's low bf16 part)
 beside an unmutated copy, and prints each copy's readings: every
 mutant must fail its check and every sound copy pass.
 
@@ -141,8 +150,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
+import itertools
 import json
 import math
 import shutil
@@ -290,6 +301,11 @@ QMM_SHAPES = {"q/k/v": (5120, 3072), "o": (3072, 3072), "gate/up": (16384, 3072)
 # neighbouring bf16 values: one unit of the largest output's last place
 QMM_RTOL = 1e-4
 QMM_BF16_RTOL = 2.0 ** -7
+# the tile against the GEMV at these rows of x (o and down shapes): R_TILE
+QMM_CROSSOVER_ROWS = (2, 4, 8, 16, 32, 63)
+# a timed call's weights are one of copies that hold this many bytes in
+# all, twice the H100's 50 MB L2: each call finds its weights outside it
+QMM_COLD_BYTES = 100e6
 # teacher-forced band logits of the 4-bit path, kernel 7 against its plain
 # version on its own cache: f32 activations throughout (no int8 rounding of
 # activations), but the K/V rows are stored in bf16, and a row the two
@@ -335,19 +351,29 @@ MUTATIONS = {
          "sc0[r] = load_f(scales, srow[r] + (grp0 > 0 ? grp0 - 1 : 1), s_dt);"),
         ("the bias added without its group sum",
          "v += cur.bi0[r] * xg[b * G + grp0];", "v += cur.bi0[r];"),
+        # the tile (2-64 rows)
+        ("tile: x_lo dropped (f32 x kept as bf16 alone)",
+         "mma_bf16(p[j], a, q.z, q.w);  // x_lo", ""),
+        ("tile: the scale of the neighbouring group",
+         "sv[n] = load_f(scales, at, s_dt);",
+         "sv[n] = load_f(scales, at % G ? at - 1 : at + 1, s_dt);"),
+        ("tile: the bias added without its group sum",
+         "y[j][c] += sc[c >> 1] * p[j][c] + bi[c >> 1] * xgs[c & 1];",
+         "y[j][c] += sc[c >> 1] * p[j][c] + bi[c >> 1];"),
     ]),
 }
 
 # the card's peak rates (NVIDIA H100 SXM data sheet, dense): HBM bytes/s,
-# int8 tensor-core ops/s, float32 (no tensor cores) ops/s
-HBM_BYTES_S, INT8_OPS_S, F32_OPS_S = 3.35e12, 1.979e15, 67e12
+# int8 and bf16 tensor-core ops/s, float32 (no tensor cores) ops/s
+HBM_BYTES_S, INT8_OPS_S, BF16_OPS_S, F32_OPS_S = 3.35e12, 1.979e15, 989e12, 67e12
 
 
-def bound(nbytes: float, int8_ops: float = 0.0, f32_ops: float = 0.0) -> tuple[float, str]:
+def bound(nbytes: float, int8_ops: float = 0.0, f32_ops: float = 0.0,
+          bf16_ops: float = 0.0) -> tuple[float, str]:
     """The least ms the card could take: the larger of the bytes over the
     memory rate and the operations over their types' peak rates."""
     mem = nbytes / HBM_BYTES_S * 1e3
-    ops = (int8_ops / INT8_OPS_S + f32_ops / F32_OPS_S) * 1e3
+    ops = (int8_ops / INT8_OPS_S + f32_ops / F32_OPS_S + bf16_ops / BF16_OPS_S) * 1e3
     return (mem, "bytes") if mem >= ops else (ops, "operations")
 
 
@@ -2433,11 +2459,16 @@ def tts_http_phase(model) -> dict:
 
 
 def qmm_bound(rows: int, o: int, i: int, bits: int, group_size: int,
-              scale_bytes: int = 4) -> tuple[float, str]:
-    """Kernel 7's least time: the words, scales and biases, x and y once,
-    and a multiply-add a weight and row in f32 (no tensor cores)."""
-    return bound(o * i * bits / 8 + 2 * o * (i // group_size) * scale_bytes
-                 + 4 * rows * (i + o), f32_ops=2 * rows * o * i)
+              scale_bytes: int = 4, x_bytes: int = 4) -> tuple[float, str]:
+    """Kernel 7's least time: the words, scales and biases, x and y once;
+    and the operations of its route. One row (the GEMV): a multiply-add a
+    weight in f32. More rows (the tile): bf16 tensor-core products, two a
+    weight and row for f32 or f16 x (split into bf16 hi and lo parts), one
+    for bf16 x."""
+    nb = o * i * bits / 8 + 2 * o * (i // group_size) * scale_bytes + x_bytes * rows * (i + o)
+    if rows == 1:
+        return bound(nb, f32_ops=2 * o * i)
+    return bound(nb, bf16_ops=(2 if x_bytes == 2 else 4) * rows * o * i)
 
 
 def qmm_inputs(o: int, i: int, rows: int, bits: int, group_size: int, gen, dev,
@@ -2456,25 +2487,30 @@ def qmm_inputs(o: int, i: int, rows: int, bits: int, group_size: int, gen, dev,
     return x, words, s, b
 
 
-def qmm_check(name: str, x, words, s, b, group_size: int, bits: int) -> tuple[float, bool]:
-    """Kernel 7 against its plain version on the same inputs, relative to
+def qmm_check(name: str, x, words, s, b, group_size: int, bits: int,
+              launch=None) -> tuple[float, bool, str]:
+    """Kernel 7 (``quantized_matvec``, or ``launch``: ``qmm.gemv`` or
+    ``qmm.tile``) against its plain version on the same inputs, relative to
     the largest output: QMM_RTOL in f32; for bf16 x (a bf16 result) one
-    bf16 unit of the largest output, QMM_BF16_RTOL. Returns the error and
-    whether x was bf16."""
+    bf16 unit of the largest output, QMM_BF16_RTOL. Returns the error,
+    whether x was bf16, and the kernel that ran ("tile" or "gemv", from the
+    launch counters)."""
     import torch
 
-    from tpu_audio_torch.ops import qmm
+    from tpu_audio_torch.ops import _lib, qmm
 
-    got = qmm.quantized_matvec(x, words, s, b, group_size, bits)
+    tiles = _lib.launches["quantized_matvec_tile"]
+    got = (launch or qmm.quantized_matvec)(x, words, s, b, group_size, bits)
+    ran = "tile" if _lib.launches["quantized_matvec_tile"] > tiles else "gemv"
     want = qmm.quantized_matvec_ref(x, words, s, b, group_size, bits)
     torch.cuda.synchronize()
     err = rel_err(got, want)
     tol = QMM_BF16_RTOL if x.dtype == torch.bfloat16 else QMM_RTOL
     check(got.shape == want.shape and got.dtype == x.dtype and bool(torch.isfinite(got).all()),
           f"{name}: output {tuple(got.shape)} {got.dtype}")
-    check(err <= tol, f"{name}: kernel 7 disagrees with its plain version: {err:.3e} "
+    check(err <= tol, f"{name} ({ran}): kernel 7 disagrees with its plain version: {err:.3e} "
           f"(rtol {tol})")
-    return err, x.dtype == torch.bfloat16
+    return err, x.dtype == torch.bfloat16, ran
 
 
 def int4pack_library(x, words, s, b, group_size: int):
@@ -2510,21 +2546,49 @@ def int4pack_library(x, words, s, b, group_size: int):
         return None, None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
 
 
+def qmm_copies(words, s, b) -> list:
+    """The packed weight and enough copies of it that calls cycling through
+    them find each one's weights outside the L2 (QMM_COLD_BYTES in all), as
+    the path's 28 layers do: at least one."""
+    n = max(1, math.ceil(QMM_COLD_BYTES / nbytes(words, s, b)))
+    return [(words, s, b)] + [(words.clone(), s.clone(), b.clone()) for _ in range(n - 1)]
+
+
+def cycling(fns) -> callable:
+    """A call of the next of ``fns`` each time (round robin)."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def qmm_timed(x, copies, group_size: int, bits: int, launch) -> dict:
+    """Per call (CUDA events) and device time (profiler) of ``launch`` on x
+    and the weights ``copies``, each call on the next copy."""
+    fn = cycling([functools.partial(launch, x, *c, group_size, bits) for c in copies])
+    return dict(ms=cuda_ms(fn), dev_ms=device_ms(fn, launches=1))
+
+
 def qmm_phase(dev, timing: bool = True) -> dict:
     """Phase 15: kernel 7 against its plain version at every GEMV shape of
-    the Orpheus-3B 4-bit path (QMM_SHAPES), at 1 and 63 rows, 4 and 8 bits,
-    group size 64, f32 and bf16 scales; then groups of 32 and 128, 2 bits,
-    bf16 x and odd row counts at the o-projection's shape, and rows that are
-    not 16-byte aligned. With ``timing``: kernel, plain and library times a
-    call (CUDA events) and as device time, at 4 bits, g 64, f32 scales, the
-    path's configuration, and the decode step's sum (the layers' GEMVs
-    times 28 and the band head, at 1 row)."""
+    the Orpheus-3B 4-bit path (QMM_SHAPES), at 1 row (the GEMV) and 63 (the
+    tile), 4 and 8 bits, group size 64, f32 and bf16 scales; every row
+    count 2-64 the tile takes, at the o projection's shape; then groups of
+    32 and 128, 2 bits, bf16 x and odd row counts at the o projection's
+    shape, the GEMV at 63 rows, and rows that are not 16-byte aligned (the
+    GEMV). With ``timing``, each call on weights outside the L2
+    (``qmm_copies``): kernel, plain and library times a call (CUDA events)
+    and as device time, at 4 bits, g 64, f32 scales, the path's
+    configuration, at 1 and 63 rows; the tile and its plain version at 63
+    rows and 8 bits; the tile and the GEMV at QMM_CROSSOVER_ROWS rows at the
+    o and down shapes. Returns kernel 7's two records: the GEMV's with a
+    decode step's sum (the layers' GEMVs times 28 and the band head, at 1
+    row), and the tile's with a prefill's (the layers' GEMVs times 28, at
+    63 rows)."""
     import torch
 
     from tpu_audio_torch.ops import qmm
 
     gen = torch.Generator(device=dev).manual_seed(15)
-    errs, shapes = [], []
+    errs = []
     with torch.inference_mode():
         for name, (o, i) in QMM_SHAPES.items():
             for bits in (4, 8):
@@ -2535,85 +2599,141 @@ def qmm_phase(dev, timing: bool = True) -> dict:
                                               f"{bits} scales {sdt}", x, words, s, b, 64, bits))
                         del x, words, s, b
         o, i = QMM_SHAPES["o"]
-        extra = [(rows, bits, g, xdt, sdt)
-                 for rows, bits, g in ((1, 4, 32), (63, 4, 32), (1, 4, 128), (63, 4, 128),
-                                       (5, 2, 32), (9, 2, 64), (17, 8, 128))
-                 for xdt, sdt in ((torch.float32, torch.float16),)]
+        extra = [(rows, 4, 64, torch.float32, torch.float32) for rows in range(2, 65)]
+        extra += [(rows, bits, g, xdt, sdt)
+                  for rows, bits, g in ((1, 4, 32), (63, 4, 32), (1, 4, 128), (63, 4, 128),
+                                        (5, 2, 32), (9, 2, 64), (17, 8, 128))
+                  for xdt, sdt in ((torch.float32, torch.float16),)]
         extra += [(rows, 4, 64, torch.bfloat16, torch.bfloat16) for rows in (2, 3, 33, 64)]
         extra += [(rows, 8, 64, torch.float32, torch.float32) for rows in (7, 13, 40)]
         for rows, bits, g, xdt, sdt in extra:
             x, words, s, b = qmm_inputs(o, i, rows, bits, g, gen, dev, sdt, xdt)
             errs.append(qmm_check(f"qmm o [{rows},{i}] bits {bits} g {g} x {xdt} scales {sdt}",
                                   x, words, s, b, g, bits))
-        # rows of 6 words are not 16-byte aligned: one word at a time
+        # the GEMV's passes of 8 rows (and 4 at 8,192 features), which the
+        # route now sends only rows that are not 16-byte aligned
+        for name in ("o", "down"):
+            o, i = QMM_SHAPES[name]
+            x, words, s, b = qmm_inputs(o, i, 63, 4, 64, gen, dev)
+            errs.append(qmm_check(f"qmm {name} [63,{i}]x[{o},{i}] the GEMV", x, words, s, b,
+                                  64, 4, launch=qmm.gemv))
+        # rows of 6 words are not 16-byte aligned: the GEMV, one word at a time
         x, words, s, b = qmm_inputs(333, 96, 3, 2, 32, gen, dev)
         errs.append(qmm_check("qmm [3,96]x[333,96] bits 2 g 32 (unaligned rows)",
                               x, words, s, b, 32, 2))
-        f32 = [e for e, bf16 in errs if not bf16]
-        bf16 = [e for e, bf16 in errs if bf16]
-        print(f"[qmm] {len(errs)} checks against the plain version: rel err up to "
-              f"{max(f32):.3e} with f32 x (rtol {QMM_RTOL}), {max(bf16):.3e} with bf16 x "
-              f"(rtol {QMM_BF16_RTOL})")
-        rec = dict(route="cuda", source="tpu_audio_torch/csrc/qmm.cu",
-                   replaces="tpu_audio/ops/pallas_qmm.py:100", checks=len(errs),
-                   rel_err=max(f32), rel_err_bf16_x=max(bf16))
+        recs = {}
+        for kernel, ran in (("quantized_matvec", "gemv"), ("quantized_matvec_tile", "tile")):
+            f32 = [e for e, bf16, r in errs if r == ran and not bf16]
+            bf16 = [e for e, bf16, r in errs if r == ran and bf16]
+            n = sum(r == ran for _, _, r in errs)
+            print(f"[qmm] {ran}: {n} checks against the plain version: rel err up to "
+                  f"{max(f32):.3e} with f32 x (rtol {QMM_RTOL}), "
+                  + (f"{max(bf16):.3e} with bf16 x (rtol {QMM_BF16_RTOL})" if bf16
+                     else "no bf16 x"))
+            recs[kernel] = dict(route="cuda", source="tpu_audio_torch/csrc/qmm.cu",
+                                replaces="tpu_audio/ops/pallas_qmm.py:100", checks=n,
+                                rel_err=max(f32), rel_err_bf16_x=max(bf16) if bf16 else None)
+        check(recs["quantized_matvec_tile"]["checks"] > 0 and recs["quantized_matvec"]["checks"]
+              > 0, "phase 15 did not check both kernels of kernel 7")
         if not timing:
-            return rec
-        lib_errs, lib_why = [], None
+            return recs
+        shapes, eight, cross, lib_errs, lib_why = [], [], [], [], None
         for name, (o, i) in QMM_SHAPES.items():
             for rows in (1, 63):
                 x, words, s, b = qmm_inputs(o, i, rows, 4, 64, gen, dev)
                 want = qmm.quantized_matvec_ref(x, words, s, b, 64, 4)
                 err = float((qmm.quantized_matvec(x, words, s, b, 64, 4) - want).abs().max())
                 b_ms, b_by = qmm_bound(rows, o, i, 4, 64)
-                row = dict(shape=name, rows=rows, o=o, i=i, bound_ms=b_ms, bound_by=b_by,
-                           max_abs_err=err,
-                           ms=cuda_ms(lambda: qmm.quantized_matvec(x, words, s, b, 64, 4)),
-                           plain_ms=cuda_ms(lambda: qmm.quantized_matvec_ref(
-                               x, words, s, b, 64, 4), reps=5, warmup=1),
-                           dev_ms=device_ms(lambda: qmm.quantized_matvec(
-                               x, words, s, b, 64, 4), launches=1),
-                           plain_dev_ms=device_ms(lambda: qmm.quantized_matvec_ref(
-                               x, words, s, b, 64, 4), reps=3))
-                call, lib_out, why = int4pack_library(x, words, s, b, 64)
+                copies = qmm_copies(words, s, b)
+                k = qmm_timed(x, copies, 64, 4, qmm.quantized_matvec)
+                p = cycling([functools.partial(qmm.quantized_matvec_ref, x, *c, 64, 4)
+                             for c in copies])
+                row = dict(shape=name, rows=rows, o=o, i=i, bits=4, copies=len(copies),
+                           kernel=qmm.route(rows, i, 4, True), bound_ms=b_ms,
+                           bound_by=b_by, max_abs_err=err, ms=k["ms"],
+                           plain_ms=cuda_ms(p, reps=5, warmup=1), dev_ms=k["dev_ms"],
+                           plain_dev_ms=device_ms(p, reps=3))
+                calls = [int4pack_library(x, *c, 64) for c in copies]
+                call, lib_out, why = calls[0]
                 if call is None:
                     lib_why = why
                     row.update(library_ms=None, library_dev_ms=None, library_rel_err=None)
                 else:
+                    lib = cycling([c[0] for c in calls])
                     lib_errs.append(rel_err(lib_out, want))
-                    row.update(library_ms=cuda_ms(call), library_dev_ms=device_ms(call),
+                    row.update(library_ms=cuda_ms(lib), library_dev_ms=device_ms(lib),
                                library_rel_err=lib_errs[-1])
+                del calls
                 shapes.append(row)
-                print(f"[time] qmm {name} [{rows},{i}]x[{o},{i}] 4-bit g 64: per call kernel "
-                      f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
-                      f"{fmt(row['library_ms'])}; device kernel {fmt(row['dev_ms'])}, plain "
-                      f"{fmt(row['plain_dev_ms'])}, library {fmt(row['library_dev_ms'])}; bound "
-                      f"{b_ms:.4f} ms ({b_by})"
+                print(f"[time] qmm {name} [{rows},{i}]x[{o},{i}] 4-bit g 64 ({row['kernel']}, "
+                      f"{len(copies)} weight copies): per call kernel {row['ms']:.4f} ms, plain "
+                      f"{row['plain_ms']:.4f} ms, library {fmt(row['library_ms'])}; device "
+                      f"kernel {fmt(row['dev_ms'])}, plain {fmt(row['plain_dev_ms'])}, library "
+                      f"{fmt(row['library_dev_ms'])}; bound {b_ms:.4f} ms ({b_by})"
                       + (f"; library rel err {row['library_rel_err']:.3e}"
                          if row["library_rel_err"] is not None else f"; library: {why}"))
-                del x, words, s, b, want
+                del x, words, s, b, want, copies
+        for name, (o, i) in QMM_SHAPES.items():
+            x, words, s, b = qmm_inputs(o, i, 63, 8, 64, gen, dev)
+            b_ms, b_by = qmm_bound(63, o, i, 8, 64)
+            copies = qmm_copies(words, s, b)
+            k = qmm_timed(x, copies, 64, 8, qmm.quantized_matvec)
+            p = cycling([functools.partial(qmm.quantized_matvec_ref, x, *c, 64, 8)
+                         for c in copies])
+            row = dict(shape=name, rows=63, o=o, i=i, bits=8, copies=len(copies),
+                       bound_ms=b_ms, bound_by=b_by, ms=k["ms"], dev_ms=k["dev_ms"],
+                       plain_ms=cuda_ms(p, reps=5, warmup=1),
+                       plain_dev_ms=device_ms(p, reps=3), library_ms=None)
+            eight.append(row)
+            print(f"[time] qmm {name} [63,{i}]x[{o},{i}] 8-bit g 64 (tile, {len(copies)} weight "
+                  f"copies): per call kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms; "
+                  f"device kernel {fmt(row['dev_ms'])}, plain {fmt(row['plain_dev_ms'])}; bound "
+                  f"{b_ms:.4f} ms ({b_by}); library: none at 8 bits")
+            del x, words, s, b, copies
+        for name in ("o", "down"):
+            o, i = QMM_SHAPES[name]
+            for rows in QMM_CROSSOVER_ROWS:
+                x, words, s, b = qmm_inputs(o, i, rows, 4, 64, gen, dev)
+                copies = qmm_copies(words, s, b)
+                t, g = (qmm_timed(x, copies, 64, 4, fn) for fn in (qmm.tile, qmm.gemv))
+                cross.append(dict(shape=name, rows=rows, tile_ms=t["ms"], tile_dev_ms=t["dev_ms"],
+                                  gemv_ms=g["ms"], gemv_dev_ms=g["dev_ms"],
+                                  bound_ms=qmm_bound(rows, o, i, 4, 64)[0]))
+                print(f"[time] qmm crossover {name} [{rows},{i}]x[{o},{i}] 4-bit g 64: device "
+                      f"tile {fmt(t['dev_ms'])}, GEMV {fmt(g['dev_ms'])}; per call tile "
+                      f"{t['ms']:.4f} ms, GEMV {g['ms']:.4f} ms")
+                del x, words, s, b, copies
     L = ORPHEUS["num_hidden_layers"]
+    layers = ("q/k/v", "o", "gate/up", "down")
 
-    def step(field):  # a decode step: 28 x the layers' four GEMVs + the band head
-        vals = [r[field] for r in shapes if r["rows"] == 1 and r["shape"] != "full head"]
-        if any(v is None for v in vals):
+    def total(rows, field, heads=()):  # 28 x the layers' four GEMVs, and heads once
+        sel = [r for r in shapes if r["rows"] == rows and (r["shape"] in layers + heads)]
+        if any(r[field] is None for r in sel):
             return None
-        return sum(v * (1 if r["shape"] == "band head" else L)
-                   for v, r in zip(vals, [r for r in shapes if r["rows"] == 1
-                                          and r["shape"] != "full head"]))
+        return sum(r[field] * (L if r["shape"] in layers else 1) for r in sel)
 
-    rec.update(ms=step("ms"), plain_ms=step("plain_ms"), dev_ms=step("dev_ms"),
-               plain_dev_ms=step("plain_dev_ms"), bound_ms=step("bound_ms"),
-               bound_by="bytes", library_ms=step("library_ms"),
-               library_dev_ms=step("library_dev_ms"),
-               library_rel_err=max(lib_errs) if lib_errs else None, library_error=lib_why,
-               max_abs_err=max(r["max_abs_err"] for r in shapes), by_shape=shapes)
-    print(f"[time] quantized_matvec, a decode step's {4 * L + 1} GEMVs (4-bit, g 64, 1 row): "
-          f"per call kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
-          f"{fmt(rec['library_ms'])}; device kernel {fmt(rec['dev_ms'])}, plain "
-          f"{fmt(rec['plain_dev_ms'])}, library {fmt(rec['library_dev_ms'])}; bound "
-          f"{rec['bound_ms']:.4f} ms (bytes)")
-    return rec
+    for kernel, rows, heads, by in (("quantized_matvec", 1, ("band head",), "bytes"),
+                                    ("quantized_matvec_tile", 63, (), "operations")):
+        recs[kernel].update(
+            {f: total(rows, f, heads) for f in ("ms", "plain_ms", "dev_ms", "plain_dev_ms",
+                                                "bound_ms", "library_ms", "library_dev_ms")},
+            bound_by=by, library_rel_err=max(lib_errs) if lib_errs else None,
+            library_error=lib_why,
+            max_abs_err=max(r["max_abs_err"] for r in shapes if r["rows"] == rows),
+            by_shape=[r for r in shapes if r["rows"] == rows])
+    recs["quantized_matvec_tile"].update(by_shape_8bit=eight, crossover=cross)
+    step, pre = recs["quantized_matvec"], recs["quantized_matvec_tile"]
+    print(f"[time] quantized_matvec (the GEMV), a decode step's {4 * L + 1} GEMVs (4-bit, g 64, "
+          f"1 row): per call kernel {step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, "
+          f"library {fmt(step['library_ms'])}; device kernel {fmt(step['dev_ms'])}, plain "
+          f"{fmt(step['plain_dev_ms'])}, library {fmt(step['library_dev_ms'])}; bound "
+          f"{step['bound_ms']:.4f} ms (bytes)")
+    print(f"[time] quantized_matvec_tile, a prefill's {4 * L} GEMVs (4-bit, g 64, 63 rows): per "
+          f"call kernel {pre['ms']:.4f} ms, plain {pre['plain_ms']:.4f} ms, library "
+          f"{fmt(pre['library_ms'])}; device kernel {fmt(pre['dev_ms'])}, plain "
+          f"{fmt(pre['plain_dev_ms'])}, library {fmt(pre['library_dev_ms'])}; bound "
+          f"{pre['bound_ms']:.4f} ms (operations)")
+    return recs
 
 
 def build_orpheus_q4(dev):
@@ -2722,15 +2842,21 @@ def q4_generate_phase(model, full) -> tuple[list, dict, list]:
         _, _, (pt, gt, plen, all_tokens) = seen["item"]
         toks = all_tokens[plen:]
         frames = len(m.parse_output(all_tokens)) // 7
-        want = 4 * L + (4 * L + 1) * steps[0] + (m is full)  # the full head's prefill logits
+        # the prefill's 63 rows through the tile (and the full head's logits
+        # over them), each decode step's 1 row through the GEMV
+        want_tile = 4 * L + (m is full)
+        want_gemv = (4 * L + 1) * steps[0]
+        n_tile = launches.get("quantized_matvec_tile", 0)
+        n_gemv = launches.get("quantized_matvec", 0) - n_tile
         label = "full head" if m is full else "generate_stream" if stream else "generate"
         print(f"[tts q4 {label} run {run}] {len(toks)} tokens ({steps[0]} decode steps taken) "
               f"in {wall:.3f} s (prefill {pt * 1e3:.3f} ms, decode "
               f"{gt * 1e3 / steps[0]:.4f} ms a step); {wav.shape[0]} samples ({frames} "
-              f"frames); launches {launches} ({want} expected), plain version calls {plain[0]}")
-        check(launches.get("quantized_matvec", 0) == want,
-              f"quantized_matvec launched {launches.get('quantized_matvec', 0)} times, "
-              f"{want} expected for {steps[0]} decode steps")
+              f"frames); launches {launches}: tile {n_tile} ({want_tile} expected), GEMV "
+              f"{n_gemv} ({want_gemv} expected); plain version calls {plain[0]}")
+        check(n_tile == want_tile and n_gemv == want_gemv,
+              f"kernel 7 launched the tile {n_tile} and the GEMV {n_gemv} times, "
+              f"{want_tile} and {want_gemv} expected for {steps[0]} decode steps")
         check(not any(launches.get(k, 0) for k in ("fused_llama_stack",
                                                    "fused_llama_stack_lanes")),
               "a w8a8 kernel ran on the 4-bit path")
@@ -2889,7 +3015,7 @@ def q4_ttfb_phase(model) -> dict:
     kernels = by_kernel(prof)
     busy_ms = sum(c[1] for c in kernels.values()) / 1e3
     n_events = sum(c[0] for c in kernels.values())
-    k7 = [c for name, c in kernels.items() if "quantized_matvec_kernel" in name]
+    k7 = [c for name, c in kernels.items() if "quantized_matvec" in name]  # GEMV and tile
     k7_ms, k7_n = sum(c[1] for c in k7) / 1e3, sum(c[0] for c in k7)
     out = dict(ttfb_ms=ttfb * 1e3, ttfb_all_ms=[t * 1e3 for t in times],
                prefill_ms=min(prefills) * 1e3, first_audio_s=audio_s,
@@ -2957,12 +3083,15 @@ def q4_serve_phase(model) -> dict:
         wall = time.perf_counter() - t0
         launches = dict(_lib.launches)
     n_tok = sum(len(t) for t in served)
-    want = 4 * L * prefills[0] + (4 * L + 1) * steps[0]
+    want_tile = 4 * L * prefills[0]
+    want = {"quantized_matvec": want_tile + (4 * L + 1) * steps[0],
+            "quantized_matvec_tile": want_tile}
     print(f"[tts q4 serve] {len(served)} requests, {Q4_SERVE_SLOTS} slots, max_tokens "
           f"{Q4_SERVE_MAX_TOKENS}: {n_tok} tokens in {wall:.3f} s ({steps[0]} lane steps, "
-          f"{prefills[0]} prefills); launches {launches} ({want} expected), plain version "
-          f"calls {plain[0]}; samples by request {[a.shape[0] for a in audio]}")
-    check(launches == {"quantized_matvec": want},
+          f"{prefills[0]} prefills); launches {launches} ({want} expected: the prefills' "
+          f"through the tile), plain version calls {plain[0]}; samples by request "
+          f"{[a.shape[0] for a in audio]}")
+    check(launches == want,
           f"serving launches {launches}, {want} of kernel 7 and no other expected")
     check(plain[0] == 0, "the plain version ran on the 4-bit serving path")
     for toks, wav in zip(served, audio):
@@ -3108,6 +3237,22 @@ def qmm_only() -> int:
     return 0
 
 
+def qmm_main(smi: str) -> int:
+    """``--qmm``: phase 15 alone with its timing, then kernel 7's two
+    records as one JSON line (no "ok" line: not the full check)."""
+    import torch
+
+    from tpu_audio_torch.ops import _lib
+
+    t0 = time.perf_counter()
+    _lib.lib()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    recs = qmm_phase(torch.device("cuda", 0))
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"smi": smi, "kernels": [dict(name=k, **r) for k, r in recs.items()]}))
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3120,6 +3265,9 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--mutations"]:
         return mutations_main()
+    if sys.argv[1:] not in ([], ["--qmm"]):
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3134,6 +3282,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0])
+    if sys.argv[1:] == ["--qmm"]:
+        return qmm_main(smi.splitlines()[0])
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -3145,7 +3295,7 @@ def main() -> int:
 
     # phase 15 first: late in this process torch.profiler loses device
     # events, and kernel 7's short calls then read "not measured"
-    records = {"quantized_matvec": qmm_phase(dev)}
+    records = qmm_phase(dev)
 
     t0 = time.perf_counter()
     cfg, models = build_models(dev)
@@ -3165,7 +3315,7 @@ def main() -> int:
     records["fused_stack_lanes"] = lanes_phase(w8, cfg, lane_encoders(w8, enc, clips, rng),
                                                dev)
     for k, r in records.items():
-        if k == "quantized_matvec":
+        if k.startswith("quantized_matvec"):
             continue
         print(f"[time] {k}: per call (CUDA events) kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms; device time (profiler) kernel "
@@ -3224,7 +3374,11 @@ def main() -> int:
     print(f"Orpheus-3B MLX 4-bit (g 64, band and full heads) built on the card in "
           f"{time.perf_counter() - t0:.1f} s")
     q4_runs, q4_launches, q4_tokens = q4_generate_phase(q4, q4_full)
-    records["quantized_matvec"]["launches"] = q4_launches["quantized_matvec"]
+    # the first generate run's: the counter "quantized_matvec" counts both
+    # kernels of kernel 7, "quantized_matvec_tile" the tile's
+    records["quantized_matvec_tile"]["launches"] = q4_launches["quantized_matvec_tile"]
+    records["quantized_matvec"]["launches"] = (q4_launches["quantized_matvec"]
+                                               - q4_launches["quantized_matvec_tile"])
     mlx = dict(runs=q4_runs, teacher_forced_rel_err=q4_teacher_forced(q4, q4_tokens),
                ttfb=q4_ttfb_phase(q4), serve=q4_serve_phase(q4),
                whisper=q4_whisper_phase(whisper_q4, audio))
@@ -3233,8 +3387,9 @@ def main() -> int:
     kernels = [dict(name=k, **{f: r[f] for f in (
         "route", "source", "replaces", "launches", "max_abs_err", "rel_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms", "dev_ms", "plain_dev_ms")},
-        **{f: r[f] for f in ("by_lanes", "by_shape", "rel_err_bf16_x", "library_dev_ms",
-                             "library_rel_err", "library_error") if f in r})
+        **{f: r[f] for f in ("by_lanes", "by_shape", "by_shape_8bit", "crossover",
+                             "rel_err_bf16_x", "library_dev_ms", "library_rel_err",
+                             "library_error") if f in r})
         for k, r in records.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"generate": runs, "smi": smi.splitlines()[0]}))

@@ -6,8 +6,11 @@ interpret mode, the dispatch of ``quant.quantized_matmul`` above and below
 linear layers, projection fusion, checkpoint loading and
 ``convert.from_jax_params``.
 
-The CUDA kernel itself (``csrc/qmm.cu``) runs only on a GPU;
-``chip_smoke.py`` holds it against the plain version tested here.
+The CUDA kernels themselves (``csrc/qmm.cu``: the GEMV and the
+tensor-core tile) run only on a GPU; ``chip_smoke.py`` holds them against
+the plain version tested here. What runs here of the tile is its routing
+rule and an emulation of its arithmetic (bf16 split of x, exact codes,
+f32 group sums), held against the JAX kernel and the plain version.
 """
 
 import jax
@@ -128,6 +131,109 @@ def test_rows_a_pass_fits_the_shared_memory():
     # not at 2 (64)
     assert TQ.rows_a_pass(1, 57600, 128, 8) == 1 and TQ.rows_a_pass(1, 57600, 128, 2) == 0
     assert TQ.rows_a_pass(1, 64 * 1024, 64, 4) == 0
+
+
+# -- the tile's routing and arithmetic (the CUDA kernel runs only on a GPU) ------
+
+
+def test_route_sends_rows_to_the_gemv_the_tile_or_dequantize():
+    """1 row and unaligned rows to the GEMV, R_TILE..64 rows to the tile,
+    more than 64 to dequantize + matmul (``core.quant.quantized_matmul``)."""
+    assert TQ.route(1, 3072, 4, True) == "gemv"
+    assert [TQ.route(b, 3072, 4, True) for b in range(TQ.R_TILE, 65)] == \
+        ["tile"] * (65 - TQ.R_TILE)
+    assert all(TQ.route(b, 8192, bits, True) == "tile"
+               for b in (TQ.R_TILE, 63) for bits in (2, 4, 8))
+    # rows of 6 words (96 inputs at 2 bits) are not whole 16-byte chunks
+    assert TQ.route(3, 96, 2, True) == "gemv" and TQ.route(3, 128, 2, True) == "tile"
+    assert TQ.route(63, 3072, 4, False) == "gemv"  # a pointer off a 16-byte boundary
+    assert [TQ.route(b, 3072, 4, True) for b in (65, 100, 1500)] == ["dequantize"] * 3
+
+
+def test_quantized_matvec_launches_the_kernel_its_route_names(monkeypatch):
+    """Off the CPU the wrapper launches the route's kernel (``meta`` tensors
+    stand in for CUDA ones; the launchers are spies)."""
+    calls = []
+    monkeypatch.setattr(TQ, "_gemv", lambda *a: calls.append(("gemv", a[-3])))
+    monkeypatch.setattr(TQ, "_tile", lambda *a: calls.append(("tile", a[-3])))
+    meta = torch.device("meta")
+    for b, i, bits in ((1, 256, 4), (2, 256, 4), (64, 256, 4), (3, 96, 2), (63, 96, 4)):
+        x = torch.empty((b, i), device=meta)
+        w = torch.empty((8, i * bits // 32), device=meta, dtype=torch.int32)
+        s = torch.empty((8, i // 32), device=meta)
+        TQ.quantized_matvec(x, w, s, s, 32, bits)
+    assert calls == [("gemv", 1), ("tile", 2), ("tile", 64), ("gemv", 3), ("tile", 63)]
+
+
+def test_tile_slices_fill_the_card():
+    """The input-feature slices of the tile at the Orpheus-3B path shapes:
+    at least TILE_BLOCKS blocks where the features allow, whole units."""
+    got = [TQ.tile_slices(o, i, 64) for o, i in
+           ((5120, 3072), (3072, 3072), (16384, 3072), (3072, 8192), (28673, 3072))]
+    assert got == [7, 11, 3, 11, 2]
+    assert TQ.tile_slices(156940, 3072, 64) == 1 and TQ.tile_slices(64, 128, 128) == 1
+    assert TQ.tile_slices(64, 256, 32) == 4  # units of 64 features
+
+
+def _tile_emulation(x, words, scales, biases, g, bits):
+    """Emulation of the tile's arithmetic, not the kernel: x split into
+    x_hi = bf16(x) and x_lo = bf16(x - x_hi) (bf16 x is its own one part),
+    the codes signed (q - 2^(bits - 1)) and exact in bf16, each group's
+    products summed in f32 into a fresh sum P, then ``scale * P + (bias +
+    2^(bits - 1) * scale) * xg`` with xg the group's f32 sum of x, added over
+    the groups in f32."""
+    xf = x.float()
+    hi = xf.to(torch.bfloat16)
+    parts = [hi] if x.dtype == torch.bfloat16 else [hi, (xf - hi.float()).to(torch.bfloat16)]
+    mid = float(1 << (bits - 1))
+    codes = tquant._unpack(words, bits).float() - mid
+    q = codes.to(torch.bfloat16)
+    assert torch.equal(q.float(), codes)  # exact: integers -128..127
+    b, i = x.shape
+    o, n = words.shape[0], i // g
+    qg = q.float().reshape(o, n, g)
+    p = sum(torch.einsum("bnk,onk->bon", part.float().reshape(b, n, g), qg) for part in parts)
+    xg = xf.reshape(b, n, g).sum(-1)
+    s = scales.float()
+    return (s * p + (biases.float() + mid * s) * xg[:, None, :]).sum(-1).to(x.dtype)
+
+
+@pytest.mark.parametrize("bits,o,i,b,g", [
+    (4, 96, 128, 2, 64), (8, 64, 256, 3, 64), (4, 300, 192, 2, 64),
+    (4, 130, 256, 5, 32), (4, 72, 384, 9, 128), (8, 200, 256, 17, 32),
+    (8, 64, 512, 33, 128), (4, 136, 256, 63, 64), (8, 40, 128, 64, 64)])
+def test_tile_emulation_matches_jax_kernel(bits, o, i, b, g):
+    """The emulated tile against the Pallas kernel in interpret mode, at the
+    shapes and tolerance of the plain version's test above (rows >= 2)."""
+    _, (packed, scales, biases) = _packed(o, i, g, bits)
+    x = np.random.default_rng(1).standard_normal((b, i)).astype(np.float32)
+    want = np.asarray(JQ.quantized_matvec(
+        jnp.asarray(x), jnp.asarray(packed), jnp.asarray(scales), jnp.asarray(biases),
+        g, bits, tile_o=128, interpret=True))
+    got = _tile_emulation(torch.from_numpy(x), _words(packed), torch.from_numpy(scales),
+                          torch.from_numpy(biases), g, bits)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-4)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("o,i", [(64, 8192), (128, 3072)])
+@pytest.mark.parametrize("outliers", [False, True])
+def test_tile_emulation_meets_the_kernel_tolerance(bits, o, i, outliers):
+    """The emulated tile against the plain version at 63 rows, within
+    chip_smoke's QMM_RTOL (1e-4 of the largest output) with f32 x, also with
+    a few columns of x at 100x; bf16 alone (x_lo dropped) misses it."""
+    rng = np.random.default_rng(bits + i)
+    _, (packed, scales, biases) = _packed(o, i, 64, bits, seed=i, scale=0.02)
+    x = rng.standard_normal((63, i)).astype(np.float32)
+    if outliers:
+        x[:, rng.choice(i, 6, replace=False)] *= 100.0
+    args = (_words(packed), torch.from_numpy(scales), torch.from_numpy(biases), 64, bits)
+    xt = torch.from_numpy(x)
+    want = TQ.quantized_matvec_ref(xt, *args)
+    err = float((_tile_emulation(xt, *args) - want).abs().max() / want.abs().max())
+    assert err <= 1e-4
+    hi_only = _tile_emulation(xt.to(torch.bfloat16).float(), *args)
+    assert float((hi_only - want).abs().max() / want.abs().max()) > 1e-4
 
 
 # -- quantizers, unpacking, dequantizing ------------------------------------------

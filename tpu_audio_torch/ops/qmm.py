@@ -1,10 +1,12 @@
 """MLX grouped-affine GEMV: ``x [B, I] @ W.T -> [B, O]`` with W in MLX's
 packed 4/8-bit layout (see ``core.quant``).
 
-Port of tpu_audio/ops/pallas_qmm.py:quantized_matvec; the CUDA kernel is
-``csrc/qmm.cu``. :func:`quantized_matvec_ref` is the plain PyTorch
-version. The TPU kernel's word-scale planes (``scales_w``) are left out:
-the kernel reads scales and biases per group in their stored dtype.
+Port of tpu_audio/ops/pallas_qmm.py:quantized_matvec; the CUDA kernels are
+in ``csrc/qmm.cu``: a GEMV for one row and a bf16 tensor-core tile for
+``R_TILE`` to 64 rows (:func:`route` picks one by shape).
+:func:`quantized_matvec_ref` is the plain PyTorch version. The TPU
+kernel's word-scale planes (``scales_w``) are left out: the kernels read
+scales and biases per group in their stored dtype.
 """
 
 from __future__ import annotations
@@ -13,13 +15,17 @@ import torch
 
 from tpu_audio_torch.ops import _lib
 
-__all__ = ["quantized_matvec", "quantized_matvec_ref", "BITS", "GROUP_SIZES",
-           "MAX_ROWS"]
+__all__ = ["quantized_matvec", "quantized_matvec_ref", "route", "gemv", "tile", "BITS",
+           "GROUP_SIZES", "MAX_ROWS", "R_TILE"]
 
 BITS = (2, 4, 8)
 GROUP_SIZES = (32, 64, 128)
 MAX_ROWS = 64  # the rows of x the kernel takes: core.quant sends it no more
+R_TILE = 2  # the fewest rows the tile takes: below, the GEMV (see PERF.md)
 SMEM_BYTES = 232448  # shared memory a block may have on the H100
+TILE_BM = 128  # output features a block of the tile (csrc/qmm.cu)
+TILE_KC = 64  # input features a stage of the tile
+TILE_BLOCKS = 264  # blocks the tile aims for: two on each of the H100's 132 SMs
 # dtype codes of csrc/qmm.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -45,17 +51,35 @@ def rows_a_pass(b: int, i: int, group_size: int, bits: int) -> int:
     return next((r for r in fit if r >= b), fit[-1]) if fit else 0
 
 
-def quantized_matvec(x: torch.Tensor, words: torch.Tensor, scales: torch.Tensor,
-                     biases: torch.Tensor, group_size: int = 64, bits: int = 4
-                     ) -> torch.Tensor:
-    """``x @ dequant(W).T`` for ``x [B, I]`` (B <= 64), words ``[O, I * bits
-    / 32]`` (int32 bits), scales and biases ``[O, I / group_size]``: the plain
-    version for CPU tensors, the CUDA kernel for CUDA tensors, in ``x``'s
-    dtype. The kernel takes bits 2, 4 and 8, groups of 32, 64 and 128, f32,
-    bf16 or f16 ``x`` and scales, any O; it raises on anything else."""
-    if x.device.type == "cpu":
-        return quantized_matvec_ref(x, words, scales, biases, group_size, bits)
-    dev = x.device
+def route(b: int, i: int, bits: int, aligned: bool) -> str:
+    """Which code computes ``x [b, i] @ W.T`` for W packed at ``bits`` (in
+    any group size both kernels take): ``"dequantize"`` (W to x's dtype and a matmul,
+    in ``core.quant.quantized_matmul``) above MAX_ROWS rows; the GEMV
+    (``"gemv"``) below R_TILE rows, or where the rows of W are not whole
+    16-byte chunks (``i * bits % 128 != 0``) or W or x does not start on a
+    16-byte boundary (``aligned`` false), since the tile copies 16 bytes at
+    a time; else the tile (``"tile"``). The rule reads shapes and pointers,
+    never the outcome of a launch."""
+    if b > MAX_ROWS:
+        return "dequantize"
+    return "tile" if b >= R_TILE and aligned and i * bits % 128 == 0 else "gemv"
+
+
+def tile_slices(o: int, i: int, group_size: int) -> int:
+    """The slices of the input features the tile splits a call into: enough
+    blocks (ceil(o / TILE_BM) a slice) for TILE_BLOCKS, each slice at least
+    one unit of max(TILE_KC, group_size) features."""
+    units = -(-i // max(TILE_KC, group_size))
+    blocks = -(-o // TILE_BM)
+    return max(1, min(units, -(-TILE_BLOCKS // blocks)))
+
+
+def _aligned(x: torch.Tensor, words: torch.Tensor) -> bool:
+    return words.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
+
+
+def _checked(x, words, scales, biases, group_size, bits):
+    """Check what both kernels take; raise on anything else."""
     b, i = x.shape
     o, n_words = words.shape
     if bits not in BITS or group_size not in GROUP_SIZES:
@@ -69,17 +93,30 @@ def quantized_matvec(x: torch.Tensor, words: torch.Tensor, scales: torch.Tensor,
     if x.dtype not in _DTYPES or scales.dtype not in _DTYPES:
         raise ValueError(f"quantized_matvec: dtypes x {x.dtype}, scales {scales.dtype} "
                          "(the kernel takes f32, bf16 or f16)")
-    rb = rows_a_pass(b, i, group_size, bits)
-    if rb == 0:
-        raise ValueError(f"quantized_matvec: {i} input features exceed the kernel's "
-                         "shared memory")
+    dev = x.device
     _lib.require(x, "x", x.dtype, (b, i), dev)
     _lib.require(words, "words", torch.int32, (o, n_words), dev)
     for name, t in (("scales", scales), ("biases", biases)):
         _lib.require(t, name, scales.dtype, (o, i // group_size), dev)
-    vec = int(n_words % 4 == 0 and words.data_ptr() % 16 == 0)
-    out = torch.empty((b, o), dtype=x.dtype, device=dev)
-    with torch.cuda.device(dev):
+    return b, o, i
+
+
+def gemv(x: torch.Tensor, words: torch.Tensor, scales: torch.Tensor, biases: torch.Tensor,
+         group_size: int = 64, bits: int = 4) -> torch.Tensor:
+    """The GEMV kernel on CUDA tensors, at any 1-64 rows (it stages up to 8
+    rows of x a pass and reads the weights again for each pass)."""
+    return _gemv(x, words, scales, biases, group_size, bits,
+                 *_checked(x, words, scales, biases, group_size, bits))
+
+
+def _gemv(x, words, scales, biases, group_size, bits, b, o, i):
+    rb = rows_a_pass(b, i, group_size, bits)
+    if rb == 0:
+        raise ValueError(f"quantized_matvec: {i} input features exceed the kernel's "
+                         "shared memory")
+    vec = int(words.shape[1] % 4 == 0 and words.data_ptr() % 16 == 0)
+    out = torch.empty((b, o), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
         err = _lib.lib().tpa_quantized_matvec(
             x.data_ptr(), _DTYPES[x.dtype], words.data_ptr(), scales.data_ptr(),
             biases.data_ptr(), _DTYPES[scales.dtype], out.data_ptr(), b, o, i,
@@ -87,3 +124,57 @@ def quantized_matvec(x: torch.Tensor, words: torch.Tensor, scales: torch.Tensor,
     _lib.check(err, "quantized_matvec")
     _lib.launches["quantized_matvec"] += 1
     return out
+
+
+def tile(x: torch.Tensor, words: torch.Tensor, scales: torch.Tensor, biases: torch.Tensor,
+         group_size: int = 64, bits: int = 4) -> torch.Tensor:
+    """The tensor-core tile on CUDA tensors, at any 1-64 rows of x whose rows
+    and W's are 16-byte aligned (see :func:`route`): a first kernel splits x
+    into bf16 parts and takes its group sums, the tile splits the input
+    features into :func:`tile_slices` slices, and a third kernel adds their
+    f32 partial sums in slice order."""
+    b, o, i = _checked(x, words, scales, biases, group_size, bits)
+    if not (_aligned(x, words) and i * bits % 128 == 0):
+        raise ValueError("quantized_matvec: the tile needs 16-byte aligned rows of x and W "
+                         f"(I * bits % 128 == 0); got I {i} at {bits} bits")
+    return _tile(x, words, scales, biases, group_size, bits, b, o, i)
+
+
+def _tile(x, words, scales, biases, group_size, bits, b, o, i):
+    slices = tile_slices(o, i, group_size)
+    out = torch.empty((b, o), dtype=x.dtype, device=x.device)
+    # one scratch buffer: x split into bf16 parts (4 bytes an input; bf16 x,
+    # its own one part, 2), x's f32 group sums at byte xg, and for slices > 1
+    # the slices' f32 partial sums at byte part (16-byte aligned)
+    xg = b * i * (2 if x.dtype == torch.bfloat16 else 4)
+    part = xg + -(-b * (i // group_size) * 4 // 16) * 16
+    size = part + (slices * b * o * 4 if slices > 1 else 0)
+    scratch = torch.empty(size, dtype=torch.uint8, device=x.device)
+    base = scratch.data_ptr()
+    with torch.cuda.device(x.device):
+        err = _lib.lib().tpa_quantized_matvec_tile(
+            x.data_ptr(), _DTYPES[x.dtype], words.data_ptr(), scales.data_ptr(),
+            biases.data_ptr(), _DTYPES[scales.dtype], out.data_ptr(), base, base + xg,
+            base + part if slices > 1 else 0, b, o, i, group_size, bits, slices,
+            _lib.stream(x))
+    _lib.check(err, "quantized_matvec_tile")
+    _lib.launches["quantized_matvec"] += 1
+    _lib.launches["quantized_matvec_tile"] += 1
+    return out
+
+
+def quantized_matvec(x: torch.Tensor, words: torch.Tensor, scales: torch.Tensor,
+                     biases: torch.Tensor, group_size: int = 64, bits: int = 4
+                     ) -> torch.Tensor:
+    """``x @ dequant(W).T`` for ``x [B, I]`` (B <= 64), words ``[O, I * bits
+    / 32]`` (int32 bits), scales and biases ``[O, I / group_size]``: the plain
+    version for CPU tensors; for CUDA tensors the GEMV or the tile, as
+    :func:`route` says, in ``x``'s dtype. The kernels take bits 2, 4 and 8,
+    groups of 32, 64 and 128, f32, bf16 or f16 ``x`` and scales, any O; they
+    raise on anything else. ``_lib.launches["quantized_matvec"]`` counts the
+    calls of either kernel, ``["quantized_matvec_tile"]`` those of the tile."""
+    if x.device.type == "cpu":
+        return quantized_matvec_ref(x, words, scales, biases, group_size, bits)
+    b, o, i = _checked(x, words, scales, biases, group_size, bits)
+    launch = _tile if route(b, i, bits, _aligned(x, words)) == "tile" else _gemv
+    return launch(x, words, scales, biases, group_size, bits, b, o, i)
