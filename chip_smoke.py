@@ -88,40 +88,46 @@ runs first of all, right after the build: late in the process
 ``torch.profiler`` loses device events, and kernel 7's short calls then
 read "not measured".)
 
-15. holds kernel 7 (``quantized_matvec``: the GEMV for 1 row and rows that
-   are not 16-byte aligned, the tensor-core tile for 2-64 rows) against its
-   plain version at every GEMV shape of the Orpheus-3B 4-bit path (q/k/v,
-   o, gate/up, down, the band head and the full tied head), at 1 and 63
-   rows, 4 and 8 bits, f32 and bf16 scales, at every row count 2-64, then
-   groups of 32 and 128, 2 bits, bf16 x, odd row counts, the GEMV at 63
-   rows and rows that are not 16-byte aligned; and times both kernels,
-   their plain version and ``torch._weight_int4pack_mm`` at each path
-   shape with the weights outside the L2, the tile at 8 bits, and the tile
-   against the GEMV at 2-63 rows (where the tile takes over);
+15. holds kernel 7 (``quantized_matvec``: the decode kernel for 1 row of
+   whole 16-byte chunks, the GEMV for rows that are not, the tensor-core
+   tile for 2-64 rows) against its plain version at every GEMV shape of
+   the Orpheus-3B 4-bit path (q/k/v, o, gate/up, down, the band head and
+   the full tied head), at 1 and 63 rows, 4 and 8 bits, f32 and bf16
+   scales, at every row count 2-64, then groups of 32 and 128, 2 bits, bf16
+   x, odd row counts, the decode kernel at bits 2/4/8 x groups 32/64/128
+   at the o and down shapes, with bf16 and f16 x and at the q4 Whisper
+   step's shapes, the GEMV at 1 and 63 rows and rows that are not 16-byte
+   aligned; and times the kernels, their plain version and
+   ``torch._weight_int4pack_mm`` at each path shape with the weights
+   outside the L2 (at 1 row the decode kernel beside the GEMV it took over
+   from), the tile at 8 bits, and the tile against the GEMV at 2-63 rows
+   (where the tile takes over);
 16. builds Orpheus-3B quantized on the card to 4 bits in groups of 64 and
    synthesises 280 tokens through ``LlamaTTS.generate`` (greedy, twice) and
    ``generate_stream``, then 21 tokens with the full tied head: kernel 7's
-   tile launched 4 x 28 times for the prefill and its GEMV 4 x 28 + 1 times
-   a decode step, no other kernel of the port, no call of the plain
-   version; teacher-forces
+   tile launched 4 x 28 times for the prefill and its decode kernel 4 x 28
+   + 1 times a decode step, no GEMV, no other kernel of the port, no call
+   of the plain version; teacher-forces
    the band logits against the plain route; measures TTFB with the
    ``bench_tts_ttfb(quantize_bits=4)`` protocol, ms a token and the
    per-kernel breakdown;
 17. serves four staggered requests through ``ContinuousTTS`` (the plain
    tick) at 4 slots, each alone giving the same tokens, and transcribes one
    window through ``Whisper.generate`` on a whisper-large-v3-width q4 tree
-   (quantized on the card from the first phases' weights): kernel 7
-   launched 8 x 32 + 1 times a decoder step, and the tokens of the plain
-   route.
+   (quantized on the card from the first phases' weights): kernel 7's
+   decode kernel launched 8 x 32 + 1 times a decoder step, and the tokens
+   of the plain route.
 
 Each kernel's record carries its bound on the H100 (``bound_ms``: the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate
 of their type, from this run's shapes) and ``library_ms``, the time of a
 single PyTorch call computing the same function where one exists: for
 kernel 7 at 4 bits ``torch._weight_int4pack_mm`` (bf16), null for the
-other six. Kernel 7 has two records: the GEMV's sums the GEMVs of one
-decode step at 1 row, the tile's (``quantized_matvec_tile``) those of one
-63-row prefill, with each shape's readings in ``by_shape``.
+other six. Kernel 7 has two records: ``quantized_matvec``, the decode
+kernel's, sums the GEMVs of one decode step at 1 row (with the GEMV's
+times there as ``gemv_ms``/``gemv_dev_ms``), the tile's
+(``quantized_matvec_tile``) those of one 63-row prefill, with each shape's
+readings in ``by_shape``.
 
 ``python3 chip_smoke.py --qmm`` runs phase 15 alone with its timing and
 prints kernel 7's two records (a minute's work a round on the kernel).
@@ -134,7 +140,9 @@ kernel 6, phase 11 with lane m's RoPE angle from lane 0's offset, attention
 from row 0 instead of the lane's valid_from, lane m reading the next lane's
 slot; for kernel 7, phase 15 with the codes read most significant first,
 the scale of the neighbouring group, the bias added without its group sum,
-in the GEMV and in the tile, and the tile without x's low bf16 part)
+in the GEMV and in the tile, the decode kernel's scale of the neighbouring
+group and bias without its chunk's sum of x, and the tile without x's low
+bf16 part)
 beside an unmutated copy, and prints each copy's readings: every
 mutant must fail its check and every sound copy pass.
 
@@ -295,12 +303,18 @@ TTS_THROUGHPUT_SLOTS = (1, 4, 8)
 # projections, the band head and the full tied head
 QMM_SHAPES = {"q/k/v": (5120, 3072), "o": (3072, 3072), "gate/up": (16384, 3072),
               "down": (3072, 8192), "band head": (28673, 3072), "full head": (156940, 3072)}
+# the q4 Whisper decoder step's (whisper-large-v3: d 1280, ffn 5120, vocab
+# 51866): q/k/v/out and the cross projections, fc1, fc2, the tied head
+QMM_WHISPER_SHAPES = {"attn": (1280, 1280), "fc1": (5120, 1280), "fc2": (1280, 5120),
+                      "head": (51866, 1280)}
 # kernel 7 against its plain version, relative to the largest output: both
 # sum the same f32 products in another order (readings ~1e-6 of max|y|);
 # with bf16 x the result is bf16, and the two may round an output to
-# neighbouring bf16 values: one unit of the largest output's last place
+# neighbouring bf16 values: one unit of the largest output's last place;
+# with f16 x likewise one f16 unit
 QMM_RTOL = 1e-4
 QMM_BF16_RTOL = 2.0 ** -7
+QMM_F16_RTOL = 2.0 ** -10
 # the tile against the GEMV at these rows of x (o and down shapes): R_TILE
 QMM_CROSSOVER_ROWS = (2, 4, 8, 16, 32, 63)
 # a timed call's weights are one of copies that hold this many bytes in
@@ -351,6 +365,12 @@ MUTATIONS = {
          "sc0[r] = load_f(scales, srow[r] + (grp0 > 0 ? grp0 - 1 : 1), s_dt);"),
         ("the bias added without its group sum",
          "v += cur.bi0[r] * xg[b * G + grp0];", "v += cur.bi0[r];"),
+        # the decode kernel (1 row)
+        ("decode: the scale of the neighbouring group",
+         "sc0[k][r] = load_f(scales, srow[r] + g0, s_dt);",
+         "sc0[k][r] = load_f(scales, srow[r] + (g0 > 0 ? g0 - 1 : 1), s_dt);"),
+        ("decode: the bias added without its chunk's sum of x",
+         "(bi0[k][r] * xlo + bi1[k][r] * xhi);", "(bi0[k][r] + bi1[k][r]);"),
         # the tile (2-64 rows)
         ("tile: x_lo dropped (f32 x kept as bf16 alone)",
          "mma_bf16(p[j], a, q.z, q.w);  // x_lo", ""),
@@ -472,8 +492,13 @@ def device_ms(fn, reps: int = 10, launches: int = 0, busy: float = 0.0) -> float
 
     fn()
     torch.cuda.synchronize()
-    one = run(1)[1]
+    for _ in range(3):  # the events of one call, measured again where none were kept
+        one = run(1)[1]
+        if one:
+            break
     if one == 0:
+        print("[device_ms] the profiler recorded no device events for one call, three "
+              "times: not measured")
         return None
     want = reps * max(one, launches)
     for _ in range(3):
@@ -2489,28 +2514,30 @@ def qmm_inputs(o: int, i: int, rows: int, bits: int, group_size: int, gen, dev,
 
 def qmm_check(name: str, x, words, s, b, group_size: int, bits: int,
               launch=None) -> tuple[float, bool, str]:
-    """Kernel 7 (``quantized_matvec``, or ``launch``: ``qmm.gemv`` or
-    ``qmm.tile``) against its plain version on the same inputs, relative to
-    the largest output: QMM_RTOL in f32; for bf16 x (a bf16 result) one
-    bf16 unit of the largest output, QMM_BF16_RTOL. Returns the error,
-    whether x was bf16, and the kernel that ran ("tile" or "gemv", from the
-    launch counters)."""
+    """Kernel 7 (``quantized_matvec``, or ``launch``: ``qmm.gemv``,
+    ``qmm.decode`` or ``qmm.tile``) against its plain version on the same
+    inputs, relative to the largest output: QMM_RTOL in f32; for bf16 x (a
+    bf16 result) one bf16 unit of the largest output, QMM_BF16_RTOL, and
+    for f16 x one f16 unit, QMM_F16_RTOL. Returns the error, x's dtype and
+    the kernel that ran ("decode", "tile" or "gemv", from the launch
+    counters)."""
     import torch
 
     from tpu_audio_torch.ops import _lib, qmm
 
-    tiles = _lib.launches["quantized_matvec_tile"]
+    before = dict(_lib.launches)
     got = (launch or qmm.quantized_matvec)(x, words, s, b, group_size, bits)
-    ran = "tile" if _lib.launches["quantized_matvec_tile"] > tiles else "gemv"
+    ran = next((r for r in ("decode", "tile") if _lib.launches[f"quantized_matvec_{r}"]
+                > before.get(f"quantized_matvec_{r}", 0)), "gemv")
     want = qmm.quantized_matvec_ref(x, words, s, b, group_size, bits)
     torch.cuda.synchronize()
     err = rel_err(got, want)
-    tol = QMM_BF16_RTOL if x.dtype == torch.bfloat16 else QMM_RTOL
+    tol = {torch.bfloat16: QMM_BF16_RTOL, torch.float16: QMM_F16_RTOL}.get(x.dtype, QMM_RTOL)
     check(got.shape == want.shape and got.dtype == x.dtype and bool(torch.isfinite(got).all()),
           f"{name}: output {tuple(got.shape)} {got.dtype}")
     check(err <= tol, f"{name} ({ran}): kernel 7 disagrees with its plain version: {err:.3e} "
           f"(rtol {tol})")
-    return err, x.dtype == torch.bfloat16, ran
+    return err, x.dtype, ran
 
 
 def int4pack_library(x, words, s, b, group_size: int):
@@ -2569,20 +2596,23 @@ def qmm_timed(x, copies, group_size: int, bits: int, launch) -> dict:
 
 def qmm_phase(dev, timing: bool = True) -> dict:
     """Phase 15: kernel 7 against its plain version at every GEMV shape of
-    the Orpheus-3B 4-bit path (QMM_SHAPES), at 1 row (the GEMV) and 63 (the
-    tile), 4 and 8 bits, group size 64, f32 and bf16 scales; every row
-    count 2-64 the tile takes, at the o projection's shape; then groups of
-    32 and 128, 2 bits, bf16 x and odd row counts at the o projection's
-    shape, the GEMV at 63 rows, and rows that are not 16-byte aligned (the
-    GEMV). With ``timing``, each call on weights outside the L2
-    (``qmm_copies``): kernel, plain and library times a call (CUDA events)
-    and as device time, at 4 bits, g 64, f32 scales, the path's
-    configuration, at 1 and 63 rows; the tile and its plain version at 63
-    rows and 8 bits; the tile and the GEMV at QMM_CROSSOVER_ROWS rows at the
-    o and down shapes. Returns kernel 7's two records: the GEMV's with a
-    decode step's sum (the layers' GEMVs times 28 and the band head, at 1
-    row), and the tile's with a prefill's (the layers' GEMVs times 28, at
-    63 rows)."""
+    the Orpheus-3B 4-bit path (QMM_SHAPES), at 1 row (the decode kernel)
+    and 63 (the tile), 4 and 8 bits, group size 64, f32 and bf16 scales;
+    every row count 2-64 the tile takes, at the o projection's shape; then
+    groups of 32 and 128, 2 bits, bf16 x and odd row counts at the o
+    projection's shape; the decode kernel at bits 2/4/8 x groups
+    32/64/128 at the o and down shapes, with bf16 and f16 x, and at the q4
+    Whisper step's shapes (QMM_WHISPER_SHAPES); the GEMV at 1 and 63 rows,
+    and rows that are not 16-byte aligned (the GEMV). With ``timing``, each
+    call on weights outside the L2 (``qmm_copies``): kernel, plain and
+    library times a call (CUDA events) and as device time, at 4 bits, g 64,
+    f32 scales, the path's configuration, at 1 row (the decode kernel, and
+    the GEMV beside it) and 63 rows; the tile and its plain version at 63
+    rows and 8 bits; the tile and the GEMV at QMM_CROSSOVER_ROWS rows at
+    the o and down shapes. Returns kernel 7's two records: the decode
+    kernel's with a decode step's sum (the layers' GEMVs times 28 and the
+    band head, at 1 row), and the tile's with a prefill's (the layers'
+    GEMVs times 28, at 63 rows)."""
     import torch
 
     from tpu_audio_torch.ops import qmm
@@ -2610,31 +2640,55 @@ def qmm_phase(dev, timing: bool = True) -> dict:
             x, words, s, b = qmm_inputs(o, i, rows, bits, g, gen, dev, sdt, xdt)
             errs.append(qmm_check(f"qmm o [{rows},{i}] bits {bits} g {g} x {xdt} scales {sdt}",
                                   x, words, s, b, g, bits))
-        # the GEMV's passes of 8 rows (and 4 at 8,192 features), which the
-        # route now sends only rows that are not 16-byte aligned
+        # the decode kernel (1 row): every bits x group size at the o and
+        # down shapes, bf16 and f16 x, and the q4 Whisper step's shapes
+        ones = [(name, bits, g, torch.float32) for name in ("o", "down")
+                for bits in (2, 4, 8) for g in (32, 64, 128)]
+        ones += [(name, 4, 64, xdt) for name in ("o", "down")
+                 for xdt in (torch.bfloat16, torch.float16)]
+        for name, bits, g, xdt in ones:
+            o, i = QMM_SHAPES[name]
+            x, words, s, b = qmm_inputs(o, i, 1, bits, g, gen, dev, xdt, xdt)
+            errs.append(qmm_check(f"qmm {name} [1,{i}]x[{o},{i}] bits {bits} g {g} x {xdt}",
+                                  x, words, s, b, g, bits))
+        for name, (o, i) in QMM_WHISPER_SHAPES.items():
+            for xdt in (torch.float32, torch.bfloat16):
+                x, words, s, b = qmm_inputs(o, i, 1, 4, 64, gen, dev, xdt, xdt)
+                errs.append(qmm_check(f"qmm whisper {name} [1,{i}]x[{o},{i}] x {xdt}",
+                                      x, words, s, b, 64, 4))
+        # the GEMV at 1 row (which the route now sends to the decode kernel
+        # where the rows are whole chunks) and its passes of 8 rows (and 4
+        # at 8,192 features), which it sends only rows that are not
         for name in ("o", "down"):
             o, i = QMM_SHAPES[name]
-            x, words, s, b = qmm_inputs(o, i, 63, 4, 64, gen, dev)
-            errs.append(qmm_check(f"qmm {name} [63,{i}]x[{o},{i}] the GEMV", x, words, s, b,
-                                  64, 4, launch=qmm.gemv))
+            for rows in (1, 63):
+                x, words, s, b = qmm_inputs(o, i, rows, 4, 64, gen, dev)
+                errs.append(qmm_check(f"qmm {name} [{rows},{i}]x[{o},{i}] the GEMV", x, words,
+                                      s, b, 64, 4, launch=qmm.gemv))
         # rows of 6 words are not 16-byte aligned: the GEMV, one word at a time
         x, words, s, b = qmm_inputs(333, 96, 3, 2, 32, gen, dev)
         errs.append(qmm_check("qmm [3,96]x[333,96] bits 2 g 32 (unaligned rows)",
                               x, words, s, b, 32, 2))
-        recs = {}
-        for kernel, ran in (("quantized_matvec", "gemv"), ("quantized_matvec_tile", "tile")):
-            f32 = [e for e, bf16, r in errs if r == ran and not bf16]
-            bf16 = [e for e, bf16, r in errs if r == ran and bf16]
+        recs, summary = {}, {}
+        for ran in ("decode", "gemv", "tile"):
+            by = {dt: [e for e, xdt, r in errs if r == ran and xdt == dt]
+                  for dt in (torch.float32, torch.bfloat16, torch.float16)}
+            f32, bf16, f16 = by.values()
             n = sum(r == ran for _, _, r in errs)
+            check(bool(f32), f"phase 15 did not check kernel 7's {ran} with f32 x")
             print(f"[qmm] {ran}: {n} checks against the plain version: rel err up to "
                   f"{max(f32):.3e} with f32 x (rtol {QMM_RTOL}), "
                   + (f"{max(bf16):.3e} with bf16 x (rtol {QMM_BF16_RTOL})" if bf16
-                     else "no bf16 x"))
-            recs[kernel] = dict(route="cuda", source="tpu_audio_torch/csrc/qmm.cu",
-                                replaces="tpu_audio/ops/pallas_qmm.py:100", checks=n,
-                                rel_err=max(f32), rel_err_bf16_x=max(bf16) if bf16 else None)
-        check(recs["quantized_matvec_tile"]["checks"] > 0 and recs["quantized_matvec"]["checks"]
-              > 0, "phase 15 did not check both kernels of kernel 7")
+                     else "no bf16 x")
+                  + (f", {max(f16):.3e} with f16 x (rtol {QMM_F16_RTOL})" if f16 else ""))
+            summary[ran] = dict(checks=n, rel_err=max(f32),
+                                rel_err_bf16_x=max(bf16) if bf16 else None,
+                                **({"rel_err_f16_x": max(f16)} if f16 else {}))
+        for kernel, ran, fn in (("quantized_matvec", "decode", "quantized_matvec_decode_kernel"),
+                                ("quantized_matvec_tile", "tile", "quantized_matvec_tile_kernel")):
+            recs[kernel] = dict(route="cuda", source="tpu_audio_torch/csrc/qmm.cu", kernel=fn,
+                                replaces="tpu_audio/ops/pallas_qmm.py:100", **summary[ran])
+        recs["quantized_matvec"].update({f"gemv_{k}": v for k, v in summary["gemv"].items()})
         if not timing:
             return recs
         shapes, eight, cross, lib_errs, lib_why = [], [], [], [], None
@@ -2653,6 +2707,9 @@ def qmm_phase(dev, timing: bool = True) -> dict:
                            bound_by=b_by, max_abs_err=err, ms=k["ms"],
                            plain_ms=cuda_ms(p, reps=5, warmup=1), dev_ms=k["dev_ms"],
                            plain_dev_ms=device_ms(p, reps=3))
+                if rows == 1:  # the GEMV the decode kernel took over from, in this call
+                    g = qmm_timed(x, copies, 64, 4, qmm.gemv)
+                    row.update(gemv_ms=g["ms"], gemv_dev_ms=g["dev_ms"])
                 calls = [int4pack_library(x, *c, 64) for c in copies]
                 call, lib_out, why = calls[0]
                 if call is None:
@@ -2670,6 +2727,8 @@ def qmm_phase(dev, timing: bool = True) -> dict:
                       f"{row['plain_ms']:.4f} ms, library {fmt(row['library_ms'])}; device "
                       f"kernel {fmt(row['dev_ms'])}, plain {fmt(row['plain_dev_ms'])}, library "
                       f"{fmt(row['library_dev_ms'])}; bound {b_ms:.4f} ms ({b_by})"
+                      + (f"; the GEMV: device {fmt(row['gemv_dev_ms'])}, per call "
+                         f"{row['gemv_ms']:.4f} ms" if rows == 1 else "")
                       + (f"; library rel err {row['library_rel_err']:.3e}"
                          if row["library_rel_err"] is not None else f"; library: {why}"))
                 del x, words, s, b, want, copies
@@ -2716,18 +2775,20 @@ def qmm_phase(dev, timing: bool = True) -> dict:
                                     ("quantized_matvec_tile", 63, (), "operations")):
         recs[kernel].update(
             {f: total(rows, f, heads) for f in ("ms", "plain_ms", "dev_ms", "plain_dev_ms",
-                                                "bound_ms", "library_ms", "library_dev_ms")},
+                                                "bound_ms", "library_ms", "library_dev_ms")
+             + (("gemv_ms", "gemv_dev_ms") if rows == 1 else ())},
             bound_by=by, library_rel_err=max(lib_errs) if lib_errs else None,
             library_error=lib_why,
             max_abs_err=max(r["max_abs_err"] for r in shapes if r["rows"] == rows),
             by_shape=[r for r in shapes if r["rows"] == rows])
     recs["quantized_matvec_tile"].update(by_shape_8bit=eight, crossover=cross)
     step, pre = recs["quantized_matvec"], recs["quantized_matvec_tile"]
-    print(f"[time] quantized_matvec (the GEMV), a decode step's {4 * L + 1} GEMVs (4-bit, g 64, "
-          f"1 row): per call kernel {step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, "
-          f"library {fmt(step['library_ms'])}; device kernel {fmt(step['dev_ms'])}, plain "
-          f"{fmt(step['plain_dev_ms'])}, library {fmt(step['library_dev_ms'])}; bound "
-          f"{step['bound_ms']:.4f} ms (bytes)")
+    print(f"[time] quantized_matvec (the decode kernel), a decode step's {4 * L + 1} GEMVs "
+          f"(4-bit, g 64, 1 row): per call kernel {step['ms']:.4f} ms, GEMV "
+          f"{step['gemv_ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, library "
+          f"{fmt(step['library_ms'])}; device kernel {fmt(step['dev_ms'])}, GEMV "
+          f"{fmt(step['gemv_dev_ms'])}, plain {fmt(step['plain_dev_ms'])}, library "
+          f"{fmt(step['library_dev_ms'])}; bound {step['bound_ms']:.4f} ms (bytes)")
     print(f"[time] quantized_matvec_tile, a prefill's {4 * L} GEMVs (4-bit, g 64, 63 rows): per "
           f"call kernel {pre['ms']:.4f} ms, plain {pre['plain_ms']:.4f} ms, library "
           f"{fmt(pre['library_ms'])}; device kernel {fmt(pre['dev_ms'])}, plain "
@@ -2787,12 +2848,12 @@ def q4_generate_phase(model, full) -> tuple[list, dict, list]:
     """Phase 16's offline runs: ``generate`` twice (greedy, TTS_TOKENS
     tokens, identical tokens and waveforms) and ``generate_stream``, each
     with the launch counters reset just before and read just after: kernel
-    7 launched 4 x 28 times for the prefill and 4 x 28 + 1 times for each
-    decode step the loop took, no launch of kernels 5 or 6 and no call of
-    the plain version; then a short run of the full-head model, whose head
-    covers all 156,940 rows, on the same counts (and one more launch for the
-    prefill's logits), through ``_run_generation``: its greedy tokens need
-    not be audio codes."""
+    7's tile launched 4 x 28 times for the prefill and its decode kernel 4 x
+    28 + 1 times for each decode step the loop took, no launch of the GEMV
+    or of kernels 5 or 6 and no call of the plain version; then a short run
+    of the full-head model, whose head covers all 156,940 rows, on the same
+    counts (and one more launch for the prefill's logits), through
+    ``_run_generation``: its greedy tokens need not be audio codes."""
     import numpy as np
     import torch
 
@@ -2843,20 +2904,23 @@ def q4_generate_phase(model, full) -> tuple[list, dict, list]:
         toks = all_tokens[plen:]
         frames = len(m.parse_output(all_tokens)) // 7
         # the prefill's 63 rows through the tile (and the full head's logits
-        # over them), each decode step's 1 row through the GEMV
+        # over them), each decode step's 1 row through the decode kernel
         want_tile = 4 * L + (m is full)
-        want_gemv = (4 * L + 1) * steps[0]
+        want_decode = (4 * L + 1) * steps[0]
         n_tile = launches.get("quantized_matvec_tile", 0)
-        n_gemv = launches.get("quantized_matvec", 0) - n_tile
+        n_decode = launches.get("quantized_matvec_decode", 0)
+        n_gemv = launches.get("quantized_matvec", 0) - n_tile - n_decode
         label = "full head" if m is full else "generate_stream" if stream else "generate"
         print(f"[tts q4 {label} run {run}] {len(toks)} tokens ({steps[0]} decode steps taken) "
               f"in {wall:.3f} s (prefill {pt * 1e3:.3f} ms, decode "
               f"{gt * 1e3 / steps[0]:.4f} ms a step); {wav.shape[0]} samples ({frames} "
-              f"frames); launches {launches}: tile {n_tile} ({want_tile} expected), GEMV "
-              f"{n_gemv} ({want_gemv} expected); plain version calls {plain[0]}")
-        check(n_tile == want_tile and n_gemv == want_gemv,
-              f"kernel 7 launched the tile {n_tile} and the GEMV {n_gemv} times, "
-              f"{want_tile} and {want_gemv} expected for {steps[0]} decode steps")
+              f"frames); launches {launches}: tile {n_tile} ({want_tile} expected), decode "
+              f"{n_decode} ({want_decode} expected), GEMV {n_gemv} (0 expected); plain "
+              f"version calls {plain[0]}")
+        check(n_tile == want_tile and n_decode == want_decode and n_gemv == 0,
+              f"kernel 7 launched the tile {n_tile}, the decode kernel {n_decode} and the "
+              f"GEMV {n_gemv} times, {want_tile}, {want_decode} and 0 expected for "
+              f"{steps[0]} decode steps")
         check(not any(launches.get(k, 0) for k in ("fused_llama_stack",
                                                    "fused_llama_stack_lanes")),
               "a w8a8 kernel ran on the 4-bit path")
@@ -3015,7 +3079,7 @@ def q4_ttfb_phase(model) -> dict:
     kernels = by_kernel(prof)
     busy_ms = sum(c[1] for c in kernels.values()) / 1e3
     n_events = sum(c[0] for c in kernels.values())
-    k7 = [c for name, c in kernels.items() if "quantized_matvec" in name]  # GEMV and tile
+    k7 = [c for name, c in kernels.items() if "quantized_matvec" in name]  # decode kernel, tile
     k7_ms, k7_n = sum(c[1] for c in k7) / 1e3, sum(c[0] for c in k7)
     out = dict(ttfb_ms=ttfb * 1e3, ttfb_all_ms=[t * 1e3 for t in times],
                prefill_ms=min(prefills) * 1e3, first_audio_s=audio_s,
@@ -3040,10 +3104,11 @@ def q4_serve_phase(model) -> dict:
     """Phase 17's serving: Q4_SERVE_TEXTS staggered greedy requests through
     ``ContinuousTTS`` (the plain tick: each live lane's step through
     ``llama.forward``) at Q4_SERVE_SLOTS slots, with the counters reset just
-    before and read just after: kernel 7 launched 4 x 28 times a prefill and
-    4 x 28 + 1 times a lane step, no other kernel of the port, no plain
-    call; each request alone in a fresh engine gives the same tokens, and
-    every request's audio is finite whole frames."""
+    before and read just after: kernel 7's tile launched 4 x 28 times a
+    prefill and its decode kernel 4 x 28 + 1 times a lane step, no other
+    kernel of the port, no plain call; each request alone in a fresh engine
+    gives the same tokens, and every request's audio is finite whole
+    frames."""
     import numpy as np
     import torch
 
@@ -3083,13 +3148,14 @@ def q4_serve_phase(model) -> dict:
         wall = time.perf_counter() - t0
         launches = dict(_lib.launches)
     n_tok = sum(len(t) for t in served)
-    want_tile = 4 * L * prefills[0]
-    want = {"quantized_matvec": want_tile + (4 * L + 1) * steps[0],
-            "quantized_matvec_tile": want_tile}
+    want_tile, want_decode = 4 * L * prefills[0], (4 * L + 1) * steps[0]
+    want = {"quantized_matvec": want_tile + want_decode, "quantized_matvec_tile": want_tile,
+            "quantized_matvec_decode": want_decode}
     print(f"[tts q4 serve] {len(served)} requests, {Q4_SERVE_SLOTS} slots, max_tokens "
           f"{Q4_SERVE_MAX_TOKENS}: {n_tok} tokens in {wall:.3f} s ({steps[0]} lane steps, "
           f"{prefills[0]} prefills); launches {launches} ({want} expected: the prefills' "
-          f"through the tile), plain version calls {plain[0]}; samples by request "
+          f"through the tile, the lane steps' through the decode kernel), plain version "
+          f"calls {plain[0]}; samples by request "
           f"{[a.shape[0] for a in audio]}")
     check(launches == want,
           f"serving launches {launches}, {want} of kernel 7 and no other expected")
@@ -3133,9 +3199,10 @@ def build_whisper_q4(params, cfg, dev):
 def q4_whisper_phase(model, audio) -> dict:
     """Phase 17's transcription: one window through ``Whisper.generate``
     on the whisper-large-v3-width q4 tree (kv8d: int8 cross K/V), with the
-    counters reset just before and read just after: kernel 7 launched 8 x 32
-    + 1 times a decoder step (q, k, v, out, cross-q, cross-out, fc1, fc2 and
-    the 51,866-row head), no plain call; then the same window on the plain
+    counters reset just before and read just after: kernel 7's decode
+    kernel launched 8 x 32 + 1 times a decoder step (q, k, v, out, cross-q,
+    cross-out, fc1, fc2 and the 51,866-row head) and no other of its
+    kernels, no plain call; then the same window on the plain
     route (every kernel's plain version) gives the same tokens."""
     import torch
 
@@ -3162,9 +3229,11 @@ def q4_whisper_phase(model, audio) -> dict:
           f"{wall * 1e3 / steps[0]:.3f} ms a step, the encoder's products dequantized); "
           f"launches {launches}, plain version calls {plain[0]}; tokens equal the plain "
           f"route's: {toks == want}; first tokens {toks[:12]}")
-    check(launches.get("quantized_matvec", 0) == (8 * n_layers + 1) * steps[0],
-          f"quantized_matvec launched {launches.get('quantized_matvec', 0)} times for "
-          f"{steps[0]} decoder steps")
+    n_gemvs = (8 * n_layers + 1) * steps[0]
+    check(launches.get("quantized_matvec", 0) == launches.get("quantized_matvec_decode", 0)
+          == n_gemvs, f"quantized_matvec launched {launches.get('quantized_matvec', 0)} "
+          f"times, its decode kernel {launches.get('quantized_matvec_decode', 0)}, {n_gemvs} "
+          f"each expected for {steps[0]} decoder steps")
     check(launches.get("fused_log_mel", 0) > 0 and launches.get("decode_attention_int8", 0) > 0,
           "whisper q4: the frontend or the int8 cross attention kernel did not launch")
     check(plain[0] == 0, "the plain version ran on the whisper q4 path")
@@ -3374,11 +3443,11 @@ def main() -> int:
     print(f"Orpheus-3B MLX 4-bit (g 64, band and full heads) built on the card in "
           f"{time.perf_counter() - t0:.1f} s")
     q4_runs, q4_launches, q4_tokens = q4_generate_phase(q4, q4_full)
-    # the first generate run's: the counter "quantized_matvec" counts both
-    # kernels of kernel 7, "quantized_matvec_tile" the tile's
+    # the first generate run's: the counter "quantized_matvec" counts every
+    # kernel of kernel 7, "quantized_matvec_tile" and "quantized_matvec_decode"
+    # the tile's and the decode kernel's (the record "quantized_matvec")
     records["quantized_matvec_tile"]["launches"] = q4_launches["quantized_matvec_tile"]
-    records["quantized_matvec"]["launches"] = (q4_launches["quantized_matvec"]
-                                               - q4_launches["quantized_matvec_tile"])
+    records["quantized_matvec"]["launches"] = q4_launches["quantized_matvec_decode"]
     mlx = dict(runs=q4_runs, teacher_forced_rel_err=q4_teacher_forced(q4, q4_tokens),
                ttfb=q4_ttfb_phase(q4), serve=q4_serve_phase(q4),
                whisper=q4_whisper_phase(whisper_q4, audio))
@@ -3387,9 +3456,10 @@ def main() -> int:
     kernels = [dict(name=k, **{f: r[f] for f in (
         "route", "source", "replaces", "launches", "max_abs_err", "rel_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms", "dev_ms", "plain_dev_ms")},
-        **{f: r[f] for f in ("by_lanes", "by_shape", "by_shape_8bit", "crossover",
-                             "rel_err_bf16_x", "library_dev_ms", "library_rel_err",
-                             "library_error") if f in r})
+        **{f: r[f] for f in ("kernel", "by_lanes", "by_shape", "by_shape_8bit", "crossover",
+                             "rel_err_bf16_x", "rel_err_f16_x", "library_dev_ms", "library_rel_err",
+                             "library_error", "gemv_ms", "gemv_dev_ms", "gemv_checks",
+                             "gemv_rel_err") if f in r})
         for k, r in records.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"generate": runs, "smi": smi.splitlines()[0]}))

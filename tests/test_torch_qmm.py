@@ -6,11 +6,13 @@ interpret mode, the dispatch of ``quant.quantized_matmul`` above and below
 linear layers, projection fusion, checkpoint loading and
 ``convert.from_jax_params``.
 
-The CUDA kernels themselves (``csrc/qmm.cu``: the GEMV and the
-tensor-core tile) run only on a GPU; ``chip_smoke.py`` holds them against
-the plain version tested here. What runs here of the tile is its routing
-rule and an emulation of its arithmetic (bf16 split of x, exact codes,
-f32 group sums), held against the JAX kernel and the plain version.
+The CUDA kernels themselves (``csrc/qmm.cu``: the decode kernel, the
+GEMV and the tensor-core tile) run only on a GPU; ``chip_smoke.py`` holds
+them against the plain version tested here. What runs here of the decode
+kernel and the tile is the routing rule, their launch shapes and
+emulations of their arithmetic (the decode kernel's per-chunk sums in its
+lanes' order; the tile's bf16 split of x, exact codes, f32 group sums),
+held against the JAX kernel and the plain version.
 """
 
 import jax
@@ -133,20 +135,28 @@ def test_rows_a_pass_fits_the_shared_memory():
     assert TQ.rows_a_pass(1, 64 * 1024, 64, 4) == 0
 
 
-# -- the tile's routing and arithmetic (the CUDA kernel runs only on a GPU) ------
+# -- routing, launch shapes and emulated arithmetic (the CUDA kernels run only
+# on a GPU) -----------------------------------------------------------------------
 
 
 def test_route_sends_rows_to_the_gemv_the_tile_or_dequantize():
-    """1 row and unaligned rows to the GEMV, R_TILE..64 rows to the tile,
-    more than 64 to dequantize + matmul (``core.quant.quantized_matmul``)."""
-    assert TQ.route(1, 3072, 4, True) == "gemv"
+    """1 aligned row to the decode kernel, unaligned rows to the GEMV,
+    R_TILE..64 rows to the tile, more than 64 to dequantize + matmul
+    (``core.quant.quantized_matmul``)."""
+    assert TQ.route(1, 3072, 4, True) == "decode"
+    assert all(TQ.route(1, i, bits, True) == "decode"
+               for i in (1280, 3072, 5120, 8192) for bits in (2, 4, 8))
     assert [TQ.route(b, 3072, 4, True) for b in range(TQ.R_TILE, 65)] == \
         ["tile"] * (65 - TQ.R_TILE)
     assert all(TQ.route(b, 8192, bits, True) == "tile"
                for b in (TQ.R_TILE, 63) for bits in (2, 4, 8))
     # rows of 6 words (96 inputs at 2 bits) are not whole 16-byte chunks
     assert TQ.route(3, 96, 2, True) == "gemv" and TQ.route(3, 128, 2, True) == "tile"
-    assert TQ.route(63, 3072, 4, False) == "gemv"  # a pointer off a 16-byte boundary
+    assert TQ.route(1, 96, 2, True) == "gemv" and TQ.route(1, 128, 2, True) == "decode"
+    # a pointer off a 16-byte boundary
+    assert TQ.route(63, 3072, 4, False) == "gemv" and TQ.route(1, 3072, 4, False) == "gemv"
+    # x wider than the decode kernel's shared memory: the GEMV (which raises)
+    assert TQ.route(1, 64 * 1024, 4, True) == "gemv"
     assert [TQ.route(b, 3072, 4, True) for b in (65, 100, 1500)] == ["dequantize"] * 3
 
 
@@ -154,15 +164,131 @@ def test_quantized_matvec_launches_the_kernel_its_route_names(monkeypatch):
     """Off the CPU the wrapper launches the route's kernel (``meta`` tensors
     stand in for CUDA ones; the launchers are spies)."""
     calls = []
+    monkeypatch.setattr(TQ, "_decode", lambda *a: calls.append(("decode", a[-3])))
     monkeypatch.setattr(TQ, "_gemv", lambda *a: calls.append(("gemv", a[-3])))
     monkeypatch.setattr(TQ, "_tile", lambda *a: calls.append(("tile", a[-3])))
     meta = torch.device("meta")
-    for b, i, bits in ((1, 256, 4), (2, 256, 4), (64, 256, 4), (3, 96, 2), (63, 96, 4)):
+    for b, i, bits in ((1, 256, 4), (2, 256, 4), (64, 256, 4), (3, 96, 2), (63, 96, 4),
+                       (1, 96, 2), (1, 128, 2)):
         x = torch.empty((b, i), device=meta)
         w = torch.empty((8, i * bits // 32), device=meta, dtype=torch.int32)
         s = torch.empty((8, i // 32), device=meta)
         TQ.quantized_matvec(x, w, s, s, 32, bits)
-    assert calls == [("gemv", 1), ("tile", 2), ("tile", 64), ("gemv", 3), ("tile", 63)]
+    assert calls == [("decode", 1), ("tile", 2), ("tile", 64), ("gemv", 3), ("tile", 63),
+                     ("gemv", 1), ("decode", 1)]
+
+
+def test_decode_raises_off_its_one_case():
+    """``qmm.decode`` takes 1 row of whole 16-byte chunks and raises on
+    anything else (``meta`` tensors; the checks come before any launch)."""
+    meta = torch.device("meta")
+
+    def call(b, i, bits):
+        x = torch.empty((b, i), device=meta)
+        w = torch.empty((8, i * bits // 32), device=meta, dtype=torch.int32)
+        s = torch.empty((8, i // 32), device=meta)
+        return TQ.decode(x, w, s, s, 32, bits)
+
+    for b, i, bits in ((2, 256, 4), (1, 96, 2), (1, 64 * 1024, 4)):
+        with pytest.raises(ValueError, match="decode kernel"):
+            call(b, i, bits)
+
+
+def test_decode_shape_fills_the_card():
+    """The decode kernel's launch at the path shapes (4 bits): Orpheus-3B's
+    q/k/v, o, gate/up, down, band and full heads, then q4 Whisper's
+    (d 1280, ffn 5120, vocab 51866): at least DECODE_BLOCKS blocks where the
+    rows allow, 2 rows a warp only where that keeps them, a row's chunks
+    split over warps where too few rows (whisper's fc2) leave the card
+    idle."""
+    got = [TQ.decode_shape(o, i, 4) for o, i in
+           ((5120, 3072), (3072, 3072), (16384, 3072), (3072, 8192), (28673, 3072),
+            (156940, 3072), (1280, 1280), (5120, 1280), (1280, 5120), (51866, 1280))]
+    assert got == [(320, 2, 1, 3), (384, 1, 1, 3), (1024, 2, 1, 3), (384, 1, 1, 8),
+                   (1793, 2, 1, 3), (9809, 2, 1, 3), (160, 1, 1, 2), (320, 2, 1, 2),
+                   (320, 1, 2, 3), (3242, 2, 1, 2)]
+    # 8 bits at 8,192 inputs: 16 chunks a lane, two passes of 8
+    assert TQ.decode_shape(3072, 8192, 8) == (384, 1, 1, 8)
+    # a narrow matrix of wide rows: 4 warps a row
+    assert TQ.decode_shape(64, 8192, 4) == (32, 1, 4, 2)
+    assert all(TQ.decode_fits(i, 2) for i in (1280, 8192, 57344))
+    assert not TQ.decode_fits(58112, 4)
+
+
+def _decode_emulation(x, words, scales, biases, g, bits):
+    """Emulation of the decode kernel's arithmetic, not the kernel: each code
+    as the exact float f = 1 + q / FRAC (128 at 4 bits, else 2^bits); for
+    each 16-byte chunk (4 words) and each half of it (words 0-1, 2-3), the
+    f32 sums of x * f and of x; the chunk's value ``scale_lo * FRAC *
+    (dotf_lo - xsum_lo) + scale_hi * FRAC * (dotf_hi - xsum_hi) + (bias_lo *
+    xsum_lo + bias_hi * xsum_hi)`` (the two halves share one group unless a
+    chunk spans two: 2 bits, g 32); chunk ``(s * nct + k) * 32 + lane``
+    added in f32 into its lane's sum in k order, the 32 lanes added by the
+    kernel's xor butterfly, and the KS slices of a row in slice order, as
+    ``decode_shape`` launches them."""
+    o, nw = words.shape
+    pw, cr = 32 // bits, nw // 4
+    frac = 128.0 if bits == 4 else float(1 << bits)
+    _, _, ks, _ = TQ.decode_shape(o, x.shape[1], bits)
+    xf = x.float().reshape(cr, 2, 2 * pw)
+    f = 1.0 + tquant._unpack(words, bits).float().reshape(o, cr, 2, 2 * pw) / frac
+    dotf, xsum = (f * xf).sum(-1), xf.sum(-1)
+    grp = (torch.arange(cr)[:, None] * 4 + torch.tensor([0, 2])) * pw // g  # [cr, 2]
+    sc, bi = scales.float()[:, grp] * frac, biases.float()[:, grp]
+    v = (sc[..., 0] * (dotf[..., 0] - xsum[:, 0]) + sc[..., 1] * (dotf[..., 1] - xsum[:, 1])
+         + (bi[..., 0] * xsum[:, 0] + bi[..., 1] * xsum[:, 1]))
+    nct = -(-cr // (32 * ks))
+    v = torch.cat([v, v.new_zeros((o, ks * nct * 32 - cr))], 1).reshape(o, ks, nct, 32)
+    acc = torch.zeros((o, ks, 32))
+    for k in range(nct):
+        acc = acc + v[:, :, k]
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lanes ^ off]
+    y = acc[:, 0, 0]
+    for s in range(1, ks):
+        y = y + acc[:, s, 0]
+    return y[None].to(x.dtype)
+
+
+@pytest.mark.parametrize("bits,o,i,g", [
+    (4, 96, 128, 64), (8, 64, 256, 64), (4, 300, 192, 64), (4, 130, 256, 32),
+    (4, 72, 384, 128), (8, 200, 256, 32), (8, 64, 512, 128), (4, 136, 256, 64),
+    (8, 40, 128, 64), (2, 48, 512, 32)])
+def test_decode_emulation_matches_jax_kernel(bits, o, i, g):
+    """The emulated decode kernel against the Pallas kernel in interpret
+    mode at 1 row, at the shapes and tolerance of the plain version's test
+    above, and 2 bits in groups of 32 (a chunk over two groups)."""
+    _, (packed, scales, biases) = _packed(o, i, g, bits)
+    x = np.random.default_rng(1).standard_normal((1, i)).astype(np.float32)
+    want = np.asarray(JQ.quantized_matvec(
+        jnp.asarray(x), jnp.asarray(packed), jnp.asarray(scales), jnp.asarray(biases),
+        g, bits, tile_o=128, interpret=True))
+    got = _decode_emulation(torch.from_numpy(x), _words(packed), torch.from_numpy(scales),
+                            torch.from_numpy(biases), g, bits)
+    assert got.shape == (1, o)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-4)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("o,i", [(64, 8192), (128, 3072)])
+@pytest.mark.parametrize("outliers", [False, True])
+def test_decode_emulation_meets_the_kernel_tolerance(bits, o, i, outliers):
+    """The emulated decode kernel against the plain version at 1 row, within
+    chip_smoke's QMM_RTOL (1e-4 of the largest output), also with a few
+    columns of x at 100x; at [1, 8192] with 4 warps a row."""
+    rng = np.random.default_rng(bits + i)
+    _, (packed, scales, biases) = _packed(o, i, 32 if bits == 2 else 64, bits, seed=i,
+                                          scale=0.02)
+    x = rng.standard_normal((1, i)).astype(np.float32)
+    if outliers:
+        x[:, rng.choice(i, 6, replace=False)] *= 100.0
+    args = (_words(packed), torch.from_numpy(scales), torch.from_numpy(biases),
+            32 if bits == 2 else 64, bits)
+    xt = torch.from_numpy(x)
+    want = TQ.quantized_matvec_ref(xt, *args)
+    got = _decode_emulation(xt, *args)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
 
 
 def test_tile_slices_fill_the_card():

@@ -7,9 +7,11 @@
 // in f32, stored in x's dtype.
 //
 // Replaces tpu_audio/ops/pallas_qmm.py:quantized_matvec (pallas_call at
-// :146) with two kernels: the GEMV below for 1 row (and rows not 16-byte
-// aligned), and the tensor-core tile further down for 2-64 rows
-// (ops/qmm.py:route picks one by shape). Left out as TPU artifacts: the nibble planes and the plane-transposed
+// :146) with three kernels (ops/qmm.py:route picks one by shape): the
+// decode kernel for 1 row of whole 16-byte chunks (a decode step's GEMVs),
+// the GEMV below for rows that are not 16-byte aligned (and any 1-64 rows
+// through qmm.gemv), and the tensor-core tile further down for 2-64 rows.
+// Left out as TPU artifacts: the nibble planes and the plane-transposed
 // x prepared outside (Mosaic could not shape-cast the unpack across lanes),
 // the bias term computed outside as `xg @ biases.T`, the pre-expanded word
 // scales (`scales_w`, bf16), the O tiles and the padding of x to 8 rows. Here
@@ -259,6 +261,267 @@ cudaError_t launch_bits(int rb, const void* x, int x_dt, const uint32_t* w,
     case 2: return launch<BITS, 2>(x, x_dt, w, scales, biases, s_dt, out, B, O, I, gs, vec, stream);
     case 4: return launch<BITS, 4>(x, x_dt, w, scales, biases, s_dt, out, B, O, I, gs, vec, stream);
     case 8: return launch<BITS, 8>(x, x_dt, w, scales, biases, s_dt, out, B, O, I, gs, vec, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The decode kernel for 1 row of x whose rows (and W's) are whole 16-byte
+// chunks on 16-byte aligned pointers: a decode step's GEMVs.
+//
+// Bound on the H100: bytes, as for the GEMV above: 0.625 B a weight at 4
+// bits, g 64 (0.5 of codes, 0.125 of f32 scales and biases), 0.544 ms for
+// a 4-bit Orpheus-3B step's 113 GEMVs at 3.35 TB/s. At one row a GEMV of
+// 3-30 MB is a chain of latencies more than a stream of bytes: the GEMV
+// above staged x and its group sums behind three barriers before its first
+// weight load, and then waited for one 16-byte chunk at a time.
+//
+// Design: weights first. A lane owns chunks lane + 32k of its warp's slice
+// of RW rows, and issues every one of them (NC a pass, a template
+// parameter: 3 at 3,072 inputs and 4 bits, 8 at 8,192) as read-only loads
+// that skip L1, with the scales and biases of their groups, before it
+// touches x. Then the block stages x once into the conflict-free planes of
+// the GEMV above (f32, plane n holds code n of every word), with one
+// barrier, while those loads are in flight. There is no group-sum pass:
+// each chunk adds bias * (its own sum of x), taken while it multiplies, so
+// sum_g b_g sum_{i in g} x_i becomes sum_chunks b_g(c) sum_{i in c} x_i;
+// a chunk that spans two groups (2 bits, g 32) keeps two halves. Codes
+// enter as the floats 1 + q / FRAC (below), 2.4-3 instructions a code with
+// the FMA. Enough in flight: 8 warps a block, 1 row a warp where 2 would
+// leave fewer than DECODE_BLOCKS blocks (o: 384 blocks), and rows of many
+// chunks split over KS warps of the block (their sums added in warp order
+// through shared memory: no float atomics, so greedy runs repeat exactly);
+// ops/qmm.py's decode_shape picks RW, KS and NC. A warp sum ends each
+// output.
+//
+// Measured (PERF.md): a 4-bit step's 113 GEMVs ~1.45 ms of device time
+// against the GEMV's ~2.54 and the library's ~1.14. Tried in one call and
+// not kept: the GEMV's exact codes (2^23 + q, a subtract a code; 1.51 ms
+// against this design's 1.42) and 1 + q / 2^BITS at 4 bits too (1.45).
+// Cutting a third of the unpack's instructions moved the step by 6%: what
+// holds the kernel back is that a block loads, then waits a round trip,
+// then computes, so the load pipe idles while a wave of blocks computes
+// (2.6-4.5 waves at gate/up and the band head).
+// ---------------------------------------------------------------------------
+
+constexpr int DEC_WARPS = 8;  // warps a block
+
+// a 16-byte read-only load that does not allocate in L1 (each weight is
+// read once a call)
+__device__ __forceinline__ uint4 ld_stream16(const uint32_t* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// x[i..i+3] as f32 (i a multiple of 4; x 16-byte aligned)
+__device__ __forceinline__ float4 load4_f(const void* p, size_t i, int dt) {
+  if (dt == QMM_F32) return *reinterpret_cast<const float4*>(static_cast<const float*>(p) + i);
+  const uint2 r = *reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(p) + i);
+  if (dt == QMM_BF16)
+    return make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xFFFF0000u),
+                       __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xFFFF0000u));
+  const __half2 h0 = *reinterpret_cast<const __half2*>(&r.x);
+  const __half2 h1 = *reinterpret_cast<const __half2*>(&r.y);
+  return make_float4(__low2float(h0), __high2float(h0), __low2float(h1), __high2float(h1));
+}
+
+// The decode kernel reads code q as the exact float f = 1 + q / FRAC (q at
+// the top of the mantissa), so that sum x * q = FRAC * (sum x * f - sum x)
+// with the chunk's own sum of x: no int-to-float subtract a code.
+// 2 and 8 bits, FRAC = 2^BITS: code n of word w, one shift and one LOP3.
+template <int BITS>
+__device__ __forceinline__ float code_frac(uint32_t w, int n) {
+  constexpr uint32_t MASK = ((1u << BITS) - 1u) << (23 - BITS);
+  const int s = 23 - BITS - BITS * n;
+  const uint32_t v = s >= 0 ? w << s : w >> -s;
+  return __uint_as_float((v & MASK) | 0x3F800000u);
+}
+
+// 4 bits, FRAC = 128: codes m, m + 2, m + 4, m + 6 of word w (m = 0, 1),
+// one a byte as 0x80 | q (one shift and one LOP3 for four codes) ...
+__device__ __forceinline__ uint32_t nibble_bytes(uint32_t w, int m) {
+  return ((w >> (4 * m)) & 0x0F0F0F0Fu) | 0x80808080u;
+}
+
+// ... and byte k of them as 1 + q / 128 with one PRMT (0x3F above it)
+__device__ __forceinline__ float byte_frac(uint32_t b, int k) {
+  return __uint_as_float(__byte_perm(b, 0x3Fu, 0x4055u | (k << 8)));
+}
+
+template <int BITS, int NC, int RW>
+__global__ void __launch_bounds__(DEC_WARPS * 32)
+quantized_matvec_decode_kernel(const void* __restrict__ x, int x_dt,
+                               const uint32_t* __restrict__ w,
+                               const void* __restrict__ scales,
+                               const void* __restrict__ biases, int s_dt,
+                               void* __restrict__ out, int O, int I, int gs, int ks) {
+  constexpr int PW = 32 / BITS;  // codes a word
+  extern __shared__ __align__(16) float dsmem[];
+  const int NW = I / PW;         // words a row
+  const int NWp = NW + 4;        // a plane's stride, as in the GEMV above
+  const int CR = NW / 4;         // chunks a row
+  const int G = I / gs;
+  const int wpg = gs / PW;       // words a group (>= 2)
+  const bool two = BITS == 2 && wpg == 2;  // a chunk spans two groups
+  constexpr float FRAC = BITS == 4 ? 128.0f : (float)(1 << BITS);
+  const int nct = (CR + 32 * ks - 1) / (32 * ks);  // chunks a lane, all passes
+  float* xs = dsmem;                               // [PW][NWp]
+  float* part = dsmem + PW * NWp;                  // [DEC_WARPS][RW]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slice = warp % ks;
+  const int o0 = (blockIdx.x * (DEC_WARPS / ks) + warp / ks) * RW;
+  const uint32_t* wrow[RW];
+  size_t srow[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int o = min(o0 + r, O - 1);  // a dead row reads a live one
+    wrow[r] = w + (size_t)o * NW;
+    srow[r] = (size_t)o * G;
+  }
+
+  float acc[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) acc[r] = 0.0f;
+  for (int k0 = 0; k0 < nct; k0 += NC) {
+    // the weights first: every chunk of the pass, with its groups' scales
+    // and biases
+    uint4 wv[NC][RW];
+    float sc0[NC][RW], sc1[NC][RW], bi0[NC][RW], bi1[NC][RW];
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = (slice * nct + k0 + k) * 32 + lane;
+      const bool ok = k0 + k < nct && c < CR;
+      const int g0 = 4 * c / wpg;
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        if (ok) {
+          wv[k][r] = ld_stream16(wrow[r] + 4 * (size_t)c);
+          sc0[k][r] = load_f(scales, srow[r] + g0, s_dt);
+          bi0[k][r] = load_f(biases, srow[r] + g0, s_dt);
+          sc1[k][r] = two ? load_f(scales, srow[r] + g0 + 1, s_dt) : sc0[k][r];
+          bi1[k][r] = two ? load_f(biases, srow[r] + g0 + 1, s_dt) : bi0[k][r];
+        } else {
+          wv[k][r] = make_uint4(0u, 0u, 0u, 0u);
+          sc0[k][r] = sc1[k][r] = bi0[k][r] = bi1[k][r] = 0.0f;
+        }
+      }
+    }
+    if (k0 == 0) {
+      // x into the planes while the weights are in flight: inputs i..i+3
+      // lie in one word (PW >= 4), as codes i % PW.. of word i / PW
+#pragma unroll 4
+      for (int i4 = threadIdx.x; i4 < I / 4; i4 += blockDim.x) {
+        const float4 v = load4_f(x, 4 * (size_t)i4, x_dt);
+        const int wi = 4 * i4 / PW, n = 4 * i4 % PW;
+        xs[n * NWp + wi] = v.x;
+        xs[(n + 1) * NWp + wi] = v.y;
+        xs[(n + 2) * NWp + wi] = v.z;
+        xs[(n + 3) * NWp + wi] = v.w;
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = (slice * nct + k0 + k) * 32 + lane;
+      if (k0 + k >= nct || c >= CR) continue;
+      // words 0-1 and 2-3 of the chunk: the sums of x * f and of x
+      float xlo = 0.0f, xhi = 0.0f, lo[RW], hi[RW];
+      uint32_t ws[RW][4], nb[RW][4][2];
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        lo[r] = hi[r] = 0.0f;
+        ws[r][0] = wv[k][r].x, ws[r][1] = wv[k][r].y, ws[r][2] = wv[k][r].z, ws[r][3] = wv[k][r].w;
+        if constexpr (BITS == 4) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            nb[r][j][0] = nibble_bytes(ws[r][j], 0);
+            nb[r][j][1] = nibble_bytes(ws[r][j], 1);
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < PW; ++n) {
+        const float4 xv = reinterpret_cast<const float4*>(xs + n * NWp)[c];
+        xlo += xv.x + xv.y;
+        xhi += xv.z + xv.w;
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          float f[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            f[j] = BITS == 4 ? byte_frac(nb[r][j][n % 2], n / 2) : code_frac<BITS>(ws[r][j], n);
+          lo[r] += xv.x * f[0] + xv.y * f[1];
+          hi[r] += xv.z * f[2] + xv.w * f[3];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RW; ++r)
+        acc[r] += (sc0[k][r] * FRAC) * (lo[r] - xlo) + (sc1[k][r] * FRAC) * (hi[r] - xhi) +
+                  (bi0[k][r] * xlo + bi1[k][r] * xhi);  // the chunk's bias term
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RW; ++r) acc[r] = tpa::warp_sum(acc[r]);
+  if (ks > 1) {
+    // the KS slices of a row, added in warp order
+    if (lane == 0)
+#pragma unroll
+      for (int r = 0; r < RW; ++r) part[warp * RW + r] = acc[r];
+    __syncthreads();
+    if (slice == 0)
+#pragma unroll
+      for (int r = 0; r < RW; ++r)
+        for (int s = 1; s < ks; ++s) acc[r] += part[(warp + s) * RW + r];
+  }
+  if (lane == 0 && slice == 0)
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+      if (o0 + r < O) store_f(out, o0 + r, x_dt, acc[r]);
+}
+
+template <int BITS, int NC, int RW>
+cudaError_t launch_decode(const void* x, int x_dt, const uint32_t* w, const void* scales,
+                          const void* biases, int s_dt, void* out, int O, int I, int gs,
+                          int ks, cudaStream_t stream) {
+  const auto kernel = quantized_matvec_decode_kernel<BITS, NC, RW>;
+  const size_t smem = (size_t)(I + 4 * (32 / BITS) + DEC_WARPS * RW) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int rows = DEC_WARPS / ks * RW;
+  kernel<<<(O + rows - 1) / rows, DEC_WARPS * 32, smem, stream>>>(
+      x, x_dt, w, scales, biases, s_dt, out, O, I, gs, ks);
+  return cudaGetLastError();
+}
+
+template <int BITS, int RW>
+cudaError_t launch_decode_nc(int nc, const void* x, int x_dt, const uint32_t* w,
+                             const void* scales, const void* biases, int s_dt, void* out,
+                             int O, int I, int gs, int ks, cudaStream_t stream) {
+  switch (nc) {
+    case 1: return launch_decode<BITS, 1, RW>(x, x_dt, w, scales, biases, s_dt, out, O, I, gs, ks, stream);
+    case 2: return launch_decode<BITS, 2, RW>(x, x_dt, w, scales, biases, s_dt, out, O, I, gs, ks, stream);
+    case 3: return launch_decode<BITS, 3, RW>(x, x_dt, w, scales, biases, s_dt, out, O, I, gs, ks, stream);
+    case 4: return launch_decode<BITS, 4, RW>(x, x_dt, w, scales, biases, s_dt, out, O, I, gs, ks, stream);
+    case 5: return launch_decode<BITS, 5, RW>(x, x_dt, w, scales, biases, s_dt, out, O, I, gs, ks, stream);
+    case 8: return launch_decode<BITS, 8, RW>(x, x_dt, w, scales, biases, s_dt, out, O, I, gs, ks, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int BITS>
+cudaError_t launch_decode_bits(int nc, int rw, const void* x, int x_dt, const uint32_t* w,
+                               const void* scales, const void* biases, int s_dt, void* out,
+                               int O, int I, int gs, int ks, cudaStream_t stream) {
+  if (ks != 1 && ks != 2 && ks != 4) return cudaErrorInvalidValue;
+  switch (rw) {
+    case 1: return launch_decode_nc<BITS, 1>(nc, x, x_dt, w, scales, biases, s_dt, out, O, I, gs, ks, stream);
+    case 2: return launch_decode_nc<BITS, 2>(nc, x, x_dt, w, scales, biases, s_dt, out, O, I, gs, ks, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -642,6 +905,26 @@ extern "C" int tpa_quantized_matvec(const void* x, int x_dt, const void* w,
     case 2: e = launch_bits<2>(rb, x, x_dt, wp, scales, biases, s_dt, out, B, O, I, gs, vec, stream); break;
     case 4: e = launch_bits<4>(rb, x, x_dt, wp, scales, biases, s_dt, out, B, O, I, gs, vec, stream); break;
     case 8: e = launch_bits<8>(rb, x, x_dt, wp, scales, biases, s_dt, out, B, O, I, gs, vec, stream); break;
+    default: e = cudaErrorInvalidValue;
+  }
+  return (int)e;
+}
+
+// The decode kernel: x [1, I] (x_dt), w [O, I * bits / 32] words with rows
+// of whole 16-byte chunks on a 16-byte aligned pointer (x too),
+// scales/biases [O, I / gs] (s_dt), out [1, O] (x_dt). nc: chunks a lane a
+// pass (1, 2, 3, 4, 5 or 8), rw: rows a warp (1 or 2), ks: warps a row
+// (1, 2 or 4); ops/qmm.py:decode_shape picks them.
+extern "C" int tpa_quantized_matvec_decode(const void* x, int x_dt, const void* w,
+                                           const void* scales, const void* biases, int s_dt,
+                                           void* out, int O, int I, int gs, int bits, int nc,
+                                           int rw, int ks, cudaStream_t stream) {
+  const uint32_t* wp = static_cast<const uint32_t*>(w);
+  cudaError_t e;
+  switch (bits) {
+    case 2: e = launch_decode_bits<2>(nc, rw, x, x_dt, wp, scales, biases, s_dt, out, O, I, gs, ks, stream); break;
+    case 4: e = launch_decode_bits<4>(nc, rw, x, x_dt, wp, scales, biases, s_dt, out, O, I, gs, ks, stream); break;
+    case 8: e = launch_decode_bits<8>(nc, rw, x, x_dt, wp, scales, biases, s_dt, out, O, I, gs, ks, stream); break;
     default: e = cudaErrorInvalidValue;
   }
   return (int)e;

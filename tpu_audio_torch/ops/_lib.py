@@ -53,6 +53,7 @@ _SIGNATURES = {
     "tpa_fused_llama_stack": [P] * 13 + [I] * 9 + [Fl, P],
     "tpa_fused_llama_stack_lanes": [P] * 16 + [I] * 8 + [Fl, P],
     "tpa_quantized_matvec": [P, I, P, P, P, I, P] + [I] * 7 + [P],
+    "tpa_quantized_matvec_decode": [P, I, P, P, P, I, P] + [I] * 7 + [P],
     "tpa_quantized_matvec_tile": [P, I, P, P, P, I, P, P, P, P] + [I] * 6 + [P],
 }
 

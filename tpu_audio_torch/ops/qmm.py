@@ -2,8 +2,9 @@
 packed 4/8-bit layout (see ``core.quant``).
 
 Port of tpu_audio/ops/pallas_qmm.py:quantized_matvec; the CUDA kernels are
-in ``csrc/qmm.cu``: a GEMV for one row and a bf16 tensor-core tile for
-``R_TILE`` to 64 rows (:func:`route` picks one by shape).
+in ``csrc/qmm.cu``: the decode kernel for one row of whole 16-byte chunks,
+a GEMV for rows that are not, and a bf16 tensor-core tile for ``R_TILE``
+to 64 rows (:func:`route` picks one by shape).
 :func:`quantized_matvec_ref` is the plain PyTorch version. The TPU
 kernel's word-scale planes (``scales_w``) are left out: the kernels read
 scales and biases per group in their stored dtype.
@@ -15,8 +16,8 @@ import torch
 
 from tpu_audio_torch.ops import _lib
 
-__all__ = ["quantized_matvec", "quantized_matvec_ref", "route", "gemv", "tile", "BITS",
-           "GROUP_SIZES", "MAX_ROWS", "R_TILE"]
+__all__ = ["quantized_matvec", "quantized_matvec_ref", "route", "decode", "gemv", "tile",
+           "decode_shape", "BITS", "GROUP_SIZES", "MAX_ROWS", "R_TILE"]
 
 BITS = (2, 4, 8)
 GROUP_SIZES = (32, 64, 128)
@@ -26,6 +27,9 @@ SMEM_BYTES = 232448  # shared memory a block may have on the H100
 TILE_BM = 128  # output features a block of the tile (csrc/qmm.cu)
 TILE_KC = 64  # input features a stage of the tile
 TILE_BLOCKS = 264  # blocks the tile aims for: two on each of the H100's 132 SMs
+DECODE_WARPS = 8  # warps a block of the decode kernel (csrc/qmm.cu)
+DECODE_BLOCKS = 264  # blocks the decode kernel aims for: two on each SM
+DECODE_NC = (1, 2, 3, 4, 5, 8)  # its chunks a lane a pass (template values)
 # dtype codes of csrc/qmm.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -53,16 +57,47 @@ def rows_a_pass(b: int, i: int, group_size: int, bits: int) -> int:
 
 def route(b: int, i: int, bits: int, aligned: bool) -> str:
     """Which code computes ``x [b, i] @ W.T`` for W packed at ``bits`` (in
-    any group size both kernels take): ``"dequantize"`` (W to x's dtype and a matmul,
+    any group size the kernels take): ``"dequantize"`` (W to x's dtype and a matmul,
     in ``core.quant.quantized_matmul``) above MAX_ROWS rows; the GEMV
-    (``"gemv"``) below R_TILE rows, or where the rows of W are not whole
-    16-byte chunks (``i * bits % 128 != 0``) or W or x does not start on a
-    16-byte boundary (``aligned`` false), since the tile copies 16 bytes at
-    a time; else the tile (``"tile"``). The rule reads shapes and pointers,
-    never the outcome of a launch."""
+    (``"gemv"``) where the rows of W are not whole 16-byte chunks
+    (``i * bits % 128 != 0``) or W or x does not start on a 16-byte boundary
+    (``aligned`` false), since the decode kernel and the tile load 16 bytes
+    at a time; else the decode kernel (``"decode"``) for 1 row whose x fits
+    its shared memory (wider rows to the GEMV, which raises on them too), and
+    the tile (``"tile"``) for R_TILE..MAX_ROWS rows. The rule reads shapes
+    and pointers, never the outcome of a launch."""
     if b > MAX_ROWS:
         return "dequantize"
-    return "tile" if b >= R_TILE and aligned and i * bits % 128 == 0 else "gemv"
+    if not (aligned and i * bits % 128 == 0):
+        return "gemv"
+    if b == 1:
+        return "decode" if decode_fits(i, bits) else "gemv"
+    return "tile" if b >= R_TILE else "gemv"
+
+
+def decode_fits(i: int, bits: int) -> bool:
+    """Whether the decode kernel's shared memory holds x's ``i`` f32 planes
+    (each padded by 4 floats) and its warps' partial sums."""
+    return (i + 4 * (32 // bits) + 2 * DECODE_WARPS) * 4 <= SMEM_BYTES
+
+
+def decode_shape(o: int, i: int, bits: int) -> tuple[int, int, int, int]:
+    """The decode kernel's launch for ``[1, i] @ W.T`` with ``o`` output
+    rows: ``(blocks, rows a warp, warps a row, chunks a lane a pass)``.
+    Two rows a warp where that still gives DECODE_BLOCKS blocks of
+    DECODE_WARPS warps, else one; then a row's 16-byte chunks split over 2
+    or 4 warps while the blocks fall short of DECODE_BLOCKS and each warp
+    keeps 32 chunks or more; the chunks a lane a pass is the least of
+    DECODE_NC that covers the lane's share (8, in passes, above 8)."""
+    cr = i * bits // 128  # chunks a row
+    rw = 2 if -(-o // (2 * DECODE_WARPS)) >= DECODE_BLOCKS else 1
+    ks = 1
+    while (ks < 4 and -(-o * ks // (DECODE_WARPS * rw)) < DECODE_BLOCKS
+           and -(-cr // (2 * ks)) >= 32):
+        ks *= 2
+    nct = -(-cr // (32 * ks))
+    nc = next((n for n in DECODE_NC if n >= nct), DECODE_NC[-1])
+    return -(-o * ks // (DECODE_WARPS * rw)), rw, ks, nc
 
 
 def tile_slices(o: int, i: int, group_size: int) -> int:
@@ -99,6 +134,32 @@ def _checked(x, words, scales, biases, group_size, bits):
     for name, t in (("scales", scales), ("biases", biases)):
         _lib.require(t, name, scales.dtype, (o, i // group_size), dev)
     return b, o, i
+
+
+def decode(x: torch.Tensor, words: torch.Tensor, scales: torch.Tensor, biases: torch.Tensor,
+           group_size: int = 64, bits: int = 4) -> torch.Tensor:
+    """The decode kernel on CUDA tensors: 1 row of x, the rows of x and W
+    whole 16-byte chunks on 16-byte aligned pointers (see :func:`route`)."""
+    b, o, i = _checked(x, words, scales, biases, group_size, bits)
+    if route(b, i, bits, _aligned(x, words)) != "decode":
+        raise ValueError("quantized_matvec: the decode kernel takes 1 row of x with 16-byte "
+                         f"aligned rows of x and W that fit its shared memory; got {b} rows "
+                         f"of {i} inputs at {bits} bits")
+    return _decode(x, words, scales, biases, group_size, bits, b, o, i)
+
+
+def _decode(x, words, scales, biases, group_size, bits, b, o, i):
+    _, rw, ks, nc = decode_shape(o, i, bits)
+    out = torch.empty((1, o), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _lib.lib().tpa_quantized_matvec_decode(
+            x.data_ptr(), _DTYPES[x.dtype], words.data_ptr(), scales.data_ptr(),
+            biases.data_ptr(), _DTYPES[scales.dtype], out.data_ptr(), o, i, group_size, bits,
+            nc, rw, ks, _lib.stream(x))
+    _lib.check(err, "quantized_matvec_decode")
+    _lib.launches["quantized_matvec"] += 1
+    _lib.launches["quantized_matvec_decode"] += 1
+    return out
 
 
 def gemv(x: torch.Tensor, words: torch.Tensor, scales: torch.Tensor, biases: torch.Tensor,
@@ -168,13 +229,15 @@ def quantized_matvec(x: torch.Tensor, words: torch.Tensor, scales: torch.Tensor,
                      ) -> torch.Tensor:
     """``x @ dequant(W).T`` for ``x [B, I]`` (B <= 64), words ``[O, I * bits
     / 32]`` (int32 bits), scales and biases ``[O, I / group_size]``: the plain
-    version for CPU tensors; for CUDA tensors the GEMV or the tile, as
-    :func:`route` says, in ``x``'s dtype. The kernels take bits 2, 4 and 8,
-    groups of 32, 64 and 128, f32, bf16 or f16 ``x`` and scales, any O; they
-    raise on anything else. ``_lib.launches["quantized_matvec"]`` counts the
-    calls of either kernel, ``["quantized_matvec_tile"]`` those of the tile."""
+    version for CPU tensors; for CUDA tensors the decode kernel, the GEMV or
+    the tile, as :func:`route` says, in ``x``'s dtype. The kernels take bits
+    2, 4 and 8, groups of 32, 64 and 128, f32, bf16 or f16 ``x`` and scales,
+    any O; they raise on anything else. ``_lib.launches["quantized_matvec"]``
+    counts the calls of every kernel, ``["quantized_matvec_decode"]`` and
+    ``["quantized_matvec_tile"]`` those of the decode kernel and the tile."""
     if x.device.type == "cpu":
         return quantized_matvec_ref(x, words, scales, biases, group_size, bits)
     b, o, i = _checked(x, words, scales, biases, group_size, bits)
-    launch = _tile if route(b, i, bits, _aligned(x, words)) == "tile" else _gemv
+    launch = {"decode": _decode, "tile": _tile}.get(route(b, i, bits, _aligned(x, words)),
+                                                    _gemv)
     return launch(x, words, scales, biases, group_size, bits, b, o, i)
