@@ -15,12 +15,16 @@ so a kernel that reads the wrong bias or LayerNorm row disagrees), and:
    times both: per call with CUDA events (median; host launch overhead
    included) and as device time from ``torch.profiler`` (each run held to
    the events its calls make and to a CUDA-event span; "not measured" after
-   three runs that fail). The serving
+   three runs that fail). The one-token decoder kernel (``fused_stack``)
+   is checked at write offsets 0, 63, 64, 100 and 447, also bit for bit
+   against the serving kernel at one lane, and must launch 8 kernels a
+   layer. The serving
    kernel (``fused_stack_lanes``) is checked at 1, 4 and 8 lanes over a
    stacked state of 8 slots, against its plain version (with every GEMV
    input's int8 codes compared, so that each lane's first difference is
-   shown to be one rounding flip) and against the one-token kernel on each
-   lane's inputs, and its in-place cache writes against a snapshot;
+   shown to be one rounding flip) and bit for bit against the one-token
+   kernel on each lane's inputs, and its in-place cache writes against a
+   snapshot;
 2. transcribes ``tests/media/speech_16k.wav`` padded to one 30 s window
    through ``Whisper.generate`` in the w8 kv8d and bf16 kv8d configurations,
    twice each, with every launch counter reset just before and read just
@@ -132,9 +136,19 @@ readings in ``by_shape``.
 ``python3 chip_smoke.py --qmm`` runs phase 15 alone with its timing and
 prints kernel 7's two records (a minute's work a round on the kernel).
 
+``python3 chip_smoke.py --fused-stack-timing [CHECKOUT ...]`` times kernel 3
+alone on random whisper-large-v3-width inputs: the source as it stands and
+the kernel 3 of each checkout given (for example a parent's, ``git archive
+HEAD tpu_audio_torch/csrc`` unpacked into ``_chip/parent``, or a copy with
+a variant of ``csrc/fused_decoder.cu``) in turns, with each version's stage
+breakdown and the source's ptxas registers and spills.
+
 ``python3 chip_smoke.py --mutations`` instead runs the standing mutation
 check: each kernel's check alone on copies of the checkout with its source
-mutated (``MUTATIONS``; for kernel 5, phase 8 with a wrong RMSNorm row, the
+mutated (``MUTATIONS``; for kernel 3, its checks on a random pack with
+cross-q reading out-proj's bias, the folded combine reading the next head's
+partials, a staged cross K/V row taking the next position's scale; for
+kernel 5, phase 8 with a wrong RMSNorm row, the
 RoPE sign on the wrong half, query heads reading the next K/V head; for
 kernel 6, phase 11 with lane m's RoPE angle from lane 0's offset, attention
 from row 0 instead of the lane's valid_from, lane m reading the next lane's
@@ -212,6 +226,24 @@ FUSED_RTOL = 2e-2    # y/newk/newv of the whole stack, relative: code changes
                      # propagated through 32 layers (the bound
                      # tests/test_fused_decoder.py holds the TPU kernel to)
 LOGITS_RTOL = 3e-2   # teacher-forced logits of the whole path, relative
+# kernel 3's write offsets: the first row, the chunk edges of its folded
+# combine (63, 64), the timed offset, and the 448-row cache's last row
+STACK_OFFSETS = (0, 63, 64, 100, 447)
+STACK_TIME_OFFSET = 100
+STACK_LAYER_LAUNCHES = 8  # kernel 3 a layer: 6 GEMVs and 2 attention launches
+# sleep kernels that open each launch-count window: late in the full run the
+# profiler drops a window's first device events (on an H100 two or three:
+# the wrapper's copy of x, its zeroing and once a kernel of the call)
+STACK_MARKERS = 16
+# the kernels of csrc/fused_decoder.cu, and of the parent's (10 a layer)
+STACK_KERNELS = ("fs_gemv", "fs_self_attn", "fs_cross_attn", "int8_gemv_kernel",
+                 "self_attn_partial", "cross_attn_partial", "attn_combine_kernel")
+STACK_STAGES = {8: ("q/k/v", "self-attn", "out", "cross-q", "cross-attn", "cross-out",
+                    "fc1", "fc2"),
+                10: ("q/k/v", "self-attn", "self combine", "out", "cross-q", "cross-attn",
+                     "cross combine", "cross-out", "fc1", "fc2")}
+STACK_SOURCE = "this checkout"  # --fused-stack-timing's name for the source as it stands
+STACK_TIMING_REPS = 50
 # fused_stack_lanes against its plain version. On lanes with long random
 # caches and encoder outputs the two versions round some int8 activation
 # code differently in ~3% of layers (as early as layer 1). The kernel's tap
@@ -335,6 +367,14 @@ Q4_PROFILE_TOKENS = 8  # ~1,600 device events a token: a short profiled chunk
 # the function here that runs its check alone, and its mutations (name,
 # original text, mutated text); a kernel ported later adds its entry
 MUTATIONS = {
+    "fused_stack": ("tpu_audio_torch/csrc/fused_decoder.cu", "fused_stack_only", [
+        ("cross-q reads out-proj's bias", "bl + 4 * d", "bl + 3 * d"),
+        ("the folded combine reads the neighbouring head's partials",
+         "const size_t base = (size_t)blockIdx.y * nc;",
+         "const size_t base = (size_t)((blockIdx.y + 1) % gridDim.y) * nc;"),
+        ("the staged cross K/V takes the neighbouring position's scale",
+         "cp_async4(sks + i, ks + s0 + i);", "cp_async4(sks + i, ks + s0 + (i ^ 1));"),
+    ]),
     "fused_llama_stack": ("tpu_audio_torch/csrc/fused_llama.cu", "fused_llama_only", [
         ("post-attention norm reads the input norm's row",
          "quantize(resid, nl + d, QUANT_RMS", "quantize(resid, nl, QUANT_RMS"),
@@ -448,11 +488,28 @@ def by_kernel(prof) -> dict[str, list]:
     return out
 
 
+def device_intervals(prof) -> list[tuple[float, float, str]]:
+    """(start, end) microseconds and name of each device activity (kernels,
+    copies) a ``torch.profiler`` run recorded, in order of start."""
+    import torch
+
+    return sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def device_busy(prof) -> tuple[float, int]:
-    """Summed microseconds and count of the device activity a
-    ``torch.profiler`` run recorded."""
-    kernels = by_kernel(prof).values()
-    return sum(c[1] for c in kernels), sum(c[0] for c in kernels)
+    """Microseconds the device was busy in a ``torch.profiler`` run (the
+    union of the recorded intervals, overlaps merged: a programmatic
+    dependent launch's interval includes its wait on its predecessor, so
+    kernel 3's intervals overlap; where none overlap this is their sum) and
+    the count of the activities."""
+    spans = device_intervals(prof)
+    busy, end = 0.0, -math.inf
+    for a, b, _ in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy, len(spans)
 
 
 def print_kernels(kernels: dict, steps: int, top: int = 12) -> None:
@@ -588,8 +645,8 @@ def profile_window(name, model, audio, gp) -> None:
         prof_ms = (time.perf_counter() - t0) * 1e3
     steps = len(PROMPT) + out.generation_token_count - 1
     kernels = by_kernel(prof)
-    busy_ms = sum(c[1] for c in kernels.values()) / 1e3
-    n_events = sum(c[0] for c in kernels.values())
+    busy_us, n_events = device_busy(prof)
+    busy_ms = busy_us / 1e3
     print(f"[profile {name}] frontend+encoder {enc_ms:.4f} ms (CUDA events, "
           f"median of 5); {out.generation_token_count} tokens, {steps} steps: "
           f"wall {wall_ms:.3f} ms, decode {(wall_ms - enc_ms) / steps:.4f} ms a step; "
@@ -730,11 +787,7 @@ def build_models(dev):
     from tpu_audio_torch.core import quant
     from tpu_audio_torch.models.stt import whisper as W
 
-    cfg = W.WhisperConfig(num_mel_bins=128, d_model=1280, encoder_layers=32,
-                          encoder_attention_heads=20, encoder_ffn_dim=5120,
-                          decoder_layers=32, decoder_attention_heads=20,
-                          decoder_ffn_dim=5120, vocab_size=51866,
-                          max_source_positions=1500, max_target_positions=448)
+    cfg = stack_config()
     params = W.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     randomize_affine(params, torch.Generator(device=dev).manual_seed(1))
     w8_params = {"model": {"encoder": params["model"]["encoder"],
@@ -772,6 +825,237 @@ def lane_encoders(w8, enc, clips, rng) -> list:
             w8.encoder(w8.encoder_features(
                 (rng.standard_normal(16000 * 3) * 0.1).astype(np.float32)))
             for _ in range(LANE_SLOTS - len(clips))]
+
+
+def stack_config():
+    """whisper-large-v3 at its published widths (bench.py:64-71)."""
+    from tpu_audio_torch.models.stt import whisper as W
+
+    return W.WhisperConfig(num_mel_bins=128, d_model=1280, encoder_layers=32,
+                           encoder_attention_heads=20, encoder_ffn_dim=5120,
+                           decoder_layers=32, decoder_attention_heads=20,
+                           decoder_ffn_dim=5120, vocab_size=51866,
+                           max_source_positions=1500, max_target_positions=448)
+
+
+def random_stack_inputs(cfg, dev, seed: int = 0):
+    """Kernel 3's inputs at ``cfg``'s widths from a seed, without the
+    encoder: an int8 pack (uniform codes, per-row scales of N(0, 0.02)-sized
+    weights, N(0, 0.02) biases with k's zero, LayerNorm weights 1 + N(0, 0.1)
+    and biases N(0, 0.02)) and int8 cross K/V of max_source_positions rows
+    with per-position scales of unit-sized values (0.5-1.5 / 127)."""
+    import torch
+
+    from tpu_audio_torch.ops import fused_decoder as F
+
+    L, d, ffn, S = (cfg.decoder_layers, cfg.d_model, cfg.decoder_ffn_dim,
+                    cfg.max_source_positions)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    def uniform(*shape):
+        return 0.5 + torch.rand(shape, generator=gen, device=dev)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    n_sc = 7 * d + ffn
+    biases = normal(L, n_sc) * 0.02
+    biases[:, d:2 * d] = 0.0
+    ln = torch.stack([1 + 0.1 * normal(L, d) if i % 2 == 0 else 0.02 * normal(L, d)
+                      for i in range(6)], dim=1)
+    pack = F.FusedPack(codes(L, 6 * d + ffn, d), codes(L, d, ffn),
+                       uniform(L, n_sc) * (0.02 / 73.3), biases, ln.contiguous())
+    cross = (codes(L, S, d), uniform(L, S) / 127.0, codes(L, S, d), uniform(L, S) / 127.0)
+    return pack, cross
+
+
+def stack_caches(cfg, off: int, gen, dev):
+    """Self caches [L, max_target_positions, d] bf16: N(0, 0.25) rows below
+    ``off``, zeros from it."""
+    import torch
+
+    L, d, s_max = cfg.decoder_layers, cfg.d_model, cfg.max_target_positions
+    kc = torch.zeros((L, s_max, d), dtype=torch.bfloat16, device=dev)
+    vc = torch.zeros_like(kc)
+    kc[:, :off] = (torch.randn((L, off, d), generator=gen, device=dev) * 0.5
+                   ).to(torch.bfloat16)
+    vc[:, :off] = (torch.randn((L, off, d), generator=gen, device=dev) * 0.5
+                   ).to(torch.bfloat16)
+    return kc, vc
+
+
+def stack_launches(fn, n_layers: int) -> float:
+    """Kernel 3's launches a layer in one call of ``fn``, counted from the
+    device activity ``torch.profiler`` records: it fails unless there are
+    STACK_LAYER_LAUNCHES a layer and at most two other activities (the
+    wrapper's copy of x and the zeroing of its counters). Each window opens
+    with STACK_MARKERS sleep kernels and a synchronize, so that the leading
+    events the profiler drops are markers, not the call's; the markers are
+    not counted. A window that still lost a kernel of the call is read
+    again, three times at most; a count above the wanted one fails at
+    once."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    want = STACK_LAYER_LAUNCHES * n_layers
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(STACK_MARKERS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        names = [n for *_, n in device_intervals(prof)]
+        markers = sum("spin_kernel" in n for n in names)
+        names = [n for n in names if "spin_kernel" not in n]
+        others = [n for n in names if not any(k in n for k in STACK_KERNELS)]
+        kernels = len(names) - len(others)
+        if kernels >= want:
+            break
+        print(f"[fused_stack launches] the profile kept {kernels} of {want} kernels "
+              f"and {markers} of {STACK_MARKERS} markers: reading again")
+    print(f"[fused_stack launches] one call: {kernels} kernels ({kernels / n_layers:g} a "
+          f"layer), {len(others)} other device activities {sorted(set(others))}; "
+          f"{markers} of {STACK_MARKERS} markers kept")
+    check(kernels == want and len(others) <= 2,
+          f"fused_stack launched {kernels} kernels ({kernels / n_layers:g} a layer, "
+          f"{STACK_LAYER_LAUNCHES} wanted) and {len(others)} other activities")
+    return kernels / n_layers
+
+
+def stack_phase(pack, cross, cfg, dev, gen, x_at, timing: bool = True) -> dict:
+    """Kernel 3 at each of STACK_OFFSETS: bit for bit against kernel 4 at
+    one lane on the same inputs (outputs and caches), its cache rows
+    written in place and no other row, and against its plain version, run
+    free and fed kernel 3's own int8 GEMV input codes and scales (kernel
+    4's tap of the same inputs shows them). Fed the codes, newk / newv of
+    every layer are held at FUSED_LAYER_RTOL and y / newk / newv at
+    FORCED_RTOL, and every code is the plain rounding of its input up to
+    one-step flips at a boundary (check_witness). Run free: where no code
+    differs from the plain rounding, layers 0-7 at FUSED_LAYER_RTOL and the
+    whole stack at FUSED_RTOL; where one does, kernel 4's rule
+    (check_stack_vs_plain). Then its launches a layer in one call and, with
+    ``timing``, its times at STACK_TIME_OFFSET. ``x_at(offset)`` gives the
+    embedded token."""
+    import torch
+
+    from tpu_audio_torch.ops import fused_decoder as F
+
+    L, d, ffn = cfg.decoder_layers, cfg.d_model, cfg.decoder_ffn_dim
+    kmax = max(d, ffn)
+    ck, ks, cv, vs = cross
+    s_src = ck.shape[1]
+    bf16 = torch.bfloat16
+    checks, worst_abs = {}, 0.0
+    for off in STACK_OFFSETS:
+        x = x_at(off)
+        kc, vc = stack_caches(cfg, off, gen, dev)
+        k0, v0 = kc.clone(), vc.clone()
+        kc2, vc2, kc4, vc4 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        ktap = (torch.zeros((L, 6, 1, kmax), dtype=torch.int8, device=dev),
+                torch.zeros((L, 6, 1), device=dev))
+        ptap, ftap = ((torch.zeros((L, 6, kmax), dtype=torch.int8, device=dev),
+                       torch.zeros((L, 6), device=dev), torch.zeros((L, 6, kmax), device=dev))
+                      for _ in range(2))
+        got = F.fused_stack(pack, ck, ks, cv, vs, kc, vc, x, off, cfg=cfg, s_src=s_src)
+        want = F.fused_stack_ref(pack, ck, ks, cv, vs, kc2, vc2, x, off, cfg=cfg,
+                                 s_src=s_src, tap=ptap)
+        lane = torch.tensor([0], dtype=torch.int32, device=dev)
+        one = F.fused_stack_lanes(pack, ck[None], ks[None], cv[None], vs[None], kc4[None],
+                                  vc4[None], x[None], lane + off, lane, cfg=cfg, s_src=s_src,
+                                  tap=ktap)
+        kcodes = (ktap[0][:, :, 0], ktap[1][:, :, 0])
+        forced = F.fused_stack_ref(pack, ck, ks, cv, vs, k0.clone(), v0.clone(), x, off,
+                                   cfg=cfg, s_src=s_src, tap=ftap, codes=kcodes)
+        torch.cuda.synchronize()
+        flip = code_flips(ktap, tuple(t.unsqueeze(2) for t in ptap), 1)[0]
+
+        def by_layer(want):
+            return [max(rel_err(got[1][i], want[1][i]), rel_err(got[2][i], want[2][i]))
+                    for i in range(L)]
+
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        layer_errs = by_layer(want)
+        forced_errs = [rel_err(g, w) for g, w in zip(got, forced)]
+        forced_layer_errs = by_layer(forced)
+        witness = codes_witness(cfg, kcodes, ftap, widths=[d] * 5 + [ffn])
+        k0[:, off], v0[:, off] = got[1].to(bf16), got[2].to(bf16)
+        writes = torch.equal(kc, k0) and torch.equal(vc, v0)
+        bit_equal = all(torch.equal(a, b) for a, b in zip(
+            (got[0], got[1], got[2], kc, vc), (one[0][0], one[1][:, 0], one[2][:, 0], kc4, vc4)))
+        worst_abs = max(worst_abs, *(float((g - w).abs().max()) for g, w in zip(got, forced)))
+        print(f"[fused_stack] d={d} L={L} offset={off}: rel err y/newk/newv "
+              + "/".join(f"{e:.3e}" for e in errs) + f" (rtol {FUSED_RTOL}); newk/newv by "
+              f"layer (rtol {FUSED_LAYER_RTOL} for the first {FUSED_EXACT_LAYERS}): "
+              + " ".join(f"{e:.1e}" for e in layer_errs)
+              + f"; cache rows written in place, others untouched: {writes}; bit-equal to "
+              f"fused_stack_lanes at n=1: {bit_equal}")
+        print("  int8 codes (fused_stack_lanes' tap at n=1): " + (
+            f"none of the {L} x 6 GEMV inputs differ" if flip is None else
+            f"first differ at layer {flip['layer']} {flip['gemv']}: {flip['codes']} code(s), "
+            f"by up to {flip['step']}; plain unrounded {flip['unrounded']:.7f} "
+            f"({flip['boundary_dist']:.2e} from the boundary); then kernel 4's rule, the "
+            f"whole stack within {LANES_RTOL}"))
+        print(f"  plain fed kernel 3's codes: y/newk/newv " + "/".join(
+            f"{e:.3e}" for e in forced_errs) + f" (rtol {FORCED_RTOL}), newk/newv of every "
+            f"layer within {max(forced_layer_errs):.1e} (rtol {FUSED_LAYER_RTOL}); "
+            f"{witness[0]} code(s) differ from its own rounding, by up to {witness[1]}, at "
+            f"most {witness[2]:.2e} from a boundary, scales {witness[3]:.1e} apart")
+        check(all(bool(torch.isfinite(g).all()) for g in got), "fused_stack output")
+        check(bit_equal, f"fused_stack offset {off}: not bit-equal to fused_stack_lanes "
+                         f"at one lane")
+        check(writes, f"fused_stack offset {off}: cache rows written wrong")
+        check(max(forced_layer_errs) <= FUSED_LAYER_RTOL,
+              f"fused_stack offset {off}: k/v by layer disagree with the plain version on "
+              f"kernel 3's own codes: {forced_layer_errs}")
+        check(max(forced_errs) <= FORCED_RTOL,
+              f"fused_stack offset {off}: the stack disagrees with the plain version on "
+              f"kernel 3's own codes: {forced_errs}")
+        check_witness(f"fused_stack offset {off}", *witness)
+        if flip is None:
+            check_stack(f"fused_stack offset {off}", [(errs, layer_errs)])
+        else:
+            check_stack_vs_plain(f"fused_stack offset {off}", [(errs, layer_errs)], [flip])
+        checks[str(off)] = dict(rel_err=max(forced_errs), layers_rel_err=max(forced_layer_errs),
+                                free_rel_err=max(errs), free_layers_rel_err=max(
+                                    layer_errs[:FUSED_EXACT_LAYERS]),
+                                bit_equal_to_lanes=bit_equal, code_flip=flip,
+                                code_flips=witness[0])
+
+    off = STACK_TIME_OFFSET
+    x = x_at(off)
+    kc, vc = stack_caches(cfg, off, gen, dev)
+    kc2, vc2 = kc.clone(), vc.clone()
+
+    def kern():
+        return F.fused_stack(pack, ck, ks, cv, vs, kc, vc, x, off, cfg=cfg, s_src=s_src)
+
+    def plain():
+        return F.fused_stack_ref(pack, ck, ks, cv, vs, kc2, vc2, x, off, cfg=cfg,
+                                 s_src=s_src)
+
+    rec = dict(route="cuda", source="tpu_audio_torch/csrc/fused_decoder.cu",
+               replaces="tpu_audio/ops/pallas_fused_decoder.py:471", library_ms=None,
+               max_abs_err=worst_abs, rel_err=max(c["rel_err"] for c in checks.values()),
+               layer_launches=stack_launches(kern, L), offsets=checks)
+    if not timing:
+        return rec
+    # weights, cross K/V, the cache rows attended (0..off), x in, y and the
+    # new k/v rows out
+    y = kern()
+    rec["bound_ms"], rec["bound_by"] = bound(
+        nbytes(pack.w_in, pack.w_fc2, pack.scales, pack.biases, pack.ln,
+               ck, ks, cv, vs, x, *y) + 2 * L * (off + 1) * d * 2,
+        int8_ops=2 * L * (pack.w_in.shape[1] * d + d * ffn),
+        f32_ops=4 * L * (off + 1 + s_src) * d)
+    rec.update(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, reps=5, warmup=1),
+               dev_ms=device_ms(kern), plain_dev_ms=device_ms(plain, reps=2))
+    return rec
 
 
 def lanes_phase(w8, cfg, encs, dev) -> dict:
@@ -865,6 +1149,8 @@ def lanes_phase(w8, cfg, encs, dev) -> dict:
         check_stack_vs_plain(f"fused_stack_lanes n={n} vs plain", errs, flips)
         check_stack(f"fused_stack_lanes n={n} vs fused_stack", errs_b1)
         check(writes_ok, f"fused_stack_lanes n={n}: cache rows written wrong")
+        check(all(bit_equal), f"fused_stack_lanes n={n}: lanes {bit_equal} not bit-equal "
+                              f"to fused_stack on their inputs")
 
         def kern():
             return F.fused_stack_lanes(pack, ck, ks, cv, vs, kc, vc, x, offsets, lanes,
@@ -975,64 +1261,18 @@ def kernel_phases(models, cfg, audio, dev) -> tuple[dict, object]:
             plain_dev_ms=device_ms(lambda: K.decode_attention_int8_ref(
                 q, *kq, *vq, 1500, sm_scale=sm)))
 
-        # -- kernel 3: the w8 decoder stack, one token at offset 100 --------
+        # -- kernel 3: the w8 decoder stack, one token at STACK_OFFSETS -----
         w8 = models["w8_kv8d"]
-        pack = w8.fused_decoder_pack()
         w8_layers = w8.decoder.split_layers()
-        ck, ks, cv, vs = F.quantize_cross_kv(*W._cross_kv(w8.params, enc, cfg, w8_layers))
-        off, s_max = 100, 448
-        kc = torch.zeros((32, s_max, 1280), dtype=torch.bfloat16, device=dev)
-        vc = torch.zeros_like(kc)
-        kc[:, :off] = (torch.randn((32, off, 1280), generator=gen, device=dev) * 0.5
-                       ).to(torch.bfloat16)
-        vc[:, :off] = (torch.randn((32, off, 1280), generator=gen, device=dev) * 0.5
-                       ).to(torch.bfloat16)
+        cross = F.quantize_cross_kv(*W._cross_kv(w8.params, enc, cfg, w8_layers))
         p = w8.params["model"]["decoder"]
-        xt = (W.nn.embedding(p["embed_tokens"], torch.tensor([50258], device=dev))[0]
-              + p["embed_positions"]["weight"][off].float())
-        kc2, vc2 = kc.clone(), vc.clone()
-        got = F.fused_stack(pack, ck, ks, cv, vs, kc, vc, xt, off, cfg=cfg, s_src=1500)
-        want = F.fused_stack_ref(pack, ck, ks, cv, vs, kc2, vc2, xt, off, cfg=cfg,
-                                 s_src=1500)
-        torch.cuda.synchronize()
-        errs = [rel_err(g, w) for g, w in zip(got, want)]
-        layer_errs = [max(rel_err(got[1][i], want[1][i]), rel_err(got[2][i], want[2][i]))
-                      for i in range(32)]
-        print(f"[fused_stack] d=1280 L=32 offset={off}: rel err y/newk/newv "
-              + "/".join(f"{e:.3e}" for e in errs) + f" (rtol {FUSED_RTOL}); "
-              f"newk/newv by layer (rtol {FUSED_LAYER_RTOL} for the first "
-              f"{FUSED_EXACT_LAYERS}): " + " ".join(f"{e:.1e}" for e in layer_errs))
-        check(all(torch.isfinite(g).all() for g in got), "fused_stack output")
-        check(max(layer_errs[:FUSED_EXACT_LAYERS]) <= FUSED_LAYER_RTOL,
-              f"fused_stack k/v of the first {FUSED_EXACT_LAYERS} layers disagree: "
-              f"{layer_errs[:FUSED_EXACT_LAYERS]}")
-        check(max(errs) <= FUSED_RTOL, f"fused_stack disagrees: {errs}")
-        check(torch.equal(kc[:, off], got[1].to(torch.bfloat16)),
-              "fused_stack did not write the new k rows into the cache")
-        check(torch.equal(vc[:, off], got[2].to(torch.bfloat16)),
-              "fused_stack did not write the new v rows into the cache")
-        d, ffn = cfg.d_model, cfg.decoder_ffn_dim
-        # weights, cross K/V, the cache rows attended (0..off), x in, y and
-        # the new k/v rows out
-        b_ms, b_by = bound(
-            nbytes(pack.w_in, pack.w_fc2, pack.scales, pack.biases, pack.ln,
-                   ck, ks, cv, vs, xt, *got) + 2 * 32 * (off + 1) * d * 2,
-            int8_ops=2 * 32 * (pack.w_in.shape[1] * d + d * ffn),
-            f32_ops=4 * 32 * (off + 1 + 1500) * d)
-        records["fused_stack"] = dict(
-            route="cuda", source="tpu_audio_torch/csrc/fused_decoder.cu",
-            replaces="tpu_audio/ops/pallas_fused_decoder.py:471",
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)),
-            rel_err=max(errs), ms=cuda_ms(lambda: F.fused_stack(pack, ck, ks, cv, vs, kc, vc, xt, off,
-                                             cfg=cfg, s_src=1500)),
-            plain_ms=cuda_ms(lambda: F.fused_stack_ref(
-                pack, ck, ks, cv, vs, kc2, vc2, xt, off, cfg=cfg, s_src=1500),
-                reps=5, warmup=1),
-            dev_ms=device_ms(lambda: F.fused_stack(pack, ck, ks, cv, vs, kc, vc, xt,
-                                                   off, cfg=cfg, s_src=1500)),
-            plain_dev_ms=device_ms(lambda: F.fused_stack_ref(
-                pack, ck, ks, cv, vs, kc2, vc2, xt, off, cfg=cfg, s_src=1500), reps=2))
+
+        def x_at(off):
+            return (W.nn.embedding(p["embed_tokens"], torch.tensor([50258], device=dev))[0]
+                    + p["embed_positions"]["weight"][off].float())
+
+        records["fused_stack"] = stack_phase(w8.fused_decoder_pack(), cross, cfg, dev, gen,
+                                             x_at)
     return records, enc
 
 
@@ -1556,16 +1796,17 @@ def llama_taps(cfg, dev, pre: bool, n: int | None = None):
         (torch.zeros((L, 4, *lanes, kmax), device=dev),) if pre else ())
 
 
-def codes_witness(cfg, ktap, ftap) -> tuple[int, int, float, float]:
+def codes_witness(cfg, ktap, ftap, widths=None) -> tuple[int, int, float, float]:
     """The kernel's codes (``ktap``) against the plain version's rounding of
     the same inputs (``ftap``, with unrounded values; the plain version fed
     the kernel's codes, so that both see the same upstream state): how
     many differ, by how much at most, how far from a rounding boundary
-    the farthest of them lies, and how far apart the scales are."""
+    the farthest of them lies, and how far apart the scales are.
+    ``widths``: each GEMV input's width (default kernel 5's four)."""
     import torch
 
     kmax = ktap[0].shape[-1]
-    widths = torch.tensor([cfg.hidden_size] * 3 + [cfg.intermediate_size],
+    widths = torch.tensor(widths or [cfg.hidden_size] * 3 + [cfg.intermediate_size],
                           device=ktap[0].device)
     used = torch.arange(kmax, device=widths.device)[None, None, :] < widths[None, :, None]
     diff = (ktap[0].int() - ftap[0].int()).masked_fill(~used, 0)
@@ -3274,6 +3515,192 @@ def mutations_main() -> int:
     return 0 if ok else 1
 
 
+def fused_stack_only() -> int:
+    """Kernel 3's checks alone, timing off, on a random whisper-large-v3
+    pack and cross K/V (no encoder): its check under --mutations."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    dev = torch.device("cuda", 0)
+    cfg = stack_config()
+    pack, cross = random_stack_inputs(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    stack_phase(pack, cross, cfg, dev, gen,
+                lambda off: torch.randn((cfg.d_model,), generator=gen, device=dev) * 0.5,
+                timing=False)
+    return 0
+
+
+def stack_libraries(others: list, tmp: Path) -> dict:
+    """``tpa_fused_stack`` of csrc/fused_decoder.cu as it stands (named
+    STACK_SOURCE) and of each checkout in ``others`` (the roots of other
+    checkouts, named by their directories), each built into a shared
+    library of its own, one nvcc each, all started together. The source as
+    it stands is built with ``-Xptxas -v`` and its registers and spills are
+    printed. Returns name -> C function."""
+    import ctypes
+
+    from tpu_audio_torch.ops import _lib
+
+    srcs = {STACK_SOURCE: ROOT / "tpu_audio_torch" / "csrc"}
+    for other in others:
+        srcs[other.name] = other / "tpu_audio_torch" / "csrc"
+    jobs = {}
+    for i, (name, csrc) in enumerate(srcs.items()):
+        dst = tmp / f"lib{i}"
+        shutil.copytree(csrc, dst)
+        so = dst / "libstack.so"
+        flags = [*_lib.NVCC_FLAGS, *(["-Xptxas", "-v"] if name == STACK_SOURCE else [])]
+        jobs[name] = (so, subprocess.Popen(
+            [_lib._nvcc(), *flags, "-shared", "-o", str(so), str(dst / "fused_decoder.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (so, proc) in jobs.items():
+        out = proc.communicate(timeout=600)[0]
+        check(proc.returncode == 0, f"nvcc {name}: {out}")
+        if name == STACK_SOURCE:
+            entry = None
+            for ln in out.splitlines():
+                if "Compiling entry function" in ln:
+                    entry = ln.split("'")[1]
+                elif "Used" in ln and entry is not None:
+                    print(f"[ptxas] {entry[:72]}: {ln.split(':', 1)[1].strip()}")
+                elif "spill" in ln and entry is not None and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill"):
+                    print(f"[ptxas] {entry[:72]}: {ln.strip()}")
+        fn = ctypes.CDLL(str(so)).tpa_fused_stack
+        fn.argtypes = _lib._SIGNATURES["tpa_fused_stack"]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def stack_stages(fn, n_layers: int, reps: int = 5) -> dict | None:
+    """Kernel 3's time by stage of a layer over ``reps`` calls of ``fn``,
+    from the kernels' device intervals in launch order (8 a layer, or the
+    parent's 10): microseconds a layer of each stage's interval (with PDL it
+    includes the wait on its predecessor) and of its increment of the
+    chain's end (its end less the previous kernel's). None where the
+    profile lost kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(a, b) for a, b, n in device_intervals(prof) if any(k in n for k in STACK_KERNELS)]
+    per_layer = len(spans) // (reps * n_layers)
+    if per_layer not in STACK_STAGES or len(spans) != per_layer * reps * n_layers:
+        print(f"[fused_stack stages] the profile kept {len(spans)} kernels of {reps} calls: "
+              f"not measured")
+        return None
+    names = STACK_STAGES[per_layer]
+    out = {n: [0.0, 0.0] for n in names}
+    for call in range(reps):
+        prev = None
+        for i, (a, b) in enumerate(spans[call * per_layer * n_layers:
+                                         (call + 1) * per_layer * n_layers]):
+            st = out[names[i % per_layer]]
+            st[0] += b - a
+            st[1] += b - (a if prev is None else prev)
+            prev = b
+    return {n: dict(interval_us=v[0] / (reps * n_layers), increment_us=v[1] / (reps * n_layers))
+            for n, v in out.items()}
+
+
+def fused_stack_timing_main(smi: str, others: list) -> int:
+    """``--fused-stack-timing [CHECKOUT ...]``: kernel 3 at whisper-large-v3
+    width on random inputs (random_stack_inputs, offset STACK_TIME_OFFSET),
+    built from the source as it stands and from each other checkout given
+    (a parent commit's, or a copy with a variant of the kernel, named by its
+    directory): each version against the plain
+    version and bit for bit against the first, then per call (CUDA events
+    around STACK_TIMING_REPS back-to-back calls, each with its copy of x and
+    zeroing of the counters) in turns (each version, then each again in
+    reverse order), device time (profiler, the union of intervals) and the
+    stage breakdown of a layer. Prints one JSON line (no "ok" line)."""
+    import torch
+
+    from tpu_audio_torch.ops import _lib
+    from tpu_audio_torch.ops import fused_decoder as F
+
+    dev = torch.device("cuda", 0)
+    cfg = stack_config()
+    L, d, ffn, H = (cfg.decoder_layers, cfg.d_model, cfg.decoder_ffn_dim,
+                    cfg.decoder_attention_heads)
+    s_max, off = cfg.max_target_positions, STACK_TIME_OFFSET
+    pack, (ck, ks, cv, vs) = random_stack_inputs(cfg, dev)
+    s_src = s_ck = ck.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    kc, vc = stack_caches(cfg, off, gen, dev)
+    x = torch.randn((d,), generator=gen, device=dev) * 0.5
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="stack_libs_") as tmp:
+        fns = stack_libraries(others, Path(tmp))
+    print(f"[fused_stack timing] {len(fns)} versions built in {time.perf_counter() - t0:.1f} s")
+    layout = F.scratch_layout(d, ffn, L, H, s_max, s_src)
+    y = torch.empty_like(x)
+    qkv = torch.empty((L, 3 * d), device=dev)
+    scratch = torch.empty((layout["total"],), device=dev)
+    counts = scratch[layout["counts"][0]:layout["counts"][0] + layout["counts"][1]]
+    ptrs = [t.data_ptr() for t in (y, *pack, ck, ks, cv, vs, kc, vc, qkv, scratch)]
+    stream = _lib.stream(x)
+
+    def caller(name, fn):
+        def call():
+            y.copy_(x)
+            counts.zero_()
+            err = fn(*ptrs, L, d, ffn, H, s_src, s_ck, s_max, off, stream)
+            check(err == 0, f"tpa_fused_stack ({name}): CUDA error {err}")
+        return call
+
+    calls = {n: caller(n, fn) for n, fn in fns.items()}
+    order = [o.name for o in others] + [STACK_SOURCE]
+    want = F.fused_stack_ref(pack, ck, ks, cv, vs, kc.clone(), vc.clone(), x, off, cfg=cfg,
+                             s_src=s_src)
+    outs = {}
+    for name in order:
+        calls[name]()
+        torch.cuda.synchronize()
+        outs[name] = (y.clone(), qkv[:, d:2 * d].clone(), qkv[:, 2 * d:].clone())
+    res = {}
+    for name in order:
+        err = max(rel_err(g, w) for g, w in zip(outs[name], want))
+        same = all(torch.equal(a, b) for a, b in zip(outs[name], outs[order[0]]))
+        print(f"[fused_stack timing] {name}: vs plain {err:.3e} (rtol {FUSED_RTOL}); "
+              f"bit-equal to {order[0]}: {same}")
+        check(err <= FUSED_RTOL, f"{name} disagrees with the plain version: {err}")
+        res[name] = dict(rel_err=err, bit_equal_to_first=same, ms=[])
+
+    def events_ms(call):
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(STACK_TIMING_REPS):
+            call()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / STACK_TIMING_REPS
+
+    for name in order + order[::-1]:
+        res[name]["ms"].append(events_ms(calls[name]))
+    for name in order:
+        res[name]["dev_ms"] = device_ms(calls[name])
+        res[name]["stages"] = stack_stages(calls[name], L)
+        r = res[name]
+        print(f"[fused_stack timing] {name}: per call {' '.join(f'{m:.4f}' for m in r['ms'])} "
+              f"ms, device {fmt(r['dev_ms'])}")
+        for stage, v in (r["stages"] or {}).items():
+            print(f"  {stage:13s} interval {v['interval_us']:8.3f} us, increment "
+                  f"{v['increment_us']:8.3f} us a layer")
+    print(json.dumps({"fused_stack_timing": res, "offset": off, "smi": smi}))
+    return 0
+
+
 def fused_llama_only() -> int:
     """Phase 8 alone, timing off (kernel 5's check under --mutations)."""
     import torch
@@ -3334,7 +3761,8 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--mutations"]:
         return mutations_main()
-    if sys.argv[1:] not in ([], ["--qmm"]):
+    timing = sys.argv[1:2] == ["--fused-stack-timing"]
+    if sys.argv[1:] not in ([], ["--qmm"]) and not timing:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -3353,6 +3781,9 @@ def main() -> int:
     print(smi.splitlines()[0])
     if sys.argv[1:] == ["--qmm"]:
         return qmm_main(smi.splitlines()[0])
+    if timing:
+        return fused_stack_timing_main(smi.splitlines()[0],
+                                       [Path(a).resolve() for a in sys.argv[2:]])
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -3456,7 +3887,7 @@ def main() -> int:
     kernels = [dict(name=k, **{f: r[f] for f in (
         "route", "source", "replaces", "launches", "max_abs_err", "rel_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms", "dev_ms", "plain_dev_ms")},
-        **{f: r[f] for f in ("kernel", "by_lanes", "by_shape", "by_shape_8bit", "crossover",
+        **{f: r[f] for f in ("kernel", "layer_launches", "offsets", "by_lanes", "by_shape", "by_shape_8bit", "crossover",
                              "rel_err_bf16_x", "rel_err_f16_x", "library_dev_ms", "library_rel_err",
                              "library_error", "gemv_ms", "gemv_dev_ms", "gemv_checks",
                              "gemv_rel_err") if f in r})

@@ -16,6 +16,8 @@ caller to scatter) and also return them in f32.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -25,7 +27,8 @@ from tpu_audio_torch.core import quant
 from tpu_audio_torch.ops import _lib
 
 __all__ = ["FusedPack", "supported", "supported_lanes", "pack_decoder_weights",
-           "quantize_cross_kv", "fused_stack", "fused_stack_ref",
+           "quantize_cross_kv", "scratch_layout", "fused_stack",
+           "fused_stack_ref",
            "fused_stack_lanes", "fused_stack_lanes_ref", "MAX_LANES"]
 
 MAX_LANES = 32  # int32 accumulators a GEMV thread keeps (csrc/fused_decoder_lanes.cu)
@@ -48,12 +51,16 @@ class FusedPack(NamedTuple):
 
 def supported(cfg) -> bool:
     """The shapes the CUDA kernels take: head dim 64 (every published
-    whisper size), GEMV inputs in whole 16-byte int8 vectors, and a GEMV
-    block's int8 + f32 copy of its input (5 bytes an element) plus its
-    reduction scratch within 48 KB of shared memory."""
+    whisper size), GEMV inputs in whole 16-byte int8 vectors, and within
+    48 KB of shared memory a GEMV block's int8 + f32 copy of its input (5
+    bytes an element) plus its reduction scratch, and, for the LayerNorm
+    GEMVs of the one-token kernel, the staged f32 input, LayerNorm weight
+    and bias beside them (17 bytes an element of d). The attention blocks'
+    staging (18 KB) fits at any whisper size; their combine's copy of a
+    head's partials (264 bytes a 64-position chunk) is checked per call."""
     d, ffn = cfg.d_model, cfg.decoder_ffn_dim
     return (d == 64 * cfg.decoder_attention_heads and ffn % 16 == 0
-            and 5 * max(d, ffn) + 128 <= 48 * 1024)
+            and max(5 * max(d, ffn), 17 * d) + 128 <= 48 * 1024)
 
 
 def supported_lanes(cfg, n: int) -> bool:
@@ -124,10 +131,11 @@ def _ln(x, w, b):
     return z * torch.rsqrt((z * z).mean() + 1e-5) * w + b
 
 
-def _gemv(x, w8, scale, bias, tap=None):
+def _gemv(x, w8, scale, bias, tap=None, forced=None):
     """int8(x) @ w8.T with one act scale, exact int products (float64).
     ``tap = (codes, scale, pre)`` receives the int8 codes, the scale and
-    the unrounded ``x / scale`` (``pre`` may be None)."""
+    the unrounded ``x / scale`` (``pre`` may be None); ``forced = (codes,
+    scale)`` are used for the product in place of them."""
     xs = torch.clamp(x.abs().amax() / 127.0, min=1e-12)
     pre = x / xs
     xq = torch.clamp(torch.round(pre), -127, 127)
@@ -136,17 +144,60 @@ def _gemv(x, w8, scale, bias, tap=None):
         tap[1].fill_(xs)
         if tap[2] is not None:
             tap[2][:x.numel()] = pre
+    if forced is not None:
+        xq, xs = forced[0][:x.numel()].to(x.dtype), forced[1]
     acc = (w8.double() @ xq.double()).to(torch.float32)
     return acc * (scale * xs) + bias
 
 
+def scratch_layout(d: int, ffn: int, L: int, H: int, s_max: int,
+                   s_src: int) -> dict:
+    """The one-token kernel's f32 scratch, as ``csrc/fused_decoder.cu``
+    lays it out (its ``Scratch``; :func:`fused_stack` holds the two to each
+    other through ``tpa_fused_stack_scratch``): region name -> (start,
+    length) in 4-byte words, and ``"total"``. attn, q2 and ca [d] each, h
+    [ffn], the split-S attention partials [H, nc, hd] and [H, nc, 2] with nc
+    = ceil(max(s_max, s_src) / 64), then the int32 arrival counters [L, 2
+    (self, cross), H] of the folded combines, which the wrapper zeroes once
+    a call."""
+    nc = -(-max(s_max, s_src) // _lib.ATTN_CHUNK)
+    sizes = (("attn", d), ("q2", d), ("ca", d), ("h", ffn),
+             ("part_o", H * nc * (d // H)), ("part_ml", H * nc * 2), ("counts", L * 2 * H))
+    out, at = {}, 0
+    for name, n in sizes:
+        out[name] = (at, n)
+        at += n
+    out["total"] = at
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_scratch_layout(d: int, ffn: int, L: int, H: int, s_max: int,
+                           s_src: int) -> dict:
+    """:func:`scratch_layout`, held to the kernel's own (raises if the two
+    differ: the wrapper would zero the wrong words)."""
+    layout = scratch_layout(d, ffn, L, H, s_max, s_src)
+    starts = (ctypes.c_longlong * 8)()
+    _lib.check(_lib.lib().tpa_fused_stack_scratch(d, ffn, L, H, s_max, s_src, starts),
+               "fused_stack scratch")
+    mine = [start for start, _ in list(layout.values())[:-1]] + [layout["total"]]
+    if list(starts) != mine:
+        raise RuntimeError(f"fused_stack: scratch layout {mine} differs from the "
+                           f"kernel's {list(starts)}")
+    return layout
+
+
 def fused_stack_ref(pack: FusedPack, ck, ks, cv, vs, kcache, vcache,
-                    x: torch.Tensor, offset: int, *, cfg, s_src: int, tap=None):
+                    x: torch.Tensor, offset: int, *, cfg, s_src: int, tap=None,
+                    codes=None):
     """Plain version of :func:`fused_stack` (same signature and effects).
     ``tap = (codes [L, 6, max(d, ffn)] int8, scales [L, 6] f32, pre)``
     receives each layer's six GEMV inputs as int8 codes and scales (and,
     if ``pre`` of the codes' shape in f32 is given, unrounded), in the
-    order q/k/v, out, cross-q, cross-out, fc1, fc2."""
+    order q/k/v, out, cross-q, cross-out, fc1, fc2. ``codes``, a tap of the
+    same layout (codes, scales), supplies the codes and scales the GEMVs
+    multiply in place of their own rounding (to hold a kernel to this
+    version on the kernel's own codes)."""
     d, ffn, L = cfg.d_model, cfg.decoder_ffn_dim, cfg.decoder_layers
     H = cfg.decoder_attention_heads
     hd = d // H
@@ -158,12 +209,13 @@ def fused_stack_ref(pack: FusedPack, ck, ks, cv, vs, kcache, vcache,
         w, sc, bi, ln = pack.w_in[li], pack.scales[li], pack.biases[li], pack.ln[li]
 
         def tapped(gemv):
-            return None if tap is None else (
+            return (None if tap is None else (
                 tap[0][li, gemv], tap[1][li, gemv],
-                None if tap[2] is None else tap[2][li, gemv])
+                None if tap[2] is None else tap[2][li, gemv]),
+                None if codes is None else (codes[0][li, gemv], codes[1][li, gemv]))
 
         def rows(a, b, gemv):
-            return w[a:b], sc[a:b], bi[a:b], tapped(gemv)
+            return w[a:b], sc[a:b], bi[a:b], *tapped(gemv)
 
         qkv = _gemv(_ln(resid, ln[0], ln[1]), *rows(0, 3 * d, 0))
         q, k, v = qkv[:d], qkv[d:2 * d], qkv[2 * d:]
@@ -193,7 +245,7 @@ def fused_stack_ref(pack: FusedPack, ck, ks, cv, vs, kcache, vcache,
             _gemv(_ln(resid, ln[4], ln[5]), *rows(6 * d, 6 * d + ffn, 4)),
             approximate="tanh")
         resid = resid + _gemv(h, pack.w_fc2[li], sc[6 * d + ffn:], bi[6 * d + ffn:],
-                              tapped(5))
+                              *tapped(5))
     return resid, torch.stack(newk), torch.stack(newv)
 
 
@@ -207,7 +259,9 @@ def fused_stack(pack: FusedPack, ck, ks, cv, vs, kcache, vcache,
     :func:`quantize_cross_kv` (the first ``s_src`` rows are attended).
     Writes the new k/v rows into the caches at ``offset`` and returns
     ``(y [d] f32, newk [L, d] f32, newv [L, d] f32)``. The plain version
-    runs for CPU tensors, the CUDA kernels for CUDA tensors."""
+    runs for CPU tensors, the CUDA kernels for CUDA tensors: 8 launches a
+    layer, each after the first a programmatic dependent launch, after the
+    copy of ``x`` and the zeroing of the combines' arrival counters."""
     if x.device.type == "cpu":
         return fused_stack_ref(pack, ck, ks, cv, vs, kcache, vcache, x, offset,
                                cfg=cfg, s_src=s_src)
@@ -235,12 +289,16 @@ def fused_stack(pack: FusedPack, ck, ks, cv, vs, kcache, vcache,
         req(t, name, torch.float32, (L, s_ck), dev)
     for name, t in (("kcache", kcache), ("vcache", vcache)):
         req(t, name, torch.bfloat16, (L, s_max, d), dev)
+    for name, t in (("x", x), *zip(pack._fields, pack), ("ck", ck), ("ks", ks),
+                    ("cv", cv), ("vs", vs), ("kcache", kcache), ("vcache", vcache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_stack: {name} is not 16-byte aligned")
     y = x.clone()
     qkv = torch.empty((L, 3 * d), dtype=torch.float32, device=dev)
-    # attn, q2, ca [d] each, h [ffn], then the split-S attention partials
-    nc = -(-max(s_max, s_src) // _lib.ATTN_CHUNK)
-    scratch = torch.empty((3 * d + ffn + H * nc * (d // H + 2),),
-                          dtype=torch.float32, device=dev)
+    layout = _kernel_scratch_layout(d, ffn, L, H, s_max, s_src)
+    scratch = torch.empty((layout["total"],), dtype=torch.float32, device=dev)
+    counts = layout["counts"]
+    scratch[counts[0]:counts[0] + counts[1]].zero_()  # int32 zeros: the same bits
     with torch.cuda.device(dev):
         err = _lib.lib().tpa_fused_stack(
             y.data_ptr(), pack.w_in.data_ptr(), pack.w_fc2.data_ptr(),
