@@ -71,7 +71,8 @@ Then Orpheus serving, on the same model:
    the cache's end, ...: each lane bit-equal to kernel 5 on that lane's
    inputs (outputs, cache rows written, int8 codes), against its plain
    version by kernel 5's rule, no other row changed; and a 2-layer qk_norm
-   stack the same way. Both versions are timed at each lane count;
+   stack the same way. One call at 1 and at 4 lanes must launch 10 kernels
+   a layer. Both versions are timed at each lane count;
 12. serves six staggered greedy requests through ``ContinuousTTS`` (4
    slots, 210 tokens each) with the counters reset just before and read
    just after, every tick under ``torch.cuda.set_sync_debug_mode("error")``
@@ -142,6 +143,9 @@ the kernel 3 of each checkout given (for example a parent's, ``git archive
 HEAD tpu_audio_torch/csrc`` unpacked into ``_chip/parent``, or a copy with
 a variant of ``csrc/fused_decoder.cu``) in turns, with each version's stage
 breakdown and the source's ptxas registers and spills.
+``python3 chip_smoke.py --llama-lanes-timing [CHECKOUT ...]`` does the same
+for kernel 6 (``csrc/fused_llama_lanes.cu``) at Orpheus-3B width on phase
+11's random inputs at 1, 4, 8 and 28 lanes.
 
 ``python3 chip_smoke.py --mutations`` instead runs the standing mutation
 check: each kernel's check alone on copies of the checkout with its source
@@ -152,7 +156,9 @@ kernel 5, phase 8 with a wrong RMSNorm row, the
 RoPE sign on the wrong half, query heads reading the next K/V head; for
 kernel 6, phase 11 with lane m's RoPE angle from lane 0's offset, attention
 from row 0 instead of the lane's valid_from, lane m reading the next lane's
-slot; for kernel 7, phase 15 with the codes read most significant first,
+slot, the folded combine reading the next lane's partials or dropping the
+lane's last chunk, the staged K/V rows taken from the next KV head; for
+kernel 7, phase 15 with the codes read most significant first,
 the scale of the neighbouring group, the bias added without its group sum,
 in the GEMV and in the tile, the decode kernel's scale of the neighbouring
 group and bias without its chunk's sum of x, and the tile without x's low
@@ -231,10 +237,16 @@ LOGITS_RTOL = 3e-2   # teacher-forced logits of the whole path, relative
 STACK_OFFSETS = (0, 63, 64, 100, 447)
 STACK_TIME_OFFSET = 100
 STACK_LAYER_LAUNCHES = 8  # kernel 3 a layer: 6 GEMVs and 2 attention launches
-# sleep kernels that open each launch-count window: late in the full run the
-# profiler drops a window's first device events (on an H100 two or three:
-# the wrapper's copy of x, its zeroing and once a kernel of the call)
-STACK_MARKERS = 16
+# sleep kernels that open and close each profiler window. torch.profiler
+# drops a window's first device events, more of them late in a long process
+# (on an H100 up to 21: every one of 16 leading markers, the wrapper's copy
+# of x and zeroing, and three kernels of the call; a window of one short
+# call can lose all). So a window opens with leading markers, and a launch
+# count stands only where a leading and a trailing marker were both kept:
+# the call's events then lie between kept ones. Each read again waits longer
+# on the host and opens with more markers: (wait s, leading markers).
+STACK_MARKERS = 16  # trailing markers
+STACK_READS = ((0.01, 64), (0.1, 256), (0.5, 1024), (2.0, 4096))
 # the kernels of csrc/fused_decoder.cu, and of the parent's (10 a layer)
 STACK_KERNELS = ("fs_gemv", "fs_self_attn", "fs_cross_attn", "int8_gemv_kernel",
                  "self_attn_partial", "cross_attn_partial", "attn_combine_kernel")
@@ -300,9 +312,24 @@ QK_NORM_CHECKS = [(64, 5), (1025, 0)]  # also the checks of LLAMA_WIDE
 LLAMA_WIDE = dict(num_hidden_layers=2, hidden_size=4096, num_attention_heads=32,
                   intermediate_size=14336)
 LLAMA_TIME_OFFSET = 400  # position of the per-call timing and its bound
-# kernels 5 and 6 launch 11 kernels a layer: 4 quantise, 4 GEMV, RoPE,
+# kernel 5 launches 11 kernels a layer: 4 quantise, 4 GEMV, RoPE,
 # attention partials, combine
 LLAMA_LAYER_LAUNCHES = 11
+# kernel 6 launches 10 a layer: 4 quantise, 4 GEMV, RoPE, attention with its
+# combine folded in (csrc/fused_llama_lanes.cu); its launch count is read at
+# these lane counts
+LLAMA_LANES_LAYER_LAUNCHES = 10
+LLAMA_LANES_COUNTED = (1, 4)
+# the kernels of csrc/fused_llama_lanes.cu ("fl6_"), and of the parent's (11
+# a layer); each version's stages of a layer in launch order
+LLAMA_LANES_KERNELS = ("fl6_", "rms_quantize_rows_kernel", "int8_gemv_lanes_kernel",
+                       "rope_qk_lanes_kernel", "gqa_attn_partial_lanes", "attn_combine_lanes")
+LLAMA_LANES_STAGES = {10: ("quantise q/k/v", "q/k/v", "rope", "attention", "quantise o", "o",
+                           "quantise gate/up", "gate/up", "quantise down", "down"),
+                      11: ("quantise q/k/v", "q/k/v", "rope", "attention", "combine",
+                           "quantise o", "o", "quantise gate/up", "gate/up", "quantise down",
+                           "down")}
+LLAMA_LANES_TIMING_COUNTS = (1, 4, 8, 28)
 # the least share of a timed run's device events the profiler must keep for
 # device_ms to take the run (readings late in chip_smoke: 0.9919 and 0.9998
 # of the events; once a run kept two thirds of the device time)
@@ -325,6 +352,9 @@ TTS_PROFILE_TOKENS = 32
 LLAMA_LANE_COUNTS = (1, 4, 8)
 LLAMA_LANE_CHECKS = [(0, 0), (63, 5), (1025, 40), (400, 0), (64, 0), (700, 12), (200, 3),
                      (LLAMA_S_MAX + 10, 0)]
+# two lanes over the longest cache kernel 6 takes (LANES_S_MAX rows): one at
+# its last row from row 0, its combine over every chunk at once
+LLAMA_LONG_CACHE_CHECKS = [(28351, 0), (20000, 37)]
 TTS_SERVE_SLOTS, TTS_SERVE_MAX_TOKENS, TTS_HTTP_TOKENS = 4, 210, 70
 TTS_SERVE_TEXTS = ["Hello there.", "The quick brown fox jumps over the lazy dog.",
                    "Serving six requests at once.", "A fourth, rather shorter one.",
@@ -396,6 +426,14 @@ MUTATIONS = {
         ("lane m's attention reads slot lanes[(m + 1) % n]",
          "const size_t base = (size_t)lanes[m] * slot_stride;",
          "const size_t base = (size_t)lanes[(m + 1) % gridDim.z] * slot_stride;"),
+        ("the folded combine reads the neighbouring lane's partials",
+         "const size_t hb0 = ((size_t)m * heads + g * rep + r0) * nc_all;",
+         "const size_t hb0 = ((size_t)((m + 1) % gridDim.z) * heads + g * rep + r0) * nc_all;"),
+        ("the folded combine drops the lane's last chunk",
+         "sml + grp * 2 * nc, nc, HD, t)", "sml + grp * 2 * nc, nc - 1, HD, t)"),
+        ("the staged K/V rows come from KV head (g + 1) % kv_heads",
+         "const size_t kv_at = base + (size_t)g * HD;",
+         "const size_t kv_at = base + (size_t)((g + 1) % gridDim.y) * HD;"),
     ]),
     "quantized_matvec": ("tpu_audio_torch/csrc/qmm.cu", "qmm_only", [
         ("codes read most significant first",
@@ -488,6 +526,16 @@ def by_kernel(prof) -> dict[str, list]:
     return out
 
 
+def markers(k: int) -> None:
+    """``k`` short sleep kernels and a synchronize: the uncounted events that
+    open or close a profiler window (STACK_READS)."""
+    import torch
+
+    for _ in range(k):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
 def device_intervals(prof) -> list[tuple[float, float, str]]:
     """(start, end) microseconds and name of each device activity (kernels,
     copies) a ``torch.profiler`` run recorded, in order of start."""
@@ -502,8 +550,8 @@ def device_busy(prof) -> tuple[float, int]:
     union of the recorded intervals, overlaps merged: a programmatic
     dependent launch's interval includes its wait on its predecessor, so
     kernel 3's intervals overlap; where none overlap this is their sum) and
-    the count of the activities."""
-    spans = device_intervals(prof)
+    the count of the activities, leaving out the sleep kernels of markers()."""
+    spans = [s for s in device_intervals(prof) if "spin_kernel" not in s[2]]
     busy, end = 0.0, -math.inf
     for a, b, _ in spans:
         if b > end:
@@ -527,9 +575,11 @@ def device_ms(fn, reps: int = 10, launches: int = 0, busy: float = 0.0) -> float
     lost, the second with every event kept. So each timed run is checked:
     it keeps DEVICE_EVENTS_KEPT or more of ``reps`` times the events of one
     call (the count the profiler records for one call alone, and at least
-    ``launches``), its device time lies within the span that CUDA events
-    around the calls measure, and, for a function that keeps the device
-    busy back to back, fills at least ``busy`` of that span. A run that
+    ``launches``; the window opens with uncounted markers, so that the
+    events the profiler drops first are theirs), its device time lies within
+    the span that CUDA events around the calls measure, and, for a function
+    that keeps the device busy back to back, fills at least ``busy`` of
+    that span. A run that
     fails a check is measured again; after three the reading is None (not
     measured), with a line saying why, as where the profiler records no
     device activity."""
@@ -539,6 +589,7 @@ def device_ms(fn, reps: int = 10, launches: int = 0, busy: float = 0.0) -> float
     def run(k):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            markers(STACK_READS[0][1])
             start.record()
             for _ in range(k):
                 fn()
@@ -887,44 +938,50 @@ def stack_caches(cfg, off: int, gen, dev):
     return kc, vc
 
 
-def stack_launches(fn, n_layers: int) -> float:
-    """Kernel 3's launches a layer in one call of ``fn``, counted from the
-    device activity ``torch.profiler`` records: it fails unless there are
-    STACK_LAYER_LAUNCHES a layer and at most two other activities (the
-    wrapper's copy of x and the zeroing of its counters). Each window opens
-    with STACK_MARKERS sleep kernels and a synchronize, so that the leading
-    events the profiler drops are markers, not the call's; the markers are
-    not counted. A window that still lost a kernel of the call is read
-    again, three times at most; a count above the wanted one fails at
-    once."""
+def stack_launches(fn, n_layers: int, per_layer: int = STACK_LAYER_LAUNCHES,
+                   kernels_of=STACK_KERNELS, label: str = "fused_stack") -> float:
+    """A stack kernel's launches a layer in one call of ``fn`` (kernel 3's
+    by default; kernel 6 gives its own count, kernel names and label),
+    counted from the device activity ``torch.profiler`` records: it fails
+    unless there are ``per_layer`` a layer and at most two other activities
+    (the wrapper's copy of x and the zeroing of its counters). Each window
+    brackets the call with sleep kernels before and after it, each set
+    behind a synchronize and a wait on the host (STACK_READS); the markers
+    are not counted. A window that kept no leading or no trailing marker may
+    have lost events of the call, and is read again, with a longer wait and
+    more leading markers; a count above the wanted one fails at once."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    want = STACK_LAYER_LAUNCHES * n_layers
-    for _ in range(3):
+    want = per_layer * n_layers
+    for lead, leading in STACK_READS:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(STACK_MARKERS):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
+            time.sleep(lead)
+            markers(leading)
             fn()
             torch.cuda.synchronize()
+            markers(STACK_MARKERS)
+            time.sleep(lead)
         names = [n for *_, n in device_intervals(prof)]
-        markers = sum("spin_kernel" in n for n in names)
-        names = [n for n in names if "spin_kernel" not in n]
-        others = [n for n in names if not any(k in n for k in STACK_KERNELS)]
+        call = [i for i, n in enumerate(names) if "spin_kernel" not in n]
+        before = call[0] if call else 0
+        after = len(names) - 1 - call[-1] if call else 0
+        names = [names[i] for i in call]
+        others = [n for n in names if not any(k in n for k in kernels_of)]
         kernels = len(names) - len(others)
-        if kernels >= want:
+        kept = (f"{before} of {leading} leading and {after} of {STACK_MARKERS} trailing "
+                f"markers kept, {lead} s wait")
+        if kernels > want or (before and after):
             break
-        print(f"[fused_stack launches] the profile kept {kernels} of {want} kernels "
-              f"and {markers} of {STACK_MARKERS} markers: reading again")
-    print(f"[fused_stack launches] one call: {kernels} kernels ({kernels / n_layers:g} a "
-          f"layer), {len(others)} other device activities {sorted(set(others))}; "
-          f"{markers} of {STACK_MARKERS} markers kept")
-    check(kernels == want and len(others) <= 2,
-          f"fused_stack launched {kernels} kernels ({kernels / n_layers:g} a layer, "
-          f"{STACK_LAYER_LAUNCHES} wanted) and {len(others)} other activities")
+        print(f"[{label} launches] the profile kept {kernels} of {want} kernels and "
+              f"{kept}: reading again")
+    print(f"[{label} launches] one call: {kernels} kernels ({kernels / n_layers:g} a "
+          f"layer), {len(others)} other device activities {sorted(set(others))}; {kept}")
+    check(kernels == want and len(others) <= 2 and before and after,
+          f"{label} launched {kernels} kernels ({kernels / n_layers:g} a layer, "
+          f"{per_layer} wanted) and {len(others)} other activities; {kept}")
     return kernels / n_layers
 
 
@@ -2183,12 +2240,13 @@ def tts_ttfb_phase(model) -> dict:
     return out
 
 
-def llama_lane_inputs(model, dev, slots: int, n: int, seed: int):
-    """A stacked [slots, L, LLAMA_S_MAX, dkv] state with every row of every
-    slot random (rows below a lane's valid_from and above its offset
-    included, so a masking or slot error shows), the n lanes' slots in
-    shuffled order (LANE_ORDER for 8 slots), their (offset, valid_from)
-    (LLAMA_LANE_CHECKS, then seeded ones) and embedded band tokens."""
+def llama_lane_inputs(model, dev, slots: int, n: int, seed: int, s_max: int = LLAMA_S_MAX,
+                      lane_checks=LLAMA_LANE_CHECKS):
+    """A stacked [slots, L, s_max, dkv] state with every row of every slot
+    random (rows below a lane's valid_from and above its offset included,
+    so a masking or slot error shows), the n lanes' slots in shuffled order
+    (LANE_ORDER for 8 slots), their (offset, valid_from) (``lane_checks``,
+    then seeded ones) and embedded band tokens."""
     import numpy as np
     import torch
 
@@ -2197,15 +2255,15 @@ def llama_lane_inputs(model, dev, slots: int, n: int, seed: int):
     cfg = model.config
     L, dkv = cfg.num_hidden_layers, cfg.num_key_value_heads * 128
     gen = torch.Generator(device=dev).manual_seed(seed)
-    kc = (torch.randn((slots, L, LLAMA_S_MAX, dkv), generator=gen, device=dev) * 0.7
+    kc = (torch.randn((slots, L, s_max, dkv), generator=gen, device=dev) * 0.7
           ).to(torch.bfloat16)
-    vc = (torch.randn((slots, L, LLAMA_S_MAX, dkv), generator=gen, device=dev) * 0.7
+    vc = (torch.randn((slots, L, s_max, dkv), generator=gen, device=dev) * 0.7
           ).to(torch.bfloat16)
     rng = np.random.default_rng(seed)
     order = LANE_ORDER if slots == LANE_SLOTS else rng.permutation(slots).tolist()
-    checks = list(LLAMA_LANE_CHECKS)
+    checks = list(lane_checks)
     while len(checks) < n:
-        off = int(rng.integers(0, LLAMA_S_MAX))
+        off = int(rng.integers(0, s_max))
         checks.append((off, int(rng.integers(0, min(off, 64) + 1))))
     toks = torch.tensor([model.tokens.audio_token_offset + 4096 * (m % 7) + 11 * m + seed
                          for m in range(n)], device=dev)
@@ -2306,8 +2364,10 @@ def llama_lanes_check(name, model, kc, vc, lanes, checks, x) -> dict:
 def llama_lanes_phase(model, dev, timing: bool = True) -> dict:
     """Kernel 6 at Orpheus-3B width at n in LLAMA_LANE_COUNTS over an 8-slot
     state and at the largest n supported_lanes takes over a state of that
-    many slots, and a 2-layer qk_norm stack at n = 4 (llama_lanes_check);
-    with ``timing``, kernel and plain version timed at each n."""
+    many slots, and a 2-layer qk_norm stack at n = 4 and over the longest
+    cache the wrapper takes (LANES_S_MAX rows; one more is refused) at n =
+    2 (llama_lanes_check); with ``timing``, kernel and plain version timed
+    at each n."""
     import torch
 
     from tpu_audio_torch.ops import fused_llama as FL
@@ -2322,40 +2382,51 @@ def llama_lanes_phase(model, dev, timing: bool = True) -> dict:
         kc, vc, lanes, offs, x = llama_lane_inputs(small, dev, LANE_SLOTS, 4, 20)
         checks.append(llama_lanes_check("fused_llama_lanes qk_norm L=2", small, kc, vc, lanes,
                                         offs, x))
-        del small, kc, vc
+        del kc, vc
+        kc, vc, lanes, offs, x = llama_lane_inputs(small, dev, 2, 2, 21, FL.LANES_S_MAX,
+                                                   LLAMA_LONG_CACHE_CHECKS)
+        checks.append(llama_lanes_check(f"fused_llama_lanes qk_norm L=2 S_max={FL.LANES_S_MAX}",
+                                        small, kc, vc, lanes, offs, x))
+        over = torch.empty((1, 2, FL.LANES_S_MAX + 1, kc.shape[3]), dtype=kc.dtype, device=dev)
+        zero = torch.zeros((1,), dtype=torch.int64, device=dev)
+        try:
+            FL.fused_llama_stack_lanes(small.fused_decoder_pack(), over, over, zero, x[:1], zero,
+                                       zero, cfg=small.config)
+            refused = False
+        except ValueError as e:
+            refused = "takes at most" in str(e)
+        check(refused, f"fused_llama_stack_lanes took a cache of {FL.LANES_S_MAX + 1} rows")
+        del small, kc, vc, over
         for n in LLAMA_LANE_COUNTS + (n_max,):
             slots = max(LANE_SLOTS, n)
             kc, vc, lanes, offs, x = llama_lane_inputs(model, dev, slots, n, n)
             rec = llama_lanes_check("fused_llama_lanes", model, kc, vc, lanes, offs, x)
             checks.append(rec)
-            if timing:
-                pack = model.fused_decoder_pack()
-                kr, vr = kc.clone(), vc.clone()
-                args = [torch.tensor(v, dtype=torch.int64, device=dev) for v in
-                        (lanes, [o for o, _ in offs], [vf for _, vf in offs])]
+            pack = model.fused_decoder_pack()
+            args = [torch.tensor(v, dtype=torch.int64, device=dev) for v in
+                    (lanes, [o for o, _ in offs], [vf for _, vf in offs])]
 
-                def kern():
-                    return FL.fused_llama_stack_lanes(pack, kc, vc, args[0], x, args[1],
-                                                      args[2], cfg=cfg)
+            def kern():
+                return FL.fused_llama_stack_lanes(pack, kc, vc, args[0], x, args[1],
+                                                  args[2], cfg=cfg)
+
+            if n in LLAMA_LANES_COUNTED:
+                rec["layer_launches"] = stack_launches(
+                    kern, cfg.num_hidden_layers, LLAMA_LANES_LAYER_LAUNCHES,
+                    LLAMA_LANES_KERNELS, f"fused_llama_stack_lanes n={n}")
+            if timing:
+                kr, vr = kc.clone(), vc.clone()
 
                 def plain():
                     return FL.fused_llama_stack_lanes_ref(pack, kr, vr, args[0], x, args[1],
                                                           args[2], cfg=cfg)
 
-                out = kern()
-                L, d, dkv = cfg.num_hidden_layers, cfg.hidden_size, cfg.num_key_value_heads * 128
-                rows = sum(min(o, LLAMA_S_MAX - 1) - vf + 1 for o, vf in offs)
-                # the weights, scales and norms once; per lane the cache rows
-                # it attends (valid_from..offset), x in, y and the new k/v out
-                b_ms, b_by = bound(
-                    nbytes(pack.w_in, pack.w_down, pack.scales, pack.norms, pack.inv_freq,
-                           x, *out) + 2 * L * rows * dkv * 2,
-                    int8_ops=2 * n * L * d * (pack.w_in.shape[1] + cfg.intermediate_size),
-                    f32_ops=4 * L * rows * cfg.num_attention_heads * 128)
+                L = cfg.num_hidden_layers
+                b_ms, b_by = llama_lanes_bound(pack, cfg, x, kern(), offs)
                 rec.update(bound_ms=b_ms, bound_by=b_by, ms=cuda_ms(kern),
                            plain_ms=cuda_ms(plain, reps=3, warmup=1),
-                           dev_ms=device_ms(kern, launches=LLAMA_LAYER_LAUNCHES * L,
-                                    busy=DEVICE_BUSY),
+                           dev_ms=device_ms(kern, launches=LLAMA_LANES_LAYER_LAUNCHES * L,
+                                            busy=DEVICE_BUSY),
                            plain_dev_ms=device_ms(plain, reps=1))
                 print(f"[time] fused_llama_stack_lanes n={n}: per call kernel "
                       f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms; device kernel "
@@ -2631,11 +2702,13 @@ def tts_throughput_phase(model) -> list[dict]:
         tok_s = slots * step_tokens / tick
         solo = tok_s if slots == 1 else solo
         # kernel 6 alone launches this many a tick; a profile that records
-        # fewer dropped events (device_ms) and is taken again
-        want = step_tokens * LLAMA_LAYER_LAUNCHES * model.config.num_hidden_layers
-        for _ in range(3):
+        # fewer dropped events (device_ms) and is taken again after a longer
+        # wait on the host (STACK_READS)
+        want = step_tokens * LLAMA_LANES_LAYER_LAUNCHES * model.config.num_hidden_layers
+        for lead, _ in STACK_READS[:3]:
             eng = engine(slots)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(lead)
                 t0 = time.perf_counter()
                 eng.step()
                 torch.cuda.synchronize()
@@ -3531,13 +3604,14 @@ def fused_stack_only() -> int:
     return 0
 
 
-def stack_libraries(others: list, tmp: Path) -> dict:
-    """``tpa_fused_stack`` of csrc/fused_decoder.cu as it stands (named
-    STACK_SOURCE) and of each checkout in ``others`` (the roots of other
-    checkouts, named by their directories), each built into a shared
-    library of its own, one nvcc each, all started together. The source as
-    it stands is built with ``-Xptxas -v`` and its registers and spills are
-    printed. Returns name -> C function."""
+def stack_libraries(others: list, tmp: Path, source: str = "fused_decoder.cu",
+                    entry: str = "tpa_fused_stack") -> dict:
+    """The C entry ``entry`` of csrc/``source`` (kernel 3's by default) as it
+    stands (named STACK_SOURCE) and of each checkout in ``others`` (the
+    roots of other checkouts, named by their directories), each built into
+    a shared library of its own, one nvcc each, all started together. The
+    source as it stands is built with ``-Xptxas -v`` and its registers and
+    spills are printed. Returns name -> C function."""
     import ctypes
 
     from tpu_audio_torch.ops import _lib
@@ -3552,32 +3626,35 @@ def stack_libraries(others: list, tmp: Path) -> dict:
         so = dst / "libstack.so"
         flags = [*_lib.NVCC_FLAGS, *(["-Xptxas", "-v"] if name == STACK_SOURCE else [])]
         jobs[name] = (so, subprocess.Popen(
-            [_lib._nvcc(), *flags, "-shared", "-o", str(so), str(dst / "fused_decoder.cu")],
+            [_lib._nvcc(), *flags, "-shared", "-o", str(so), str(dst / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns = {}
     for name, (so, proc) in jobs.items():
         out = proc.communicate(timeout=600)[0]
         check(proc.returncode == 0, f"nvcc {name}: {out}")
         if name == STACK_SOURCE:
-            entry = None
+            kernel = None
             for ln in out.splitlines():
                 if "Compiling entry function" in ln:
-                    entry = ln.split("'")[1]
-                elif "Used" in ln and entry is not None:
-                    print(f"[ptxas] {entry[:72]}: {ln.split(':', 1)[1].strip()}")
-                elif "spill" in ln and entry is not None and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill"):
-                    print(f"[ptxas] {entry[:72]}: {ln.strip()}")
-        fn = ctypes.CDLL(str(so)).tpa_fused_stack
-        fn.argtypes = _lib._SIGNATURES["tpa_fused_stack"]
+                    kernel = ln.split("'")[1]
+                elif "Used" in ln and kernel is not None:
+                    print(f"[ptxas] {kernel[:72]}: {ln.split(':', 1)[1].strip()}")
+                elif "spill" in ln and kernel is not None and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill"):
+                    print(f"[ptxas] {kernel[:72]}: {ln.strip()}")
+        fn = getattr(ctypes.CDLL(str(so)), entry)
+        fn.argtypes = _lib._SIGNATURES[entry]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
 
 
-def stack_stages(fn, n_layers: int, reps: int = 5) -> dict | None:
-    """Kernel 3's time by stage of a layer over ``reps`` calls of ``fn``,
-    from the kernels' device intervals in launch order (8 a layer, or the
-    parent's 10): microseconds a layer of each stage's interval (with PDL it
+def stack_stages(fn, n_layers: int, reps: int = 5, kernels_of=STACK_KERNELS,
+                 stages=STACK_STAGES, label: str = "fused_stack") -> dict | None:
+    """A stack kernel's time by stage of a layer over ``reps`` calls of
+    ``fn``, from the device intervals of the kernels named in
+    ``kernels_of``, in launch order; ``stages`` maps the launches a layer to
+    their stage names (kernel 3's by default: 8 a layer, or the parent's
+    10). Microseconds a layer of each stage's interval (with PDL it
     includes the wait on its predecessor) and of its increment of the
     chain's end (its end less the previous kernel's). None where the
     profile lost kernels."""
@@ -3590,13 +3667,13 @@ def stack_stages(fn, n_layers: int, reps: int = 5) -> dict | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = [(a, b) for a, b, n in device_intervals(prof) if any(k in n for k in STACK_KERNELS)]
+    spans = [(a, b) for a, b, n in device_intervals(prof) if any(k in n for k in kernels_of)]
     per_layer = len(spans) // (reps * n_layers)
-    if per_layer not in STACK_STAGES or len(spans) != per_layer * reps * n_layers:
-        print(f"[fused_stack stages] the profile kept {len(spans)} kernels of {reps} calls: "
+    if per_layer not in stages or len(spans) != per_layer * reps * n_layers:
+        print(f"[{label} stages] the profile kept {len(spans)} kernels of {reps} calls: "
               f"not measured")
         return None
-    names = STACK_STAGES[per_layer]
+    names = stages[per_layer]
     out = {n: [0.0, 0.0] for n in names}
     for call in range(reps):
         prev = None
@@ -3674,30 +3751,147 @@ def fused_stack_timing_main(smi: str, others: list) -> int:
         check(err <= FUSED_RTOL, f"{name} disagrees with the plain version: {err}")
         res[name] = dict(rel_err=err, bit_equal_to_first=same, ms=[])
 
-    def events_ms(call):
-        for _ in range(3):
-            call()
-        torch.cuda.synchronize()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(STACK_TIMING_REPS):
-            call()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / STACK_TIMING_REPS
+    time_in_turns("fused_stack", calls, order, res, L)
+    print(json.dumps({"fused_stack_timing": res, "offset": off, "smi": smi}))
+    return 0
 
+
+def events_ms(call) -> float:
+    """Milliseconds a call of ``call`` over STACK_TIMING_REPS back-to-back
+    calls (CUDA events around them), after three warm-up calls."""
+    import torch
+
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(STACK_TIMING_REPS):
+        call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / STACK_TIMING_REPS
+
+
+def time_in_turns(label: str, calls: dict, order: list, res: dict, n_layers: int,
+                  kernels_of=STACK_KERNELS, stages=STACK_STAGES) -> None:
+    """Times each version's call in turns (each in ``order``, then each again
+    in reverse order) into ``res[name]["ms"]``, then its device time
+    (``dev_ms``) and stage breakdown (``stages``), and prints them."""
     for name in order + order[::-1]:
         res[name]["ms"].append(events_ms(calls[name]))
     for name in order:
         res[name]["dev_ms"] = device_ms(calls[name])
-        res[name]["stages"] = stack_stages(calls[name], L)
+        res[name]["stages"] = stack_stages(calls[name], n_layers, kernels_of=kernels_of,
+                                           stages=stages, label=label)
         r = res[name]
-        print(f"[fused_stack timing] {name}: per call {' '.join(f'{m:.4f}' for m in r['ms'])} "
+        print(f"[{label} timing] {name}: per call {' '.join(f'{m:.4f}' for m in r['ms'])} "
               f"ms, device {fmt(r['dev_ms'])}")
         for stage, v in (r["stages"] or {}).items():
-            print(f"  {stage:13s} interval {v['interval_us']:8.3f} us, increment "
+            print(f"  {stage:16s} interval {v['interval_us']:8.3f} us, increment "
                   f"{v['increment_us']:8.3f} us a layer")
-    print(json.dumps({"fused_stack_timing": res, "offset": off, "smi": smi}))
+
+
+def llama_lanes_bound(pack, cfg, x, out, offs) -> tuple[float, str]:
+    """Kernel 6's bound on one call: the weights, scales and norms once; per
+    lane the cache rows it attends (valid_from..offset), x in, y and the new
+    k/v out; the int8 products and the attention's f32 operations."""
+    L, d, dkv = cfg.num_hidden_layers, cfg.hidden_size, cfg.num_key_value_heads * 128
+    n = x.shape[0]
+    rows = sum(min(o, LLAMA_S_MAX - 1) - vf + 1 for o, vf in offs)
+    return bound(nbytes(pack.w_in, pack.w_down, pack.scales, pack.norms, pack.inv_freq,
+                        x, *out) + 2 * L * rows * dkv * 2,
+                 int8_ops=2 * n * L * d * (pack.w_in.shape[1] + cfg.intermediate_size),
+                 f32_ops=4 * L * rows * cfg.num_attention_heads * 128)
+
+
+def llama_lanes_timing_main(smi: str, others: list) -> int:
+    """``--llama-lanes-timing [CHECKOUT ...]``: kernel 6 at Orpheus-3B width
+    on phase 11's random inputs (llama_lane_inputs) at each n of
+    LLAMA_LANES_TIMING_COUNTS, built from the source as it stands and from
+    each other checkout given (a parent commit's, or a copy with a variant
+    of the kernel, named by its directory): each version bit for bit against
+    the first and, per lane, against the plain version fed the first's int8
+    codes (FORCED_RTOL), then per call (CUDA events around
+    STACK_TIMING_REPS back-to-back calls, each with its copy of x and
+    zeroing of the counters) in turns, device time (profiler, the union of
+    intervals) and the stage breakdown of a layer by kernel. Every version
+    gets the scratch of the source's layout; the 11-launch kernel's regions
+    are its first ones (a checkout laid out otherwise needs its own size).
+    Prints one JSON line (no "ok" line)."""
+    import torch
+
+    from tpu_audio_torch.ops import _lib
+    from tpu_audio_torch.ops import fused_llama as FL
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="stack_libs_") as tmp:
+        fns = stack_libraries(others, Path(tmp), "fused_llama_lanes.cu",
+                              "tpa_fused_llama_stack_lanes")
+    print(f"[fused_llama_lanes timing] {len(fns)} versions built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    model = build_orpheus(dev)
+    cfg = model.config
+    pack = model.fused_decoder_pack()
+    L, d, ffn = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
+    H, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
+    dkv = n_kv * FL.HEAD_DIM
+    order = [o.name for o in others] + [STACK_SOURCE]
+    out = {}
+    with torch.inference_mode():
+        for n in LLAMA_LANES_TIMING_COUNTS:
+            kc, vc, lanes, offs, x = llama_lane_inputs(model, dev, max(LANE_SLOTS, n), n, n)
+            snap_k, snap_v = kc.clone(), vc.clone()
+            lanes_t, offs_t, vfs_t = (torch.tensor(v, dtype=torch.int64, device=dev) for v in
+                                      (lanes, [o for o, _ in offs], [vf for _, vf in offs]))
+            layout = FL.lanes_scratch_layout(n, L, d, ffn, H, n_kv, kc.shape[2])
+            y = torch.empty_like(x)
+            qkv = torch.empty((L, n, d + 2 * dkv), device=dev)
+            scratch = torch.empty((layout["total"],), device=dev)
+            counts = scratch[layout["counts"][0]:layout["counts"][0] + layout["counts"][1]]
+            xq = torch.empty((n * max(d, ffn),), dtype=torch.int8, device=dev)
+            tap = llama_taps(cfg, dev, False, n)
+            ptrs = [t.data_ptr() for t in (y, offs_t, vfs_t, lanes_t, *pack, kc, vc, qkv, scratch,
+                                           xq)]
+            tail = (n, L, d, ffn, H, n_kv, kc.shape[2], int(bool(cfg.qk_norm)),
+                    float(cfg.rms_norm_eps), _lib.stream(x))
+
+            def caller(name, fn, taps=(0, 0)):
+                def call():
+                    y.copy_(x)
+                    counts.zero_()
+                    err = fn(*ptrs, *taps, *tail)
+                    check(err == 0, f"tpa_fused_llama_stack_lanes ({name}): CUDA error {err}")
+                return call
+
+            calls = {name: caller(name, fn) for name, fn in fns.items()}
+            caller(order[0], fns[order[0]], (tap[0].data_ptr(), tap[1].data_ptr()))()
+            forced = FL.fused_llama_stack_lanes_ref(pack, snap_k.clone(), snap_v.clone(), lanes_t,
+                                                    x, offs_t, vfs_t, cfg=cfg, codes=tap)
+            res, first = {}, None
+            for name in order:
+                calls[name]()
+                torch.cuda.synchronize()
+                got = (y.clone(), qkv.clone())
+                first = first or got
+                err = max(rel_err(a, b) for m in range(n) for a, b in zip(
+                    (got[0][m], got[1][:, m, d:d + dkv], got[1][:, m, d + dkv:]),
+                    (forced[0][m], forced[1][:, m], forced[2][:, m])))
+                same = all(torch.equal(a, b) for a, b in zip(got, first))
+                print(f"[fused_llama_lanes timing] n={n} {name}: vs plain fed {order[0]}'s codes "
+                      f"{err:.3e} (rtol {FORCED_RTOL}); bit-equal to {order[0]}: {same}")
+                check(err <= FORCED_RTOL,
+                      f"{name} at n={n} disagrees with the plain version: {err}")
+                res[name] = dict(rel_err=err, bit_equal_to_first=same, ms=[])
+            b_ms, b_by = llama_lanes_bound(pack, cfg, x, (y, qkv[:, :, d:d + dkv],
+                                                          qkv[:, :, d + dkv:]), offs)
+            print(f"[fused_llama_lanes timing] n={n}: bound {b_ms:.4f} ms ({b_by})")
+            time_in_turns(f"fused_llama_lanes n={n}", calls, order, res, L,
+                          kernels_of=LLAMA_LANES_KERNELS, stages=LLAMA_LANES_STAGES)
+            out[str(n)] = dict(bound_ms=b_ms, bound_by=b_by, offsets=offs, versions=res)
+            del kc, vc, snap_k, snap_v, forced
+    print(json.dumps({"fused_llama_lanes_timing": out, "smi": smi}))
     return 0
 
 
@@ -3761,7 +3955,8 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--mutations"]:
         return mutations_main()
-    timing = sys.argv[1:2] == ["--fused-stack-timing"]
+    timing = {"--fused-stack-timing": fused_stack_timing_main,
+              "--llama-lanes-timing": llama_lanes_timing_main}.get(next(iter(sys.argv[1:]), ""))
     if sys.argv[1:] not in ([], ["--qmm"]) and not timing:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -3782,8 +3977,7 @@ def main() -> int:
     if sys.argv[1:] == ["--qmm"]:
         return qmm_main(smi.splitlines()[0])
     if timing:
-        return fused_stack_timing_main(smi.splitlines()[0],
-                                       [Path(a).resolve() for a in sys.argv[2:]])
+        return timing(smi.splitlines()[0], [Path(a).resolve() for a in sys.argv[2:]])
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")

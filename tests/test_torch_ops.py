@@ -597,7 +597,9 @@ def test_fused_llama_stack_lanes_ref_lanes_equal_b1():
 def test_supported_lanes_llama_states_the_kernel_limit():
     """The lanes GEMV stages n int8 rows of the widest input in shared
     memory: at Orpheus-3B's ffn 8192, 28 lanes fit in the 227 KB a block may
-    opt into and 29 do not."""
+    opt into and 29 do not. Its quantise stages three f32 rows of the widest
+    input: Llama-3.1-8B (ffn 14,336) fits, with 16 lanes, and Llama-3.1-70B
+    (ffn 28,672) does not, though the one-token kernel takes it."""
     orpheus = TL.LlamaConfig(hidden_size=3072, num_hidden_layers=28, intermediate_size=8192,
                              num_attention_heads=24, num_key_value_heads=8)
     assert all(TFL.supported_lanes(orpheus, n) for n in range(1, 29))
@@ -606,3 +608,9 @@ def test_supported_lanes_llama_states_the_kernel_limit():
     assert TFL.supported_lanes(small, TFL.MAX_LANES)
     assert not TFL.supported_lanes(small, TFL.MAX_LANES + 1)
     assert not TFL.supported_lanes(TL.LlamaConfig(hidden_size=2048, num_attention_heads=32), 1)
+    llama8b = TL.LlamaConfig(hidden_size=4096, num_hidden_layers=32, intermediate_size=14336,
+                             num_attention_heads=32, num_key_value_heads=8)
+    assert TFL.supported_lanes(llama8b, 16) and not TFL.supported_lanes(llama8b, 17)
+    llama70b = TL.LlamaConfig(hidden_size=8192, num_hidden_layers=80, intermediate_size=28672,
+                              num_attention_heads=64, num_key_value_heads=8)
+    assert TFL.supported(llama70b) and not TFL.supported_lanes(llama70b, 1)

@@ -71,6 +71,7 @@
 #include <utility>
 
 #include "decoder_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -86,45 +87,6 @@ constexpr int CROSS_LD = HD + 16;  // int8 a staged cross K/V row
 constexpr int GEMV_WARPS = GEMV_THREADS / 32;
 constexpr int GEMV_R1_ROWS = 1280;  // rows a GEMV takes at one row a warp
 constexpr int GEMV_MAX_R = 4;       // fc1 of large-v3 (5120 rows)
-
-__device__ __forceinline__ void dependency_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void release_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
-// a 16-byte read-only load that does not allocate in L1 (each weight is
-// read once a call)
-__device__ __forceinline__ int4 ld_stream(const int4* p) {
-  int4 v;
-  asm volatile("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "l"(p));
-  return v;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ int dot16(int4 a, int4 b, int acc) {
-  acc = __dp4a(a.x, b.x, acc);
-  acc = __dp4a(a.y, b.y, acc);
-  acc = __dp4a(a.z, b.z, acc);
-  return __dp4a(a.w, b.w, acc);
-}
 
 struct GemvArgs {
   const float* x;     // [K] input (the residual for the LayerNorm GEMVs)

@@ -220,7 +220,9 @@ class LlamaTTS:
         ticks through ``fused_llama_stack_lanes`` (one sweep of the int8
         weights a decode step, shared by every live lane; one call per
         group past the kernel's lane limit), for ``ContinuousBatcher``.
-        None for a tree the fused kernels do not take.
+        None for a tree the fused kernels do not take; raises where the
+        lanes kernel does not take the shape (``FL.supported_lanes``) or a
+        cache of ``max_len`` rows (``FL.LANES_S_MAX``).
 
         - ``cache_factory(slots)``: ``kv_cache.FusedLaneRow`` stacked
           ``[slots, L, max_len, dkv]`` position-major, with the lanes'
@@ -235,6 +237,10 @@ class LlamaTTS:
         cfg = self.config
         L, n_kv, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.resolved_head_dim
         dev, dtype = self.device, self.dtype
+        if not FL.supported_lanes(cfg, 1) or max_len > FL.LANES_S_MAX:
+            raise NotImplementedError(
+                f"fused_llama_stack_lanes takes no lane of this shape over a {max_len}-row "
+                f"cache (at most {FL.LANES_S_MAX} rows; see ops.fused_llama.supported_lanes)")
         pack = self.fused_decoder_pack()
         group = max(g for g in range(1, FL.MAX_LANES + 1) if FL.supported_lanes(cfg, g))
 

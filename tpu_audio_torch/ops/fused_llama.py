@@ -6,8 +6,9 @@ Port of tpu_audio/ops/pallas_fused_llama.py: ``supported``,
 ``fused_llama_stack_lanes`` (one token for each of n serving lanes). The
 CUDA implementations are ``csrc/fused_llama.cu`` and
 ``csrc/fused_llama_lanes.cu`` (a short sequence of small kernels a layer,
-driven from C); :func:`fused_llama_stack_ref` and
-:func:`fused_llama_stack_lanes_ref` are the plain PyTorch versions.
+driven from C; the lanes kernel's as programmatic dependent launches);
+:func:`fused_llama_stack_ref` and :func:`fused_llama_stack_lanes_ref` are
+the plain PyTorch versions.
 
 The pack keeps the checkpoint's head order: the TPU kernel's pack-time GQA
 permutation of the q rows and o columns (a lane-layout device) is left
@@ -22,6 +23,8 @@ them in f32.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -33,13 +36,18 @@ from tpu_audio_torch.ops.fused_decoder import MAX_LANES, SMEM_OPT_IN
 
 __all__ = ["LlamaFusedPack", "supported", "supported_lanes", "pack_llama_weights",
            "fused_llama_stack", "fused_llama_stack_ref", "fused_llama_stack_lanes",
-           "fused_llama_stack_lanes_ref", "GEMVS"]
+           "fused_llama_stack_lanes_ref", "lanes_scratch_layout", "LANES_S_MAX", "GEMVS"]
 
 HEAD_DIM = 128
 # shared memory of the one-block quantise: the H100 lets a block opt into
 # 227 KB; 1 KB is left for its static reduction scratch
 QUANT_SMEM = 226 * 1024
 GEMVS = ("q/k/v", "o", "gate/up", "down")  # a layer's GEMV inputs, in order
+# the longest cache (S_max) the lanes kernel takes: its folded combine keeps
+# one query head's partials over the whole cache, ceil(S_max / 64) x (128 +
+# 2) f32, in the shared memory a block may opt into, 2 KB left for the
+# attention kernel's static scratch. 28,352 positions on the H100.
+LANES_S_MAX = (SMEM_OPT_IN - 2048) // ((HEAD_DIM + 2) * 4) * _lib.ATTN_CHUNK
 
 
 class LlamaFusedPack(NamedTuple):
@@ -77,11 +85,17 @@ def supported(cfg) -> bool:
 
 def supported_lanes(cfg, n: int) -> bool:
     """The lanes kernel takes ``n`` lanes: the shapes of :func:`supported`,
-    ``1 <= n <= MAX_LANES``, and the n staged int8 rows of the widest GEMV
-    input (``n * max(d, ffn)`` bytes) within the shared memory a block may
-    opt into. At Orpheus-3B (ffn 8192) that is n <= 28."""
-    return (supported(cfg) and 1 <= n <= MAX_LANES
-            and n * max(cfg.hidden_size, cfg.intermediate_size) <= SMEM_OPT_IN)
+    ``1 <= n <= MAX_LANES``, the n staged int8 rows of the widest GEMV input
+    (``n * max(d, ffn)`` bytes) within the shared memory a block may opt
+    into, and its quantise's three f32 rows of the widest input within
+    QUANT_SMEM: ``12 * max(d, ffn)`` bytes (the row, 2K floats for SwiGLU,
+    the RMSNorm weight and the row ``llama_quantize_row`` stages), so
+    ``max(d, ffn) <= 19,285``. At Orpheus-3B (ffn 8192) that is n <= 28; at
+    Llama-3.1-8B (ffn 14,336) n <= 16; Llama-3.1-70B and 405B (ffn 28,672
+    and 53,248) are not taken. Its cache is at most LANES_S_MAX rows."""
+    kmax = max(cfg.hidden_size, cfg.intermediate_size)
+    return (supported(cfg) and 1 <= n <= MAX_LANES and n * kmax <= SMEM_OPT_IN
+            and 12 * kmax <= QUANT_SMEM)
 
 
 def _as_int8(w) -> tuple[torch.Tensor, torch.Tensor]:
@@ -297,6 +311,46 @@ def fused_llama_stack(pack: LlamaFusedPack, kcache, vcache, x: torch.Tensor,
     return y, qkv[:, d:d + dkv], qkv[:, d + dkv:]
 
 
+def lanes_scratch_layout(n: int, L: int, d: int, ffn: int, H: int, n_kv: int,
+                         s_max: int) -> dict:
+    """The lanes kernel's f32 scratch, as ``csrc/fused_llama_lanes.cu`` lays
+    it out (its ``Scratch``; :func:`fused_llama_stack_lanes` holds the two to
+    each other through ``tpa_fused_llama_stack_lanes_scratch``): region name
+    -> (start, length) in 4-byte words, and ``"total"``. attn [n, d],
+    gate/up [n, 2 ffn], xs [n] padded to a multiple of 4, the split-S
+    attention partials [n, H, nc, 128] and [n, H, nc, 2] with nc =
+    ceil(s_max / 64), then the int32 arrival counters [L, n_kv, n] of the
+    folded combines (one for each layer, KV head and lane), which the
+    wrapper zeroes once a call."""
+    nc = -(-s_max // _lib.ATTN_CHUNK)
+    sizes = (("attn", n * d), ("gu", n * 2 * ffn), ("xs", -(-n // 4) * 4),
+             ("part_o", n * H * nc * HEAD_DIM), ("part_ml", n * H * nc * 2),
+             ("counts", L * n_kv * n))
+    out, at = {}, 0
+    for name, size in sizes:
+        out[name] = (at, size)
+        at += size
+    out["total"] = at
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_lanes_scratch_layout(n: int, L: int, d: int, ffn: int, H: int, n_kv: int,
+                                 s_max: int) -> dict:
+    """:func:`lanes_scratch_layout`, held to the kernel's own (raises if the
+    two differ: the wrapper would zero the wrong words)."""
+    layout = lanes_scratch_layout(n, L, d, ffn, H, n_kv, s_max)
+    starts = (ctypes.c_longlong * 7)()
+    _lib.check(_lib.lib().tpa_fused_llama_stack_lanes_scratch(n, L, d, ffn, H, n_kv, s_max,
+                                                              starts),
+               "fused_llama_stack_lanes scratch")
+    mine = [start for start, _ in list(layout.values())[:-1]] + [layout["total"]]
+    if list(starts) != mine:
+        raise RuntimeError(f"fused_llama_stack_lanes: scratch layout {mine} differs from "
+                           f"the kernel's {list(starts)}")
+    return layout
+
+
 def fused_llama_stack_lanes_ref(pack: LlamaFusedPack, kcache, vcache, lanes: torch.Tensor,
                                 x: torch.Tensor, offsets: torch.Tensor,
                                 valid_from: torch.Tensor, *, cfg, tap=None, codes=None):
@@ -343,7 +397,12 @@ def fused_llama_stack_lanes(pack: LlamaFusedPack, kcache, vcache, lanes: torch.T
     here reads a device value on the host. ``tap = (codes, scales)``, int8
     ``[L, 4, n, max(d, ffn)]`` and f32 ``[L, 4, n]``, receives every GEMV
     input's int8 codes and scale. The plain version runs for CPU tensors,
-    the CUDA kernels for CUDA tensors."""
+    the CUDA kernels for CUDA tensors: 10 launches a layer, each after the
+    first (and after a tap's copies) a programmatic dependent launch, after
+    the copy of ``x`` and the zeroing of the combines' arrival counters.
+    The shapes and lane counts are :func:`supported_lanes`'; the attention's
+    combine keeps a head's partials over the whole cache in shared memory,
+    so ``S_max`` is at most LANES_S_MAX."""
     if x.device.type == "cpu":
         return fused_llama_stack_lanes_ref(pack, kcache, vcache, lanes, x, offsets,
                                            valid_from, cfg=cfg, tap=tap)
@@ -357,6 +416,9 @@ def fused_llama_stack_lanes(pack: LlamaFusedPack, kcache, vcache, lanes: torch.T
         raise ValueError(f"fused_llama_stack_lanes: unsupported decoder shape or n={n}")
     if n > slots:
         raise ValueError(f"fused_llama_stack_lanes: {n} lanes over {slots} slots")
+    if s_max > LANES_S_MAX:
+        raise ValueError(f"fused_llama_stack_lanes: a cache of {s_max} rows; the kernel "
+                         f"takes at most {LANES_S_MAX}")
     req = _lib.require
     req(x, "x", torch.float32, (n, d), dev)
     for name, t in (("lanes", lanes), ("offsets", offsets), ("valid_from", valid_from)):
@@ -370,13 +432,15 @@ def fused_llama_stack_lanes(pack: LlamaFusedPack, kcache, vcache, lanes: torch.T
         req(tap[0], "tap codes", torch.int8, (L, 4, n, kmax), dev)
         req(tap[1], "tap scales", torch.float32, (L, 4, n), dev)
         tap_q, tap_s = tap[0].data_ptr(), tap[1].data_ptr()
+    for name, t in (*zip(pack._fields, pack), ("kcache", kcache), ("vcache", vcache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_llama_stack_lanes: {name} is not 16-byte aligned")
     y = x.clone()
     qkv = torch.empty((L, n, d + 2 * dkv), dtype=torch.float32, device=dev)
-    # attn [n, d], gate/up [n, 2 ffn], xs [n] (padded to 4), then the
-    # split-S attention partials of every lane over the whole cache
-    nc = -(-s_max // _lib.ATTN_CHUNK)
-    scratch = torch.empty((n * (d + 2 * ffn) + -(-n // 4) * 4 + n * H * nc * (HEAD_DIM + 2),),
-                          dtype=torch.float32, device=dev)
+    layout = _kernel_lanes_scratch_layout(n, L, d, ffn, H, n_kv, s_max)
+    scratch = torch.empty((layout["total"],), dtype=torch.float32, device=dev)
+    counts = layout["counts"]
+    scratch[counts[0]:counts[0] + counts[1]].zero_()  # int32 zeros: the same bits
     xq = torch.empty((n * kmax,), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
         err = _lib.lib().tpa_fused_llama_stack_lanes(
