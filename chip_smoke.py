@@ -24,7 +24,10 @@ so a kernel that reads the wrong bias or LayerNorm row disagrees), and:
    input's int8 codes compared, so that each lane's first difference is
    shown to be one rounding flip) and bit for bit against the one-token
    kernel on each lane's inputs, and its in-place cache writes against a
-   snapshot;
+   snapshot; then on a random pack over a random 32-slot state at 1, 4, 8
+   and 32 lanes (its lane limit; one lane past the cache's end) the same
+   way, against its plain version fed its own codes, and one call at 1 and
+   at 4 lanes must launch 14 kernels a layer;
 2. transcribes ``tests/media/speech_16k.wav`` padded to one 30 s window
    through ``Whisper.generate`` in the w8 kv8d and bf16 kv8d configurations,
    twice each, with every launch counter reset just before and read just
@@ -145,13 +148,19 @@ a variant of ``csrc/fused_decoder.cu``) in turns, with each version's stage
 breakdown and the source's ptxas registers and spills.
 ``python3 chip_smoke.py --llama-lanes-timing [CHECKOUT ...]`` does the same
 for kernel 6 (``csrc/fused_llama_lanes.cu``) at Orpheus-3B width on phase
-11's random inputs at 1, 4, 8 and 28 lanes.
+11's random inputs at 1, 4, 8 and 28 lanes, and ``--fused-lanes-timing
+[CHECKOUT ...]`` for kernel 4 (``csrc/fused_decoder_lanes.cu``) at
+whisper-large-v3 width on random inputs at 1, 4, 8 and 32 lanes.
 
 ``python3 chip_smoke.py --mutations`` instead runs the standing mutation
 check: each kernel's check alone on copies of the checkout with its source
 mutated (``MUTATIONS``; for kernel 3, its checks on a random pack with
 cross-q reading out-proj's bias, the folded combine reading the next head's
 partials, a staged cross K/V row taking the next position's scale; for
+kernel 4, its own checks with the folded self combine reading the next
+lane's partials or dropping the lane's last live chunk, lane m's cross K/V
+staged from the next lane's slot, the fc1 quantise reading the
+cross-attention LayerNorm's row; for
 kernel 5, phase 8 with a wrong RMSNorm row, the
 RoPE sign on the wrong half, query heads reading the next K/V head; for
 kernel 6, phase 11 with lane m's RoPE angle from lane 0's offset, attention
@@ -256,6 +265,28 @@ STACK_STAGES = {8: ("q/k/v", "self-attn", "out", "cross-q", "cross-attn", "cross
                      "cross combine", "cross-out", "fc1", "fc2")}
 STACK_SOURCE = "this checkout"  # --fused-stack-timing's name for the source as it stands
 STACK_TIMING_REPS = 50
+# kernel 4's own checks (fused_stack_lanes_only, also in the full run): a
+# random whisper-large-v3 pack over a state of LANES_CHECK_SLOTS slots at these
+# lane counts, the last its lane limit (lane_layout's slots and offsets)
+LANES_CHECK_COUNTS = (1, 4, 8, 32)
+LANES_CHECK_SLOTS = 32
+# kernel 4 launches 14 kernels a layer: a quantise launch before each of its
+# 6 GEMVs, and the self- and cross-attention with their combines folded in
+# (csrc/fused_decoder_lanes.cu); its launch count is read at these lane counts
+STACK_LANES_LAYER_LAUNCHES = 14
+STACK_LANES_COUNTED = (1, 4)
+# the kernels of csrc/fused_decoder_lanes.cu ("fd4_"), and of the 16-launch
+# parent's; each version's stages of a layer in launch order
+LANES_KERNELS = ("fd4_", "ln_quantize_rows_kernel", "int8_gemv_lanes_kernel",
+                 "self_attn_partial_lanes", "cross_attn_partial_lanes", "attn_combine_lanes")
+LANES_STAGES = {14: ("quantise q/k/v", "q/k/v", "self-attn", "quantise out", "out",
+                     "quantise cross-q", "cross-q", "cross-attn", "quantise cross-out",
+                     "cross-out", "quantise fc1", "fc1", "quantise fc2", "fc2"),
+                16: ("quantise q/k/v", "q/k/v", "self-attn", "self combine", "quantise out",
+                     "out", "quantise cross-q", "cross-q", "cross-attn", "cross combine",
+                     "quantise cross-out", "cross-out", "quantise fc1", "fc1", "quantise fc2",
+                     "fc2")}
+LANES_TIMING_COUNTS = (1, 4, 8, 32)
 # fused_stack_lanes against its plain version. On lanes with long random
 # caches and encoder outputs the two versions round some int8 activation
 # code differently in ~3% of layers (as early as layer 1). The kernel's tap
@@ -404,6 +435,20 @@ MUTATIONS = {
          "const size_t base = (size_t)((blockIdx.y + 1) % gridDim.y) * nc;"),
         ("the staged cross K/V takes the neighbouring position's scale",
          "cp_async4(sks + i, ks + s0 + i);", "cp_async4(sks + i, ks + s0 + (i ^ 1));"),
+    ]),
+    "fused_stack_lanes": ("tpu_audio_torch/csrc/fused_decoder_lanes.cu",
+                          "fused_stack_lanes_only", [
+        ("the folded self combine reads the neighbouring lane's partials",
+         "combine_last_lane(part_o + first * HD, part_ml + first * 2,",
+         "combine_last_lane(part_o + (first + heads * gridDim.x) % (n * heads * gridDim.x) * HD, "
+         "part_ml + (first + heads * gridDim.x) % (n * heads * gridDim.x) * 2,"),
+        ("the self combine drops the lane's last live chunk",
+         "counts + h * n + m, live, live,", "counts + h * n + m, live, live - 1,"),
+        ("lane m's staged cross K/V come from slot lanes[(m + 1) % n]",
+         "const size_t src = (size_t)lanes[m];",
+         "const size_t src = (size_t)lanes[(m + 1) % gridDim.z];"),
+        ("the fc1 quantise reads the cross-attention LayerNorm's row",
+         "stage(resid, d, lnl + 4 * d, lnl + 5 * d,", "stage(resid, d, lnl + 2 * d, lnl + 3 * d,"),
     ]),
     "fused_llama_stack": ("tpu_audio_torch/csrc/fused_llama.cu", "fused_llama_only", [
         ("post-attention norm reads the input norm's row",
@@ -1115,6 +1160,184 @@ def stack_phase(pack, cross, cfg, dev, gen, x_at, timing: bool = True) -> dict:
     return rec
 
 
+def lanes_bound(pack, cfg, cross, x, out, offs, s_src: int) -> tuple[float, str]:
+    """Kernel 4's bound on one call: the weights once; per lane its cross K/V
+    and scales (one slot of ``cross``), the cache rows it attends (0..its
+    offset), x in, y and the new k/v rows out; the int8 products and the
+    attention's f32 operations."""
+    L, d = cfg.decoder_layers, cfg.d_model
+    n = x.shape[0]
+    return bound(
+        nbytes(pack.w_in, pack.w_fc2, pack.scales, pack.biases, pack.ln, x, *out)
+        + n * nbytes(*(t[0] for t in cross)) + sum(2 * L * (o + 1) * d * 2 for o in offs),
+        int8_ops=2 * n * L * (pack.w_in.shape[1] * d + d * cfg.decoder_ffn_dim),
+        f32_ops=4 * L * d * sum(o + 1 + s_src for o in offs))
+
+
+def random_lane_state(cfg, dev, slots: int, seed: int):
+    """Kernel 4's stacked state at ``cfg``'s widths from a seed: int8 cross
+    K/V [slots, L, max_source_positions, d] with per-position scales of
+    unit-sized values (as random_stack_inputs' one slot), and self caches
+    [slots, L, max_target_positions, d] bf16 with every row N(0, 0.25), rows
+    at and past each lane's offset included, so that a masking or slot error
+    shows. Made a slot at a time."""
+    import torch
+
+    L, d, S, s_max = (cfg.decoder_layers, cfg.d_model, cfg.max_source_positions,
+                      cfg.max_target_positions)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ck, cv = (torch.empty((slots, L, S, d), dtype=torch.int8, device=dev) for _ in range(2))
+    kc, vc = (torch.empty((slots, L, s_max, d), dtype=torch.bfloat16, device=dev)
+              for _ in range(2))
+    for s in range(slots):
+        for t in (ck, cv):
+            t[s] = torch.randint(-127, 128, (L, S, d), generator=gen, device=dev,
+                                 dtype=torch.int8)
+        for t in (kc, vc):
+            t[s] = (torch.randn((L, s_max, d), generator=gen, device=dev) * 0.5).to(t.dtype)
+    ks, vs = ((0.5 + torch.rand((slots, L, S), generator=gen, device=dev)) / 127.0
+              for _ in range(2))
+    return ck, ks, cv, vs, kc, vc
+
+
+def lane_layout(n: int, slots: int, s_max: int, seed: int) -> tuple[list, list]:
+    """n lanes' slots of a ``slots``-slot state (LANE_ORDER for LANE_SLOTS
+    slots, else a seeded permutation) and their offsets: LANE_OFFSETS, then
+    one past the cache's end (clamped to its last row), then seeded ones."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    order = LANE_ORDER if slots == LANE_SLOTS else rng.permutation(slots).tolist()
+    offs = LANE_OFFSETS[:n] + [s_max + 10][:max(0, n - len(LANE_OFFSETS))]
+    offs += rng.integers(0, s_max, n - len(offs)).tolist()
+    return order[:n], offs
+
+
+def fused_lanes_check(name, pack, state, cfg, x, lanes, offs) -> dict:
+    """Kernel 4 on n lanes of a stacked state (random_lane_state): each lane
+    bit-equal to kernel 3 run alone on that lane's inputs (y, newk, newv and
+    the cache rows written); against its plain version by kernel 4's flip
+    rule: FUSED_LAYER_RTOL up to a lane's first differing int8 code, which
+    must be one code, one step, at a rounding boundary, then FORCED_RTOL over
+    the whole stack against the plain version fed the kernel's codes, every
+    code the plain rounding up to boundary flips (as kernels 5 and 6 are
+    held: after a flip a random-weight stack moves by up to ~3e-2); and no
+    cache row but each lane's new one, in its own slot, changed."""
+    import torch
+
+    from tpu_audio_torch.ops import fused_decoder as F
+
+    ck, ks, cv, vs, kc, vc = state
+    L, d, ffn = cfg.decoder_layers, cfg.d_model, cfg.decoder_ffn_dim
+    kmax, n, s_max, s_src = max(d, ffn), x.shape[0], kc.shape[2], ck.shape[2]
+    dev = x.device
+    clamped = [min(max(o, 0), s_max - 1) for o in offs]
+    snap_k, snap_v = kc.clone(), vc.clone()
+    lanes_t, offs_t = (torch.tensor(v, dtype=torch.int32, device=dev) for v in (lanes, offs))
+    ktap = (torch.zeros((L, 6, n, kmax), dtype=torch.int8, device=dev),
+            torch.zeros((L, 6, n), device=dev))
+    ptap = (torch.zeros_like(ktap[0]), torch.zeros_like(ktap[1]),
+            torch.zeros((L, 6, n, kmax), device=dev))
+    got = F.fused_stack_lanes(pack, ck, ks, cv, vs, kc, vc, x, offs_t, lanes_t, cfg=cfg,
+                              s_src=s_src, tap=ktap)
+    want = F.fused_stack_lanes_ref(pack, ck, ks, cv, vs, snap_k.clone(), snap_v.clone(), x,
+                                   offs_t, lanes_t, cfg=cfg, s_src=s_src, tap=ptap)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(g).all()) for g in got), f"{name} n={n}: non-finite output")
+    check(got[0].shape == (n, d) and got[1].shape == (L, n, d), f"{name} n={n}: shapes")
+    bit_equal, forced_err, witness = [], [], []
+    for m, (slot, off) in enumerate(zip(lanes, clamped)):
+        kb, vb = snap_k[slot].clone(), snap_v[slot].clone()
+        one = F.fused_stack(pack, ck[slot], ks[slot], cv[slot], vs[slot], kb, vb, x[m], off,
+                            cfg=cfg, s_src=s_src)
+        lane = (got[0][m], got[1][:, m], got[2][:, m])
+        bit_equal.append(all(torch.equal(a, b) for a, b in zip(lane, one))
+                         and torch.equal(kc[slot], kb) and torch.equal(vc[slot], vb))
+        ftap = (torch.zeros((L, 6, kmax), dtype=torch.int8, device=dev),
+                torch.zeros((L, 6), device=dev), torch.zeros((L, 6, kmax), device=dev))
+        kcodes = (ktap[0][:, :, m], ktap[1][:, :, m])
+        forced = F.fused_stack_ref(pack, ck[slot], ks[slot], cv[slot], vs[slot],
+                                   snap_k[slot].clone(), snap_v[slot].clone(), x[m], off,
+                                   cfg=cfg, s_src=s_src, tap=ftap, codes=kcodes)
+        forced_err.append(max(rel_err(a, b) for a, b in zip(lane, forced)))
+        witness.append(codes_witness(cfg, kcodes, ftap, widths=[d] * 5 + [ffn]))
+    errs = stack_errors(got, want, n)
+    flips = code_flips(ktap, ptap, n)
+    want_k, want_v = snap_k, snap_v
+    for m, (slot, off) in enumerate(zip(lanes, clamped)):
+        want_k[slot, :, off] = got[1][:, m].to(torch.bfloat16)
+        want_v[slot, :, off] = got[2][:, m].to(torch.bfloat16)
+    writes_ok = torch.equal(kc, want_k) and torch.equal(vc, want_v)
+    del want_k, want_v, snap_k, snap_v
+    print(f"[{name} n={n}] slots {lanes} offsets {offs}: bit-equal to fused_stack by lane "
+          f"{bit_equal}; vs plain free-running worst {max(max(w) for w, _ in errs):.3e}, "
+          f"first layer after a code flip by lane {[exact_layers(f, L) for f in flips]}; "
+          f"plain fed the kernel's codes worst {max(forced_err):.3e} (rtol {FORCED_RTOL}), "
+          f"{sum(w[0] for w in witness)} code(s) differ from its own rounding, at most "
+          f"{max(w[2] for w in witness):.2e} from a boundary, scales at most "
+          f"{max(w[3] for w in witness):.1e} apart; cache rows written in place, others "
+          f"untouched: {writes_ok}")
+    for m, ((whole, layers), flip) in enumerate(zip(errs, flips)):
+        until = exact_layers(flip, L)
+        check(max(layers[:until], default=0.0) <= FUSED_LAYER_RTOL,
+              f"{name} n={n} lane {m}: k/v of layers 0-{until - 1}, before any int8 code "
+              f"differs, disagree: {layers[:until]}")
+        if flip is not None:
+            check(flip["codes"] == 1 and flip["step"] == 1
+                  and flip["boundary_dist"] <= FLIP_DIST,
+                  f"{name} n={n} lane {m}: the first code difference is not one rounding "
+                  f"flip: {flip}")
+        check(forced_err[m] <= FORCED_RTOL,
+              f"{name} n={n} lane {m}: the stack disagrees with the plain version on the "
+              f"kernel's own codes: {forced_err[m]}")
+        check_witness(f"{name} n={n} lane {m}", *witness[m])
+    check(all(bit_equal), f"{name} n={n}: lanes {bit_equal} not bit-equal to fused_stack "
+                          f"on their inputs")
+    check(writes_ok, f"{name} n={n}: cache rows written wrong")
+    return dict(n=n, slots=lanes, offsets=offs, bit_equal_to_fused_stack=all(bit_equal),
+                rel_err=max(forced_err), free_rel_err=max(max(w) for w, _ in errs),
+                code_flips=sum(w[0] for w in witness),
+                first_flips=[f for f in flips if f is not None])
+
+
+def fused_lanes_phase(dev) -> dict:
+    """Kernel 4's own checks (fused_lanes_check) on a random whisper-large-v3
+    pack over a LANES_CHECK_SLOTS-slot random state at each n of
+    LANES_CHECK_COUNTS, the last the lane limit supported_lanes states; and
+    its launches a layer in one call at each n of STACK_LANES_COUNTED."""
+    import torch
+
+    from tpu_audio_torch.ops import fused_decoder as F
+
+    cfg = stack_config()
+    L, d = cfg.decoder_layers, cfg.d_model
+    n_max = max(n for n in range(1, F.MAX_LANES + 1) if F.supported_lanes(cfg, n))
+    check(n_max == LANES_CHECK_COUNTS[-1] and not F.supported_lanes(cfg, n_max + 1),
+          f"supported_lanes at whisper-large-v3: the limit is {n_max}, not "
+          f"{LANES_CHECK_COUNTS[-1]}")
+    pack, _ = random_stack_inputs(cfg, dev, seed=3)
+    state = random_lane_state(cfg, dev, LANES_CHECK_SLOTS, seed=4)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    checks, counted = [], {}
+    for n in LANES_CHECK_COUNTS:
+        lanes, offs = lane_layout(n, LANES_CHECK_SLOTS, cfg.max_target_positions, seed=n)
+        x = torch.randn((n, d), generator=gen, device=dev) * 0.5
+        checks.append(fused_lanes_check("fused_stack_lanes", pack, state, cfg, x, lanes, offs))
+        if n in STACK_LANES_COUNTED:
+            lanes_t, offs_t = (torch.tensor(v, dtype=torch.int32, device=dev)
+                               for v in (lanes, offs))
+
+            def kern():
+                return F.fused_stack_lanes(pack, *state, x, offs_t, lanes_t, cfg=cfg,
+                                           s_src=state[0].shape[2])
+
+            counted[str(n)] = stack_launches(kern, L, STACK_LANES_LAYER_LAUNCHES,
+                                             LANES_KERNELS, f"fused_stack_lanes n={n}")
+    del state
+    torch.cuda.empty_cache()
+    return dict(lane_limit=n_max, lane_checks=checks, layer_launches=counted)
+
+
 def lanes_phase(w8, cfg, encs, dev) -> dict:
     """Kernel 4 at n in LANE_COUNTS over an 8-slot stacked state: against
     its plain version, against the one-token kernel on each lane's inputs,
@@ -1217,14 +1440,7 @@ def lanes_phase(w8, cfg, encs, dev) -> dict:
             return F.fused_stack_lanes_ref(pack, ck, ks, cv, vs, kr, vr, x, offsets,
                                            lanes, cfg=cfg, s_src=1500)
 
-        # the weights once; per lane its cross K/V and scales, the cache rows
-        # it attends, x in, y and the new k/v rows out
-        b_ms, b_by = bound(
-            nbytes(pack.w_in, pack.w_fc2, pack.scales, pack.biases, pack.ln, x, *got)
-            + n * nbytes(ck[0], ks[0], cv[0], vs[0])
-            + sum(2 * L * (o + 1) * d * 2 for o in offs),
-            int8_ops=2 * n * L * (pack.w_in.shape[1] * d + d * cfg.decoder_ffn_dim),
-            f32_ops=4 * L * d * sum(o + 1 + 1500 for o in offs))
+        b_ms, b_by = lanes_bound(pack, cfg, (ck, ks, cv, vs), x, got, offs, 1500)
         by_n[n] = dict(
             bound_ms=b_ms, bound_by=b_by,
             max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)),
@@ -3604,6 +3820,16 @@ def fused_stack_only() -> int:
     return 0
 
 
+def fused_stack_lanes_only() -> int:
+    """Kernel 4's own checks alone (fused_lanes_phase): its check under
+    --mutations."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    fused_lanes_phase(torch.device("cuda", 0))
+    return 0
+
+
 def stack_libraries(others: list, tmp: Path, source: str = "fused_decoder.cu",
                     entry: str = "tpa_fused_stack") -> dict:
     """The C entry ``entry`` of csrc/``source`` (kernel 3's by default) as it
@@ -3895,6 +4121,104 @@ def llama_lanes_timing_main(smi: str, others: list) -> int:
     return 0
 
 
+def fused_lanes_timing_main(smi: str, others: list) -> int:
+    """``--fused-lanes-timing [CHECKOUT ...]``: kernel 4 at whisper-large-v3
+    width on random inputs (random_stack_inputs' pack, random_lane_state over
+    max(LANE_SLOTS, n) slots, lane_layout's slots and offsets) at each n of
+    LANES_TIMING_COUNTS, built from the source as it stands and from each
+    other checkout given (a parent commit's, or a copy with a variant of the
+    kernel, named by its directory): each version bit for bit against the
+    first and, per lane, against the plain version fed the first's int8
+    codes (FORCED_RTOL), then per call (CUDA events around
+    STACK_TIMING_REPS back-to-back calls, each with its copy of x and
+    zeroing of the source's counters) in turns, device time (profiler, the
+    union of intervals), the stage breakdown of a layer by kernel, and the
+    bound as lanes_phase computes it. Every version gets a scratch buffer
+    of the larger of the source's layout and the 16-launch kernel's size,
+    and an int8 [n, max(d, ffn)] xq buffer. Prints one JSON line (no "ok"
+    line)."""
+    import torch
+
+    from tpu_audio_torch.ops import _lib
+    from tpu_audio_torch.ops import fused_decoder as F
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="stack_libs_") as tmp:
+        fns = stack_libraries(others, Path(tmp), "fused_decoder_lanes.cu",
+                              "tpa_fused_stack_lanes")
+    print(f"[fused_stack_lanes timing] {len(fns)} versions built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfg = stack_config()
+    L, d, ffn, H = (cfg.decoder_layers, cfg.d_model, cfg.decoder_ffn_dim,
+                    cfg.decoder_attention_heads)
+    kmax = max(d, ffn)
+    pack, _ = random_stack_inputs(cfg, dev, seed=3)
+    order = [o.name for o in others] + [STACK_SOURCE]
+    out = {}
+    for n in LANES_TIMING_COUNTS:
+        slots = max(LANE_SLOTS, n)
+        state = random_lane_state(cfg, dev, slots, seed=4)
+        ck, ks, cv, vs, kc, vc = state
+        s_src = s_ck = ck.shape[2]
+        s_max = kc.shape[2]
+        lanes, offs = lane_layout(n, slots, s_max, seed=n)
+        clamped = [min(o, s_max - 1) for o in offs]
+        x = torch.randn((n, d), generator=torch.Generator(device=dev).manual_seed(5),
+                        device=dev) * 0.5
+        lanes_t, offs_t = (torch.tensor(v, dtype=torch.int32, device=dev) for v in (lanes, offs))
+        layout = F.lanes_scratch_layout(n, d, ffn, L, H, s_max, s_src)
+        nc = -(-max(s_max, s_src) // _lib.ATTN_CHUNK)
+        parent_words = n * (3 * d + ffn) + -(-n // 4) * 4 + n * H * nc * (d // H + 2)
+        y = torch.empty_like(x)
+        qkv = torch.empty((L, n, 3 * d), device=dev)
+        scratch = torch.empty((max(layout["total"], parent_words),), device=dev)
+        counts = scratch[layout["counts"][0]:layout["counts"][0] + layout["counts"][1]]
+        xq = torch.empty((n * kmax,), dtype=torch.int8, device=dev)
+        tap = (torch.zeros((L, 6, n, kmax), dtype=torch.int8, device=dev),
+               torch.zeros((L, 6, n), device=dev))
+        ptrs = [t.data_ptr() for t in (y, offs_t, lanes_t, *pack, *state, qkv, scratch, xq)]
+        tail = (n, L, d, ffn, H, s_src, s_ck, s_max, _lib.stream(x))
+
+        def caller(name, fn, taps=(0, 0)):
+            def call():
+                y.copy_(x)
+                counts.zero_()
+                err = fn(*ptrs, *taps, *tail)
+                check(err == 0, f"tpa_fused_stack_lanes ({name}): CUDA error {err}")
+            return call
+
+        calls = {name: caller(name, fn) for name, fn in fns.items()}
+        caller(order[0], fns[order[0]], (tap[0].data_ptr(), tap[1].data_ptr()))()
+        forced = [F.fused_stack_ref(pack, ck[s], ks[s], cv[s], vs[s], kc[s].clone(),
+                                    vc[s].clone(), x[m], o, cfg=cfg, s_src=s_src,
+                                    codes=(tap[0][:, :, m], tap[1][:, :, m]))
+                  for m, (s, o) in enumerate(zip(lanes, clamped))]
+        res, first = {}, None
+        for name in order:
+            calls[name]()
+            torch.cuda.synchronize()
+            got = (y.clone(), qkv[:, :, d:2 * d].clone(), qkv[:, :, 2 * d:].clone())
+            first = first or got
+            err = max(rel_err(a, b) for m in range(n) for a, b in zip(
+                (got[0][m], got[1][:, m], got[2][:, m]), forced[m]))
+            same = all(torch.equal(a, b) for a, b in zip(got, first))
+            print(f"[fused_stack_lanes timing] n={n} {name}: vs plain fed {order[0]}'s codes "
+                  f"{err:.3e} (rtol {FORCED_RTOL}); bit-equal to {order[0]}: {same}")
+            check(err <= FORCED_RTOL, f"{name} at n={n} disagrees with the plain version: {err}")
+            res[name] = dict(rel_err=err, bit_equal_to_first=same, ms=[])
+        b_ms, b_by = lanes_bound(pack, cfg, state[:4], x, first, clamped, s_src)
+        print(f"[fused_stack_lanes timing] n={n}: bound {b_ms:.4f} ms ({b_by})")
+        time_in_turns(f"fused_stack_lanes n={n}", calls, order, res, L,
+                      kernels_of=LANES_KERNELS, stages=LANES_STAGES)
+        out[str(n)] = dict(bound_ms=b_ms, bound_by=b_by, slots=lanes, offsets=offs,
+                           versions=res)
+        del state, ck, cv, kc, vc, forced, scratch
+        torch.cuda.empty_cache()
+    print(json.dumps({"fused_stack_lanes_timing": out, "smi": smi}))
+    return 0
+
+
 def fused_llama_only() -> int:
     """Phase 8 alone, timing off (kernel 5's check under --mutations)."""
     import torch
@@ -3956,6 +4280,7 @@ def main() -> int:
     if sys.argv[1:] == ["--mutations"]:
         return mutations_main()
     timing = {"--fused-stack-timing": fused_stack_timing_main,
+              "--fused-lanes-timing": fused_lanes_timing_main,
               "--llama-lanes-timing": llama_lanes_timing_main}.get(next(iter(sys.argv[1:]), ""))
     if sys.argv[1:] not in ([], ["--qmm"]) and not timing:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
@@ -4008,6 +4333,7 @@ def main() -> int:
     w8 = models["w8_kv8d"]
     records["fused_stack_lanes"] = lanes_phase(w8, cfg, lane_encoders(w8, enc, clips, rng),
                                                dev)
+    records["fused_stack_lanes"].update(fused_lanes_phase(dev))
     for k, r in records.items():
         if k.startswith("quantized_matvec"):
             continue
@@ -4081,7 +4407,8 @@ def main() -> int:
     kernels = [dict(name=k, **{f: r[f] for f in (
         "route", "source", "replaces", "launches", "max_abs_err", "rel_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms", "dev_ms", "plain_dev_ms")},
-        **{f: r[f] for f in ("kernel", "layer_launches", "offsets", "by_lanes", "by_shape", "by_shape_8bit", "crossover",
+        **{f: r[f] for f in ("kernel", "layer_launches", "offsets", "by_lanes", "lane_limit",
+                             "lane_checks", "by_shape", "by_shape_8bit", "crossover",
                              "rel_err_bf16_x", "rel_err_f16_x", "library_dev_ms", "library_rel_err",
                              "library_error", "gemv_ms", "gemv_dev_ms", "gemv_checks",
                              "gemv_rel_err") if f in r})

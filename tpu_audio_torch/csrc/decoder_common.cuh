@@ -347,4 +347,63 @@ __device__ __forceinline__ void llama_attn_partial(const float* __restrict__ qkv
   attn_partial<HD>(score, value, s0, s1, part_o, part_ml);
 }
 
+// ---------------------------------------------------------------------------
+// Whisper's attention over staged rows: the one-token and serving lanes
+// stacks (fused_decoder.cu, fused_decoder_lanes.cu) copy a block's 64
+// positions of one head into shared memory with 16-byte cp.async and run
+// attn_partial on these types.
+// ---------------------------------------------------------------------------
+
+constexpr int SELF_LD = ATTN_HD + 8;    // bf16 a staged self-cache row
+constexpr int CROSS_LD = ATTN_HD + 16;  // int8 a staged cross K/V row
+
+// Self-attention score/value of one head over the staged cache rows s0..
+// (bf16, SELF_LD a row), the current token's f32 k/v at `offset`: the
+// arithmetic of tpa::SelfScore / SelfValue.
+struct StagedSelfScore {
+  const float* q;
+  const float* k_new;
+  const __nv_bfloat16* kc;
+  int s0, offset;
+  float sm;
+  __device__ float term(int s, int j) const {
+    const float k = s == offset ? k_new[j] : __bfloat162float(kc[(s - s0) * SELF_LD + j]);
+    return k * (q[j] * sm);
+  }
+  __device__ float finish(int, float dot) const { return dot; }
+};
+
+struct StagedSelfValue {
+  const float* v_new;
+  const __nv_bfloat16* vc;
+  int s0, offset;
+  __device__ float at(int s, int j) const {
+    return s == offset ? v_new[j] : __bfloat162float(vc[(s - s0) * SELF_LD + j]);
+  }
+};
+
+// Cross-attention score/value of one head over the staged int8 rows s0..
+// (CROSS_LD a row) and their staged scales: tpa::CrossScore / CrossValue's
+// arithmetic.
+struct StagedCrossScore {
+  const float* q;
+  const int8_t* ck;
+  const float* ks;
+  int s0;
+  float sm;
+  __device__ float term(int s, int j) const {
+    return (float)ck[(s - s0) * CROSS_LD + j] * (q[j] * sm);
+  }
+  __device__ float finish(int s, float dot) const { return dot * ks[s - s0]; }
+};
+
+struct StagedCrossValue {
+  const int8_t* cv;
+  const float* vs;
+  int s0;
+  __device__ float at(int s, int j) const {
+    return vs[s - s0] * (float)cv[(s - s0) * CROSS_LD + j];
+  }
+};
+
 }  // namespace tpa

@@ -76,14 +76,18 @@
 namespace {
 
 using tpa::ADD;
+using tpa::CROSS_LD;
 using tpa::GELU;
 using tpa::GEMV_THREADS;
+using tpa::SELF_LD;
 using tpa::STORE;
+using tpa::StagedCrossScore;
+using tpa::StagedCrossValue;
+using tpa::StagedSelfScore;
+using tpa::StagedSelfValue;
 
 constexpr int HD = tpa::ATTN_HD;
 constexpr int CH = tpa::ATTN_CHUNK;
-constexpr int SELF_LD = HD + 8;    // bf16 a staged self-cache row
-constexpr int CROSS_LD = HD + 16;  // int8 a staged cross K/V row
 constexpr int GEMV_WARPS = GEMV_THREADS / 32;
 constexpr int GEMV_R1_ROWS = 1280;  // rows a GEMV takes at one row a warp
 constexpr int GEMV_MAX_R = 4;       // fc1 of large-v3 (5120 rows)
@@ -182,55 +186,6 @@ __global__ void __launch_bounds__(GEMV_THREADS) fs_gemv(const GemvArgs a) {
     }
   }
 }
-
-// Self-attention score/value of one head over the staged cache rows s0..
-// (bf16, SELF_LD a row), the current token's f32 k/v at `offset`: the
-// arithmetic of tpa::SelfScore / SelfValue.
-struct StagedSelfScore {
-  const float* q;
-  const float* k_new;
-  const __nv_bfloat16* kc;
-  int s0, offset;
-  float sm;
-  __device__ float term(int s, int j) const {
-    const float k = s == offset ? k_new[j] : __bfloat162float(kc[(s - s0) * SELF_LD + j]);
-    return k * (q[j] * sm);
-  }
-  __device__ float finish(int, float dot) const { return dot; }
-};
-
-struct StagedSelfValue {
-  const float* v_new;
-  const __nv_bfloat16* vc;
-  int s0, offset;
-  __device__ float at(int s, int j) const {
-    return s == offset ? v_new[j] : __bfloat162float(vc[(s - s0) * SELF_LD + j]);
-  }
-};
-
-// Cross-attention score/value of one head over the staged int8 rows s0..
-// (CROSS_LD a row) and their staged scales: tpa::CrossScore / CrossValue's
-// arithmetic.
-struct StagedCrossScore {
-  const float* q;
-  const int8_t* ck;
-  const float* ks;
-  int s0;
-  float sm;
-  __device__ float term(int s, int j) const {
-    return (float)ck[(s - s0) * CROSS_LD + j] * (q[j] * sm);
-  }
-  __device__ float finish(int s, float dot) const { return dot * ks[s - s0]; }
-};
-
-struct StagedCrossValue {
-  const int8_t* cv;
-  const float* vs;
-  int s0;
-  __device__ float at(int s, int j) const {
-    return vs[s - s0] * (float)cv[(s - s0) * CROSS_LD + j];
-  }
-};
 
 // After attn_partial: the last of the nc blocks of head blockIdx.y to
 // arrive combines the head's partials (laid out [heads, nc, HD] and
@@ -346,38 +301,6 @@ fs_cross_attn(const float* q, const int8_t* ck, const float* ks, const int8_t* c
   tpa::attn_partial<HD>(score, value, s0, s1, part_o + slot * HD, part_ml + slot * 2);
   combine_last(part_o, part_ml, count, nc, out, reinterpret_cast<float*>(smem_raw));
 }
-
-// Stream-ordered launches of one call: every launch after the first is a
-// programmatic dependent launch. The first error stops the chain, and the
-// entry returns it.
-class Chain {
- public:
-  explicit Chain(cudaStream_t stream) : stream_(stream) {}
-
-  template <typename... Exp, typename... Act>
-  void launch(void (*kernel)(Exp...), dim3 grid, dim3 block, size_t smem, Act&&... args) {
-    if (err_ != cudaSuccess) return;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[0].val.programmaticStreamSerializationAllowed = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = block;
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream_;
-    cfg.attrs = attr;
-    cfg.numAttrs = first_ ? 0 : 1;
-    err_ = cudaLaunchKernelEx(&cfg, kernel, std::forward<Act>(args)...);
-    first_ = false;
-  }
-
-  cudaError_t error() const { return err_; }
-
- private:
-  cudaStream_t stream_;
-  bool first_ = true;
-  cudaError_t err_ = cudaSuccess;
-};
 
 using GemvKernel = void (*)(GemvArgs);
 constexpr int GEMV_CS[] = {1, 2, 3, 4, 6, 8, 10};  // chunks a lane holds a row

@@ -449,48 +449,6 @@ fl6_attn(const float* qkv, const __nv_bfloat16* kc, const __nv_bfloat16* vc,
   }
 }
 
-// Stream-ordered launches of one call: every launch after the first is a
-// programmatic dependent launch, except the first after a copy (a tap),
-// which waits for it in full. The first error stops the chain, and the
-// entry returns it.
-class Chain {
- public:
-  explicit Chain(cudaStream_t stream) : stream_(stream) {}
-
-  template <typename... Exp, typename... Act>
-  void launch(void (*kernel)(Exp...), dim3 grid, dim3 block, size_t smem, Act&&... args) {
-    if (err_ != cudaSuccess) return;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[0].val.programmaticStreamSerializationAllowed = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = block;
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream_;
-    cfg.attrs = attr;
-    cfg.numAttrs = whole_ ? 0 : 1;
-    err_ = cudaLaunchKernelEx(&cfg, kernel, std::forward<Act>(args)...);
-    whole_ = false;
-  }
-
-  void copy(cudaError_t e) {  // a copy was enqueued between two launches
-    keep(e);
-    whole_ = true;
-  }
-
-  void keep(cudaError_t e) {
-    if (err_ == cudaSuccess) err_ = e;
-  }
-
-  cudaError_t error() const { return err_; }
-
- private:
-  cudaStream_t stream_;
-  bool whole_ = true;
-  cudaError_t err_ = cudaSuccess;
-};
-
 using GemvKernel = void (*)(LaneGemv);
 constexpr int GEMV_KINDS = 4;
 constexpr int GEMV_C[GEMV_KINDS] = {4, 6, 8, 16};  // chunks a lane holds a row
@@ -501,23 +459,6 @@ const GemvKernel GEMV_KERNELS[GEMV_NLS][GEMV_KINDS] = {
     TPA_GEMV_NL(1), TPA_GEMV_NL(2), TPA_GEMV_NL(4), TPA_GEMV_NL(8), TPA_GEMV_NL(16),
     TPA_GEMV_NL(MAX_LANES)};
 #undef TPA_GEMV_NL
-
-// Lets `kernel` take all the dynamic shared memory a block may opt into
-// beside its static shared memory, and keeps the SMs' split between L1 and
-// shared memory at the most shared memory while it runs. Every kernel of
-// the chain asks for the same split, so that an SM never has to drain to
-// change it before it takes a block of the next launch.
-cudaError_t configure(const void* kernel, int opt_in) {
-  cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             opt_in - (int)fa.sharedSizeBytes);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  return e;
-}
 
 // configure() for every kernel of the chain, once a device and process;
 // the shared memory a block may opt into.

@@ -5,8 +5,8 @@ Port of tpu_audio/ops/pallas_fused_decoder.py: ``pack_decoder_weights``,
 ``quantize_cross_kv``, ``fused_stack`` (one token) and
 ``fused_stack_lanes`` (one token for each of n serving lanes). The CUDA
 implementations are ``csrc/fused_decoder.cu`` and
-``csrc/fused_decoder_lanes.cu`` (a short sequence of small kernels per
-layer, driven from C); :func:`fused_stack_ref` and
+``csrc/fused_decoder_lanes.cu`` (8 and 14 launches a layer, driven from C);
+:func:`fused_stack_ref` and
 :func:`fused_stack_lanes_ref` are the plain PyTorch versions.
 
 All versions write the token's new k/v rows into the bf16 self-attention
@@ -27,12 +27,13 @@ from tpu_audio_torch.core import quant
 from tpu_audio_torch.ops import _lib
 
 __all__ = ["FusedPack", "supported", "supported_lanes", "pack_decoder_weights",
-           "quantize_cross_kv", "scratch_layout", "fused_stack",
+           "quantize_cross_kv", "scratch_layout", "lanes_scratch_layout", "fused_stack",
            "fused_stack_ref",
            "fused_stack_lanes", "fused_stack_lanes_ref", "MAX_LANES"]
 
 MAX_LANES = 32  # int32 accumulators a GEMV thread keeps (csrc/fused_decoder_lanes.cu)
-SMEM_OPT_IN = 227 * 1024  # dynamic shared memory a block may opt in to (H100)
+SMEM_OPT_IN = 227 * 1024  # shared memory a block may opt in to (H100)
+LANE_GEMV_STATIC = 128  # a lanes GEMV block's static shared memory: the n scales
 
 
 class FusedPack(NamedTuple):
@@ -66,10 +67,13 @@ def supported(cfg) -> bool:
 def supported_lanes(cfg, n: int) -> bool:
     """The lanes kernel takes ``n`` lanes: the shapes of :func:`supported`,
     ``1 <= n <= MAX_LANES``, and the n staged int8 rows of the widest GEMV
-    input (``n * max(d, ffn)`` bytes) within the shared memory a block may
-    opt in to. At whisper-large-v3 (ffn 5120) that is every n up to 32."""
+    input (``n * max(d, ffn)`` bytes) beside a GEMV block's static shared
+    memory, within what a block may opt in to. At whisper-large-v3 (ffn
+    5120) that is every n up to 32. (A quantise block stages 16 bytes an
+    element of its row, within the opt-in at every :func:`supported`
+    shape.)"""
     return (supported(cfg) and 1 <= n <= MAX_LANES
-            and n * max(cfg.d_model, cfg.decoder_ffn_dim) <= SMEM_OPT_IN)
+            and n * max(cfg.d_model, cfg.decoder_ffn_dim) + LANE_GEMV_STATIC <= SMEM_OPT_IN)
 
 
 def _as_int8(w) -> tuple[torch.Tensor, torch.Tensor]:
@@ -183,6 +187,46 @@ def _kernel_scratch_layout(d: int, ffn: int, L: int, H: int, s_max: int,
     mine = [start for start, _ in list(layout.values())[:-1]] + [layout["total"]]
     if list(starts) != mine:
         raise RuntimeError(f"fused_stack: scratch layout {mine} differs from the "
+                           f"kernel's {list(starts)}")
+    return layout
+
+
+def lanes_scratch_layout(n: int, d: int, ffn: int, L: int, H: int, s_max: int,
+                         s_src: int) -> dict:
+    """The lanes kernel's f32 scratch, as ``csrc/fused_decoder_lanes.cu``
+    lays it out (its ``Scratch``; :func:`fused_stack_lanes` holds the two to
+    each other through ``tpa_fused_stack_lanes_scratch``): region name ->
+    (start, length) in 4-byte words, and ``"total"``. attn, q2 and ca [n, d]
+    each, h [n, ffn], the scales xs [n] of a GEMV input (padded to a
+    multiple of 4), the split-S attention partials [n, H, nc, hd] and [n,
+    H, nc, 2] with nc = ceil(max(s_max, s_src) / 64), then the int32 arrival
+    counters [L, 2 (self, cross), H, n] of the folded combines (one for each
+    layer, stage, head and lane), which the wrapper zeroes once a call."""
+    nc = -(-max(s_max, s_src) // _lib.ATTN_CHUNK)
+    sizes = (("attn", n * d), ("q2", n * d), ("ca", n * d), ("h", n * ffn),
+             ("xs", -(-n // 4) * 4), ("part_o", n * H * nc * (d // H)), ("part_ml", n * H * nc * 2),
+             ("counts", L * 2 * H * n))
+    out, at = {}, 0
+    for name, size in sizes:
+        out[name] = (at, size)
+        at += size
+    out["total"] = at
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_lanes_scratch_layout(n: int, d: int, ffn: int, L: int, H: int, s_max: int,
+                                 s_src: int) -> dict:
+    """:func:`lanes_scratch_layout`, held to the kernel's own (raises if the
+    two differ: the wrapper would zero the wrong words)."""
+    layout = lanes_scratch_layout(n, d, ffn, L, H, s_max, s_src)
+    starts = (ctypes.c_longlong * 9)()
+    _lib.check(_lib.lib().tpa_fused_stack_lanes_scratch(n, d, ffn, L, H, s_max, s_src,
+                                                        starts),
+               "fused_stack_lanes scratch")
+    mine = [start for start, _ in list(layout.values())[:-1]] + [layout["total"]]
+    if list(starts) != mine:
+        raise RuntimeError(f"fused_stack_lanes: scratch layout {mine} differs from the "
                            f"kernel's {list(starts)}")
     return layout
 
@@ -360,7 +404,10 @@ def fused_stack_lanes(pack: FusedPack, ck, ks, cv, vs, kcache, vcache,
     GEMV input's int8 codes and scale (q/k/v, out, cross-q, cross-out,
     fc1, fc2 of each layer), for checking the rounding against the plain
     version. The plain version runs for CPU tensors, the CUDA kernels for
-    CUDA tensors."""
+    CUDA tensors: 14 launches a layer (a quantise launch before each of the
+    six GEMVs, and the self- and cross-attention with their combines folded
+    in), each after the first a programmatic dependent launch, after the
+    copy of ``x`` and the zeroing of the combines' arrival counters."""
     if x.device.type == "cpu":
         return fused_stack_lanes_ref(pack, ck, ks, cv, vs, kcache, vcache, x,
                                      offsets, lanes, cfg=cfg, s_src=s_src, tap=tap)
@@ -396,14 +443,16 @@ def fused_stack_lanes(pack: FusedPack, ck, ks, cv, vs, kcache, vcache,
         req(tap[0], "tap codes", torch.int8, (L, 6, n, max(d, ffn)), dev)
         req(tap[1], "tap scales", torch.float32, (L, 6, n), dev)
         tap_q, tap_s = tap[0].data_ptr(), tap[1].data_ptr()
+    for name, t in (("x", x), *zip(pack._fields, pack), ("ck", ck), ("ks", ks),
+                    ("cv", cv), ("vs", vs), ("kcache", kcache), ("vcache", vcache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_stack_lanes: {name} is not 16-byte aligned")
     y = x.clone()
     qkv = torch.empty((L, n, 3 * d), dtype=torch.float32, device=dev)
-    # attn, q2, ca [n, d] each, h [n, ffn], xs [n] (padded to 4), then the
-    # split-S attention partials of every lane
-    nc = -(-max(s_max, s_src) // _lib.ATTN_CHUNK)
-    scratch = torch.empty((n * (3 * d + ffn) + -(-n // 4) * 4
-                           + n * H * nc * (d // H + 2),),
-                          dtype=torch.float32, device=dev)
+    layout = _kernel_lanes_scratch_layout(n, d, ffn, L, H, s_max, s_src)
+    scratch = torch.empty((layout["total"],), dtype=torch.float32, device=dev)
+    counts = layout["counts"]
+    scratch[counts[0]:counts[0] + counts[1]].zero_()  # int32 zeros: the same bits
     xq = torch.empty((n * max(d, ffn),), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
         err = _lib.lib().tpa_fused_stack_lanes(
