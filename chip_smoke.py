@@ -55,7 +55,10 @@ RMSNorm weights) and a real-size SNAC 24 kHz decoder, and:
    its plain version at all 28 layers, at write offsets 0, 63, 64 and
    1025 (two of them behind left padding), with every GEMV input's int8
    codes compared, and 2-layer stacks with per-head q/k norms and at
-   Llama-3.1-8B's width the same way;
+   Llama-3.1-8B's width the same way, the first also at offset 40,000 of a
+   40,001-row cache; holds its scratch layout in Python to the kernel's at
+   the three widths, and one call at offsets 0 and 400 must launch 9
+   kernels a layer;
 9. synthesises 280 tokens through ``LlamaTTS.generate`` (greedy, twice)
    and ``generate_stream``, each run with the launch counters reset just
    before and read just after: one kernel launch a decode step and no
@@ -63,7 +66,8 @@ RMSNorm weights) and a real-size SNAC 24 kHz decoder, and:
    first generated tokens through the kernel and the plain version;
 10. measures time to first audio with the JAX package's
    ``bench_tts_ttfb(fused=True)`` protocol, ms a token, the device busy
-   share and a per-kernel breakdown of a 32-token chunk.
+   share and a per-kernel breakdown of a 32-token chunk, whose profile
+   must hold every one of kernel 5's launches (9 a layer a token).
 
 Then Orpheus serving, on the same model:
 
@@ -148,7 +152,9 @@ a variant of ``csrc/fused_decoder.cu``) in turns, with each version's stage
 breakdown and the source's ptxas registers and spills.
 ``python3 chip_smoke.py --llama-lanes-timing [CHECKOUT ...]`` does the same
 for kernel 6 (``csrc/fused_llama_lanes.cu``) at Orpheus-3B width on phase
-11's random inputs at 1, 4, 8 and 28 lanes, and ``--fused-lanes-timing
+11's random inputs at 1, 4, 8 and 28 lanes, ``--fused-llama-timing
+[CHECKOUT ...]`` for kernel 5 (``csrc/fused_llama.cu``) at Orpheus-3B
+width on random inputs at offsets 64, 400 and 1025, and ``--fused-lanes-timing
 [CHECKOUT ...]`` for kernel 4 (``csrc/fused_decoder_lanes.cu``) at
 whisper-large-v3 width on random inputs at 1, 4, 8 and 32 lanes.
 
@@ -161,8 +167,10 @@ kernel 4, its own checks with the folded self combine reading the next
 lane's partials or dropping the lane's last live chunk, lane m's cross K/V
 staged from the next lane's slot, the fc1 quantise reading the
 cross-attention LayerNorm's row; for
-kernel 5, phase 8 with a wrong RMSNorm row, the
-RoPE sign on the wrong half, query heads reading the next K/V head; for
+kernel 5, phase 8 with the post-attention RMSNorm reading the input
+norm's row, the staged K/V rows taken from the next KV head, the folded
+combine dropping the last live chunk, the gate/up GEMV's SwiGLU taking the
+gate and up rows swapped, the RoPE sign on the wrong half; for
 kernel 6, phase 11 with lane m's RoPE angle from lane 0's offset, attention
 from row 0 instead of the lane's valid_from, lane m reading the next lane's
 slot, the folded combine reading the next lane's partials or dropping the
@@ -343,9 +351,31 @@ QK_NORM_CHECKS = [(64, 5), (1025, 0)]  # also the checks of LLAMA_WIDE
 LLAMA_WIDE = dict(num_hidden_layers=2, hidden_size=4096, num_attention_heads=32,
                   intermediate_size=14336)
 LLAMA_TIME_OFFSET = 400  # position of the per-call timing and its bound
-# kernel 5 launches 11 kernels a layer: 4 quantise, 4 GEMV, RoPE,
-# attention partials, combine
-LLAMA_LAYER_LAUNCHES = 11
+# kernel 5 launches 9 kernels a layer (csrc/fused_llama.cu): the q/k/v
+# GEMV after its quantise launch, RoPE, the attention with its combine folded
+# in, the o GEMV quantising its own input, the gate/up GEMV (writing the
+# SwiGLU) after its quantise launch, the down GEMV after its; its launch
+# count is read at these offsets
+LLAMA_LAYER_LAUNCHES = 9
+LLAMA_COUNTED_OFFSETS = (0, LLAMA_TIME_OFFSET)
+# the kernels of csrc/fused_llama.cu, and nothing else a decode step runs:
+# the decode profile's attribution to kernel 5
+LLAMA_K5_KERNELS = ("fl5_",)
+# the kernels of csrc/fused_llama.cu and of the 11-launch parent's; each
+# version's stages of a layer in launch order
+LLAMA_KERNELS = LLAMA_K5_KERNELS + ("rms_quantize_rows_kernel", "int8_gemv_lanes_kernel",
+                                    "rope_qk_kernel", "gqa_attn_partial",
+                                    "attn_combine_kernel")
+LLAMA_STAGES = {9: ("quantise q/k/v", "q/k/v", "rope", "attention", "o", "quantise gate/up",
+                    "gate/up", "quantise down", "down"),
+                11: ("quantise q/k/v", "q/k/v", "rope", "attention", "combine", "quantise o",
+                     "o", "quantise gate/up", "gate/up", "quantise down", "down")}
+# --fused-llama-timing's (offset, valid_from) on llama_inputs' cache
+LLAMA_TIMING_CHECKS = [(64, 0), (LLAMA_TIME_OFFSET, 0), (1025, 40)]
+# a 2-layer qk_norm stack over a cache longer than kernel 6's folded combine
+# can stage one head's partials for (LANES_S_MAX rows): kernel 5 combines
+# them from L2 and takes any cache length; (offset, valid_from)
+LLAMA_LONG_CACHE_CHECK = (40000, 37)
 # kernel 6 launches 10 a layer: 4 quantise, 4 GEMV, RoPE, attention with its
 # combine folded in (csrc/fused_llama_lanes.cu); its launch count is read at
 # these lane counts
@@ -366,8 +396,8 @@ LLAMA_LANES_TIMING_COUNTS = (1, 4, 8, 28)
 # of the events; once a run kept two thirds of the device time)
 DEVICE_EVENTS_KEPT = 0.98
 # the least share of the CUDA-event span that kernels 5 and 6, called back to
-# back, fill with device work: the host enqueues their 11 launches a layer
-# from C faster than the card runs them (a call took 2.25-3.85 ms of device
+# back, fill with device work: the host enqueues their 9 and 10 launches a
+# layer from C faster than the card runs them (a call took 2.25-3.85 ms of device
 # time at n = 1-4 and 2.85-4.50 ms with its enqueue on an NVIDIA H100 80GB
 # HBM3 at 700 W)
 DEVICE_BUSY = 0.7
@@ -451,15 +481,20 @@ MUTATIONS = {
          "stage(resid, d, lnl + 4 * d, lnl + 5 * d,", "stage(resid, d, lnl + 2 * d, lnl + 3 * d,"),
     ]),
     "fused_llama_stack": ("tpu_audio_torch/csrc/fused_llama.cu", "fused_llama_only", [
-        ("post-attention norm reads the input norm's row",
-         "quantize(resid, nl + d, QUANT_RMS", "quantize(resid, nl, QUANT_RMS"),
-        # the stages kernels 5 and 6 share (a mutation's own source last)
+        ("the post-attention RMSNorm reads the input norm's row",
+         "quantize(chain, resid, nl + d, QUANT_RMS", "quantize(chain, resid, nl, QUANT_RMS"),
+        ("the staged K/V rows come from KV head (g + 1) % kv_heads",
+         "const size_t kv_at = (size_t)g * HD;",
+         "const size_t kv_at = (size_t)((g + 1) % gridDim.y) * HD;"),
+        ("the folded combine drops the last live chunk",
+         "part_ml + h * nc * 2, nc,", "part_ml + h * nc * 2, nc - 1,"),
+        ("the gate/up GEMV's SwiGLU takes the gate and up rows swapped",
+         "a.out[o] = g * (1.0f / (1.0f + expf(-g))) * u;",
+         "a.out[o] = u * (1.0f / (1.0f + expf(-u))) * g;"),
+        # a device function kernels 5 and 6 share (a mutation's own source
+        # last): kernel 5's check runs on it
         ("RoPE sign on the wrong half",
          "j < HD / 2 ? -1.0f : 1.0f", "j < HD / 2 ? 1.0f : -1.0f",
-         "tpu_audio_torch/csrc/decoder_common.cuh"),
-        ("query head h reads K/V head (h / rep + 1) % kv_heads",
-         "const int kv = (h / rep) * HD;",
-         "const int kv = ((h / rep + 1) % (dkv / HD)) * HD;",
          "tpu_audio_torch/csrc/decoder_common.cuh"),
     ]),
     "fused_llama_stack_lanes": ("tpu_audio_torch/csrc/fused_llama_lanes.cu",
@@ -597,12 +632,18 @@ def device_busy(prof) -> tuple[float, int]:
     kernel 3's intervals overlap; where none overlap this is their sum) and
     the count of the activities, leaving out the sleep kernels of markers()."""
     spans = [s for s in device_intervals(prof) if "spin_kernel" not in s[2]]
+    return interval_union(spans), len(spans)
+
+
+def interval_union(spans) -> float:
+    """Microseconds covered by (start, end, name) intervals in order of
+    start, overlaps merged."""
     busy, end = 0.0, -math.inf
     for a, b, _ in spans:
         if b > end:
             busy += b - max(a, end)
             end = b
-    return busy, len(spans)
+    return busy
 
 
 def print_kernels(kernels: dict, steps: int, top: int = 12) -> None:
@@ -2097,8 +2138,8 @@ def check_witness(name, n_flips, max_step, worst_dist, scale_rel) -> None:
           f"boundary, scales {scale_rel:.1e} apart)")
 
 
-def llama_inputs(model, dev, seed: int):
-    """Random position-major caches (LLAMA_S_MAX rows) and an embedded band
+def llama_inputs(model, dev, seed: int, s_max: int = LLAMA_S_MAX):
+    """Random position-major caches (``s_max`` rows) and an embedded band
     token, as the decode step gives them to kernel 5."""
     import torch
 
@@ -2107,19 +2148,51 @@ def llama_inputs(model, dev, seed: int):
     cfg = model.config
     L, dkv = cfg.num_hidden_layers, cfg.num_key_value_heads * 128
     gen = torch.Generator(device=dev).manual_seed(seed)
-    kc = (torch.randn((L, LLAMA_S_MAX, dkv), generator=gen, device=dev) * 0.7
+    kc = (torch.randn((L, s_max, dkv), generator=gen, device=dev) * 0.7
           ).to(torch.bfloat16)
-    vc = (torch.randn((L, LLAMA_S_MAX, dkv), generator=gen, device=dev) * 0.7
+    vc = (torch.randn((L, s_max, dkv), generator=gen, device=dev) * 0.7
           ).to(torch.bfloat16)
     tok = torch.tensor([model.tokens.audio_token_offset + 4097 + seed], device=dev)
     x = nn.embedding(model.params["model"]["embed_tokens"], tok)[0].float()
     return kc, vc, x
 
 
+def llama_bound(pack, cfg, x, out, off: int, vf: int) -> tuple[float, str]:
+    """Kernel 5's bound on one call at ``off`` from ``vf``: the weights,
+    scales and norms, the cache rows attended (vf..off), x in, y and the new
+    k/v rows out (written to the caches too); the int8 products and the
+    attention's f32 operations."""
+    L, d, dkv = cfg.num_hidden_layers, cfg.hidden_size, cfg.num_key_value_heads * 128
+    rows = off + 1 - vf
+    return bound(nbytes(pack.w_in, pack.w_down, pack.scales, pack.norms, pack.inv_freq, x, *out)
+                 + 2 * L * rows * dkv * 2,
+                 int8_ops=2 * L * d * (pack.w_in.shape[1] + cfg.intermediate_size),
+                 f32_ops=4 * L * rows * cfg.num_attention_heads * 128)
+
+
+def llama_layouts(models) -> None:
+    """Kernel 5's scratch layout in Python (ops.fused_llama.scratch_layout)
+    held to the kernel's own (tpa_fused_llama_stack_scratch) at each model's
+    width, over a cache of LLAMA_S_MAX rows and one of the long-cache check's
+    length."""
+    from tpu_audio_torch.ops import fused_llama as FL
+
+    shapes = [(m.config.num_hidden_layers, m.config.hidden_size, m.config.intermediate_size,
+               m.config.num_attention_heads, m.config.num_key_value_heads, s_max)
+              for m in models for s_max in (LLAMA_S_MAX, LLAMA_LONG_CACHE_CHECK[0] + 1)]
+    for shape in shapes:
+        FL._kernel_scratch_layout(*shape)  # raises where the two differ
+    print(f"[fused_llama scratch] the Python layout equals the kernel's at (L, d, ffn, "
+          f"heads, kv_heads, s_max) {shapes}")
+
+
 def fused_llama_phase(model, dev, timing: bool = True) -> dict:
     """Kernel 5 at Orpheus-3B width (28 layers) against its plain version at
-    LLAMA_CHECKS, and a 2-layer qk_norm stack and a 2-layer LLAMA_WIDE
-    stack at QK_NORM_CHECKS; with ``timing``, both versions timed at offset
+    LLAMA_CHECKS, a 2-layer qk_norm stack and a 2-layer LLAMA_WIDE stack at
+    QK_NORM_CHECKS, and the qk_norm stack at LLAMA_LONG_CACHE_CHECK on a
+    cache of that length (llama_check); its scratch layout held to the
+    kernel's at the three widths; its launches a layer counted at
+    LLAMA_COUNTED_OFFSETS; with ``timing``, both versions timed at offset
     LLAMA_TIME_OFFSET."""
     import torch
 
@@ -2131,20 +2204,46 @@ def fused_llama_phase(model, dev, timing: bool = True) -> dict:
         for i, (off, vf) in enumerate(LLAMA_CHECKS):
             kc, vc, x = llama_inputs(model, dev, i)
             checks.append(llama_check("fused_llama", model, kc, vc, x, off, vf))
+        smalls = []
         for name, kw in (("qk_norm L=2", dict(num_hidden_layers=2, qk_norm=True)),
                          ("Llama-3.1-8B width L=2", LLAMA_WIDE)):
             small = build_orpheus(dev, **kw)
             for i, (off, vf) in enumerate(QK_NORM_CHECKS):
                 kc, vc, x = llama_inputs(small, dev, 10 + i)
                 checks.append(llama_check(f"fused_llama {name}", small, kc, vc, x, off, vf))
-            del small
+            smalls.append(small)
+        # the long cache: its rows from seed 12, the embedded token of seed 10
+        # (held at QK_NORM_CHECKS above). Two of seed 12's layer-0 q/k/v
+        # inputs, one -3 times the other under the same norm weight, land on
+        # rounding boundaries together (8.5 and -25.5), beyond llama_check's
+        # one-flip rule; the parent kernel rounds them as this one does.
+        off, vf = LLAMA_LONG_CACHE_CHECK
+        kc, vc, _ = llama_inputs(smalls[0], dev, 12, s_max=off + 1)
+        x = llama_inputs(smalls[0], dev, 10, s_max=1)[2]
+        checks.append(llama_check(f"fused_llama qk_norm L=2 S_max={off + 1}", smalls[0], kc, vc,
+                                  x, off, vf))
+        del kc, vc
+        llama_layouts([model, *smalls])
+        del smalls, small
+        pack = model.fused_decoder_pack()
+        L = cfg.num_hidden_layers
+        layer_launches = {}
+        for off in LLAMA_COUNTED_OFFSETS:
+            kc, vc, x = llama_inputs(model, dev, 5)
+
+            def counted():
+                return FL.fused_llama_stack(pack, kc, vc, x, off, cfg=cfg)
+
+            layer_launches[off] = stack_launches(counted, L, LLAMA_LAYER_LAUNCHES,
+                                                 LLAMA_K5_KERNELS,
+                                                 f"fused_llama_stack offset {off}")
         rec = dict(route="cuda", source="tpu_audio_torch/csrc/fused_llama.cu",
                    replaces="tpu_audio/ops/pallas_fused_llama.py:413", library_ms=None,
                    max_abs_err=max(c["max_abs_err"] for c in checks),
-                   rel_err=max(c["rel_err"] for c in checks), checks=checks)
+                   rel_err=max(c["rel_err"] for c in checks), checks=checks,
+                   layer_launches=layer_launches[LLAMA_TIME_OFFSET])
         if not timing:
             return rec
-        pack = model.fused_decoder_pack()
         kc, vc, x = llama_inputs(model, dev, 7)
         kr, vr = kc.clone(), vc.clone()
         off = LLAMA_TIME_OFFSET
@@ -2155,15 +2254,7 @@ def fused_llama_phase(model, dev, timing: bool = True) -> dict:
         def plain():
             return FL.fused_llama_stack_ref(pack, kr, vr, x, off, cfg=cfg)
 
-        out = kern()
-        L, d, dkv = cfg.num_hidden_layers, cfg.hidden_size, cfg.num_key_value_heads * 128
-        # the weights, scales and norms, the cache rows attended (0..off), x
-        # in, y and the new k/v rows out (written to the caches too)
-        b_ms, b_by = bound(
-            nbytes(pack.w_in, pack.w_down, pack.scales, pack.norms, pack.inv_freq, x, *out)
-            + 2 * L * (off + 1) * dkv * 2,
-            int8_ops=2 * L * d * (pack.w_in.shape[1] + cfg.intermediate_size),
-            f32_ops=4 * L * (off + 1) * cfg.num_attention_heads * 128)
+        b_ms, b_by = llama_bound(pack, cfg, x, kern(), off, 0)
         rec.update(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, reps=3, warmup=1),
                    dev_ms=device_ms(kern, launches=LLAMA_LAYER_LAUNCHES * L,
                                     busy=DEVICE_BUSY),
@@ -2368,13 +2459,16 @@ def tts_ttfb_phase(model) -> dict:
     bucket, a TTFB_CHUNK-token chunk sampled at temperature 0.6 and top-p
     0.9 through kernel 5, then the SNAC decode of its 4 frames; the best of
     TTFB_REPEATS after a warm-up. Then ms a token (host clock, and device
-    time from torch.profiler), the busy share and a per-kernel breakdown of
-    one TTS_PROFILE_TOKENS-token chunk."""
+    time from torch.profiler: the union of the device intervals, kernel 5's
+    of its own), the busy share and a per-kernel breakdown of one
+    TTS_PROFILE_TOKENS-token chunk, in which every one of kernel 5's
+    launches must be recorded."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_audio_torch.core.generation import AudioGenerateParameters
+    from tpu_audio_torch.ops import _lib
 
     gp = AudioGenerateParameters(temperature=0.6, top_p=0.9, repetition_penalty=1.0)
     prompt = [0] * (TTFB_BUCKET - 8) + list(range(100, 108))
@@ -2426,19 +2520,41 @@ def tts_ttfb_phase(model) -> dict:
             dec(*a)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        a = args()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            dec(*a)
-            torch.cuda.synchronize()
-            prof_ms = (time.perf_counter() - t0) * 1e3
-    kernels = by_kernel(prof)
-    busy_ms = sum(c[1] for c in kernels.values()) / 1e3
-    n_events = sum(c[0] for c in kernels.values())
-    k5 = ("rms_quantize_kernel", "int8_gemv_lanes_kernel", "rope_qk_kernel",
-          "gqa_attn_partial", "attn_combine_kernel")
-    k5_ms = sum(us for name, (c, us) in kernels.items() if any(k in name for k in k5)) / 1e3
+        # the profiled chunk, its window opened and closed by markers
+        # (STACK_READS): every kernel 5 launch of the chunk must be in it, L x
+        # LLAMA_LAYER_LAUNCHES a call
+        L = model.config.num_hidden_layers
+        for lead, leading in STACK_READS:
+            a = args()
+            _lib.reset_launches()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(lead)
+                markers(leading)
+                t0 = time.perf_counter()
+                dec(*a)
+                torch.cuda.synchronize()
+                prof_ms = (time.perf_counter() - t0) * 1e3
+                markers(STACK_MARKERS)
+                time.sleep(lead)
+            calls = _lib.launches["fused_llama_stack"]
+            spans = device_intervals(prof)
+            call = [i for i, s in enumerate(spans) if "spin_kernel" not in s[2]]
+            kept = (call[0] if call else 0, len(spans) - 1 - call[-1] if call else 0)
+            spans = [spans[i] for i in call]
+            k5 = [s for s in spans if any(k in s[2] for k in LLAMA_K5_KERNELS)]
+            want = calls * L * LLAMA_LAYER_LAUNCHES
+            if len(k5) == want and all(kept):
+                break
+            print(f"[tts decode] the profile kept {len(k5)} of kernel 5's {want} launches "
+                  f"({kept[0]} of {leading} leading, {kept[1]} of {STACK_MARKERS} trailing "
+                  f"markers, {lead} s wait): reading again")
+    check(len(k5) == want and all(kept) and calls > 0,
+          f"the decode profile holds {len(k5)} kernel 5 events of {calls} calls "
+          f"({want} wanted), markers kept {kept}")
+    kernels = {k: v for k, v in by_kernel(prof).items() if "spin_kernel" not in k}
+    busy_ms = interval_union(spans) / 1e3
+    n_events = len(spans)
+    k5_ms = interval_union(k5) / 1e3
     out = dict(ttfb_ms=ttfb * 1e3, ttfb_all_ms=[t * 1e3 for t in times],
                first_audio_s=audio_s, realtime_x=audio_s / ttfb,
                ms_per_token=min(walls) * 1e3 / n, device_ms_per_token=busy_ms / n,
@@ -2451,7 +2567,8 @@ def tts_ttfb_phase(model) -> dict:
     print(f"[tts decode] {n}-token chunk: {min(walls) * 1e3 / n:.4f} ms a token "
           f"(best of 3, host clock); under the profiler wall {prof_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms (share {busy_ms / prof_ms:.4f}), {busy_ms / n:.4f} device ms a "
-          f"token of which kernel 5 {k5_ms / n:.4f}; {n_events / n:.1f} device events a token")
+          f"token of which kernel 5 {k5_ms / n:.4f} ({len(k5)} launches over {calls} calls: "
+          f"{L} x {LLAMA_LAYER_LAUNCHES} a call); {n_events / n:.1f} device events a token")
     print_kernels(kernels, n, top=14)
     return out
 
@@ -4018,6 +4135,96 @@ def time_in_turns(label: str, calls: dict, order: list, res: dict, n_layers: int
                   f"{v['increment_us']:8.3f} us a layer")
 
 
+def fused_llama_timing_main(smi: str, others: list) -> int:
+    """``--fused-llama-timing [CHECKOUT ...]``: kernel 5 at Orpheus-3B width
+    on llama_inputs' random inputs at each (offset, valid_from) of
+    LLAMA_TIMING_CHECKS, built from the source as it stands and from each
+    other checkout given (a parent commit's, or a copy with a variant of the
+    kernel, named by its directory): each version bit for bit against the
+    first and against the plain version fed the first's int8 codes
+    (FORCED_RTOL), then per call (CUDA events around STACK_TIMING_REPS
+    back-to-back calls, each with its copy of x and zeroing of the
+    counters) in turns, device time (profiler, the union of intervals), the
+    stage breakdown of a layer by kernel (LLAMA_STAGES) and the bound as
+    fused_llama_phase computes it. Every version gets a scratch buffer of
+    the larger of the source's layout and the 11-launch kernel's size, with
+    room for d + 2 ffn + 64 words more, zeroed from the source's counters to
+    its end before each call (a variant that lays out its activations
+    otherwise, keeping its counters last, finds its counters zeroed), and an
+    int8 [max(d, ffn)] xq buffer. Prints one JSON line (no "ok" line)."""
+    import torch
+
+    from tpu_audio_torch.ops import _lib
+    from tpu_audio_torch.ops import fused_llama as FL
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="stack_libs_") as tmp:
+        fns = stack_libraries(others, Path(tmp), "fused_llama.cu", "tpa_fused_llama_stack")
+    print(f"[fused_llama timing] {len(fns)} versions built in {time.perf_counter() - t0:.1f} s")
+    model = build_orpheus(dev)
+    cfg = model.config
+    pack = model.fused_decoder_pack()
+    L, d, ffn = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
+    H, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
+    dkv = n_kv * FL.HEAD_DIM
+    order = [o.name for o in others] + [STACK_SOURCE]
+    out = {}
+    with torch.inference_mode():
+        for i, (off, vf) in enumerate(LLAMA_TIMING_CHECKS):
+            kc, vc, x = llama_inputs(model, dev, 20 + i)
+            s_max = kc.shape[1]
+            snap_k, snap_v = kc.clone(), vc.clone()
+            layout = FL.scratch_layout(L, d, ffn, H, n_kv, s_max)
+            nc = -(-(off + 1 - vf) // _lib.ATTN_CHUNK)
+            parent_words = d + 2 * ffn + 4 + H * nc * (FL.HEAD_DIM + 2)
+            y = torch.empty_like(x)
+            qkv = torch.empty((L, d + 2 * dkv), device=dev)
+            scratch = torch.empty((max(layout["total"], parent_words) + d + 2 * ffn + 64,),
+                                  device=dev)
+            counts = scratch[layout["counts"][0]:]
+            xq = torch.empty((max(d, ffn),), dtype=torch.int8, device=dev)
+            tap = llama_taps(cfg, dev, False)
+            ptrs = [t.data_ptr() for t in (y, *pack, kc, vc, qkv, scratch, xq)]
+            tail = (L, d, ffn, H, n_kv, s_max, off, vf, int(bool(cfg.qk_norm)),
+                    float(cfg.rms_norm_eps), _lib.stream(x))
+
+            def caller(name, fn, taps=(0, 0)):
+                def call():
+                    y.copy_(x)
+                    counts.zero_()
+                    err = fn(*ptrs, *taps, *tail)
+                    check(err == 0, f"tpa_fused_llama_stack ({name}): CUDA error {err}")
+                return call
+
+            calls = {name: caller(name, fn) for name, fn in fns.items()}
+            caller(order[0], fns[order[0]], (tap[0].data_ptr(), tap[1].data_ptr()))()
+            forced = FL.fused_llama_stack_ref(pack, snap_k.clone(), snap_v.clone(), x, off,
+                                              cfg=cfg, valid_from=vf, codes=tap)
+            res, first = {}, None
+            for name in order:
+                calls[name]()
+                torch.cuda.synchronize()
+                got = (y.clone(), qkv[:, d:d + dkv].clone(), qkv[:, d + dkv:].clone())
+                first = first or got
+                err = max(rel_err(a, b) for a, b in zip(got, forced))
+                same = all(torch.equal(a, b) for a, b in zip(got, first))
+                print(f"[fused_llama timing] offset {off} valid_from {vf} {name}: vs plain fed "
+                      f"{order[0]}'s codes {err:.3e} (rtol {FORCED_RTOL}); bit-equal to "
+                      f"{order[0]}: {same}")
+                check(err <= FORCED_RTOL,
+                      f"{name} at offset {off} disagrees with the plain version: {err}")
+                res[name] = dict(rel_err=err, bit_equal_to_first=same, ms=[])
+            b_ms, b_by = llama_bound(pack, cfg, x, first, off, vf)
+            print(f"[fused_llama timing] offset {off}: bound {b_ms:.4f} ms ({b_by})")
+            time_in_turns(f"fused_llama offset {off}", calls, order, res, L,
+                          kernels_of=LLAMA_KERNELS, stages=LLAMA_STAGES)
+            out[str(off)] = dict(valid_from=vf, bound_ms=b_ms, bound_by=b_by, versions=res)
+            del kc, vc, snap_k, snap_v, forced, scratch, counts
+    print(json.dumps({"fused_llama_timing": out, "smi": smi}))
+    return 0
+
+
 def llama_lanes_bound(pack, cfg, x, out, offs) -> tuple[float, str]:
     """Kernel 6's bound on one call: the weights, scales and norms once; per
     lane the cache rows it attends (valid_from..offset), x in, y and the new
@@ -4281,6 +4488,7 @@ def main() -> int:
         return mutations_main()
     timing = {"--fused-stack-timing": fused_stack_timing_main,
               "--fused-lanes-timing": fused_lanes_timing_main,
+              "--fused-llama-timing": fused_llama_timing_main,
               "--llama-lanes-timing": llama_lanes_timing_main}.get(next(iter(sys.argv[1:]), ""))
     if sys.argv[1:] not in ([], ["--qmm"]) and not timing:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)

@@ -494,9 +494,9 @@ def test_fused_llama_stack_ref_taps_every_gemv_input():
 
 def test_fused_llama_supported_states_the_kernel_limits():
     """The shapes the TPU kernel takes (Orpheus-3B, Llama-3.1-8B's 14336-
-    wide ffn, a 16384-wide one) up to a 57,856-wide f32 row in the
-    quantise's shared memory; no head dim but 128, no ffn of partial
-    16-byte vectors."""
+    wide ffn, a 16384-wide one) up to a 28,928-wide ffn, whose f32 SwiGLU
+    row and its copy fill the quantise launch's shared memory; no head dim
+    but 128, no ffn of partial 16-byte vectors."""
     orpheus = dict(hidden_size=3072, num_hidden_layers=28, intermediate_size=8192,
                    num_attention_heads=24, num_key_value_heads=8, vocab_size=156940)
     llama8b = dict(hidden_size=4096, num_hidden_layers=32, intermediate_size=14336,
@@ -507,8 +507,8 @@ def test_fused_llama_supported_states_the_kernel_limits():
         assert TFL.supported(TL.LlamaConfig(**kw))
     assert not TFL.supported(TL.LlamaConfig(hidden_size=2048, num_attention_heads=32))
     assert not TFL.supported(TL.LlamaConfig(**dict(LLAMA, intermediate_size=2056)))
-    assert TFL.supported(TL.LlamaConfig(**dict(LLAMA, intermediate_size=57856)))
-    assert not TFL.supported(TL.LlamaConfig(**dict(LLAMA, intermediate_size=57872)))
+    assert TFL.supported(TL.LlamaConfig(**dict(LLAMA, intermediate_size=28928)))
+    assert not TFL.supported(TL.LlamaConfig(**dict(LLAMA, intermediate_size=28944)))
     assert not TFL.supported(TL.LlamaConfig(**LLAMA, attention_bias=True))
     assert not TFL.supported(TL.LlamaConfig(**LLAMA, rope_interleaved=True))
 

@@ -128,6 +128,24 @@ __device__ __forceinline__ float combine_partials(const float* __restrict__ part
   return o / l;
 }
 
+// combine_partials on partials that other blocks of the same launch wrote,
+// read in place from L2 (__ldcg, past the L1): the same expressions in the
+// same order, with no shared memory however many chunks there are.
+__device__ __forceinline__ float combine_partials_l2(const float* part_o, const float* ml,
+                                                     int nc, int hd, int j) {
+  float m = -INFINITY;
+#pragma unroll 8
+  for (int c = 0; c < nc; ++c) m = fmaxf(m, __ldcg(ml + 2 * c));
+  float l = 0.0f, o = 0.0f;
+#pragma unroll 8
+  for (int c = 0; c < nc; ++c) {
+    const float w = expf(__ldcg(ml + 2 * c) - m);
+    l += __ldcg(ml + 2 * c + 1) * w;
+    o += __ldcg(part_o + (size_t)c * hd + j) * w;
+  }
+  return o / l;
+}
+
 // out[h * hd + j] for head h = blockIdx.x, j = threadIdx.x (hd threads),
 // from nc partials per head laid out [H, nc, hd] and [H, nc, 2].
 static __global__ void attn_combine_kernel(const float* __restrict__ part_o,

@@ -109,116 +109,6 @@ struct SelfValue {
   }
 };
 
-// Cross-attention score/value of one head over int8 position-major K/V with
-// one f32 scale per position: score = (code . q*sm) * ks[s]; the V scale is
-// folded into the value.
-struct CrossScore {
-  const float* q;
-  const int8_t* ck;
-  const float* ks;
-  int d;
-  float sm;
-  __device__ float term(int s, int j) const {
-    return (float)ck[(size_t)s * d + j] * (q[j] * sm);
-  }
-  __device__ float finish(int s, float dot) const { return dot * ks[s]; }
-};
-
-struct CrossValue {
-  const int8_t* cv;
-  const float* vs;
-  int d;
-  __device__ float at(int s, int j) const {
-    return vs[s] * (float)cv[(size_t)s * d + j];
-  }
-};
-
-// ---------------------------------------------------------------------------
-// int8 GEMV over pre-quantised inputs, one weight row per warp.
-// ---------------------------------------------------------------------------
-
-// out[m * ldo + o] (=, or +=) epilogue(sum_i xq[m, i] * w[o, i]) for o < N
-// and every lane m < n (n <= NL).
-template <int MODE, int NL>
-static __global__ void __launch_bounds__(GEMV_THREADS)
-int8_gemv_lanes_kernel(const int8_t* __restrict__ xq_g,
-                       const float* __restrict__ xs,
-                       const int8_t* __restrict__ w,
-                       const float* __restrict__ w_scale,
-                       const float* __restrict__ bias, float* __restrict__ out,
-                       int ldo, int N, int K, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int4* xv = reinterpret_cast<int4*>(smem_raw);  // [n, K / 16]
-  const int nvec = K / 16;
-  const int4* src = reinterpret_cast<const int4*>(xq_g);
-  for (int i = threadIdx.x; i < n * nvec; i += GEMV_THREADS) xv[i] = src[i];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = GEMV_THREADS / 32;
-  for (int row = blockIdx.x * nwarps + warp; row < N; row += gridDim.x * nwarps) {
-    const int4* wv = reinterpret_cast<const int4*>(w + (size_t)row * K);
-    int acc[NL];
-#pragma unroll
-    for (int m = 0; m < NL; ++m) acc[m] = 0;
-    for (int c = lane; c < nvec; c += 32) {
-      const int4 a = __ldg(wv + c);  // each weight row is read once for all lanes
-#pragma unroll
-      for (int m = 0; m < NL; ++m) {
-        if (m < n) {
-          const int4 b = xv[m * nvec + c];
-          acc[m] = __dp4a(a.x, b.x, acc[m]);
-          acc[m] = __dp4a(a.y, b.y, acc[m]);
-          acc[m] = __dp4a(a.z, b.z, acc[m]);
-          acc[m] = __dp4a(a.w, b.w, acc[m]);
-        }
-      }
-    }
-    const float ws = w_scale[row];
-#pragma unroll
-    for (int m = 0; m < NL; ++m) {
-      if (m < n) {
-        const int s = tpa::warp_sum_int(acc[m]);
-        if (lane == 0)
-          tpa::gemv_epilogue<MODE>(s, ws, xs[m], bias != nullptr ? bias + row : nullptr,
-                                   out + (size_t)m * ldo + row);
-      }
-    }
-  }
-}
-
-template <int MODE, int NL>
-static cudaError_t gemv_lanes_nl(const int8_t* xq, const float* xs, const int8_t* w,
-                          const float* scale, const float* bias, float* out,
-                          int ldo, int N, int K, int n, cudaStream_t stream) {
-  const auto kernel = int8_gemv_lanes_kernel<MODE, NL>;
-  const size_t smem = (size_t)n * K;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const int rows_per_block = GEMV_THREADS / 32;
-  const int blocks = (N + rows_per_block - 1) / rows_per_block;
-  kernel<<<blocks, GEMV_THREADS, smem, stream>>>(xq, xs, w, scale, bias, out,
-                                                 ldo, N, K, n);
-  return cudaSuccess;
-}
-
-// The accumulator count is a template parameter so the sums stay in
-// registers; n picks the smallest of 1, 2, 4, 8, 16, 32 that holds it.
-template <int MODE>
-static cudaError_t gemv_lanes(const int8_t* xq, const float* xs, const int8_t* w,
-                       const float* scale, const float* bias, float* out, int ldo,
-                       int N, int K, int n, cudaStream_t stream) {
-  if (n <= 1) return gemv_lanes_nl<MODE, 1>(xq, xs, w, scale, bias, out, ldo, N, K, n, stream);
-  if (n <= 2) return gemv_lanes_nl<MODE, 2>(xq, xs, w, scale, bias, out, ldo, N, K, n, stream);
-  if (n <= 4) return gemv_lanes_nl<MODE, 4>(xq, xs, w, scale, bias, out, ldo, N, K, n, stream);
-  if (n <= 8) return gemv_lanes_nl<MODE, 8>(xq, xs, w, scale, bias, out, ldo, N, K, n, stream);
-  if (n <= 16) return gemv_lanes_nl<MODE, 16>(xq, xs, w, scale, bias, out, ldo, N, K, n, stream);
-  return gemv_lanes_nl<MODE, MAX_LANES>(xq, xs, w, scale, bias, out, ldo, N, K, n, stream);
-}
-
 // ---------------------------------------------------------------------------
 // The Llama stacks' per-token pieces: the one-token kernel (fused_llama.cu)
 // and the serving lanes kernel (fused_llama_lanes.cu) run each lane row
@@ -253,37 +143,6 @@ __device__ __forceinline__ float llama_quantize_row(const float* __restrict__ x,
     for (int i = tid; i < K; i += GEMV_THREADS) xf[i] = x[i];
   }
   return quantize_staged_row(xf, xq, K, red);
-}
-
-// Row m = blockIdx.x of x (row stride ldx): the int8 codes xq[m, :K] and
-// scale xs[m] of a GEMV input (llama_quantize_row); the staged f32 row
-// takes K floats of dynamic shared memory.
-static __global__ void rms_quantize_rows_kernel(const float* __restrict__ x, int ldx,
-                                                const float* __restrict__ w, int mode,
-                                                float eps, int8_t* __restrict__ xq,
-                                                float* __restrict__ xs, int K) {
-  extern __shared__ float xf[];  // [K]
-  __shared__ float red[32];
-  const int m = blockIdx.x;
-  const float s = llama_quantize_row(x + (size_t)m * ldx, w, mode, eps, xf,
-                                     xq + (size_t)m * K, K, red);
-  if (threadIdx.x == 0) xs[m] = s;
-}
-
-// rms_quantize_rows_kernel over n rows, past 48 KB of shared memory by
-// opt-in (up to the 227 KB a block may have).
-static cudaError_t quantize_rows(const float* x, int ldx, const float* w, int mode,
-                                 float eps, int8_t* xq, float* xs, int K, int n,
-                                 cudaStream_t stream) {
-  const size_t smem = (size_t)K * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        rms_quantize_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  rms_quantize_rows_kernel<<<n, GEMV_THREADS, smem, stream>>>(x, ldx, w, mode, eps, xq,
-                                                              xs, K);
-  return cudaSuccess;
 }
 
 // Head b of one token's q/k/v row qkv = [q (d), k (dkv), v (dkv)], in
@@ -324,27 +183,6 @@ __device__ __forceinline__ void llama_rope_head(float* qkv, const float* qn_w,
     kc_row[g] = __float2bfloat16(out);
     vc_row[g] = __float2bfloat16(qkv[d + dkv + g]);
   }
-}
-
-// Chunk c (ATTN_CHUNK positions from valid_from) of split-S GQA attention
-// for query head h, which reads K/V head h / rep, of one token's rotated
-// qkv over one layer's position-major bf16 caches kc/vc [s_max, dkv]
-// (K after RoPE); the token's own f32 k/v stand at row offset. Writes the
-// block's partial to part_o [LLAMA_HD] and part_ml [2].
-__device__ __forceinline__ void llama_attn_partial(const float* __restrict__ qkv,
-                                                   const __nv_bfloat16* __restrict__ kc,
-                                                   const __nv_bfloat16* __restrict__ vc,
-                                                   float* part_o, float* part_ml,
-                                                   int offset, int valid_from, int c,
-                                                   int h, int d, int dkv, int rep,
-                                                   float sm) {
-  constexpr int HD = LLAMA_HD;
-  const int kv = (h / rep) * HD;
-  const SelfScore score{qkv + h * HD, qkv + d + kv, kc + kv, offset, dkv, sm};
-  const SelfValue value{qkv + d + dkv + kv, vc + kv, offset, dkv};
-  const int s0 = valid_from + c * ATTN_CHUNK;
-  const int s1 = min(offset + 1, s0 + ATTN_CHUNK);
-  attn_partial<HD>(score, value, s0, s1, part_o, part_ml);
 }
 
 // ---------------------------------------------------------------------------

@@ -5,8 +5,8 @@ Port of tpu_audio/ops/pallas_fused_llama.py: ``supported``,
 ``pack_llama_weights``, ``fused_llama_stack`` (one token) and
 ``fused_llama_stack_lanes`` (one token for each of n serving lanes). The
 CUDA implementations are ``csrc/fused_llama.cu`` and
-``csrc/fused_llama_lanes.cu`` (a short sequence of small kernels a layer,
-driven from C; the lanes kernel's as programmatic dependent launches);
+``csrc/fused_llama_lanes.cu`` (a short chain of small kernels a layer,
+driven from C as programmatic dependent launches);
 :func:`fused_llama_stack_ref` and :func:`fused_llama_stack_lanes_ref` are
 the plain PyTorch versions.
 
@@ -36,11 +36,12 @@ from tpu_audio_torch.ops.fused_decoder import MAX_LANES, SMEM_OPT_IN
 
 __all__ = ["LlamaFusedPack", "supported", "supported_lanes", "pack_llama_weights",
            "fused_llama_stack", "fused_llama_stack_ref", "fused_llama_stack_lanes",
-           "fused_llama_stack_lanes_ref", "lanes_scratch_layout", "LANES_S_MAX", "GEMVS"]
+           "fused_llama_stack_lanes_ref", "scratch_layout", "lanes_scratch_layout",
+           "LANES_S_MAX", "GEMVS"]
 
 HEAD_DIM = 128
-# shared memory of the one-block quantise: the H100 lets a block opt into
-# 227 KB; 1 KB is left for its static reduction scratch
+# shared memory of the one-block quantise of a GEMV input: the H100 lets a
+# block opt into 227 KB; 1 KB is left for its static reduction scratch
 QUANT_SMEM = 226 * 1024
 GEMVS = ("q/k/v", "o", "gate/up", "down")  # a layer's GEMV inputs, in order
 # the longest cache (S_max) the lanes kernel takes: its folded combine keeps
@@ -70,17 +71,20 @@ def supported(cfg) -> bool:
     """The shapes the CUDA kernel takes: head dim 128 with ``heads * 128 ==
     hidden``, whole GQA groups, no attention bias, half-split RoPE, no
     Granite scale knobs, an ffn width of whole 16-byte int8 vectors, and
-    the widest GEMV input's f32 row within the shared memory a block may
-    opt into (QUANT_SMEM). That is the TPU kernel's predicate without its
-    weight-chunk divisibility, up to ``max(hidden, ffn)`` of 57,856 (every
-    published Llama; Llama-3.1-405B's ffn is 53,248)."""
+    each quantise launch within the shared memory a block may opt into
+    (QUANT_SMEM): a hidden-wide input's f32 row, RMSNorm weight and normed
+    row (12 x hidden bytes, so hidden up to 19,285) and the down
+    projection's f32 SwiGLU row and its copy (8 x ffn bytes, ffn up to
+    28,928). That is the TPU kernel's predicate without its weight-chunk
+    divisibility, for every published Llama up to 70B (Llama-3.1-405B's ffn
+    of 53,248 is not taken). The cache length is not bounded."""
     d, ffn = cfg.hidden_size, cfg.intermediate_size
     hd = cfg.resolved_head_dim
     return (hd == HEAD_DIM and cfg.num_attention_heads * hd == d
             and cfg.num_attention_heads % cfg.num_key_value_heads == 0
             and not cfg.attention_bias and not cfg.rope_interleaved
             and cfg.residual_multiplier == 1.0 and cfg.attention_multiplier is None
-            and ffn % 16 == 0 and 4 * max(d, ffn) <= QUANT_SMEM)
+            and ffn % 16 == 0 and 12 * d <= QUANT_SMEM and 8 * ffn <= QUANT_SMEM)
 
 
 def supported_lanes(cfg, n: int) -> bool:
@@ -253,6 +257,43 @@ def _require_pack(pack: LlamaFusedPack, cfg, dev) -> None:
     req(pack.inv_freq, "inv_freq", torch.float32, (HEAD_DIM // 2,), dev)
 
 
+def scratch_layout(L: int, d: int, ffn: int, H: int, n_kv: int, s_max: int) -> dict:
+    """The one-token kernel's f32 scratch, as ``csrc/fused_llama.cu`` lays it
+    out (its ``Scratch``; :func:`fused_llama_stack` holds the two to each
+    other through ``tpa_fused_llama_stack_scratch``): region name -> (start,
+    length) in 4-byte words, and ``"total"``. attn [d], h [ffn] (the SwiGLU
+    of the gate/up projection), the quantise launch's scale xs (padded to
+    4), the split-S attention partials [H, nc, 128] and [H, nc, 2] with nc
+    = ceil(s_max / 64) (a call lays out its own live chunks' in their first
+    words), then the int32 arrival counters [L, n_kv] of the folded combines
+    (one for each layer and KV head), which the wrapper zeroes once a
+    call."""
+    nc = -(-s_max // _lib.ATTN_CHUNK)
+    sizes = (("attn", d), ("h", ffn), ("xs", 4), ("part_o", H * nc * HEAD_DIM),
+             ("part_ml", H * nc * 2), ("counts", L * n_kv))
+    out, at = {}, 0
+    for name, size in sizes:
+        out[name] = (at, size)
+        at += size
+    out["total"] = at
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_scratch_layout(L: int, d: int, ffn: int, H: int, n_kv: int, s_max: int) -> dict:
+    """:func:`scratch_layout`, held to the kernel's own (raises if the two
+    differ: the wrapper would zero the wrong words)."""
+    layout = scratch_layout(L, d, ffn, H, n_kv, s_max)
+    starts = (ctypes.c_longlong * 7)()
+    _lib.check(_lib.lib().tpa_fused_llama_stack_scratch(L, d, ffn, H, n_kv, s_max, starts),
+               "fused_llama_stack scratch")
+    mine = [start for start, _ in list(layout.values())[:-1]] + [layout["total"]]
+    if list(starts) != mine:
+        raise RuntimeError(f"fused_llama_stack: scratch layout {mine} differs from the "
+                           f"kernel's {list(starts)}")
+    return layout
+
+
 def fused_llama_stack(pack: LlamaFusedPack, kcache, vcache, x: torch.Tensor,
                       offset: int, *, cfg, valid_from: int = 0, tap=None):
     """Run the layer stack for ONE token.
@@ -265,7 +306,12 @@ def fused_llama_stack(pack: LlamaFusedPack, kcache, vcache, x: torch.Tensor,
     ``tap = (codes, scales)``, int8 ``[L, 4, max(d, ffn)]`` and f32
     ``[L, 4]``, receives every GEMV input's int8 codes and scale, for
     checking the rounding against the plain version. The plain version
-    runs for CPU tensors, the CUDA kernels for CUDA tensors."""
+    runs for CPU tensors, the CUDA kernels for CUDA tensors: 9 launches a
+    layer (the o projection quantises its own input, the gate/up projection
+    writes the SwiGLU), each after the first a programmatic dependent
+    launch, after the copy of ``x`` and the zeroing
+    of the combines' arrival counters. The shapes are :func:`supported`'s;
+    the cache may be of any length."""
     if x.device.type == "cpu":
         return fused_llama_stack_ref(pack, kcache, vcache, x, offset, cfg=cfg,
                                      valid_from=valid_from, tap=tap)
@@ -290,13 +336,15 @@ def fused_llama_stack(pack: LlamaFusedPack, kcache, vcache, x: torch.Tensor,
         req(tap[0], "tap codes", torch.int8, (L, 4, kmax), dev)
         req(tap[1], "tap scales", torch.float32, (L, 4), dev)
         tap_q, tap_s = tap[0].data_ptr(), tap[1].data_ptr()
+    for name, t in (*zip(pack._fields, pack), ("kcache", kcache), ("vcache", vcache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_llama_stack: {name} is not 16-byte aligned")
     y = x.clone()
     qkv = torch.empty((L, d + 2 * dkv), dtype=torch.float32, device=dev)
-    # attn [d], gate/up [2 ffn], xs (padded to 4), then the split-S
-    # attention partials [heads, nc, 128] and [heads, nc, 2]
-    nc = -(-(offset + 1 - valid_from) // _lib.ATTN_CHUNK)
-    scratch = torch.empty((d + 2 * ffn + 4 + H * nc * (HEAD_DIM + 2),),
-                          dtype=torch.float32, device=dev)
+    layout = _kernel_scratch_layout(L, d, ffn, H, n_kv, s_max)
+    scratch = torch.empty((layout["total"],), dtype=torch.float32, device=dev)
+    counts = layout["counts"]
+    scratch[counts[0]:counts[0] + counts[1]].zero_()  # int32 zeros: the same bits
     xq = torch.empty((kmax,), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
         err = _lib.lib().tpa_fused_llama_stack(
