@@ -15,7 +15,12 @@ so a kernel that reads the wrong bias or LayerNorm row disagrees), and:
    times both: per call with CUDA events (median; host launch overhead
    included) and as device time from ``torch.profiler`` (each run held to
    the events its calls make and to a CUDA-event span; "not measured" after
-   three runs that fail). The one-token decoder kernel (``fused_stack``)
+   three runs that fail). The fused log-mel (``fused_log_mel``) is also
+   checked at 80 mels and under a dense random filterbank, the int8
+   attention (``decode_attention_int8``) at valid 1 and 700, 2 groups, 100
+   positions and with nonzero biases, each check three calls bit for bit
+   alike; the attention must make one launch a call besides the conversion
+   of its bf16 q. The one-token decoder kernel (``fused_stack``)
    is checked at write offsets 0, 63, 64, 100 and 447, also bit for bit
    against the serving kernel at one lane, and must launch 8 kernels a
    layer. The serving
@@ -158,9 +163,22 @@ width on random inputs at offsets 64, 400 and 1025, and ``--fused-lanes-timing
 [CHECKOUT ...]`` for kernel 4 (``csrc/fused_decoder_lanes.cu``) at
 whisper-large-v3 width on random inputs at 1, 4, 8 and 32 lanes.
 
-``python3 chip_smoke.py --mutations`` instead runs the standing mutation
-check: each kernel's check alone on copies of the checkout with its source
-mutated (``MUTATIONS``; for kernel 3, its checks on a random pack with
+``python3 chip_smoke.py --kv-mel-timing [CHECKOUT ...]`` builds kernels 2
+(``csrc/kv_attention.cu``) and 1 (``csrc/mel.cu``) from the source and from
+each checkout given, holds each version's calls bit for bit to each other
+and to the first version's, and times them in turns: kernel 2 on random
+whisper-large-v3 cross planes hot (one layer's, back to back) and cold (32
+layers' in rotation, past the L2), kernel 1 at 128 and 80 mels.
+
+``python3 chip_smoke.py --mutations [KERNEL ...]`` instead runs the standing
+mutation check (of the kernels named, or of all): each kernel's check alone
+on copies of the checkout with its source mutated (``MUTATIONS``; for
+kernel 2, its checks on random planes with the folded combine dropping the
+last chunk, a staged V row taking the next position's scale, the mask
+admitting ``s == valid``, the arrival counter not set back to 0; for
+kernel 1, on the speech clip's and random spectra with the band starting
+one bin late or ending one bin early, the power squaring the real part
+alone; for kernel 3, its checks on a random pack with
 cross-q reading out-proj's bias, the folded combine reading the next head's
 partials, a staged cross K/V row taking the next position's scale; for
 kernel 4, its own checks with the folded self combine reading the next
@@ -232,6 +250,19 @@ SERVE_SLOTS, SERVE_STEP_TOKENS, SERVE_MAX_TOKENS = 4, 8, 64
 THROUGHPUT_SLOTS = (4, 8)
 THROUGHPUT_MAX_TOKENS, WARM_TICKS, TIMED_TICKS = 440, 2, 3
 HTTP_REQUESTS = 3
+# kernel 2 at whisper-large-v3's cross attention (heads, positions, head dim)
+KV_HEADS, KV_POSITIONS, KV_HD = 20, 1500, 64
+# its checks: (positions, groups, valid, seeded nonzero biases); the route's
+# planes come from kv_cache._quantize, whose biases are zero
+KV_CHECKS = ((1500, 1, 1500, False), (1500, 1, 1, False), (1500, 1, 700, False),
+             (1500, 2, 1500, True), (100, 1, 100, True),
+             (12100, 1, 11000, False))  # past 11,904 positions: the combine from L2
+KV_CALLS = 3  # calls of a check on one scratch, bit for bit alike: a counter
+#               that a call does not set back to 0 shows in the second
+KV_COLD_LAYERS = 32  # a decode step's planes in rotation: 138 MB, past the 50 MB L2
+KV_STAGES = {1: ("attention",), 2: ("partial", "combine")}  # kernel 2 and its parent
+KV_KERNELS = ("decode_attention_int8", "attn_combine_kernel")
+MEL_CALLS = 3
 
 # tolerances, kernel vs plain version on the same inputs
 MEL_ATOL = 1e-4      # log10 mel values: f32 sums in another order
@@ -514,6 +545,21 @@ MUTATIONS = {
         ("the staged K/V rows come from KV head (g + 1) % kv_heads",
          "const size_t kv_at = base + (size_t)g * HD;",
          "const size_t kv_at = base + (size_t)((g + 1) % gridDim.y) * HD;"),
+    ]),
+    "decode_attention_int8": ("tpu_audio_torch/csrc/kv_attention.cu", "kv_attention_only", [
+        ("the folded combine drops the last chunk",
+         "combine_partials(sbuf, sml, nc, HD,", "combine_partials(sbuf, sml, nc - 1, HD,"),
+        ("a staged V row takes the neighbouring position's scale",
+         "vs[r * G + g]", "vs[(r ^ 1) * G + g]"),
+        ("the mask admits s == valid", "s < valid ?", "s <= valid ?"),
+        ("the arrival counter is not set back to 0",
+         "if (threadIdx.x == 0) counts[h] = 0;", ""),
+    ]),
+    "fused_log_mel": ("tpu_audio_torch/csrc/mel.cu", "mel_only", [
+        ("the band starts one bin late", "lo = band[0];", "lo = band[0] + 1;"),
+        ("the band ends one bin early", "hi = band[1];", "hi = band[1] - 1;"),
+        ("the power squares only the real part", "r[u] * r[u] + m[u] * m[u];",
+         "r[u] * r[u] + 0.0f * m[u];"),
     ]),
     "quantized_matvec": ("tpu_audio_torch/csrc/qmm.cu", "qmm_only", [
         ("codes read most significant first",
@@ -1498,36 +1544,195 @@ def lanes_phase(w8, cfg, encs, dev) -> dict:
                 **top, by_lanes={str(n): r for n, r in by_n.items()})
 
 
+def kv_planes(gen, dev, s: int = KV_POSITIONS, g: int = 1, biased: bool = False):
+    """Kernel 2's K and V planes over ``s`` positions, each (codes, scales,
+    biases) as kv_cache._quantize makes them from seeded randn [KV_HEADS, s,
+    KV_HD] in ``g`` groups (the biases then replaced by seeded nonzero ones
+    where ``biased``)."""
+    import torch
+
+    from tpu_audio_torch.core import kv_cache
+
+    planes = []
+    for _ in range(2):
+        codes, sc, b = kv_cache._quantize(
+            torch.randn((KV_HEADS, s, KV_HD), generator=gen, device=dev), g)
+        if biased:
+            b = torch.randn(b.shape, generator=gen, device=dev) * 0.05
+        planes.append((codes, sc, b))
+    return planes
+
+
+def kv_bound(q, kq, vq, out) -> tuple[float, str]:
+    """Kernel 2's bound on one call: q, the planes and the output once, and
+    the scores' and P.V's f32 operations."""
+    h, s, d = kq[0].shape
+    return bound(nbytes(q, *kq, *vq, out), f32_ops=4 * h * s * d)
+
+
+def same_calls(fn, n: int) -> list:
+    """``n`` consecutive calls of ``fn`` (each keeping its output), then a
+    synchronize; fails unless their outputs are bit for bit alike."""
+    import torch
+
+    outs = [fn() for _ in range(n)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(o, outs[0]) for o in outs[1:]),
+          f"{n} consecutive calls disagree: max diff "
+          f"{max(float((o - outs[0]).abs().max()) for o in outs[1:])}")
+    return outs
+
+
+def kv_check(label: str, fn, q, kq, vq, valid: int) -> tuple:
+    """KV_CALLS calls of ``fn`` (a call of kernel 2 on these inputs), bit
+    for bit alike and within KV_RTOL of the plain version: (output, plain
+    version's output, rel err)."""
+    from tpu_audio_torch.ops import kv_attention as K
+
+    want = K.decode_attention_int8_ref(q, *kq, *vq, valid, sm_scale=1.0 / KV_HD ** 0.5)
+    got = same_calls(fn, KV_CALLS)[0]
+    err = rel_err(got, want)
+    print(f"[kv_attention] {label}: {KV_CALLS} calls bit-equal, rel err {err:.3e} "
+          f"(rtol {KV_RTOL})")
+    check(got.shape == want.shape and err <= KV_RTOL,
+          f"decode_attention_int8 {label} disagrees with its plain version: {err}")
+    return got, want, err
+
+
+def kv_checks(dev) -> None:
+    """Kernel 2 through its wrapper on random planes at each of KV_CHECKS
+    (kv_check), and its launches in one call: one kernel, besides the
+    conversion of the bf16 q."""
+    import torch
+
+    from tpu_audio_torch.ops import kv_attention as K
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn((KV_HEADS, 1, KV_HD), generator=gen, device=dev).to(torch.bfloat16)
+    for s, g, valid, biased in KV_CHECKS:
+        kq, vq = kv_planes(gen, dev, s, g, biased)
+        kv_check(f"S {s} G {g} valid {valid}{' biased' if biased else ''}",
+                 lambda: K.decode_attention_int8(q, *kq, *vq, valid, sm_scale=1.0 / KV_HD ** 0.5),
+                 q, kq, vq, valid)
+    kq, vq = kv_planes(gen, dev)
+    stack_launches(lambda: K.decode_attention_int8(q, *kq, *vq, KV_POSITIONS,
+                                                   sm_scale=1.0 / KV_HD ** 0.5),
+                   1, per_layer=1, kernels_of=KV_KERNELS[:1], label="decode_attention_int8")
+
+
+def mel_spectra(dev, audio) -> list:
+    """Kernel 1's inputs, (label, re, im, filters): the STFT of ``audio``
+    (one 30 s window) at 128 Slaney mels, as the frontend gives them; random
+    spectra of its shape at 80; and random spectra under a dense random
+    filterbank (no bin skipped)."""
+    import torch
+
+    from tpu_audio_torch.core import dsp
+    from tpu_audio_torch.models.stt import whisper as W
+
+    x = torch.from_numpy(audio).to(dev)
+    spec = dsp.stft(x, dsp.hanning_window(W.N_FFT, periodic=True), W.N_FFT,
+                    W.HOP_LENGTH)[:-1]
+
+    def slaney(n):
+        return torch.from_numpy(dsp.mel_filters(16000, W.N_FFT, n, f_max=8000.0,
+                                                norm="slaney", mel_scale="slaney")).to(dev)
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shape = spec.shape
+
+    def rand():
+        return torch.randn(shape, generator=gen, device=dev)
+
+    return [("speech, 128 mels", spec.real.contiguous(), spec.imag.contiguous(), slaney(128)),
+            ("random, 80 mels", rand(), rand(), slaney(80)),
+            ("random, dense 128", rand(), rand(),
+             torch.rand((shape[1], 128), generator=gen, device=dev))]
+
+
+def mel_bound(re, im, fb, out) -> tuple[float, str]:
+    """Kernel 1's bound on one call: its inputs and output once, and the f32
+    operations these inputs need: the power, a product for each nonzero
+    weight of each frame (a banded filterbank needs no others), the log."""
+    t, f = re.shape
+    return bound(nbytes(re, im, fb, out),
+                 f32_ops=3 * t * f + 2 * t * int((fb != 0).sum()) + out.numel())
+
+
+def mel_check(label: str, fn, re, im, fb) -> tuple:
+    """MEL_CALLS calls of ``fn`` (a call of kernel 1 on these inputs), bit
+    for bit alike, finite and within MEL_ATOL of the plain version:
+    (output, plain version's output, max abs err)."""
+    import torch
+
+    from tpu_audio_torch.ops import mel as M
+
+    want = M.fused_log_mel_ref(re, im, fb)
+    got = same_calls(fn, MEL_CALLS)[0]
+    err = float((got - want).abs().max())
+    print(f"[mel] {label}: [T,F]x[F,M] = [{re.shape[0]},{re.shape[1]}]x[{fb.shape[0]},"
+          f"{fb.shape[1]}], {MEL_CALLS} calls bit-equal, max abs err {err:.3e} "
+          f"(atol {MEL_ATOL})")
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()), f"mel output {label}")
+    check(err <= MEL_ATOL, f"fused_log_mel {label} disagrees with its plain version: {err}")
+    return got, want, err
+
+
+def speech_window():
+    """The speech clip padded to one 30 s window, f32 numpy."""
+    import numpy as np
+
+    from tpu_audio_torch.core.audio_io import load_audio
+    from tpu_audio_torch.models.stt import whisper as W
+
+    audio, _ = load_audio(str(AUDIO), sample_rate=16000)
+    return np.pad(audio, (0, W.CHUNK_LENGTH_SAMPLES - audio.shape[0]))
+
+
+def kv_attention_only() -> int:
+    """Kernel 2's checks alone on random planes (kv_checks), no model: its
+    check under --mutations."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kv_checks(torch.device("cuda", 0))
+    return 0
+
+
+def mel_only() -> int:
+    """Kernel 1's checks alone (mel_check on each of mel_spectra), no model:
+    its check under --mutations."""
+    import torch
+
+    from tpu_audio_torch.ops import mel as M
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for label, re, im, fb in mel_spectra(torch.device("cuda", 0), speech_window()):
+        mel_check(label, lambda: M.fused_log_mel(re, im, fb), re, im, fb)
+    return 0
+
+
 def kernel_phases(models, cfg, audio, dev) -> tuple[dict, object]:
     """Kernels 1-3 against their plain versions; returns their records and
     the speech clip's encoder output."""
     import torch
 
-    from tpu_audio_torch.core import dsp
     from tpu_audio_torch.models.stt import whisper as W
     from tpu_audio_torch.ops import fused_decoder as F
     from tpu_audio_torch.ops import kv_attention as K
     from tpu_audio_torch.ops import mel as M
 
     records = {}
-    # -- kernel 1: fused log-mel at the frontend's shapes --------------------
-    x = torch.from_numpy(audio).to(dev)
-    spec = dsp.stft(x, dsp.hanning_window(W.N_FFT, periodic=True), W.N_FFT,
-                    W.HOP_LENGTH)[:-1]
-    re, im = spec.real.contiguous(), spec.imag.contiguous()
-    fb = torch.from_numpy(dsp.mel_filters(16000, W.N_FFT, 128, f_max=8000.0,
-                                          norm="slaney", mel_scale="slaney")).to(dev)
-    got = M.fused_log_mel(re, im, fb)
-    want = M.fused_log_mel_ref(re, im, fb)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    print(f"[mel] [T,F]x[F,M] = [{re.shape[0]},{re.shape[1]}]x[{fb.shape[0]},"
-          f"{fb.shape[1]}]: max abs err {err:.3e} (atol {MEL_ATOL})")
-    check(got.shape == (3000, 128) and bool(torch.isfinite(got).all()), "mel output")
-    check(err <= MEL_ATOL, f"fused_log_mel disagrees with its plain version: {err}")
-    t, f = re.shape
-    b_ms, b_by = bound(nbytes(re, im, fb, got),
-                       f32_ops=3 * t * f + 2 * t * f * fb.shape[1] + got.numel())
+    # -- kernel 1: fused log-mel at the frontend's shapes, and at 80 mels ----
+    spectra = mel_spectra(dev, audio)
+    for label, re, im, fb in spectra[1:]:
+        mel_check(label, lambda: M.fused_log_mel(re, im, fb), re, im, fb)
+    label, re, im, fb = spectra[0]
+    got, want, err = mel_check(label, lambda: M.fused_log_mel(re, im, fb), re, im, fb)
+    check(got.shape == (3000, 128), "mel output shape")
+    b_ms, b_by = mel_bound(re, im, fb, got)
     records["fused_log_mel"] = dict(
         route="cuda", source="tpu_audio_torch/csrc/mel.cu",
         replaces="tpu_audio/ops/pallas_mel.py:50", max_abs_err=err,
@@ -1536,6 +1741,7 @@ def kernel_phases(models, cfg, audio, dev) -> tuple[dict, object]:
         plain_ms=cuda_ms(lambda: M.fused_log_mel_ref(re, im, fb)),
         dev_ms=device_ms(lambda: M.fused_log_mel(re, im, fb)),
         plain_dev_ms=device_ms(lambda: M.fused_log_mel_ref(re, im, fb)))
+    del spectra
 
     # encoder output of the real audio feeds the attention kernels' phases
     bf16 = models["bf16_kv8d"]
@@ -1548,20 +1754,18 @@ def kernel_phases(models, cfg, audio, dev) -> tuple[dict, object]:
         cross_k, cross_v = W._cross_kv(bf16.params, enc, cfg, layers)
 
         # -- kernel 2: int8 cross attention, one layer ----------------------
-        H, hd = 20, 64
+        H, hd = KV_HEADS, KV_HD
         kq = W.kv_cache._quantize(cross_k[0, 0], 1)
         vq = W.kv_cache._quantize(cross_v[0, 0], 1)
         gen = torch.Generator(device=dev).manual_seed(0)
         q = torch.randn((H, 1, hd), generator=gen, device=dev).to(torch.bfloat16)
         sm = 1.0 / hd ** 0.5
-        got = K.decode_attention_int8(q, *kq, *vq, 1500, sm_scale=sm)
-        want = K.decode_attention_int8_ref(q, *kq, *vq, 1500, sm_scale=sm)
-        torch.cuda.synchronize()
-        err = rel_err(got, want)
-        print(f"[kv_attention] q [{H},1,{hd}] over int8 [{H},1500,{hd}]: "
-              f"rel err {err:.3e} (rtol {KV_RTOL})")
-        check(err <= KV_RTOL, f"decode_attention_int8 disagrees: {err}")
-        b_ms, b_by = bound(nbytes(q, *kq, *vq, got), f32_ops=4 * H * 1500 * hd)
+        kv_check("encoder planes, valid 700", lambda: K.decode_attention_int8(
+            q, *kq, *vq, 700, sm_scale=sm), q, kq, vq, 700)
+        got, want, err = kv_check("encoder planes", lambda: K.decode_attention_int8(
+            q, *kq, *vq, 1500, sm_scale=sm), q, kq, vq, 1500)
+        kv_checks(dev)
+        b_ms, b_by = kv_bound(q, kq, vq, got)
         records["decode_attention_int8"] = dict(
             route="cuda", source="tpu_audio_torch/csrc/kv_attention.cu",
             replaces="tpu_audio/ops/pallas_kv_attention.py:120",
@@ -3889,14 +4093,21 @@ def q4_whisper_phase(model, audio) -> dict:
                 equal_to_plain=toks == want)
 
 
-def mutations_main() -> int:
-    """The standing mutation check: for each kernel of MUTATIONS, its check
-    alone (timing off) on copies of the checkout, one sound and one for
-    each mutation of its source, each in its own process. Every mutant
-    must fail and every sound copy pass."""
+def mutations_main(kernels: list) -> int:
+    """The standing mutation check: for each kernel of MUTATIONS (those named
+    in ``kernels``, or all), its check alone (timing off) on copies of the
+    checkout, one sound and one for each mutation of its source, each in its
+    own process. Every mutant must fail and every sound copy pass."""
+    unknown = sorted(set(kernels) - set(MUTATIONS))
+    if unknown:
+        print(f"chip_smoke: no mutations for {unknown}; kernels: {sorted(MUTATIONS)}",
+              file=sys.stderr)
+        return 2
     results = []
     with tempfile.TemporaryDirectory(prefix="mutants_") as tmp:
         for kernel, (source, phase, muts) in MUTATIONS.items():
+            if kernels and kernel not in kernels:
+                continue
             for name, old, new, *own in [("sound", None, None)] + muts:
                 dst = Path(tmp) / f"copy{len(results)}"
                 shutil.copytree(ROOT, dst, ignore=shutil.ignore_patterns(
@@ -4225,6 +4436,128 @@ def fused_llama_timing_main(smi: str, others: list) -> int:
     return 0
 
 
+def kv_mel_timing_main(smi: str, others: list) -> int:
+    """``--kv-mel-timing [CHECKOUT ...]``: kernels 2 and 1 built from the
+    source as it stands and from each other checkout given (a parent
+    commit's, or a copy with a variant of either kernel, named by its
+    directory), through stack_libraries. Kernel 2 on random whisper-large-v3
+    cross planes (kv_planes; the bf16 q converted once, outside the timed
+    call) at each of KV_CHECKS, kernel 1 on each of mel_spectra: each
+    version's KV_CALLS / MEL_CALLS calls bit for bit alike, bit-equal to the
+    first version's and within tolerance of the plain version. Then each is
+    timed in turns (time_in_turns: per call over STACK_TIMING_REPS
+    back-to-back calls, device time as the union of intervals, the stage
+    breakdown by kernel): kernel 2 hot (one layer's planes, back to back) and
+    cold (KV_COLD_LAYERS layers' planes in rotation, as a decode step reads
+    them), kernel 1 at 128 and 80 mels. Every version of kernel 2 gets a
+    scratch of twice the source's layout (room for a variant of smaller
+    chunks), zeroed before its first call (the parent's entry ignores the
+    counters). Prints the bounds and one JSON line (no "ok" line)."""
+    import torch
+
+    from tpu_audio_torch.ops import _lib
+    from tpu_audio_torch.ops import kv_attention as K
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kv_mel_libs_") as tmp:
+        kv_fns = stack_libraries(others, Path(tmp) / "kv", "kv_attention.cu",
+                                 "tpa_decode_attention_int8")
+        mel_fns = stack_libraries(others, Path(tmp) / "mel", "mel.cu", "tpa_fused_log_mel")
+    print(f"[kv_mel timing] {len(kv_fns)} versions built in {time.perf_counter() - t0:.1f} s")
+    order = [o.name for o in others] + [STACK_SOURCE]
+    stream = _lib.stream(torch.empty(1, device=dev))
+    sm = 1.0 / KV_HD ** 0.5
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn((KV_HEADS, 1, KV_HD), generator=gen, device=dev).to(torch.bfloat16)
+    qf = q.float()
+
+    def kv_call(name, planes, valid, scratch, out):
+        (kq, vq), (h, s, d) = planes, planes[0][0].shape
+        ml = K.scratch_layout(h, s, d)["part_ml"][0]
+        args = [x.data_ptr() for x in (qf, *kq, *vq, out)]
+        args += [scratch.data_ptr(), scratch.data_ptr() + 4 * ml, h, s, d, kq[1].shape[-1],
+                 valid, sm, stream]
+
+        def call():
+            err = kv_fns[name](*args)
+            check(err == 0, f"tpa_decode_attention_int8 ({name}): CUDA error {err}")
+            return out
+        return call
+
+    def kv_scratch(s):
+        return torch.zeros((2 * K.scratch_layout(KV_HEADS, s)["total"],), device=dev)
+
+    out = {"decode_attention_int8": {}, "fused_log_mel": {}}
+    firsts = {}
+    for s, g, valid, biased in KV_CHECKS:
+        planes = kv_planes(gen, dev, s, g, biased)
+        scratch = kv_scratch(s)
+        label = f"S {s} G {g} valid {valid}{' biased' if biased else ''}"
+        res = {}
+        for name in order:
+            scratch.zero_()
+            outs = iter([torch.empty((KV_HEADS, 1, KV_HD), device=dev)
+                         for _ in range(KV_CALLS)])
+            got, _, err = kv_check(f"{label} {name}", lambda: kv_call(
+                name, planes, valid, scratch, next(outs))(), q, *planes, valid)
+            same = torch.equal(got, firsts.setdefault(label, got))
+            print(f"[kv_mel timing] decode_attention_int8 {label} {name}: bit-equal to "
+                  f"{order[0]}: {same}")
+            res[name] = dict(rel_err=err, bit_equal_to_first=same)
+        out["decode_attention_int8"][label] = res
+    for setting, n_layers in (("hot", 1), ("cold", KV_COLD_LAYERS)):
+        layers = [kv_planes(gen, dev) for _ in range(n_layers)]
+        o = torch.empty((KV_HEADS, 1, KV_HD), device=dev)
+        calls, res = {}, {}
+        for name in order:
+            scratch = kv_scratch(KV_POSITIONS)
+            calls[name] = cycling([kv_call(name, p, KV_POSITIONS, scratch, o) for p in layers])
+            res[name] = dict(ms=[])
+        b_ms, b_by = kv_bound(q, *layers[0], o)
+        print(f"[kv_mel timing] decode_attention_int8 {setting} ({n_layers} layers' planes): "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        time_in_turns(f"decode_attention_int8 {setting}", calls, order, res, 1,
+                      kernels_of=KV_KERNELS, stages=KV_STAGES)
+        out["decode_attention_int8"][setting] = dict(layers=n_layers, bound_ms=b_ms,
+                                                     bound_by=b_by, versions=res)
+        del layers
+
+    def mel_call(name, re, im, fb, o):
+        args = [x.data_ptr() for x in (re, im, fb, o)] + [*re.shape, fb.shape[1], stream]
+
+        def call():
+            err = mel_fns[name](*args)
+            check(err == 0, f"tpa_fused_log_mel ({name}): CUDA error {err}")
+            return o
+        return call
+
+    for i, (label, re, im, fb) in enumerate(mel_spectra(dev, speech_window())):
+        res, first = {}, None
+        for name in order:
+            outs = iter([torch.empty((re.shape[0], fb.shape[1]), device=dev)
+                         for _ in range(MEL_CALLS)])
+            got, _, err = mel_check(f"{label} {name}", lambda: mel_call(
+                name, re, im, fb, next(outs))(), re, im, fb)
+            first = got if first is None else first
+            same = torch.equal(got, first)
+            print(f"[kv_mel timing] fused_log_mel {label} {name}: bit-equal to {order[0]}: "
+                  f"{same}")
+            res[name] = dict(max_abs_err=err, bit_equal_to_first=same, ms=[])
+        entry = dict(versions=res)
+        if i < 2:  # timed: the frontend's 128 mels and the smaller sizes' 80
+            o = torch.empty_like(first)
+            calls = {name: mel_call(name, re, im, fb, o) for name in order}
+            entry["bound_ms"], entry["bound_by"] = mel_bound(re, im, fb, o)
+            print(f"[kv_mel timing] fused_log_mel {label}: bound {entry['bound_ms']:.4f} ms "
+                  f"({entry['bound_by']})")
+            time_in_turns(f"fused_log_mel {label}", calls, order, res, 1,
+                          kernels_of=("fused_log_mel",), stages={1: ("mel",)})
+        out["fused_log_mel"][label] = entry
+    print(json.dumps({"kv_mel_timing": out, "smi": smi}))
+    return 0
+
+
 def llama_lanes_bound(pack, cfg, x, out, offs) -> tuple[float, str]:
     """Kernel 6's bound on one call: the weights, scales and norms once; per
     lane the cache rows it attends (valid_from..offset), x in, y and the new
@@ -4484,12 +4817,13 @@ def main() -> int:
     if not (ROOT / "tpu_audio_torch" / "csrc").is_dir() or not AUDIO.exists():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
-    if sys.argv[1:] == ["--mutations"]:
-        return mutations_main()
+    if sys.argv[1:2] == ["--mutations"]:
+        return mutations_main(sys.argv[2:])
     timing = {"--fused-stack-timing": fused_stack_timing_main,
               "--fused-lanes-timing": fused_lanes_timing_main,
               "--fused-llama-timing": fused_llama_timing_main,
-              "--llama-lanes-timing": llama_lanes_timing_main}.get(next(iter(sys.argv[1:]), ""))
+              "--llama-lanes-timing": llama_lanes_timing_main,
+              "--kv-mel-timing": kv_mel_timing_main}.get(next(iter(sys.argv[1:]), ""))
     if sys.argv[1:] not in ([], ["--qmm"]) and not timing:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2

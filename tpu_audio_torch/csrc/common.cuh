@@ -146,17 +146,6 @@ __device__ __forceinline__ float combine_partials_l2(const float* part_o, const 
   return o / l;
 }
 
-// out[h * hd + j] for head h = blockIdx.x, j = threadIdx.x (hd threads),
-// from nc partials per head laid out [H, nc, hd] and [H, nc, 2].
-static __global__ void attn_combine_kernel(const float* __restrict__ part_o,
-                                           const float* __restrict__ part_ml,
-                                           float* __restrict__ out, int nc,
-                                           int hd) {
-  const int h = blockIdx.x, j = threadIdx.x;
-  out[(size_t)h * hd + j] = combine_partials(part_o + (size_t)h * nc * hd,
-                                             part_ml + (size_t)h * nc * 2, nc, hd, j);
-}
-
 inline int attn_chunks(int n) { return (n + ATTN_CHUNK - 1) / ATTN_CHUNK; }
 
 }  // namespace tpa

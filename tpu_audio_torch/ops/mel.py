@@ -10,7 +10,18 @@ import torch
 
 from tpu_audio_torch.ops import _lib
 
-__all__ = ["fused_log_mel", "fused_log_mel_ref"]
+__all__ = ["fused_log_mel", "fused_log_mel_ref", "supported"]
+
+MEL_GROUP = 16  # mels a block of the kernel (csrc/mel.cu)
+MAX_MELS = MEL_GROUP * 65535  # the grid's second dimension
+
+
+def supported(f: int, m: int) -> bool:
+    """Whether the CUDA kernel takes ``f`` frequency bins and ``m`` mels:
+    any F (a block walks its mel group's band in pieces of 32 bins, so F
+    meets no shared-memory limit; the first version took F <= 768) and M up
+    to 16 x 65,535."""
+    return f >= 0 and 1 <= m <= MAX_MELS
 
 
 def fused_log_mel_ref(spec_re: torch.Tensor, spec_im: torch.Tensor,
@@ -33,12 +44,11 @@ def fused_log_mel(spec_re: torch.Tensor, spec_im: torch.Tensor,
     for name, x, shape in (("spec_re", spec_re, (t, f)), ("spec_im", spec_im, (t, f)),
                            ("filters", filters, (f, m))):
         _lib.require(x, name, torch.float32, shape, dev)
-    if 4 * 16 * f > 48 * 1024:
-        raise ValueError(f"fused_log_mel: {f} frequency bins exceed the kernel's "
-                         "shared-memory tile")
     out = torch.empty((t, m), dtype=torch.float32, device=dev)
-    if t == 0:
+    if t == 0 or m == 0:
         return out
+    if not supported(f, m):
+        raise ValueError(f"fused_log_mel: {f} frequency bins and {m} mels are not supported")
     with torch.cuda.device(dev):
         err = _lib.lib().tpa_fused_log_mel(
             spec_re.data_ptr(), spec_im.data_ptr(), filters.data_ptr(),
