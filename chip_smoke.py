@@ -38,7 +38,18 @@ so a kernel that reads the wrong bias or LayerNorm row disagrees), and:
    twice each, with every launch counter reset just before and read just
    after, and fails unless each kernel of the path launched;
 3. teacher-forces the generated tokens through the kernel path and the
-   plain path and compares the logits of every step;
+   plain path and compares the logits of every step; then, in the
+   ``[whisper longform]`` phase, transcribes a 240 s file of 8 windows
+   (the speech clip, the two-speaker clip, seeded noise) with 224 tokens a
+   window through the w8 w8e kv8d model (the int8 encoder quantized on the
+   card) in batched windows, with every launch counter reset just before
+   and read just after: kernel 1 once a window, one kernel 4 call a step
+   for all 8 windows (14 launches a layer), no kernel 3 and no plain
+   version; every window's tokens equal its per-window decode's (kernel
+   3), batched and per-window timed in turns; the int8 encoder against the
+   bf16 one; kernel 2 over all 8 windows' heads bit-equal to 8 calls of
+   one window's; and the bf16 kv8d and dense routes on 4 windows with 32
+   tokens, their teacher-forced logits against the per-window route's;
 4. serves six staggered requests through ``ContinuousSTT`` (w8, 4 slots)
    with the counters reset just before and read just after, every tick
    under ``torch.cuda.set_sync_debug_mode("error")``; checks that each
@@ -203,9 +214,10 @@ mutant must fail its check and every sound copy pass.
 
 TF32 is off for matmuls and convolutions, so float32 references are full
 float32. Any failed check raises and ends the run with a non-zero code.
-The last seven lines of output are JSON: the generate runs, the serving
-results, the TTS results, the TTS serving results, the MLX 4-bit results,
-the kernels' records, then ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
+The last eight lines of output are JSON: the generate runs, the long-form
+results, the serving results, the TTS results, the TTS serving results, the
+MLX 4-bit results, the kernels' records, then ``{"ok": true, "device":
+{...}}``. Without a CUDA device, or outside
 the repository, it exits non-zero before printing any of them.
 """
 
@@ -422,6 +434,22 @@ LLAMA_LANES_STAGES = {10: ("quantise q/k/v", "q/k/v", "rope", "attention", "quan
                            "quantise o", "o", "quantise gate/up", "gate/up", "quantise down",
                            "down")}
 LLAMA_LANES_TIMING_COUNTS = (1, 4, 8, 28)
+# the [whisper longform] phase: a file of LONG_WINDOWS 30 s windows through
+# the w8 w8e kv8d model, LONG_TOKENS decode tokens a window (bench.py's
+# bench_whisper_longfile defaults, bench.py:210), then the bf16 kv8d and
+# bf16 dense routes on its first LONG_BF16_WINDOWS windows with
+# LONG_BF16_TOKENS tokens each (cut: their step is host-bound, ~40 ms)
+LONG_WINDOWS, LONG_TOKENS = 8, 224
+LONG_BF16_WINDOWS, LONG_BF16_TOKENS = 4, 32
+# in turns: the counted batched and per-window runs, then two more
+LONG_TIMED = ("batched", "per-window", "per-window", "batched")
+LONG_STEP_OFFSET = 100  # the timed decode step's position
+# the int8 encoder against the bf16 one, relative to its max: the JAX test's
+# bound (tests/test_whisper.py:261) at that test's depth (2 layers and the
+# final LayerNorm); through all 32 layers int8 activation noise accumulates
+# (5.29e-2 on an NVIDIA H100 80GB HBM3 at 700 W), held to W8E_FULL_RTOL
+W8E_RTOL, W8E_DEPTH, W8E_FULL_RTOL = 0.05, 2, 0.1
+W8E_PRODUCTS = 6  # int8 products an encoder layer: q, k, v, out, fc1, fc2
 # the least share of a timed run's device events the profiler must keep for
 # device_ms to take the run (readings late in chip_smoke: 0.9919 and 0.9998
 # of the events; once a run kept two thirds of the device time)
@@ -1857,15 +1885,422 @@ def teacher_forced(models, outputs, enc, cfg) -> None:
                 plain_step = make_step()
             worst = 0.0
             for i, t in enumerate(seq):
-                lk = kernel_step(t, i)
+                tok = torch.tensor([t], device=enc.device)
+                lk = kernel_step(tok, i)[0]
                 with plain_kernels():
-                    lp = plain_step(t, i)
+                    lp = plain_step(tok, i)[0]
                 check(bool(torch.isfinite(lk).all()), f"{cfg_name}: non-finite logits")
                 if i >= len(PROMPT) - 1:
                     worst = max(worst, rel_err(lk, lp))
             print(f"[teacher-forced {cfg_name}] {len(seq) - len(PROMPT) + 1} steps: "
                   f"max rel logit err {worst:.3e} (rtol {LOGITS_RTOL})")
             check(worst <= LOGITS_RTOL, f"{cfg_name}: kernel path logits disagree")
+
+
+def long_file(windows: int, rng):
+    """``windows`` 30 s windows of audio, f32 numpy: the speech clip, the
+    two-speaker clip (each padded to its window), then seeded noise."""
+    import numpy as np
+
+    from tpu_audio_torch.core.audio_io import load_audio
+    from tpu_audio_torch.models.stt import whisper as W
+
+    n = W.CHUNK_LENGTH_SAMPLES
+    clips = [load_audio(str(a), sample_rate=16000)[0] for a in (AUDIO, AUDIO2)]
+    parts = [np.pad(c[:n], (0, n - len(c[:n]))) for c in clips]
+    parts.append((rng.standard_normal(n * (windows - len(parts))) * 0.1).astype(np.float32))
+    return np.concatenate(parts)[: n * windows]
+
+
+def build_w8e(models, cfg):
+    """The w8 w8e kv8d model, as bench.py's _build_whisper builds the JAX
+    bench's primary mode: the w8 model's int8 decoder and the bf16 encoder
+    quantized on the card (``quantize_tree``, scheme w8a8), which keeps the
+    convs and the position table dense."""
+    import torch
+
+    from tpu_audio_torch.core import quant
+    from tpu_audio_torch.models.stt import whisper as W
+
+    w8, bf16 = models["w8_kv8d"], models["bf16_kv8d"]
+    enc = quant.quantize_tree(bf16.params["model"]["encoder"], scheme="w8a8")
+    check(isinstance(enc["layers"]["fc1"]["weight"], quant.Int8Tensor)
+          and not any(isinstance(enc[k]["weight"], quant.Int8Tensor)
+                      for k in ("conv1", "conv2", "embed_positions")),
+          "w8e: quantize_tree did not keep the convs and positions dense")
+    model = W.Whisper(cfg, {"model": {"encoder": enc, "decoder": w8.params["model"]["decoder"]}},
+                      w8.tokenizer, dtype=torch.bfloat16, device=bf16.device)
+    check(model._fused_supported(), "the w8 w8e model does not take the fused route")
+    return model
+
+
+@contextlib.contextmanager
+def counted_path(counts: dict):
+    """While open: every launch counter reset, the calls of each kernel's
+    plain version counted in ``counts["plain"]``, and the decode loops'
+    steps in ``counts["steps"]``; on leaving, ``counts`` also holds the
+    launch counters as they stand."""
+    from tpu_audio_torch.models.stt import whisper as W
+    from tpu_audio_torch.ops import _lib
+    from tpu_audio_torch.ops import fused_decoder as F
+    from tpu_audio_torch.ops import kv_attention as K
+    from tpu_audio_torch.ops import mel as M
+
+    plain, steps = [0], [0]
+    loop = W._sample_loop
+
+    def counting_loop(step, *a):
+        def counted(*s):
+            steps[0] += 1
+            return step(*s)
+        return loop(counted, *a)
+
+    W._sample_loop = counting_loop
+    _lib.reset_launches()
+    try:
+        with counting(F, "fused_stack_ref", plain), counting(F, "fused_stack_lanes_ref", plain), \
+                counting(K, "decode_attention_int8_ref", plain), \
+                counting(M, "fused_log_mel_ref", plain):
+            yield counts
+    finally:
+        W._sample_loop = loop
+        counts.update(_lib.launches, plain=plain[0], steps=steps[0])
+
+
+def timed_generate(model, audio, gp):
+    """``generate`` between two synchronizes: (output, wall s)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.generate(audio, gp)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def window_tokens(out, windows: int) -> list:
+    """Each window's tokens (every window of these files has text)."""
+    check(len(out.segments) == windows, f"{len(out.segments)} segments for {windows} windows")
+    return [s.tokens for s in out.segments]
+
+
+def w8e_encoder_check(w8e, bf16, feats, cfg) -> dict:
+    """The int8 encoder against the bf16 one on ``feats`` (at W8E_DEPTH
+    layers, then through all), its ``_int_mm`` products in its profile, and
+    both encoders' device ms a window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_audio_torch.models.stt import whisper as W
+
+    n = feats.shape[0]
+    with torch.inference_mode():
+        short = [W._encode(m.encoder.tree(), feats, cfg, m.encoder.split_layers()[:W8E_DEPTH])
+                 for m in (w8e, bf16)]
+        full = [m.encoder(feats) for m in (w8e, bf16)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            w8e.encoder(feats)
+            torch.cuda.synchronize()
+        int_mm = sum(1 for e in prof.events() if e.name == "aten::_int_mm")
+        dev = {name: device_ms(lambda m=m: m.encoder(feats), reps=3)
+               for name, m in (("w8e", w8e), ("bf16", bf16))}
+    res = dict(rel_err_depth=rel_err(*short), rel_err=rel_err(*full), int_mm=int_mm,
+               dev_ms_window={k: None if v is None else v / n for k, v in dev.items()})
+    want_mm = W8E_PRODUCTS * cfg.encoder_layers
+    print(f"[whisper longform w8e] encoder hidden states vs bf16 over {n} windows: rel err "
+          f"{res['rel_err_depth']:.4e} at {W8E_DEPTH} layers (rtol {W8E_RTOL}), "
+          f"{res['rel_err']:.4e} through {cfg.encoder_layers} (rtol {W8E_FULL_RTOL}); "
+          f"{int_mm} aten::_int_mm calls in one encoder call ({want_mm} wanted); device ms "
+          f"a window: w8e {fmt(res['dev_ms_window']['w8e'])}, bf16 "
+          f"{fmt(res['dev_ms_window']['bf16'])}")
+    print_kernels(by_kernel(prof), n, top=6)
+    check(bool(torch.isfinite(full[0]).all()) and full[0].shape == full[1].shape,
+          "w8e encoder output")
+    check(res["rel_err_depth"] <= W8E_RTOL and res["rel_err"] <= W8E_FULL_RTOL,
+          "the w8e encoder disagrees with the bf16 encoder")
+    check(int_mm == want_mm, f"the w8e encoder made {int_mm} _int_mm calls")
+    return res
+
+
+def kv_heads_check(bf16, enc, cfg, dev) -> dict:
+    """Kernel 2 over the cross planes of every window at once, [B*H, 1500,
+    64] (the batched kv8d route's call, layer 0 of the bf16 decoder): three
+    calls on one scratch bit for bit alike and within KV_RTOL of the plain
+    version, bit-equal to the B calls of one window each on the same
+    planes, and a fourth call after those (another shape on the scratch)
+    bit-equal to the first; timed, with its bound."""
+    import torch
+
+    from tpu_audio_torch.models.stt import whisper as W
+    from tpu_audio_torch.ops import kv_attention as K
+
+    b, H, hd = enc.shape[0], cfg.decoder_attention_heads, KV_HD
+    with torch.inference_mode():
+        lp = bf16.decoder.split_layers()[0]["encoder_attn"]
+        kq, vq = (tuple(t.flatten(0, 1) for t in W.kv_cache._quantize(
+            W._heads(W.nn.linear(lp[n], enc), H), 1)) for n in ("k_proj", "v_proj"))
+        gen = torch.Generator(device=dev).manual_seed(4)
+        q = torch.randn((b * H, 1, hd), generator=gen, device=dev).to(torch.bfloat16)
+        sm = 1.0 / hd ** 0.5
+
+        def call():
+            return K.decode_attention_int8(q, *kq, *vq, KV_POSITIONS, sm_scale=sm)
+
+        got, want, err = kv_check(f"{b} windows' heads, [{b * H}, {KV_POSITIONS}, {hd}]",
+                                  call, q, kq, vq, KV_POSITIONS)
+        rows = [slice(w * H, (w + 1) * H) for w in range(b)]
+        per = torch.cat([K.decode_attention_int8(q[r], *(t[r] for t in kq), *(t[r] for t in vq),
+                                                 KV_POSITIONS, sm_scale=sm) for r in rows])
+        again = call()
+        torch.cuda.synchronize()
+        per_equal, again_equal = torch.equal(got, per), torch.equal(got, again)
+        b_ms, b_by = kv_bound(q, kq, vq, got)
+        res = dict(heads=b * H, rel_err=err, max_abs_err=float((got - want).abs().max()),
+                   bit_equal_to_windows=per_equal, bound_ms=b_ms, bound_by=b_by,
+                   ms=cuda_ms(call), dev_ms=device_ms(call),
+                   plain_ms=cuda_ms(lambda: K.decode_attention_int8_ref(
+                       q, *kq, *vq, KV_POSITIONS, sm_scale=sm)))
+    print(f"[whisper longform kv] kernel 2 over {b * H} heads: bit-equal to {b} calls of "
+          f"{H} heads: {per_equal}; a call after them bit-equal to the first: {again_equal}; "
+          f"per call {res['ms']:.4f} ms, device {fmt(res['dev_ms'])}, plain "
+          f"{res['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    check(per_equal and again_equal, "kernel 2 over every window's heads is not the "
+                                     "per-window calls bit for bit")
+    return res
+
+
+def lanes_step_timing(w8e, enc, cfg, max_total: int, dev) -> dict:
+    """The w8 kv8d decode step of the batched route (kernel 4, one lane a
+    window) against the per-window route's steps (kernel 3) summed over the
+    windows, at LONG_STEP_OFFSET: ms a step with its enqueue (CUDA events)
+    and on the device, the batched step's device busy share, and kernel 4's
+    launches a layer in one call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_audio_torch.models.stt import whisper as W
+    from tpu_audio_torch.ops import fused_decoder as F
+
+    b, L = enc.shape[0], cfg.decoder_layers
+    kw = dict(max_total=max_total, cfg=cfg, layers=w8e.decoder.split_layers())
+    pack = w8e.fused_decoder_pack()
+    with torch.inference_mode():
+        batched = W.fused_lanes_decode_step_fn(w8e.params, pack, enc, **kw)
+        singles = [W.fused_decode_step_fn(w8e.params, pack, enc[w:w + 1], **kw)
+                   for w in range(b)]
+        toks = torch.full((b,), 50300, dtype=torch.long, device=dev)
+        args = []
+        lanes = F.fused_stack_lanes
+
+        def capture(*a, **k):
+            args.append((a, k))
+            return lanes(*a, **k)
+
+        F.fused_stack_lanes = capture
+        try:
+            batched(toks, LONG_STEP_OFFSET)
+        finally:
+            F.fused_stack_lanes = lanes
+        a, k = args[0]
+        per_layer = stack_launches(lambda: F.fused_stack_lanes(*a, **k), L,
+                                   STACK_LANES_LAYER_LAUNCHES, LANES_KERNELS,
+                                   label=f"fused_stack_lanes longform n={b}")
+
+        def step_b():
+            return batched(toks, LONG_STEP_OFFSET)
+
+        def step_w():
+            return [s(toks[:1], LONG_STEP_OFFSET) for s in singles]
+
+        res = dict(windows=b, ms=cuda_ms(step_b), per_window_ms=cuda_ms(step_w),
+                   dev_ms=device_ms(step_b), per_window_dev_ms=device_ms(step_w),
+                   layer_launches=per_layer)
+        step_b()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(8):
+                step_b()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy, events = device_busy(prof)
+        res.update(busy_share=busy / wall_us, events_a_step=events / 8)
+    print(f"[whisper longform step] w8 kv8d decode step at offset {LONG_STEP_OFFSET}: "
+          f"batched ({b} lanes of kernel 4) {res['ms']:.4f} ms a step (device "
+          f"{fmt(res['dev_ms'])}), per-window (kernel 3) summed over {b} windows "
+          f"{res['per_window_ms']:.4f} ms (device {fmt(res['per_window_dev_ms'])}); "
+          f"batched step's device busy share {res['busy_share']:.4f}, "
+          f"{res['events_a_step']:.1f} device events a step")
+    return res
+
+
+def bf16_longform(model, audio, windows: int, kv: dict, cfg) -> dict:
+    """A bf16 route (``kv``: kv8d or dense) on ``windows`` windows with
+    LONG_BF16_TOKENS tokens: a counted batched run (kernel 1 once a window,
+    on kv8d kernel 2 once a layer a step, no plain version), a second
+    batched run with the same tokens, and each window's teacher-forced
+    logits on the batched tokens, batched against the per-window route
+    (``decode_step_fn`` over the window's own encoder call), within
+    LOGITS_RTOL. The per-window route's greedy choice at each step of that
+    prefix (its logits with generate's masks) gives, by window, the tokens
+    equal before the first difference: the per-window decode's own tokens
+    up to there."""
+    import torch
+
+    from tpu_audio_torch.core.generation import STTGenerateParameters
+    from tpu_audio_torch.models.stt import whisper as W
+
+    name = "bf16 kv8d" if kv else "bf16 dense"
+    gp = STTGenerateParameters(max_tokens=LONG_BF16_TOKENS, **kv)
+    counts: dict = {}
+    with counted_path(counts):
+        out, wall = timed_generate(model, audio, gp)
+    toks = window_tokens(out, windows)
+    again = window_tokens(timed_generate(model, audio, gp)[0], windows)
+    want_kv = cfg.decoder_layers * counts["steps"] if kv else 0
+    max_total = len(PROMPT) + LONG_BF16_TOKENS
+    kw = dict(max_total=max_total, cfg=cfg, layers=model.decoder.split_layers(), **kv)
+    worst = 0.0
+    suppress, begin = model._suppress_masks(model.tokenizer)
+    picks = []
+    with torch.inference_mode():
+        feats = torch.cat([model.encoder_features(audio[w * W.CHUNK_LENGTH_SAMPLES:
+                                                        (w + 1) * W.CHUNK_LENGTH_SAMPLES])
+                           for w in range(windows)])
+        enc = model.encoder(feats)
+        steps = [W.decode_step_fn(model.params, enc, **kw)] + [
+            W.decode_step_fn(model.params, model.encoder(feats[w:w + 1]), **kw)
+            for w in range(windows)]
+        seqs = torch.tensor([PROMPT + t for t in toks], device=enc.device)
+        for i in range(seqs.shape[1] - 1):
+            lb = steps[0](seqs[:, i], i)
+            lw = torch.cat([s(seqs[w:w + 1, i], i) for w, s in enumerate(steps[1:])])
+            check(bool(torch.isfinite(lb).all()), f"{name}: non-finite logits")
+            if i >= len(PROMPT) - 1:
+                worst = max(worst, max(rel_err(lb[w], lw[w]) for w in range(windows)))
+                masked = lw + suppress + (begin if i == len(PROMPT) - 1 else 0.0)
+                picks.append(masked.argmax(-1).tolist())
+    same = [next((i for i, t in enumerate(toks[w]) if picks[i][w] != t), len(toks[w]))
+            for w in range(windows)]
+    res = dict(route=name, windows=windows, tokens=LONG_BF16_TOKENS, wall_s=wall,
+               launches={k: counts.get(k, 0) for k in ("fused_log_mel", "decode_attention_int8",
+                                                       "fused_stack", "fused_stack_lanes")},
+               steps=counts["steps"], plain_calls=counts["plain"], equal_before_diff=same,
+               repeat=again == toks, teacher_forced_rel_err=worst)
+    print(f"[whisper longform {name}] {windows} windows x {LONG_BF16_TOKENS} tokens batched "
+          f"in {wall:.3f} s; launches {res['launches']} over {counts['steps']} steps, "
+          f"plain calls {counts['plain']}; greedy tokens repeat: {again == toks}; tokens "
+          f"equal to the per-window route's before the first difference, by window: {same}; "
+          f"teacher-forced logits batched vs per window max rel err {worst:.3e} "
+          f"(rtol {LOGITS_RTOL})")
+    check(again == toks, f"{name}: greedy tokens differ between runs")
+    got = res["launches"]
+    check(got["fused_log_mel"] == windows and counts["plain"] == 0
+          and got["decode_attention_int8"] == want_kv
+          and got["fused_stack"] == got["fused_stack_lanes"] == 0,
+          f"{name}: launches {got}, plain calls {counts['plain']}")
+    check(worst <= LOGITS_RTOL, f"{name}: batched logits disagree with the per-window route")
+    return res
+
+
+def longform_phase(models, cfg, dev, smi: str) -> tuple[dict, dict]:
+    """[whisper longform]: a LONG_WINDOWS-window file through the w8 w8e
+    kv8d model's batched windows (kernel 4, one lane a window), held to its
+    per-window decode (kernel 3) token for token, then the bf16 routes.
+    Returns the phase's results and the launch counts of its main run."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.core.generation import STTGenerateParameters
+    from tpu_audio_torch.models.stt import whisper as W
+
+    t_phase = time.perf_counter()
+    bf16 = models["bf16_kv8d"]
+    w8e = build_w8e(models, cfg)
+    audio = long_file(LONG_WINDOWS, np.random.default_rng(5))
+    seconds = len(audio) / W.SAMPLE_RATE
+    gp = STTGenerateParameters(max_tokens=LONG_TOKENS, kv_bits=8, quantized_kv_start=448)
+    max_total = len(PROMPT) + LONG_TOKENS
+    print(f"[whisper longform] {smi}; whisper-large-v3 widths, random weights; cuts: "
+          f"w8 w8e kv8d {LONG_WINDOWS} windows ({seconds:.0f} s: the speech clip, the "
+          f"two-speaker clip, seeded noise) x {LONG_TOKENS} tokens (bench_whisper_longfile's "
+          f"defaults), bf16 kv8d and bf16 dense {LONG_BF16_WINDOWS} windows x "
+          f"{LONG_BF16_TOKENS} tokens; random weights never emit EOT")
+    n = W.CHUNK_LENGTH_SAMPLES
+    with torch.inference_mode():
+        feats = torch.cat([w8e.encoder_features(audio[w * n:(w + 1) * n])
+                           for w in range(LONG_WINDOWS)])
+    w8e_res = w8e_encoder_check(w8e, bf16, feats, cfg)
+    laps = {"w8e build and encoder check": time.perf_counter() - t_phase}
+
+    # the main run: the batched windows, every counter reset just before
+    torch.cuda.reset_peak_memory_stats()
+    counts: dict = {}
+    with counted_path(counts):
+        out, wall = timed_generate(w8e, audio, gp)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batched = window_tokens(out, LONG_WINDOWS)
+    launches = {k: counts.get(k, 0) for k in ("fused_log_mel", "fused_stack_lanes",
+                                              "fused_stack", "decode_attention_int8")}
+    print(f"[whisper longform w8 w8e kv8d] batched: {LONG_WINDOWS} windows x "
+          f"{[len(t) for t in batched]} tokens in {wall:.3f} s over {counts['steps']} steps; "
+          f"launches {launches}, plain calls {counts['plain']}; peak device memory "
+          f"{peak_gb:.2f} GB")
+    check(all(len(t) == LONG_TOKENS for t in batched), "a window emitted EOT")
+    check(launches["fused_log_mel"] == LONG_WINDOWS, "kernel 1: not one launch a window")
+    check(launches["fused_stack_lanes"] == counts["steps"] == max_total - 1,
+          "kernel 4: not one call a step")
+    check(launches["fused_stack"] == launches["decode_attention_int8"] == 0
+          and counts["plain"] == 0, "the batched w8 kv8d path ran another kernel or a "
+                                    "plain version")
+    per_counts: dict = {}
+    with counted_path(per_counts):
+        per_out, per_wall = timed_generate(w8e, audio, dataclasses.replace(
+            gp, batch_windows=False))
+    per = window_tokens(per_out, LONG_WINDOWS)
+    equal = [a == b for a, b in zip(batched, per)]
+    print(f"[whisper longform w8 w8e kv8d] per-window: in {per_wall:.3f} s, kernel 3 "
+          f"launches {per_counts.get('fused_stack', 0)}, kernel 4 "
+          f"{per_counts.get('fused_stack_lanes', 0)}; every window's tokens equal its "
+          f"batched tokens: {equal}")
+    check(all(equal), f"batched windows' tokens differ from the per-window route: {equal}")
+    check(per_counts.get("fused_stack", 0) == per_counts["steps"]
+          and per_counts.get("fused_stack_lanes", 0) == 0, "the per-window route's kernels")
+
+    runs = [dict(route=r, wall_s=t, rtf=t / seconds)
+            for r, t in zip(LONG_TIMED, (wall, per_wall))]
+    for route in LONG_TIMED[2:]:
+        o, t = timed_generate(w8e, audio, dataclasses.replace(
+            gp, batch_windows=route == "batched"))
+        check(window_tokens(o, LONG_WINDOWS) == batched,
+              f"{route}: greedy tokens differ between runs")
+        runs.append(dict(route=route, wall_s=t, rtf=t / seconds))
+    for r in runs:
+        print(f"[whisper longform time] {r['route']}: file {seconds:.0f} s in "
+              f"{r['wall_s']:.3f} s, RTF {r['rtf']:.5f}")
+    laps["w8 w8e kv8d runs"] = time.perf_counter() - t_phase
+    with torch.inference_mode():
+        enc = w8e.encoder(feats)
+        step = lanes_step_timing(w8e, enc, cfg, max_total, dev)
+        kv = kv_heads_check(bf16, bf16.encoder(feats), cfg, dev)
+    laps["step timing, kernel 2 over every window's heads"] = time.perf_counter() - t_phase
+    del enc, feats, w8e
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16_runs = [bf16_longform(bf16, audio[:n * LONG_BF16_WINDOWS], LONG_BF16_WINDOWS, kv_,
+                               cfg)
+                 for kv_ in (dict(kv_bits=8, quantized_kv_start=448), {})]
+    kv8 = bf16_runs[0]
+    check(kv8["launches"]["decode_attention_int8"] == cfg.decoder_layers * kv8["steps"],
+          "kernel 2: not one launch a layer a step on the bf16 kv8d route")
+    laps["bf16 routes"] = time.perf_counter() - t_phase
+    print(f"[whisper longform] phase took {laps['bf16 routes']:.1f} s; seconds from its "
+          f"start at the end of each part: {json.dumps({k: round(v, 1) for k, v in laps.items()})}")
+    res = dict(seconds=seconds, windows=LONG_WINDOWS, tokens=LONG_TOKENS, runs=runs,
+               peak_gb=peak_gb, w8e=w8e_res, step=step, kv_heads=kv, bf16=bf16_runs,
+               launches=launches, kv8d_launches=kv8["launches"], smi=smi)
+    return res, dict(launches, decode_attention_int8=kv8["launches"]["decode_attention_int8"])
 
 
 def serve_engine(w8, **kw):
@@ -4891,6 +5326,13 @@ def main() -> int:
         records[k]["launches"] = launches[k]
     teacher_forced(models, outputs, enc, cfg)
 
+    # -- long-form: a 240 s file's batched windows (w8 w8e kv8d), bf16 routes --
+    longform, long_launches = longform_phase(models, cfg, dev, smi.splitlines()[0])
+    for k in ("fused_log_mel", "fused_stack_lanes", "decode_attention_int8"):
+        check(long_launches[k] > 0, f"kernel {k} not launched on the long-form path")
+        records[k]["longform_launches"] = long_launches[k]
+    records["decode_attention_int8"]["longform"] = longform["kv_heads"]
+
     # -- the serving path: ContinuousSTT over the w8 model --------------------
     serve, serve_launches = serve_phase(w8, clips)
     records["fused_stack_lanes"]["launches"] = serve_launches["fused_stack_lanes"]
@@ -4950,6 +5392,7 @@ def main() -> int:
         "route", "source", "replaces", "launches", "max_abs_err", "rel_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms", "dev_ms", "plain_dev_ms")},
         **{f: r[f] for f in ("kernel", "layer_launches", "offsets", "by_lanes", "lane_limit",
+                             "longform_launches", "longform",
                              "lane_checks", "by_shape", "by_shape_8bit", "crossover",
                              "rel_err_bf16_x", "rel_err_f16_x", "library_dev_ms", "library_rel_err",
                              "library_error", "gemv_ms", "gemv_dev_ms", "gemv_checks",
@@ -4957,6 +5400,7 @@ def main() -> int:
         for k, r in records.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"generate": runs, "smi": smi.splitlines()[0]}))
+    print(json.dumps({"longform": longform}))
     print(json.dumps({"serve": serve, "throughput": throughput, "http": http}))
     print(json.dumps({"tts": tts}))
     print(json.dumps({"tts_serving": tts_serving}))

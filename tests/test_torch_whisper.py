@@ -279,15 +279,15 @@ def test_unported_options_raise(fused_model):
         tm.generate(audio, TParams(max_tokens=2, kv_bits=4))
     with pytest.raises(NotImplementedError, match="self-attention caches"):
         tm.generate(audio, TParams(max_tokens=2, kv_bits=8))
-    with pytest.raises(NotImplementedError, match="longer than 30 s"):
-        tm.generate(np.zeros(16000 * 31, np.float32), TParams(max_tokens=2))
     with pytest.raises(ValueError, match="scheme"):
         tquant.quantize_tree({}, scheme="int3")
     with pytest.raises(FileNotFoundError):
         TW.Whisper.from_pretrained("openai/whisper-large-v3", device="cpu")
 
 
-def test_cli_writes_the_same_text_as_jax_cli(tmp_path, capsys):
+@pytest.mark.parametrize("seconds", [1, 40])
+def test_cli_writes_the_same_text_as_jax_cli(tmp_path, capsys, seconds):
+    """One window, and a 40 s file: two windows in one batch, the default."""
     from tpu_audio.cli import stt as jstt
     from tpu_audio.core.audio_io import save_wav
     from tpu_audio_torch.cli import stt as tstt
@@ -295,7 +295,7 @@ def test_cli_writes_the_same_text_as_jax_cli(tmp_path, capsys):
     d = make_whisper_fixture(tmp_path / "w")
     write_fixture_tokenizer(d, 64)
     wav = tmp_path / "in.wav"
-    save_wav(wav, np.random.default_rng(0).standard_normal(16000).astype(
+    save_wav(wav, np.random.default_rng(0).standard_normal(16000 * seconds).astype(
         np.float32) * 0.1, 16000)
     outs = {}
     for name, main, extra in (("jax", jstt.main, []),

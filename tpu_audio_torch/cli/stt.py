@@ -40,8 +40,8 @@ def main(argv=None):
                         help="keep self-cache positions below this index full "
                         "precision (>= the decode length: dense self cache)")
     parser.add_argument("--no-batch-windows", action="store_true",
-                        help="decode 30 s windows one by one (required for "
-                        "audio longer than 30 s in this port)")
+                        help="decode 30 s windows one by one instead of up to 8 "
+                        "in one batch; greedy output is the same")
     parser.add_argument("--device", default="cuda", help="torch device")
     args = parser.parse_args(argv)
 

@@ -1,25 +1,35 @@
 """Whisper STT on PyTorch: conv stem + encoder-decoder transformer with a
 KV-cached decode loop (port of tpu_audio.models.stt.whisper).
 
-The JAX package runs each 30 s window's decode as one ``lax.while_loop``;
-here it is a Python loop over tokens on the device with one host read per
-token (the EOT check). Greedy argmax and the suppress/begin masks are the
-JAX package's. Three decode routes, chosen as the JAX package chooses
-them for every published whisper size:
+The JAX package runs a decode as one ``lax.while_loop``; here it is a
+Python loop over tokens on the device, over one row per 30 s window, with
+one host read per token (whether every row has emitted EOT). Greedy argmax
+and the suppress/begin masks are the JAX package's. Audio longer than one
+window decodes its windows in groups of up to ``_WINDOW_BATCH_MAX``, a
+group in one encoder call and one decode loop (``batch_windows``, the
+default), or one window at a time. Three decode routes, chosen as the JAX
+package chooses them for every published whisper size:
 
 - dense: ``decoder_step`` with a dense self cache and dense cross K/V;
 - kv8d (``kv_bits=8``, ``quantized_kv_start >= max_total``): dense self
-  cache, int8 cross K/V read by ``ops.kv_attention.decode_attention_int8``;
+  cache, int8 cross K/V read by ``ops.kv_attention.decode_attention_int8``,
+  one call a layer over the heads of every window;
 - w8 kv8d (kv8d with int8 decoder weights from ``quant.quantize_tree``):
-  the whole layer stack per token in ``ops.fused_decoder.fused_stack``.
+  the whole layer stack per token in ``ops.fused_decoder.fused_stack`` for
+  one window, or in ``ops.fused_decoder.fused_stack_lanes`` with one lane
+  a window for a group of them.
+
+An int8 encoder (``w8e``: ``quant.quantize_tree`` of ``model.encoder``,
+which keeps the convs and the position table dense) runs its products
+through ``quant.int8_matmul`` on every route.
 
 An MLX 4/8-bit checkpoint (``quantization`` in its config) decodes on the
 first two routes: each linear of a decode step runs the grouped-affine
 GEMV kernel (``ops.qmm``), and the encoder's 1,500-row products
 dequantize and multiply.
 
-Not ported yet (each raises ``NotImplementedError``): batched long-form
-windows, ``kv_bits=4``, int8/hybrid self caches.
+Not ported yet (each raises ``NotImplementedError``): ``kv_bits=4``,
+int8/hybrid self caches.
 """
 
 from __future__ import annotations
@@ -50,6 +60,8 @@ HOP_LENGTH = 160
 CHUNK_LENGTH_SECONDS = 30
 CHUNK_LENGTH_SAMPLES = CHUNK_LENGTH_SECONDS * SAMPLE_RATE
 FRAMES_PER_CHUNK = 3000
+# long audio: the most 30 s windows one encoder call and one decode loop take
+_WINDOW_BATCH_MAX = 8
 
 
 # ---------------------------------------------------------------------------
@@ -242,15 +254,16 @@ def decoder_step(params: dict, tokens: torch.Tensor, pos: int,
 
     ``cross_mode``: ``"dense"`` (``cross = (k, v)``, each
     ``[L, B, H, S, Dh]``) or ``"int8"`` (``cross`` = the six
-    ``_quantize`` planes ``(kc, ks, kb, vc, vs, vb)``, each ``[L, H, S, .]``,
-    read by the int8 attention kernel; requires B = T = 1)."""
+    ``_quantize`` planes ``(kc, ks, kb, vc, vs, vb)``, each
+    ``[L, B*H, S, .]`` with row b's heads at ``b*H .. b*H + H``, read by
+    one int8 attention call a layer over all B*H heads; requires T = 1)."""
     p = params["model"]["decoder"]
     if layers is None:
         layers = _split_layers(p["layers"])
     n_heads = cfg.decoder_attention_heads
     b, t = tokens.shape
-    if cross_mode == "int8" and (b, t) != (1, 1):
-        raise ValueError("int8 cross attention decodes one token of one row")
+    if cross_mode == "int8" and t != 1:
+        raise ValueError("int8 cross attention decodes one token a row")
     x = nn.embedding(p["embed_tokens"], tokens)
     x = x + p["embed_positions"]["weight"][pos : pos + t].to(x.dtype)
     d = x.shape[-1]
@@ -273,8 +286,8 @@ def decoder_step(params: dict, tokens: torch.Tensor, pos: int,
         q = _heads(nn.linear(cp["q_proj"], h), n_heads)
         if cross_mode == "int8":
             o = K.decode_attention_int8(
-                q[0], *(c[li] for c in cross), cross[0].shape[2],
-                sm_scale=1.0 / math.sqrt(hd))[None].to(x.dtype)
+                q.reshape(b * n_heads, 1, hd), *(c[li] for c in cross), cross[0].shape[2],
+                sm_scale=1.0 / math.sqrt(hd)).reshape(b, n_heads, 1, hd).to(x.dtype)
         else:
             o = nn.sdpa(q, cross[0][li], cross[1][li])
         x = x + nn.linear(cp["out_proj"], _merge(o))
@@ -467,40 +480,54 @@ def sanitize(weights: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
-def _sample_loop(step, prompt: list[int], max_total: int, eot: int,
+def _sample_loop(step, prompt: list[int], rows: int, max_total: int, eot: int,
                  suppress: torch.Tensor, begin: torch.Tensor,
-                 temperature: float, generator: torch.Generator) -> list[int]:
-    """Teacher-force ``prompt`` through ``step(token, position) -> logits
-    [V] f32``, then decode with the suppress mask (plus ``begin`` on the
-    first generated token) until EOT or ``max_total`` tokens. Returns the
-    whole sequence, prompt included."""
-    tokens = list(prompt)
+                 temperature: float, generator: torch.Generator) -> list[list[int]]:
+    """Teacher-force ``prompt`` on each of ``rows`` rows through
+    ``step(tokens [rows], position) -> logits [rows, V] f32``, then decode
+    every row with the suppress mask (plus ``begin`` on the first generated
+    token), greedy or sampled. A row that has emitted EOT goes on emitting
+    it; the loop stops once every row has, or at ``max_total`` tokens. One
+    host read a generated token (whether every row has finished). Returns
+    each row's sequence, prompt included, up to the last step (the port of
+    the JAX package's ``_decode_loop`` at one row and of its
+    ``_decode_loop_batched``)."""
+    dev = suppress.device
     n_prompt = len(prompt)
+    tokens = torch.empty((rows, max(max_total, n_prompt)), dtype=torch.long, device=dev)
+    tokens[:, :n_prompt] = torch.tensor(prompt, dtype=torch.long, device=dev)
+    finished = torch.zeros((rows,), dtype=torch.bool, device=dev)
+    count = n_prompt
     for i in range(max_total - 1):
-        logits = step(tokens[i], i)
+        logits = step(tokens[:, i], i)
         if i < n_prompt - 1:
             continue
         lg = logits + suppress
         if i == n_prompt - 1:
             lg = lg + begin
         if temperature <= 0.0:
-            nxt = int(torch.argmax(lg))
+            nxt = torch.argmax(lg, dim=-1)
         else:
             probs = torch.softmax(lg / max(temperature, 1e-6), dim=-1)
-            nxt = int(torch.multinomial(probs, 1, generator=generator))
-        tokens.append(nxt)
-        if nxt == eot:
+            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        nxt = torch.where(finished, eot, nxt)
+        tokens[:, i + 1] = nxt
+        finished |= nxt == eot
+        count = i + 2
+        if bool(finished.all()):
             break
-    return tokens
+    return tokens[:, :count].tolist()
 
 
 def decode_step_fn(params, enc_out, *, max_total: int, cfg: WhisperConfig,
                    kv_bits: int | None = None, kv_group_size: int = 64,
                    quantized_kv_start: int = 0, layers=None):
-    """``step(token, position) -> logits [V] f32`` over :func:`decoder_step`
-    for one window (the step of the JAX package's ``_decode_loop``).
-    ``kv_bits=8`` stores the cross K/V as int8 (``kv_cache._quantize``),
-    read by the int8 attention kernel beside a dense self cache."""
+    """``step(tokens [B], position) -> logits [B, V] f32`` over
+    :func:`decoder_step` for the B windows of ``enc_out [B, S, D]``, one row
+    each (the step of the JAX package's ``_decode_loop`` and
+    ``_decode_loop_batched``). ``kv_bits=8`` stores the cross K/V as int8
+    (``kv_cache._quantize``), read beside a dense self cache by one int8
+    attention call a layer over the heads of all B windows."""
     b = enc_out.shape[0]
     n_heads = cfg.decoder_attention_heads
     head_dim = cfg.d_model // n_heads
@@ -512,32 +539,37 @@ def decode_step_fn(params, enc_out, *, max_total: int, cfg: WhisperConfig,
         kv_bits=kv_bits, kv_group_size=kv_group_size,
         quantized_kv_start=quantized_kv_start, device=enc_out.device)
     if kv_bits:
-        if b != 1:
-            raise NotImplementedError("int8 cross K/V decodes one window (B=1)")
         n_groups = head_dim // min(kv_group_size, head_dim)
-        cross = (kv_cache._quantize(cross_k[:, 0], n_groups, kv_bits)
-                 + kv_cache._quantize(cross_v[:, 0], n_groups, kv_bits))
+        # [L, B, H, S, .] -> [L, B*H, S, .]: the windows' heads side by side
+        cross = tuple(t.flatten(1, 2) for t in kv_cache._quantize(cross_k, n_groups, kv_bits)
+                      + kv_cache._quantize(cross_v, n_groups, kv_bits))
         mode = "int8"
     else:
         cross, mode = (cross_k, cross_v), "dense"
-    dev = enc_out.device
     state = {"cache": cache}
 
-    def step(tok: int, i: int) -> torch.Tensor:
+    def step(tokens: torch.Tensor, i: int) -> torch.Tensor:
         logits, state["cache"] = decoder_step(
-            params, torch.tensor([[tok]], device=dev), i, state["cache"], cross,
-            cfg, cross_mode=mode, layers=layers)
-        return logits[0, -1].to(torch.float32)
+            params, tokens[:, None], i, state["cache"], cross, cfg, cross_mode=mode,
+            layers=layers)
+        return logits[:, -1].to(torch.float32)
 
     return step
 
 
+def _fused_head(p: dict, y: torch.Tensor, dtype) -> torch.Tensor:
+    """The fused routes' final LayerNorm and tied head on one row ``y [d]``
+    f32: logits ``[1, V]`` f32."""
+    h = nn.layer_norm(p["layer_norm"], y[None])
+    return nn.embedding_as_linear(p["embed_tokens"], h.to(dtype)).to(torch.float32)
+
+
 def fused_decode_step_fn(params, pack: F.FusedPack, enc_out, *, max_total: int,
                          cfg: WhisperConfig, layers=None):
-    """``step(token, position) -> logits [V] f32`` over
-    :func:`ops.fused_decoder.fused_stack` (the step of the JAX package's
-    ``_decode_loop_fused``, the w8 kv8d configuration): int8 decoder
-    weights with dynamic int8 activations, int8 cross K/V with
+    """``step(tokens [1], position) -> logits [1, V] f32`` over
+    :func:`ops.fused_decoder.fused_stack` for one window (the step of the
+    JAX package's ``_decode_loop_fused``, the w8 kv8d configuration): int8
+    decoder weights with dynamic int8 activations, int8 cross K/V with
     per-position scales, dense bf16 self cache, tanh-GELU."""
     d, L = cfg.d_model, cfg.decoder_layers
     dev = enc_out.device
@@ -548,14 +580,46 @@ def fused_decode_step_fn(params, pack: F.FusedPack, enc_out, *, max_total: int,
     vc = torch.zeros((L, max_total, d), dtype=torch.bfloat16, device=dev)
     p = params["model"]["decoder"]
 
-    def step(tok: int, i: int) -> torch.Tensor:
-        x = nn.embedding(p["embed_tokens"], torch.tensor([tok], device=dev))[0]
+    def step(tokens: torch.Tensor, i: int) -> torch.Tensor:
+        x = nn.embedding(p["embed_tokens"], tokens)[0]
         x = x.to(torch.float32) + p["embed_positions"]["weight"][i].to(torch.float32)
         y, _, _ = F.fused_stack(pack, ck, ks, cv, vs, kc, vc, x, i, cfg=cfg,
                                 s_src=s_src)
-        h = nn.layer_norm(p["layer_norm"], y[None])
-        return nn.embedding_as_linear(p["embed_tokens"], h.to(enc_out.dtype)
-                                      )[0].to(torch.float32)
+        return _fused_head(p, y, enc_out.dtype)
+
+    return step
+
+
+def fused_lanes_decode_step_fn(params, pack: F.FusedPack, enc_out, *, max_total: int,
+                               cfg: WhisperConfig, layers=None):
+    """``step(tokens [B], position) -> logits [B, V] f32`` over
+    :func:`ops.fused_decoder.fused_stack_lanes` for the B windows of
+    ``enc_out``, one lane a window: one call a step for all of them, with
+    the w8 kv8d arithmetic of :func:`fused_decode_step_fn`. Each window's
+    cross K/V is quantized on its own (``quantize_cross_kv``), and the
+    final LayerNorm and head run one window's row at a time (a product's
+    rounding may follow its row count), so a window's logits are those of
+    :func:`fused_decode_step_fn` on that window alone: the lanes kernel is
+    bit-equal to the one-token kernel lane by lane."""
+    d, L = cfg.d_model, cfg.decoder_layers
+    b, s_src = enc_out.shape[0], enc_out.shape[1]
+    dev = enc_out.device
+    cross_k, cross_v = _cross_kv(params, enc_out, cfg, layers)
+    ctx = [torch.stack(t) for t in zip(*(
+        F.quantize_cross_kv(cross_k[:, w:w + 1], cross_v[:, w:w + 1]) for w in range(b)))]
+    del cross_k, cross_v
+    kc = torch.zeros((b, L, max_total, d), dtype=torch.bfloat16, device=dev)
+    vc = torch.zeros_like(kc)
+    lanes = torch.arange(b, dtype=torch.int32, device=dev)
+    p = params["model"]["decoder"]
+
+    def step(tokens: torch.Tensor, i: int) -> torch.Tensor:
+        x = nn.embedding(p["embed_tokens"], tokens).to(torch.float32)
+        x = x + p["embed_positions"]["weight"][i].to(torch.float32)
+        offsets = torch.full((b,), i, dtype=torch.int32, device=dev)
+        y, _, _ = F.fused_stack_lanes(pack, *ctx, kc, vc, x, offsets, lanes, cfg=cfg,
+                                      s_src=s_src)
+        return torch.cat([_fused_head(p, y[w], enc_out.dtype) for w in range(b)])
 
     return step
 
@@ -719,6 +783,29 @@ class Whisper(tnn.Module):
     def generate(self, audio: np.ndarray,
                  generation_parameters: STTGenerateParameters | None = None
                  ) -> STTOutput:
+        """Transcribe ``audio`` (16 kHz) in 30 s windows. With
+        ``batch_windows`` (the default) the windows go in groups of up to
+        ``_WINDOW_BATCH_MAX``, each group in one encoder call over its rows
+        and one decode loop with a row a window; otherwise one window at a
+        time. Greedy tokens are the same either way where every product
+        is an exact integer sum (an int8 encoder and the w8 kv8d route); a
+        floating-point product over more rows may round otherwise, which can
+        move a near-tie. A group's decode route:
+
+        - dense (``kv_bits`` None): :func:`decoder_step` at B rows over
+          dense cross K/V ``[L, B, H, S, D]``;
+        - kv8d (``kv_bits=8``, dense self cache): :func:`decoder_step` at B
+          rows, its cross attention one int8 attention call a layer over
+          the B*H heads of the group;
+        - w8 kv8d on a decoder shape the fused kernels take: the windows
+          are the lanes of ``ops.fused_decoder.fused_stack_lanes``, one
+          call a step for the group (a lone window takes ``fused_stack``).
+          The lanes kernel is bit-equal to the one-token kernel lane by
+          lane, so each window gets the tokens of its per-window decode.
+
+        A group is never padded to a bucket of window counts: its rows are
+        independent, and the JAX package's buckets only spared XLA
+        recompiles."""
         params = generation_parameters or STTGenerateParameters()
         self._check_params(params)
         tokenizer = self.tokenizer
@@ -730,17 +817,15 @@ class Whisper(tnn.Module):
             audio = audio.mean(axis=-1)
         chunks = [(audio[s : s + CHUNK_LENGTH_SAMPLES], s / SAMPLE_RATE)
                   for s in range(0, max(len(audio), 1), CHUNK_LENGTH_SAMPLES)]
-        if params.batch_windows and len(chunks) > 1:
-            raise NotImplementedError(
-                "batched decoding of audio longer than 30 s is not ported yet; "
-                "pass batch_windows=False to decode the windows one by one")
         suppress, begin = self._suppress_masks(tokenizer)
         prompt = tokenizer.build_prompt_tokens(params.language, params.task)
+        group = _WINDOW_BATCH_MAX if params.batch_windows else 1
+        token_lists = [tokens for g in range(0, len(chunks), group)
+                       for tokens in self._transcribe_windows(
+                           [c for c, _ in chunks[g : g + group]], prompt, suppress,
+                           begin, params)]
         all_text, segments = [], []
-        total_gen = 0
-        for chunk, offset in chunks:
-            tokens = self._transcribe_chunk(chunk, prompt, suppress, begin, params)
-            total_gen += len(tokens)
+        for (chunk, offset), tokens in zip(chunks, token_lists):
             text = tokenizer.decode(tokens).strip()
             if text:
                 all_text.append(text)
@@ -754,13 +839,14 @@ class Whisper(tnn.Module):
         return STTOutput(
             text=" ".join(all_text), segments=segments, language=lang,
             prompt_token_count=len(prompt) * len(chunks),
-            generation_token_count=total_gen,
+            generation_token_count=sum(len(t) for t in token_lists),
             prompt_time=elapsed, generation_time=elapsed, total_time=elapsed)
 
     def generate_stream(self, audio: np.ndarray,
                         generation_parameters: STTGenerateParameters | None = None):
         """Yield ``{"type": "token", "text": ...}`` per 30 s window, then
-        ``{"type": "result", "output": STTOutput}``."""
+        ``{"type": "result", "output": STTOutput}``. The windows decode one
+        at a time, as in the JAX package."""
         params = generation_parameters or STTGenerateParameters()
         self._check_params(params)
         tokenizer = self.tokenizer
@@ -797,32 +883,36 @@ class Whisper(tnn.Module):
         fc1 = self.params["model"]["decoder"]["layers"]["fc1"]["weight"]
         return isinstance(fc1, quant.Int8Tensor) and F.supported(self.config)
 
-    @torch.inference_mode()
     def _transcribe_chunk(self, chunk, prompt, suppress, begin,
                           params: STTGenerateParameters) -> list[int]:
-        enc_out = self.encoder(self.encoder_features(chunk))
+        return self._transcribe_windows([chunk], prompt, suppress, begin, params)[0]
+
+    @torch.inference_mode()
+    def _transcribe_windows(self, chunks, prompt, suppress, begin,
+                            params: STTGenerateParameters) -> list[list[int]]:
+        """Transcribe the 30 s windows ``chunks`` (at most
+        ``_WINDOW_BATCH_MAX``) in one encoder call and one decode loop, a row
+        a window, on the route :meth:`generate` names. Returns each window's
+        generated tokens up to its first EOT."""
+        enc_out = self.encoder(torch.cat([self.encoder_features(c) for c in chunks]))
         max_total = min(self.config.max_target_positions,
                         len(prompt) + max(1, params.max_tokens))
         generator = torch.Generator(device=self.device).manual_seed(0)
         eot = self.tokenizer.eot
+        kw = dict(max_total=max_total, cfg=self.config, layers=self.decoder.split_layers())
         kv8d = params.kv_bits == 8 and params.quantized_kv_start >= max_total
         if kv8d and self._fused_supported():
-            step = fused_decode_step_fn(
-                self.params, self.fused_decoder_pack(), enc_out,
-                max_total=max_total, cfg=self.config,
-                layers=self.decoder.split_layers())
+            fn = fused_decode_step_fn if len(chunks) == 1 else fused_lanes_decode_step_fn
+            step = fn(self.params, self.fused_decoder_pack(), enc_out, **kw)
         else:
             step = decode_step_fn(
-                self.params, enc_out, max_total=max_total, cfg=self.config,
-                kv_bits=params.kv_bits, kv_group_size=params.kv_group_size,
-                quantized_kv_start=params.quantized_kv_start,
-                layers=self.decoder.split_layers())
-        tokens = _sample_loop(step, prompt, max_total, eot, suppress, begin,
-                              params.temperature, generator)
-        gen = tokens[len(prompt):]
-        if eot in gen:
-            gen = gen[: gen.index(eot)]
-        return gen
+                self.params, enc_out, kv_bits=params.kv_bits,
+                kv_group_size=params.kv_group_size,
+                quantized_kv_start=params.quantized_kv_start, **kw)
+        rows = _sample_loop(step, prompt, len(chunks), max_total, eot, suppress, begin,
+                            params.temperature, generator)
+        gens = [row[len(prompt):] for row in rows]
+        return [gen[: gen.index(eot)] if eot in gen else gen for gen in gens]
 
     @torch.inference_mode()
     def detect_language(self, audio: np.ndarray) -> tuple[str, float]:
