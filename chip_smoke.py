@@ -112,9 +112,9 @@ Then Orpheus serving, on the same model:
    through ``cli.serve.build_server(model, "tts", slots=4)``.
 
 Then it frees the w8a8 model and runs MLX grouped-affine 4-bit. (Phase 15
-runs first of all, right after the build: late in the process
-``torch.profiler`` loses device events, and kernel 7's short calls then
-read "not measured".)
+runs first of all, right after the build, and the ``[qwen3 tts]`` phase
+after it: late in the process ``torch.profiler`` loses device events, and
+kernel 7's short calls then read "not measured".)
 
 15. holds kernel 7 (``quantized_matvec``: the decode kernel for 1 row of
    whole 16-byte chunks, the GEMV for rows that are not, the tensor-core
@@ -145,6 +145,29 @@ read "not measured".)
    (quantized on the card from the first phases' weights): kernel 7's
    decode kernel launched 8 x 32 + 1 times a decoder step, and the tokens
    of the plain route.
+
+18. ``[qwen3 tts]`` (run second, after phase 15): Qwen3-TTS at the JAX
+   package's default widths (talker 20 x 1024, GQA 16/8 x 128; code
+   predictor 4 x 1024; 16 code groups; the talker's head past codec_bos_id,
+   4,198 rows) and the 12.5 Hz codec decoder at its default widths, random
+   weights from seed 0 with seeded non-unit RMSNorm weights, in bf16 and as
+   MLX 8-bit in groups of 64 quantized on the card (BASELINE.json:11):
+   kernel 7 against its plain version at every product shape of the 8-bit
+   path (the decode kernel at 1 row, the tile at 2, 3 and the prompt's
+   rows); greedy ``generate`` twice and ``generate_stream`` on the 8-bit
+   model, each with the counters reset just before and read just after:
+   the decode kernel 319 times a frame (the talker step's 81 products and
+   14 code-predictor passes of 17), the tile 17 times a frame (pass 0 at 2
+   rows), 80 times for the prefill and twice for the text projection, no
+   GEMV, no other kernel, no plain call; the codes and waveforms repeat
+   bit for bit, and the codec's streamed chunks equal its offline decode
+   within 1e-4 (TF32 off, both flags printed); the first frames'
+   teacher-forced logits through kernel 7 and through its plain version;
+   then, for bf16 and 8-bit, the time to first audio by
+   ``bench_qwen3_tts_ttfb``'s protocol, a frame's host and device ms, busy
+   share and device events, kernel 7's device ms a frame beside its bound,
+   the codec's ms a chunk and the peak device memory.
+   ``python3 chip_smoke.py --qwen3`` runs this phase alone.
 
 Each kernel's record carries its bound on the H100 (``bound_ms``: the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate
@@ -214,9 +237,10 @@ mutant must fail its check and every sound copy pass.
 
 TF32 is off for matmuls and convolutions, so float32 references are full
 float32. Any failed check raises and ends the run with a non-zero code.
-The last eight lines of output are JSON: the generate runs, the long-form
+The last nine lines of output are JSON: the generate runs, the long-form
 results, the serving results, the TTS results, the TTS serving results, the
-MLX 4-bit results, the kernels' records, then ``{"ok": true, "device":
+MLX 4-bit results, the Qwen3-TTS results, the kernels' records (kernel 7's
+with its Qwen3 launches, ``qwen3_launches`` and ``qwen3``), then ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or outside
 the repository, it exits non-zero before printing any of them.
 """
@@ -513,6 +537,26 @@ Q4_SERVE_SLOTS, Q4_SERVE_MAX_TOKENS = 4, 70
 Q4_SERVE_TEXTS = TTS_SERVE_TEXTS[:4]
 Q4_WHISPER_TOKENS = 24
 Q4_PROFILE_TOKENS = 8  # ~1,600 device events a token: a short profiled chunk
+# Qwen3-TTS (BASELINE.json:11: 0.6B, MLX 8-bit, streaming), the [qwen3 tts]
+# phase: the talker's vocabulary reaches past codec_bos_id 4197, as a
+# checkpoint's does (bench.py:536-540; the bare default of 4096 is the EOS id
+# itself); greedy runs of QWEN3_FRAMES frames (3.2 s of audio)
+QWEN3_VOCAB = 4198
+QWEN3_TEXT = TTS_TEXT
+QWEN3_FRAMES = 40
+QWEN3_TEACHER_FRAMES = 6
+# teacher-forced logits, kernel 7 against its plain version: the prompt and
+# the first talker step run in bf16, where a product's bf16 rounding may
+# flip between the two versions' f32 sums and move every later logit, as on
+# Whisper's bf16 routes (LOGITS_RTOL); the code predictor runs in f32
+QWEN3_LOGITS_RTOL = 3e-2
+# the codec's streaming chunks against its offline decode: f32 convolutions
+# (TF32 off) over other lengths, summed in another order
+QWEN3_STREAM_ATOL = 1e-4
+# bench_qwen3_tts_ttfb's protocol (bench.py:763-876): a 32-row random
+# prefix, a first chunk of 12 frames (0.96 s of audio)
+QWEN3_TTFB_PREFIX, QWEN3_TTFB_FRAMES = 32, 12
+QWEN3_PROFILE_FRAMES = 4
 # the standing mutation check (--mutations): for each kernel, its source,
 # the function here that runs its check alone, and its mutations (name,
 # original text, mutated text); a kernel ported later adds its entry
@@ -4528,6 +4572,456 @@ def q4_whisper_phase(model, audio) -> dict:
                 equal_to_plain=toks == want)
 
 
+def build_qwen3(dev):
+    """Qwen3-TTS at ``Qwen3TTSConfig()``'s widths (talker 20 x 1024, GQA
+    16/8 x 128, ffn 3072; code predictor 4 x 1024, 16/8 x 64; 16 groups;
+    the talker's vocabulary QWEN3_VOCAB) from seed-0 random weights on the
+    card, with seeded non-unit RMSNorm weights and q/k/v and gate/up fused:
+    the bf16 model, and the MLX 8-bit one of BASELINE.json:11 (every
+    projection, embedding and head quantized on the card in groups of 64).
+    Both take the 12.5 Hz codec decoder at ``Qwen3CodecDecoderConfig()``'s
+    widths (f32, seed 0) and the byte-level stub tokenizer."""
+    import dataclasses
+
+    import torch
+
+    from tpu_audio_torch.codecs import qwen3_codec as QC
+    from tpu_audio_torch.core import quant
+    from tpu_audio_torch.models import llama
+    from tpu_audio_torch.models.tts import qwen3_tts as QT
+
+    cfg = QT.Qwen3TTSConfig()
+    cfg.talker = dataclasses.replace(cfg.talker, vocab_size=QWEN3_VOCAB)
+    params = QT.init_random_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    randomize_norms(params, torch.Generator(device=dev).manual_seed(5))
+    codec_cfg = QC.Qwen3CodecDecoderConfig()
+    codec = QC.Qwen3CodecDecoder(codec_cfg, QC.init_random_params(codec_cfg, seed=0,
+                                                                  device=dev))
+
+    def fused(p):
+        p = llama.fuse_projections(p)
+        p["code_predictor"] = llama.fuse_projections(p["code_predictor"])
+        return p
+
+    q8 = fused(quant.quantize_tree(params, bits=8, group_size=64, scheme="mlx"))
+    packed = [q8["model"]["layers"]["self_attn"]["qkv_proj"]["weight"],
+              q8["model"]["text_embedding"]["weight"], q8["codec_head"]["weight"],
+              q8["code_predictor"]["lm_head"]["14"]["weight"],
+              q8["code_predictor"]["model"]["codec_embedding"]["0"]["weight"]]
+    check(all(isinstance(w, quant.QuantizedTensor) and w.bits == 8 for w in packed),
+          "Qwen3-TTS 8-bit: a projection, an embedding or a head is not packed")
+    return {name: QT.Qwen3TTS(cfg, p, tokenizer=ByteTokenizer(), codec=codec,
+                              dtype=torch.bfloat16)
+            for name, p in (("bf16", fused(params)), ("8bit", q8))}
+
+
+def qwen3_products(model) -> dict:
+    """Kernel 7's products on a Qwen3 path, from the tree: ``talker`` a
+    step (the packed linears of a layer times the layers, and the codec
+    head), ``layers`` a prefill (the codec head's logits are not needed),
+    ``cp`` a code-predictor pass (its layers and a group head), and their
+    (rows, O, I) shapes a frame."""
+    from tpu_audio_torch.core import quant
+
+    def packed(layers):
+        return [v["weight"] for part in ("self_attn", "mlp") for v in layers[part].values()
+                if isinstance(v.get("weight"), quant.QuantizedTensor)]
+
+    def oi(w):
+        return w.weight.shape[-2], w.weight.shape[-1] * 32 // w.bits
+
+    p = model.params
+    tl, cl = packed(p["model"]["layers"]), packed(p["code_predictor"]["model"]["layers"])
+    L = model.config.talker.num_hidden_layers
+    Lc = model.config.code_predictor.num_hidden_layers
+    G = model.config.talker.num_code_groups
+    head, lm = p["codec_head"]["weight"], p["code_predictor"]["lm_head"]["0"]["weight"]
+    talker = [oi(w) for w in tl] * L + [oi(head)]
+    cp = [oi(w) for w in cl] * Lc + [oi(lm)]
+    shapes = ([(1, o, i) for o, i in talker] + [(2, o, i) for o, i in cp]
+              + [(1, o, i) for o, i in cp] * (G - 2))
+    return dict(talker=len(talker), layers=len(tl) * L, cp=len(cp),
+                decode=len(talker) + (G - 2) * len(cp), tile=len(cp), shapes=shapes)
+
+
+def qwen3_qmm_checks(model) -> list:
+    """Kernel 7 against its plain version at every product shape of the
+    8-bit Qwen3 path (g 64, f32 scales, layer 0's weights): the decode
+    kernel at 1 row (f32 x, a frame's talker and code-predictor steps; bf16
+    x, the first frame's talker step), the tile at 2 rows (code-predictor
+    pass 0, f32 x), at the prompt's rows (bf16 x, the prefill) and at the
+    text projection's 3 rows (the tts ids, f32 x); QMM_RTOL with f32 x,
+    QMM_BF16_RTOL with bf16 x."""
+    import torch
+
+    p = model.params
+    tl, cp = p["model"]["layers"], p["code_predictor"]["model"]["layers"]
+    prompt = model.prepare_generation_inputs(QWEN3_TEXT)[0].shape[1] - 1
+    layer = [(f"{who} {n}", part[a][n]["weight"].map(lambda t: t[0]))
+             for who, part in (("talker", tl), ("cp", cp))
+             for a, names in (("self_attn", ("qkv_proj", "o_proj")),
+                              ("mlp", ("gate_up_proj", "down_proj"))) for n in names]
+    heads = [("codec head", p["codec_head"]["weight"]),
+             ("cp head", p["code_predictor"]["lm_head"]["7"]["weight"])]
+    text = [(f"text {n}", p["text_projection"][n]["weight"]) for n in ("linear_fc1",
+                                                                      "linear_fc2")]
+    cases = []
+    for name, w in layer + heads:
+        cases.append((name, w, 1, torch.float32, "decode"))
+        if name.startswith("talker") or name == "codec head":
+            cases.append((name, w, 1, torch.bfloat16, "decode"))
+        if name.startswith("talker"):
+            cases.append((name, w, prompt, torch.bfloat16, "tile"))
+        elif name.startswith("cp"):
+            cases.append((name, w, 2, torch.float32, "tile"))
+    cases += [(name, w, 3, torch.float32, "tile") for name, w in text]
+    gen = torch.Generator(device=model.device).manual_seed(11)
+    out = []
+    for name, w, rows, dt, want in cases:
+        x = torch.randn((rows, w.weight.shape[-1] * 32 // w.bits), generator=gen,
+                        device=model.device).to(dt)
+        err, _, ran = qmm_check(f"qwen3 {name} [{rows}]", x, w.weight, w.scales, w.biases,
+                                w.group_size, w.bits)
+        check(ran == want, f"qwen3 {name} at {rows} rows ran the {ran}, not the {want}")
+        out.append(dict(shape=name, rows=rows, x=str(dt).split(".")[-1], kernel=ran,
+                        o=w.weight.shape[0], i=x.shape[1], rel_err=err))
+    worst = {k: max((c["rel_err"] for c in out if c["x"] == k), default=0.0)
+             for k in ("float32", "bfloat16")}
+    print(f"[qwen3 qmm] kernel 7 at {len(out)} Qwen3 shapes (8-bit, g 64): the decode kernel "
+          f"at 1 row, the tile at 2, 3 and {prompt} rows; rel err up to {worst['float32']:.3e} "
+          f"with f32 x (rtol {QMM_RTOL}), {worst['bfloat16']:.3e} with bf16 x (rtol "
+          f"{QMM_BF16_RTOL})")
+    return out
+
+
+def qwen3_generate_phase(model) -> tuple[list, dict, np.ndarray]:
+    """Greedy ``generate`` twice on the 8-bit model (QWEN3_FRAMES frames,
+    repetition penalty 1.05) and ``generate_stream`` once, each with the
+    launch counters reset just before and read just after: kernel 7's
+    decode kernel ``decode`` times a frame taken (talker step and
+    code-predictor passes 1..14), its tile ``cp`` times a frame (pass 0 at
+    2 rows), ``layers`` times for the prefill and twice a text projection
+    of at most 64 rows (the tts ids; the byte-level prompt is longer and
+    dequantizes), no GEMV, no other kernel of the port and no call of the
+    plain version. The codes and waveforms repeat bit for bit; the streamed
+    chunks, concatenated, equal ``generate``'s waveform within
+    QWEN3_STREAM_ATOL."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.core.generation import AudioGenerateParameters, AudioGenerationKind
+    from tpu_audio_torch.ops import _lib, qmm
+
+    n = qwen3_products(model)
+    groups, hop = model.config.talker.num_code_groups, model.codec.config.total_upsample
+    chat = f"<|im_start|>assistant\n{QWEN3_TEXT}<|im_end|>\n<|im_start|>assistant\n"
+    n_chat = len(model.tokenizer.encode(chat).ids)
+    prompt = model.prepare_generation_inputs(QWEN3_TEXT)[0].shape[1]
+    check(2 <= prompt - 1 <= qmm.MAX_ROWS, f"a {prompt}-row prompt: the prefill skips the tile")
+    text_tiles = 2 + (2 if 2 <= n_chat <= qmm.MAX_ROWS else 0)
+    gp = AudioGenerateParameters(max_tokens=QWEN3_FRAMES, temperature=0.0,
+                                 repetition_penalty=1.05, repetition_context_size=64)
+    runs, first, first_launches = [], None, None
+    torch.cuda.reset_peak_memory_stats()
+    for run, stream in enumerate((False, False, True)):
+        frames, plain, seen = [0], [0], {}
+        run_iter = model._run_iter
+
+        def spy(*a, **k):
+            for item in run_iter(*a, **k):
+                seen["item"] = item
+                yield item
+
+        model._run_iter = spy
+        try:
+            with counting(model, "_frame", frames), counting(qmm, "quantized_matvec_ref", plain):
+                _lib.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if stream:
+                    events = list(model.generate_stream(QWEN3_TEXT, generation_parameters=gp))
+                    chunks = [e.audio for e in events if e.kind == AudioGenerationKind.AUDIO]
+                    wav = np.concatenate(chunks)
+                else:
+                    wav = model.generate(QWEN3_TEXT, generation_parameters=gp)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = dict(_lib.launches)
+        finally:
+            del model._run_iter
+        codes, prefill_s, gen_s, _ = seen["item"][1]
+        codes = np.stack(codes)
+        n_tile = launches.get("quantized_matvec_tile", 0)
+        n_decode = launches.get("quantized_matvec_decode", 0)
+        n_gemv = launches.get("quantized_matvec", 0) - n_tile - n_decode
+        want_decode = n["decode"] * frames[0]
+        want_tile = text_tiles + n["layers"] + n["cp"] * frames[0]
+        label = "generate_stream" if stream else "generate"
+        print(f"[qwen3 8bit {label} run {run}] {codes.shape[0]} frames ({frames[0]} frame steps "
+              f"taken) in {wall:.3f} s (prefill {prefill_s * 1e3:.3f} ms, {gen_s * 1e3 / frames[0]:.3f} "
+              f"ms a frame); {wav.shape[0]} samples; launches {launches}: decode {n_decode} "
+              f"({want_decode} expected, {n['decode']} a frame), tile {n_tile} ({want_tile} "
+              f"expected), GEMV {n_gemv} (0 expected); plain version calls {plain[0]}")
+        check(n_decode == want_decode and n_tile == want_tile and n_gemv == 0,
+              f"qwen3 8-bit: kernel 7 launched the decode kernel {n_decode}, the tile {n_tile} "
+              f"and the GEMV {n_gemv} times; {want_decode}, {want_tile} and 0 expected")
+        check(set(k for k, v in launches.items() if v) <= {
+            "quantized_matvec", "quantized_matvec_tile", "quantized_matvec_decode"},
+            f"qwen3 8-bit: another kernel of the port ran: {launches}")
+        check(plain[0] == 0, "qwen3 8-bit: the plain version ran")
+        # a frame that samples EOS ends the loop and keeps no codes
+        check(codes.shape[1:] == (groups,) and frames[0] - codes.shape[0] in (0, 1)
+              and codes.shape[0] >= QWEN3_TEACHER_FRAMES,
+              f"qwen3 8-bit: {codes.shape} codes in {frames[0]} frame steps")
+        check(bool(np.isfinite(wav).all()) and wav.shape == (codes.shape[0] * hop,),
+              f"qwen3 8-bit: waveform {wav.shape}")
+        if first is None:
+            first, first_launches = (codes, wav), launches
+        check(np.array_equal(codes, first[0]), "qwen3 8-bit: greedy codes differ between runs")
+        if stream:
+            stream_err = float(np.abs(wav - first[1]).max())
+            print(f"[qwen3 codec] {len(chunks)} streaming chunks of {[c.shape[0] for c in chunks]} "
+                  f"samples against the offline decode: max abs diff {stream_err:.3e} (atol "
+                  f"{QWEN3_STREAM_ATOL}); cudnn.allow_tf32 "
+                  f"{torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32 "
+                  f"{torch.backends.cuda.matmul.allow_tf32}")
+            check(stream_err <= QWEN3_STREAM_ATOL,
+                  "qwen3: the codec's streaming chunks differ from its offline decode")
+        else:
+            check(np.array_equal(wav, first[1]), "qwen3 8-bit: waveforms differ between runs")
+        runs.append(dict(api=label, run=run, frames=int(codes.shape[0]), wall_s=wall,
+                         prefill_ms=prefill_s * 1e3, host_ms_a_frame=gen_s * 1e3 / frames[0],
+                         samples=int(wav.shape[0]), launches=launches,
+                         realtime_x=wav.shape[0] / model.sample_rate / wall))
+    runs[-1].update(stream_max_abs_diff=stream_err, chunks=len(chunks),
+                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"first frames' codes: {first[0][:2].tolist()}")
+    return runs, first_launches, first[0]
+
+
+def qwen3_teacher_forced(model, codes) -> dict:
+    """The first QWEN3_TEACHER_FRAMES generated frames forced through
+    ``generate``'s own frame steps (``_sample`` replaced by a reader of the
+    codes), with kernel 7 and with its plain version: every talker and
+    code-predictor logit vector within QWEN3_LOGITS_RTOL."""
+    import torch
+
+    from tpu_audio_torch.core.generation import AudioGenerateParameters
+    from tpu_audio_torch.models.tts import qwen3_tts as QT
+    from tpu_audio_torch.ops import qmm
+
+    gp = AudioGenerateParameters(max_tokens=QWEN3_TEACHER_FRAMES, temperature=0.0)
+    sample, kernel = QT._sample, qmm.quantized_matvec
+
+    def forced(plain):
+        it, seen = iter(codes[:QWEN3_TEACHER_FRAMES].reshape(-1).tolist()), []
+
+        def read(gen, logits, *a, **k):
+            seen.append(logits.float())
+            return torch.tensor([next(it)], device=logits.device)
+
+        QT._sample = read
+        if plain:
+            qmm.quantized_matvec = qmm.quantized_matvec_ref
+        try:
+            list(model._run_iter(QWEN3_TEXT, None, None, None, gp))
+        finally:
+            QT._sample, qmm.quantized_matvec = sample, kernel
+        return seen
+
+    k, p = forced(False), forced(True)
+    G = model.config.talker.num_code_groups
+    check(len(k) == len(p) == QWEN3_TEACHER_FRAMES * G, f"qwen3 forced: {len(k)} logits")
+    errs = [rel_err(a, b) for a, b in zip(k, p)]
+    check(all(bool(torch.isfinite(a).all()) for a in k), "qwen3 forced: non-finite logits")
+    talker, cp = max(errs[::G]), max(e for i, e in enumerate(errs) if i % G)
+    print(f"[qwen3 teacher-forced] {QWEN3_TEACHER_FRAMES} frames: talker logits, kernel 7 vs "
+          f"its plain version, rel err up to {talker:.3e}, code-predictor logits {cp:.3e} "
+          f"(rtol {QWEN3_LOGITS_RTOL}); by frame "
+          f"{[f'{max(errs[G * f:G * f + G]):.2e}' for f in range(QWEN3_TEACHER_FRAMES)]}")
+    check(max(errs) <= QWEN3_LOGITS_RTOL, "qwen3: kernel path logits disagree with the plain route")
+    return dict(talker_rel_err=talker, cp_rel_err=cp, frames=QWEN3_TEACHER_FRAMES)
+
+
+def qwen3_timing(model, label: str) -> dict:
+    """``bench_qwen3_tts_ttfb``'s protocol (bench.py:763-876): a prefill of
+    QWEN3_TTFB_PREFIX random bf16 embeddings, QWEN3_TTFB_FRAMES frames
+    sampled at T 0.9, top-k 50, then the codec's decode of the chunk; the
+    best of TTFB_REPEATS after a warm-up, and its realtime x. Then a
+    profiled window of QWEN3_PROFILE_FRAMES frames, each read back as
+    ``generate`` reads it: device ms a frame (the union of the recorded
+    intervals), the busy share, device events and kernel 7's device ms a
+    frame; the codec's ms for a 25-frame streaming chunk (2 s, the default
+    interval); and the peak device memory."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_audio_torch.core import kv_cache
+    from tpu_audio_torch.core.generation import AudioGenerateParameters
+
+    dev = model.device
+    tc = model.config.talker
+    gp = AudioGenerateParameters(temperature=0.9, top_k=50, top_p=1.0, repetition_penalty=1.0)
+    hist = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+
+    def prefilled(seed, frames):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((1, QWEN3_TTFB_PREFIX, tc.hidden_size), generator=gen, device=dev,
+                        dtype=torch.bfloat16) * 0.1
+        pad = torch.randn((1, 1, tc.hidden_size), generator=gen, device=dev,
+                          dtype=torch.bfloat16) * 0.1
+        cache = kv_cache.init_cache(tc.num_hidden_layers, 1, tc.num_key_value_heads,
+                                    tc.head_dim, QWEN3_TTFB_PREFIX + frames + 2, model.dtype, dev)
+        return gen, pad, model._prefill(x[:, :-1], cache), x[:, -1:]
+
+    def first_audio(seed):
+        gen, pad, cache, emb = prefilled(seed, QWEN3_TTFB_FRAMES)
+        codes = []
+        for _ in range(QWEN3_TTFB_FRAMES):
+            c, s, cache = model._frame(emb, cache, gen, None, hist, 0, gp)
+            codes.append(c)
+            emb = pad + s
+        codes = torch.cat(codes).T[None] % model.codec.config.codebook_size
+        return model.codec.decode(codes).float().cpu().numpy()
+
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        wav = first_audio(0)
+        times = []
+        for r in range(TTFB_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first_audio(r + 1)
+            times.append(time.perf_counter() - t0)
+        check(wav.shape == (1, QWEN3_TTFB_FRAMES * model.codec.config.total_upsample)
+              and bool(np.isfinite(wav).all()),
+              f"qwen3 ttfb waveform {wav.shape}")
+        ttfb, audio_s = min(times), wav.size / model.sample_rate
+        k = QWEN3_PROFILE_FRAMES
+        gen, pad, cache, emb = prefilled(9, k + 2)
+        for _ in range(2):
+            c, s, cache = model._frame(emb, cache, gen, None, hist, 0, gp)
+            c.cpu()
+            emb = pad + s
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            markers(STACK_READS[0][1])
+            t0 = time.perf_counter()
+            for _ in range(k):
+                c, s, cache = model._frame(emb, cache, gen, None, hist, 0, gp)
+                c.cpu()
+                emb = pad + s
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        chunk = torch.randint(0, model.codec.config.codebook_size, (1, tc.num_code_groups, 25),
+                              generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+        codec_ms = []
+        for _ in range(3):
+            model.codec.reset_streaming_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.codec.streaming_step(chunk)
+            torch.cuda.synchronize()
+            codec_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    busy_us, n_events = device_busy(prof)
+    kernels = by_kernel(prof)
+    k7 = [c for name, c in kernels.items() if "quantized_matvec" in name]
+    k7_ms, k7_n = sum(c[1] for c in k7) / 1e3, sum(c[0] for c in k7)
+    out = dict(ttfb_ms=ttfb * 1e3, ttfb_all_ms=[t * 1e3 for t in times], first_audio_s=audio_s,
+               realtime_x=audio_s / ttfb, host_ms_a_frame_profiled=prof_ms / k,
+               device_ms_a_frame=busy_us / 1e3 / k, busy_share=busy_us / 1e3 / prof_ms,
+               device_events_a_frame=n_events / k, kernel7_device_ms_a_frame=k7_ms / k,
+               kernel7_device_events_a_frame=k7_n / k, codec_ms_25_frames=min(codec_ms),
+               peak_memory_gb=peak)
+    print(f"[qwen3 {label} ttfb] {QWEN3_TTFB_PREFIX}-row prefix, {QWEN3_TTFB_FRAMES} frames "
+          f"(T 0.9, top-k 50) + codec decode: TTFB {ttfb * 1e3:.3f} ms (best of "
+          f"{[f'{t * 1e3:.3f}' for t in times]}), {audio_s:.3f} s of audio: realtime x "
+          f"{audio_s / ttfb:.3f}")
+    print(f"[qwen3 {label} frame] {k} frames under the profiler: wall {prof_ms / k:.3f} ms a "
+          f"frame, device busy {busy_us / 1e3 / k:.3f} ms a frame (share "
+          f"{busy_us / 1e3 / prof_ms:.4f}), {n_events / k:.1f} device events a frame; kernel 7 "
+          f"{k7_ms / k:.4f} ms ({k7_n / k:.1f} device events: the tile's split and sum "
+          f"kernels count) a frame; codec streaming chunk of 25 "
+          f"frames {min(codec_ms):.3f} ms; peak device memory {peak:.2f} GB")
+    print_kernels(kernels, k, top=10)
+    return out
+
+
+def qwen3_phase(dev, smi: str) -> tuple[dict, dict]:
+    """The ``[qwen3 tts]`` phase: builds the bf16 and 8-bit models
+    (``build_qwen3``), holds kernel 7 at every Qwen3 shape
+    (``qwen3_qmm_checks``), runs the 8-bit greedy ``generate`` twice and
+    ``generate_stream`` with the launch counts (``qwen3_generate_phase``),
+    the teacher-forced logits (``qwen3_teacher_forced``), a greedy bf16
+    ``generate``, and the timings of both (``qwen3_timing``). Returns the
+    phase's JSON and kernel 7's Qwen3 fields for its two records."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.core.generation import AudioGenerateParameters
+    from tpu_audio_torch.ops import _lib
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[qwen3 tts] cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
+          f"cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32} (float32 codec "
+          f"convolutions and products in full float32)")
+    t0 = time.perf_counter()
+    models = build_qwen3(dev)
+    torch.cuda.synchronize()
+    q8 = models["8bit"]
+    n = qwen3_products(q8)
+    bound_frame = sum(qmm_bound(r, o, i, 8, 64)[0] for r, o, i in n["shapes"])
+    tc, cc = q8.config.talker, q8.config.code_predictor
+    print(f"Qwen3-TTS (talker {tc.num_hidden_layers} x {tc.hidden_size}, code predictor "
+          f"{cc.num_hidden_layers} x {cc.hidden_size}, {tc.num_code_groups} groups) bf16 and MLX "
+          f"8-bit (g 64) and the 12.5 Hz codec decoder built on the card in "
+          f"{time.perf_counter() - t0:.1f} s; kernel 7 a frame: {n['decode']} decode-kernel and "
+          f"{n['tile']} tile launches, bound {bound_frame:.4f} ms (bytes; {smi})")
+    checks = qwen3_qmm_checks(q8)
+    runs, launches, codes = qwen3_generate_phase(q8)
+    forced = qwen3_teacher_forced(q8, codes)
+    gp = AudioGenerateParameters(max_tokens=QWEN3_FRAMES, temperature=0.0,
+                                 repetition_penalty=1.05, repetition_context_size=64)
+    bf16 = models["bf16"]
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wav = bf16.generate(QWEN3_TEXT, generation_parameters=gp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hop = bf16.codec.config.total_upsample
+    check(bool(np.isfinite(wav).all()) and wav.shape[0] % hop == 0
+          and not any(_lib.launches.values()),
+          f"qwen3 bf16: waveform {wav.shape}, launches {dict(_lib.launches)}")
+    print(f"[qwen3 bf16 generate] {wav.shape[0] // hop} frames in {wall:.3f} s "
+          f"({wall * 1e3 * hop / wav.shape[0]:.3f} ms a frame with the prefill and the decode); "
+          f"realtime x {wav.shape[0] / bf16.sample_rate / wall:.3f}")
+    timing = {name: qwen3_timing(m, name) for name, m in models.items()}
+    timing["8bit"].update(kernel7_bound_ms_a_frame=bound_frame)
+    out = dict(runs=runs, bf16_generate=dict(frames=wav.shape[0] // hop, wall_s=wall,
+                                             realtime_x=wav.shape[0] / bf16.sample_rate / wall),
+               teacher_forced=forced, timing=timing, qmm_checks=checks,
+               tf32=dict(cudnn=torch.backends.cudnn.allow_tf32,
+                         matmul=torch.backends.cuda.matmul.allow_tf32),
+               phase_s=time.perf_counter() - t_phase, smi=smi)
+    k7 = {"quantized_matvec": dict(qwen3_launches=launches["quantized_matvec_decode"],
+                                   qwen3=dict(launches_a_frame=n["decode"],
+                                              device_ms_a_frame=timing["8bit"][
+                                                  "kernel7_device_ms_a_frame"],
+                                              bound_ms_a_frame=bound_frame)),
+          "quantized_matvec_tile": dict(qwen3_launches=launches["quantized_matvec_tile"],
+                                        qwen3=dict(launches_a_frame=n["tile"]))}
+    print(f"[qwen3 tts] phase {out['phase_s']:.1f} s")
+    del models, q8, bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, k7
+
+
 def mutations_main(kernels: list) -> int:
     """The standing mutation check: for each kernel of MUTATIONS (those named
     in ``kernels``, or all), its check alone (timing off) on copies of the
@@ -5242,6 +5736,22 @@ def qmm_main(smi: str) -> int:
     return 0
 
 
+def qwen3_main(smi: str) -> int:
+    """``--qwen3``: the [qwen3 tts] phase alone, then its JSON and kernel
+    7's Qwen3 fields as one line (no "ok" line: not the full check)."""
+    import torch
+
+    from tpu_audio_torch.ops import _lib
+
+    t0 = time.perf_counter()
+    _lib.lib()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    out, k7 = qwen3_phase(torch.device("cuda", 0), smi)
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"qwen3_tts": out, "kernel7": k7}))
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5259,7 +5769,7 @@ def main() -> int:
               "--fused-llama-timing": fused_llama_timing_main,
               "--llama-lanes-timing": llama_lanes_timing_main,
               "--kv-mel-timing": kv_mel_timing_main}.get(next(iter(sys.argv[1:]), ""))
-    if sys.argv[1:] not in ([], ["--qmm"]) and not timing:
+    if sys.argv[1:] not in ([], ["--qmm"], ["--qwen3"]) and not timing:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -5278,6 +5788,8 @@ def main() -> int:
     print(smi.splitlines()[0])
     if sys.argv[1:] == ["--qmm"]:
         return qmm_main(smi.splitlines()[0])
+    if sys.argv[1:] == ["--qwen3"]:
+        return qwen3_main(smi.splitlines()[0])
     if timing:
         return timing(smi.splitlines()[0], [Path(a).resolve() for a in sys.argv[2:]])
     dev = torch.device("cuda", 0)
@@ -5292,6 +5804,11 @@ def main() -> int:
     # phase 15 first: late in this process torch.profiler loses device
     # events, and kernel 7's short calls then read "not measured"
     records = qmm_phase(dev)
+    # the [qwen3 tts] phase next, early for the same reason: it reads kernel
+    # 7's device time a frame from the profiler
+    qwen3, qwen3_k7 = qwen3_phase(dev, smi.splitlines()[0])
+    for k, fields in qwen3_k7.items():
+        records[k].update(fields)
 
     t0 = time.perf_counter()
     cfg, models = build_models(dev)
@@ -5396,7 +5913,7 @@ def main() -> int:
                              "lane_checks", "by_shape", "by_shape_8bit", "crossover",
                              "rel_err_bf16_x", "rel_err_f16_x", "library_dev_ms", "library_rel_err",
                              "library_error", "gemv_ms", "gemv_dev_ms", "gemv_checks",
-                             "gemv_rel_err") if f in r})
+                             "gemv_rel_err", "qwen3_launches", "qwen3") if f in r})
         for k, r in records.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"generate": runs, "smi": smi.splitlines()[0]}))
@@ -5405,6 +5922,7 @@ def main() -> int:
     print(json.dumps({"tts": tts}))
     print(json.dumps({"tts_serving": tts_serving}))
     print(json.dumps({"mlx_4bit": mlx}))
+    print(json.dumps({"qwen3_tts": qwen3}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

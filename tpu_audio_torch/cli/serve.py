@@ -161,12 +161,13 @@ def build_server(model, task: str, model_name: str,
 
     ``slots > 1`` routes transcriptions of up to 30 s through a shared
     :class:`~tpu_audio_torch.parallel.continuous_stt.STTEngineWorker`, and
-    speech through a shared
+    Orpheus speech through a shared
     :class:`~tpu_audio_torch.parallel.continuous.TTSEngineWorker` (with
     ``generation_parameters`` fixed per server; ``max_tokens``, ``seed`` and
     ``voice`` stay per request): concurrent requests decode together in one
     continuously batched tick instead of serializing on the model lock.
-    ``server_close()`` stops the workers.
+    ``server_close()`` stops the workers. A Qwen3-TTS model, whose engine
+    is not ported, is refused at ``slots > 1`` and served at one slot.
     """
     if task not in TASKS:
         raise NotImplementedError(
@@ -180,7 +181,16 @@ def build_server(model, task: str, model_name: str,
         stt_worker = STTEngineWorker(model, slots=slots, step_tokens=step_tokens,
                                      fused=fused)
     elif slots > 1:
+        from tpu_audio_torch.models.tts.llama_tts import LlamaTTS
         from tpu_audio_torch.parallel.continuous import TTSEngineWorker
+
+        if not isinstance(model, LlamaTTS):
+            # the engine decodes the Llama token contract; a Qwen3-TTS frame
+            # is a talker step and a code-predictor sub-loop
+            raise NotImplementedError(
+                f"--slots {slots}: {type(model).__name__} has no continuous-batching engine "
+                "in the port yet (the JAX package's ContinuousQwen3TTS is not ported); "
+                "serve it with --slots 1, which synthesizes through model.generate")
 
         tts_worker = TTSEngineWorker(model, slots=slots,
                                      generation_parameters=generation_parameters,

@@ -1,6 +1,11 @@
 """TTS command line: text -> wav (port of tpu_audio.cli.tts).
 
 Usage: ``python -m tpu_audio_torch.cli.tts "Hello" --model <dir> -o out.wav``
+for an Orpheus or a Qwen3-TTS checkpoint. A Qwen3-TTS ``--voice`` is a
+speaker ("vivian"), a speaker and an instruction ("vivian, speak slowly")
+or, for a ``voice_design`` checkpoint, the design prompt; its codec is the
+checkpoint's ``speech_tokenizer/``, and ``--max-tokens`` counts 12.5 Hz
+frames.
 (``--quantize w8a8 --band-head`` is the Orpheus deployment configuration:
 int8 weights decoded through the fused kernel, the head cut to the audio
 band; ``--quantize 4|8`` quantizes a full-precision checkpoint to MLX
@@ -68,7 +73,14 @@ def main(argv=None):
     if args.quantize:
         kwargs["quantize_bits"] = (args.quantize if args.quantize == "w8a8"
                                    else int(args.quantize))
-    model = load_model(args.model, **kwargs)
+    try:
+        model = load_model(args.model, **kwargs)
+    except TypeError as e:
+        for flag, kwarg in (("--band-head", "audio_band_head"), ("--codec", "snac_repo")):
+            if "unexpected keyword argument" in str(e) and repr(kwarg) in str(e):
+                raise SystemExit(f"{flag} is for the Orpheus-family models (llama_tts); "
+                                 "this model does not take it") from e
+        raise
     if args.raw_ipa and hasattr(model, "text_processor"):
         model.text_processor = None
     params = model.default_generation_parameters()

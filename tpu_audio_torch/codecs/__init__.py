@@ -1,6 +1,8 @@
 """Neural audio codecs: the token <-> waveform layer (port of
 tpu_audio.codecs). Every codec exposes ``encode`` / ``decode`` /
-``reconstruct`` and ``from_pretrained``. Ported: SNAC."""
+``reconstruct`` and ``from_pretrained``. Ported: SNAC, and the Qwen3-TTS
+speech tokenizer's decoder (``qwen3_codec``, which ``Qwen3TTS`` loads from
+its checkpoint and which, as in the JAX package, is not in the registry)."""
 
 from __future__ import annotations
 

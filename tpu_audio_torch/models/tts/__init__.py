@@ -1,6 +1,6 @@
 """TTS task module: model registry + factory (port of
-tpu_audio.models.tts.load_model; Orpheus / Llama TTS is the only family
-ported)."""
+tpu_audio.models.tts.load_model; the families ported: Orpheus / Llama
+TTS and Qwen3-TTS)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from tpu_audio_torch.core import hub
 _REGISTRY: dict[str, str] = {
     "llama_tts": "tpu_audio_torch.models.tts.llama_tts:LlamaTTS",
     "orpheus": "tpu_audio_torch.models.tts.llama_tts:LlamaTTS",
+    "qwen3_tts": "tpu_audio_torch.models.tts.qwen3_tts:Qwen3TTS",
 }
 
 
