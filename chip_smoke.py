@@ -131,8 +131,9 @@ kernel 7's short calls then read "not measured".)
    from), the tile at 8 bits, and the tile against the GEMV at 2-63 rows
    (where the tile takes over);
 16. builds Orpheus-3B quantized on the card to 4 bits in groups of 64 and
-   synthesises 280 tokens through ``LlamaTTS.generate`` (greedy, twice) and
-   ``generate_stream``, then 21 tokens with the full tied head: kernel 7's
+   synthesises 280 tokens through ``LlamaTTS.generate`` (greedy), then 70
+   through ``generate`` and ``generate_stream`` (the first run's prefix),
+   then 21 tokens with the full tied head: kernel 7's
    tile launched 4 x 28 times for the prefill and its decode kernel 4 x 28
    + 1 times a decode step, no GEMV, no other kernel of the port, no call
    of the plain version; teacher-forces
@@ -146,7 +147,7 @@ kernel 7's short calls then read "not measured".)
    decode kernel launched 8 x 32 + 1 times a decoder step, and the tokens
    of the plain route.
 
-18. ``[qwen3 tts]`` (run second, after phase 15): Qwen3-TTS at the JAX
+18. ``[qwen3 tts]`` (run second, after phase 15, then phase 19): Qwen3-TTS at the JAX
    package's default widths (talker 20 x 1024, GQA 16/8 x 128; code
    predictor 4 x 1024; 16 code groups; the talker's head past codec_bos_id,
    4,198 rows) and the 12.5 Hz codec decoder at its default widths, random
@@ -167,7 +168,29 @@ kernel 7's short calls then read "not measured".)
    ``bench_qwen3_tts_ttfb``'s protocol, a frame's host and device ms, busy
    share and device events, kernel 7's device ms a frame beside its bound,
    the codec's ms a chunk and the peak device memory.
-   ``python3 chip_smoke.py --qwen3`` runs this phase alone.
+19. ``[qwen3 serve]`` (right after ``[qwen3 tts]``, on its 8-bit tree):
+   Qwen3-TTS served through ``ContinuousQwen3TTS`` (one lane-batched frame
+   a tick, two where first frames in bf16 meet later ones in f32). Kernel
+   7's tile at every product shape of the path and every row count of a
+   tick (2-8 and 2n up to 16), each row bit-equal to itself beside a
+   filler row and within QMM_RTOL of the plain version; six staggered
+   greedy requests of their own lengths and voices (six distinct prompts)
+   through 4 slots (lanes reused), the counters reset just before and read
+   just after, every tick under ``torch.cuda.set_sync_debug_mode("error")``:
+   the tile 336 times a lane frame (the frame's products over its rows, a
+   lone lane run as two), no decode kernel, no GEMV, no other kernel, no
+   plain call; finite audio of whole frames whose chunks equal one flush of
+   the codes; each request's codes bit for bit the same alone in a fresh
+   engine, and equal to solo ``generate``'s (the decode kernel at 1 row)
+   or, where they differ, a printed near-tie witness: solo's top two within
+   the routes' teacher-forced logit difference at that step, served and
+   with the prompt unpadded;
+   ``bench_qwen3_serving``'s protocol at 4 and 8 slots and one live lane
+   (aggregate and single-stream frames/s, ms a tick, realtime x a lane, a
+   profiled tick's busy share, device events and kernel 7's device ms
+   against its bound); two concurrent streamed speech POSTs through
+   ``cli.serve.build_server(model, "tts", slots=2)``; the peak device memory.
+   ``python3 chip_smoke.py --qwen3`` runs phases 18 and 19 alone.
 
 Each kernel's record carries its bound on the H100 (``bound_ms``: the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate
@@ -239,10 +262,12 @@ TF32 is off for matmuls and convolutions, so float32 references are full
 float32. Any failed check raises and ends the run with a non-zero code.
 The last nine lines of output are JSON: the generate runs, the long-form
 results, the serving results, the TTS results, the TTS serving results, the
-MLX 4-bit results, the Qwen3-TTS results, the kernels' records (kernel 7's
-with its Qwen3 launches, ``qwen3_launches`` and ``qwen3``), then ``{"ok": true, "device":
-{...}}``. Without a CUDA device, or outside
-the repository, it exits non-zero before printing any of them.
+MLX 4-bit results, the Qwen3-TTS results (its serving under ``serve``),
+the kernels' records (kernel 7's with its Qwen3 launches,
+``qwen3_launches`` and ``qwen3``, and its serving ones,
+``qwen3_serve_launches`` and ``qwen3_serve``), then ``{"ok": true,
+"device": {...}}``. Without a CUDA device, or outside the repository, it
+exits non-zero before printing any of them.
 """
 
 from __future__ import annotations
@@ -533,7 +558,10 @@ QMM_COLD_BYTES = 100e6
 # over 8 steps on an H100)
 Q4_LOGITS_RTOL = 1e-3
 Q4_FULL_TOKENS = 21  # the full-head run
-Q4_SERVE_SLOTS, Q4_SERVE_MAX_TOKENS = 4, 70
+# the repeat of the 280-token generate and the stream: fewer tokens (host
+# bound at ~40 ms a token), held to the first run's on the prefix
+Q4_REPEAT_TOKENS = 70
+Q4_SERVE_SLOTS, Q4_SERVE_MAX_TOKENS = 4, 35
 Q4_SERVE_TEXTS = TTS_SERVE_TEXTS[:4]
 Q4_WHISPER_TOKENS = 24
 Q4_PROFILE_TOKENS = 8  # ~1,600 device events a token: a short profiled chunk
@@ -557,6 +585,30 @@ QWEN3_STREAM_ATOL = 1e-4
 # prefix, a first chunk of 12 frames (0.96 s of audio)
 QWEN3_TTFB_PREFIX, QWEN3_TTFB_FRAMES = 32, 12
 QWEN3_PROFILE_FRAMES = 4
+# [qwen3 serve]: ContinuousQwen3TTS on the 8-bit tree. Six staggered greedy
+# requests (each its own max_tokens, in frames) through 4 slots, a chunk of
+# audio every QWEN3_SERVE_CHUNK seconds of frames; the tile's rows at every
+# lane count up to 8 (n for the talker and passes 1..14, 2n for pass 0).
+# Each request has its own voice, an instruction (the config is
+# voice_design) that leads its prompt: no request runs far enough to reach
+# its text (the trailing embeds start with the ChatML header's last bytes),
+# so the voices make the prompts, their lengths and their left padding
+# differ. Each prompt stays within the 64-row bucket (the prefill's tile).
+QWEN3_SERVE_SLOTS = 4
+QWEN3_SERVE_TEXTS = TTS_SERVE_TEXTS
+QWEN3_SERVE_VOICES = ("Speak slowly.", "A calm, low voice.", "Bright and cheerful.",
+                      "Whisper.", "An old man, tired, hoarse.", "Read it like the news.")
+QWEN3_SERVE_FRAMES = (6, 9, 5, 8, 7, 6)
+QWEN3_SERVE_CHUNK = 0.4  # 5 frames
+QWEN3_LANE_ROWS = tuple(sorted(set(range(2, 9)) | {2 * n for n in range(2, 9)}))
+# bench_qwen3_serving's protocol (bench.py:513-596): T 0.9, top-k 50,
+# max_new = ticks + 4, audio at the flush only, prefill bucket 64, two warm
+# ticks then 8 timed; at 4 and 8 slots every lane live, and one live lane in
+# the 4-slot engine as the single stream
+QWEN3_THROUGHPUT_SLOTS = (4, 8)
+QWEN3_TIMED_TICKS = 8
+QWEN3_BENCH_TEXT = "the quick brown fox jumps over the lazy dog " * 2
+QWEN3_HTTP_FRAMES = 8
 # the standing mutation check (--mutations): for each kernel, its source,
 # the function here that runs its check alone, and its mutations (name,
 # original text, mutated text); a kernel ported later adds its entry
@@ -4175,9 +4227,11 @@ def counting(module, name: str, counter: list):
 
 
 def q4_generate_phase(model, full) -> tuple[list, dict, list]:
-    """Phase 16's offline runs: ``generate`` twice (greedy, TTS_TOKENS
-    tokens, identical tokens and waveforms) and ``generate_stream``, each
-    with the launch counters reset just before and read just after: kernel
+    """Phase 16's offline runs: ``generate`` (greedy, TTS_TOKENS tokens),
+    again at Q4_REPEAT_TOKENS (its tokens the first run's prefix, its
+    waveform bit for bit the decode of that prefix) and ``generate_stream``
+    at Q4_REPEAT_TOKENS (the same prefix, the repeat's number of samples),
+    each with the launch counters reset just before and read just after: kernel
     7's tile launched 4 x 28 times for the prefill and its decode kernel 4 x
     28 + 1 times for each decode step the loop took, no launch of the GEMV
     or of kernels 5 or 6 and no call of the plain version; then a short run
@@ -4194,9 +4248,11 @@ def q4_generate_phase(model, full) -> tuple[list, dict, list]:
     T = model.tokens
     hop = model.codec.config.hop_length
     plain = [0]
-    runs, first, launches = [], None, {}
-    for run, (m, n, stream) in enumerate([(model, TTS_TOKENS, False), (model, TTS_TOKENS, False),
-                                          (model, TTS_TOKENS, True), (full, Q4_FULL_TOKENS, False)]):
+    runs, first, short, launches = [], None, None, {}
+    for run, (m, n, stream) in enumerate([(model, TTS_TOKENS, False),
+                                          (model, Q4_REPEAT_TOKENS, False),
+                                          (model, Q4_REPEAT_TOKENS, True),
+                                          (full, Q4_FULL_TOKENS, False)]):
         gp = AudioGenerateParameters(max_tokens=n, temperature=0.0, repetition_penalty=1.3,
                                      repetition_context_size=20)
         steps, seen = [0], {}
@@ -4266,10 +4322,12 @@ def q4_generate_phase(model, full) -> tuple[list, dict, list]:
                                  + 7 * T.codebook_size for t in toks),
               "no frames, or a token outside the audio band")
         if first is None:
-            first = (toks, wav, launches)
-        check(toks == first[0], "greedy tokens differ between runs")
-        check(np.array_equal(wav, first[1]) if not stream else wav.shape == first[1].shape,
-              "waveform differs between runs")
+            first = (toks, wav, launches, all_tokens[:plen])
+        check(toks == first[0][:len(toks)], "greedy tokens differ between runs")
+        if run == 1:
+            short = m._decode_codes(m.parse_output(first[3] + first[0][:len(toks)]))
+        check(np.array_equal(wav, first[1]) if run == 0 else np.array_equal(wav, short)
+              if not stream else wav.shape == short.shape, "waveform differs between runs")
         runs.append(dict(api="generate_stream" if stream else "generate", run=run,
                          tokens=len(toks), steps_taken=steps[0], wall_s=wall, prefill_s=pt,
                          decode_ms_per_step=gt * 1e3 / steps[0], samples=int(wav.shape[0]),
@@ -4949,14 +5007,491 @@ def qwen3_timing(model, label: str) -> dict:
     return out
 
 
+def qwen3_lane_tile_checks(model) -> dict:
+    """The tile at every product shape of the 8-bit Qwen3 path (layer 0's
+    weights, f32 x, the lanes' dtype) and every row count QWEN3_LANE_ROWS
+    of a serving tick: each row of an n-row call bit-equal to the call over
+    that row alone beside a filler row (the sums do not depend on the other
+    rows), and the call within QMM_RTOL of the plain version."""
+    import torch
+
+    from tpu_audio_torch.ops import _lib, qmm
+
+    p = model.params
+    tl, cp = p["model"]["layers"], p["code_predictor"]["model"]["layers"]
+    ws = [(f"{who} {n}", part[a][n]["weight"].map(lambda t: t[0]))
+          for who, part in (("talker", tl), ("cp", cp))
+          for a, names in (("self_attn", ("qkv_proj", "o_proj")),
+                           ("mlp", ("gate_up_proj", "down_proj"))) for n in names]
+    ws += [("codec head", p["codec_head"]["weight"]),
+           ("cp head", p["code_predictor"]["lm_head"]["3"]["weight"])]
+    gen = torch.Generator(device=model.device).manual_seed(17)
+    worst, calls, tiles = 0.0, 0, _lib.launches["quantized_matvec_tile"]
+    for name, w in ws:
+        i = w.weight.shape[-1] * 32 // w.bits
+        filler = torch.randn((1, i), generator=gen, device=model.device)
+        for rows in QWEN3_LANE_ROWS:
+            x = torch.randn((rows, i), generator=gen, device=model.device)
+            err, _, ran = qmm_check(f"qwen3 lanes {name} [{rows}]", x, w.weight, w.scales,
+                                    w.biases, w.group_size, w.bits)
+            check(ran == "tile", f"qwen3 lanes {name} at {rows} rows ran the {ran}")
+            worst = max(worst, err)
+            y = qmm.tile(x, w.weight, w.scales, w.biases, w.group_size, w.bits)
+            for j in range(rows):
+                one = qmm.tile(torch.cat([x[j:j + 1], filler]), w.weight, w.scales, w.biases,
+                               w.group_size, w.bits)
+                check(torch.equal(one[0], y[j]),
+                      f"qwen3 lanes {name}: the tile's row {j} of {rows} differs from the "
+                      f"same row beside a filler (max {float((one[0] - y[j]).abs().max()):.3e})")
+            calls += 2 + rows
+    torch.cuda.synchronize()
+    tiles = _lib.launches["quantized_matvec_tile"] - tiles
+    check(tiles == calls, f"qwen3 lanes: {tiles} tile launches for {calls} calls")
+    print(f"[qwen3 serve tile] {len(ws)} shapes x rows {list(QWEN3_LANE_ROWS)}: every row "
+          f"bit-equal to itself beside a filler row ({calls} tile calls); rel err against the "
+          f"plain version up to {worst:.3e} (rtol {QMM_RTOL})")
+    return dict(shapes=len(ws), rows=list(QWEN3_LANE_ROWS), calls=calls, rel_err=worst)
+
+
+def qwen3_serve_gp(frames: int):
+    from tpu_audio_torch.core.generation import AudioGenerateParameters
+
+    return AudioGenerateParameters(max_tokens=frames, temperature=0.0, repetition_penalty=1.05,
+                                   repetition_context_size=64,
+                                   streaming_interval=QWEN3_SERVE_CHUNK)
+
+
+def qwen3_solo_run(model, text: str, voice: str, gp):
+    """Solo ``generate``'s frames (``_run_iter``; the decode kernel at 1
+    row) of ``text`` in ``voice``; returns ``_run_iter``'s payload."""
+    speaker, instruct = model._parse_voice(voice)
+    *_, (_, payload) = model._run_iter(text, None, instruct, speaker, gp)
+    return payload
+
+
+def qwen3_solo_codes(model, text: str, voice: str, frames: int) -> np.ndarray:
+    """Solo ``generate``'s greedy codes."""
+    import numpy as np
+
+    return np.stack(qwen3_solo_run(model, text, voice, qwen3_serve_gp(frames))[0]).astype(
+        np.int64)
+
+
+def qwen3_served_alone(model, text: str, voice: str, frames: int) -> np.ndarray:
+    """The request alone in a fresh QWEN3_SERVE_SLOTS-slot engine (run as
+    two rows): its greedy codes."""
+    import numpy as np
+
+    from tpu_audio_torch.parallel.continuous_qwen3 import ContinuousQwen3TTS
+
+    srv = ContinuousQwen3TTS(model, slots=QWEN3_SERVE_SLOTS,
+                             generation_parameters=qwen3_serve_gp(frames))
+    req = srv.submit(text, voice=voice, max_tokens=frames)
+    for _ in srv.run():
+        pass
+    return np.stack(req.codes).astype(np.int64)
+
+
+def qwen3_forced(model, text: str, voice: str, codes: np.ndarray, served: bool,
+                 bucket: int | None = None) -> list:
+    """The logits sampled from (f32, the talker's with the suppression and
+    the repetition penalty) at every (frame, group) of ``len(codes)``
+    frames whose codes are forced to ``codes``: through solo ``generate``'s
+    frames, or through the engine's lane frame (the request alone in a
+    QWEN3_SERVE_SLOTS-slot engine, row 0 of its two; its prompt padded to
+    the engine's buckets, or to ``bucket``)."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.models.tts import qwen3_tts as QT
+    from tpu_audio_torch.parallel import continuous_qwen3 as CQ
+
+    frames = len(codes)
+    it, seen = iter(np.asarray(codes).reshape(-1).tolist()), []
+    if served:
+        def read(logits, seed, seeds, index, s):
+            seen.append(logits[0].float())
+            out = torch.zeros(logits.shape[0], dtype=torch.int64, device=logits.device)
+            out[0] = next(it)
+            return out
+
+        keyed, CQ.sample_keyed = CQ.sample_keyed, read
+        try:
+            kw = {} if bucket is None else {"prefill_buckets": (bucket,)}
+            srv = CQ.ContinuousQwen3TTS(model, slots=QWEN3_SERVE_SLOTS, pipeline=False, **kw,
+                                        generation_parameters=qwen3_serve_gp(frames))
+            srv.submit(text, voice=voice, max_tokens=frames)
+            for _ in srv.run():
+                pass
+        finally:
+            CQ.sample_keyed = keyed
+    else:
+        def read(gen, logits, temperature, top_k, top_p, suppress=None, history=None,
+                 hist_len=0, repetition_penalty=1.0):
+            valid = None
+            if history is not None:
+                valid = (torch.arange(history.shape[1], device=logits.device)[None, :]
+                         < min(hist_len, history.shape[1]))
+            seen.append(QT._penalized(logits, suppress, history, valid, repetition_penalty)[0])
+            return torch.tensor([next(it)], device=logits.device)
+
+        sample, QT._sample = QT._sample, read
+        try:
+            qwen3_solo_run(model, text, voice, qwen3_serve_gp(frames))
+        finally:
+            QT._sample = sample
+    G = model.config.talker.num_code_groups
+    check(len(seen) == frames * G, f"qwen3 forced: {len(seen)} logits for {frames} frames")
+    return seen
+
+
+def qwen3_witness(model, text: str, voice: str, solo: np.ndarray,
+                  served: np.ndarray) -> dict:
+    """Where served and solo greedy codes first differ, at (frame f, group
+    g): solo's codes (the longer run's, when one ended at EOS) forced
+    through both routes up to frame f, and the logits each route samples
+    from there; and the lane frames again over the prompt unpadded. Both
+    routes run each frame in the same dtypes, so the served logits differ
+    from solo's by what the tile against the decode kernel, the lanes'
+    masked attention and the left padding give at that step, and the
+    unpadded ones by the first two alone. The difference is a rounding
+    flip only where solo's top two lie within both differences (the
+    largest between the logits outside the suppressed band) of each other,
+    and the served one is within QWEN3_LOGITS_RTOL."""
+    import torch
+
+    G = model.config.talker.num_code_groups
+    n = min(len(solo), len(served))
+    diff = [(f, g) for f in range(n) for g in range(G) if solo[f, g] != served[f, g]]
+    f, g = diff[0] if diff else (n, 0)  # else one ran on past the other's EOS
+    longer = solo if len(solo) > len(served) else served
+    forced = longer[:f + 1]
+    speaker, instruct = model._parse_voice(voice)
+    rows = model.prepare_generation_inputs(text, "auto", instruct, speaker)[0].shape[1]
+    s_all = qwen3_forced(model, text, voice, forced, served=False)
+    e_all = qwen3_forced(model, text, voice, forced, served=True)
+    # the same lane frames over the prompt unpadded: what the tile against
+    # the decode kernel (and the lanes' masked attention) gives alone
+    u_all = qwen3_forced(model, text, voice, forced, served=True, bucket=rows)
+    s_log = s_all[f * G + g]
+    live = s_log > -1e8  # outside the suppressed band
+    top = torch.topk(s_log, 2).values
+    margin = float(top[0] - top[1])
+
+    def apart(a, b):
+        return float((a - b)[b > -1e8].abs().max())
+
+    max_diff = apart(e_all[f * G + g], s_log)
+    rel = max_diff / float(s_log[live].abs().max())
+    unpadded = apart(u_all[f * G + g], s_log)
+    first = apart(e_all[0], s_all[0])  # frame 0's talker logits
+    ok = margin <= min(max_diff, unpadded) and rel <= QWEN3_LOGITS_RTOL
+    print(f"[qwen3 serve witness] {text!r} ({voice!r}): first differing code at frame {f}, "
+          f"group {g}: solo's top two {margin:.4e} apart; the routes' forced logits differ by "
+          f"up to {max_diff:.4e} (rel {rel:.3e}, rtol {QWEN3_LOGITS_RTOL}; {unpadded:.4e} with "
+          f"the prompt unpadded; frame 0's talker logits {first:.4e} apart): "
+          f"{'a rounding flip' if ok else 'NOT a rounding flip'}")
+    check(ok, f"qwen3 serve: codes of {text!r} ({voice!r}) differ from solo generate's at "
+          f"frame {f}, group {g}, and the forced logits do not show a near tie")
+    return dict(frame=f, group=g, margin=margin, max_diff=max_diff, rel_diff=rel,
+                unpadded_max_diff=unpadded, frame0_talker_max_diff=first)
+
+
+def qwen3_serve_run(model) -> tuple[dict, list, dict]:
+    """Six staggered greedy requests (QWEN3_SERVE_TEXTS in
+    QWEN3_SERVE_VOICES, QWEN3_SERVE_FRAMES) through ``ContinuousQwen3TTS``
+    at QWEN3_SERVE_SLOTS slots, the counters reset just before and read
+    just after, every tick under ``no_host_sync``: per lane frame of a tick
+    (one, or two where first frames in bf16 meet later ones in f32) kernel
+    7's tile launched once a product of the tree's frame
+    (``qwen3_products``) over the frame's lanes, no decode kernel, no GEMV;
+    in all, besides those, the tile's launches of each prefill and text
+    projection, no other kernel and no plain call. Each
+    request ends with finite audio of whole frames whose chunks, joined,
+    equal one flush of its codes through a fresh codec state within
+    QWEN3_STREAM_ATOL."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.codecs.qwen3_codec import decoder_forward, init_streaming_state
+    from tpu_audio_torch.ops import _lib, qmm
+    from tpu_audio_torch.parallel.continuous_qwen3 import ContinuousQwen3TTS
+
+    n = qwen3_products(model)
+    per_tick = n["decode"] + n["tile"]
+    texts, voices, frames = QWEN3_SERVE_TEXTS, QWEN3_SERVE_VOICES, QWEN3_SERVE_FRAMES
+    gp = qwen3_serve_gp(max(frames))
+    srv = ContinuousQwen3TTS(model, slots=QWEN3_SERVE_SLOTS, generation_parameters=gp)
+    ticks, admitted, plain = [], [0], [0]
+    launch, admit = srv._launch, srv._admit
+
+    def counted():
+        fresh = [srv._fresh[s] for s, r in enumerate(srv._lane) if r is not None]
+        frames_run = tuple(max(2, c) for c in (sum(fresh), len(fresh) - sum(fresh)) if c)
+        before = dict(_lib.launches)
+        out = launch()
+        ticks.append((frames_run, {k: _lib.launches[k] - before.get(k, 0) for k in (
+            "quantized_matvec", "quantized_matvec_tile", "quantized_matvec_decode")}))
+        return out
+
+    def counted_admit():
+        free = sum(r is None for r in srv._lane)
+        admit()
+        admitted[0] += free - sum(r is None for r in srv._lane)
+
+    srv._launch, srv._admit = counted, counted_admit
+    text_rows = [len(model.tokenizer.encode(piece).ids) for t, v in zip(texts, voices)
+                 for piece in (f"<|im_start|>assistant\n{t}<|im_end|>\n<|im_start|>assistant\n",
+                               f"<|im_start|>user\n{v}<|im_end|>\n")]
+    prompts = [model.prepare_generation_inputs(t, "auto", v)[0] for t, v in zip(texts, voices)]
+    prompt_rows = [p.shape[1] for p in prompts]
+    distinct = len({p.float().cpu().numpy().tobytes() for p in prompts})
+    audio, reqs = {}, []
+    with no_host_sync(srv), counting(qmm, "quantized_matvec_ref", plain):
+        _lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k, (i, j) in enumerate(((0, 2), (2, 4), (4, 6))):
+            reqs += [srv.submit(t, voice=v, max_tokens=f, seed=0)
+                     for t, v, f in zip(texts[i:j], voices[i:j], frames[i:j])]
+            for _ in range(2 if k < 2 else 0):
+                for rid, wav in srv.step():
+                    audio.setdefault(rid, []).append(wav)
+        for rid, wav in srv.run():
+            audio.setdefault(rid, []).append(wav)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_lib.launches)
+    check(all(r.done for r in reqs) and srv.idle and admitted[0] == len(texts),
+          f"qwen3 serve: {admitted[0]} admitted, done {[r.done for r in reqs]}")
+    bad = [(rows, d) for rows, d in ticks if d["quantized_matvec_tile"] != per_tick * len(rows)
+           or d["quantized_matvec_decode"] or d["quantized_matvec"] != per_tick * len(rows)]
+    lane_counts = sorted({c for rows, _ in ticks for c in rows})
+    two = sum(len(rows) == 2 for rows, _ in ticks)
+    # a projection a prompt piece: the tts ids' 3 rows, the chat text's and
+    # the instruction's rows, where they take the tile
+    text_tiles = 2 * len(texts) + sum(2 for c in text_rows if 2 <= c <= qmm.MAX_ROWS)
+    want_tile = (sum(len(rows) for rows, _ in ticks) * per_tick + admitted[0] * n["layers"]
+                 + text_tiles)
+    short = min(len(r.codes) for r in reqs)
+    first = len({tuple(r.codes[0]) for r in reqs})
+    prefixes = len({np.stack(r.codes[:short]).tobytes() for r in reqs})
+    print(f"[qwen3 serve] {len(texts)} staggered greedy requests through {QWEN3_SERVE_SLOTS} "
+          f"slots in {wall:.3f} s: {distinct} distinct prompts of {prompt_rows} rows, "
+          f"{first} distinct first frames, {prefixes} distinct first {short} frames; "
+          f"{len(ticks)} ticks ({two} of two lane frames) over {lane_counts} rows, "
+          f"{sum(len(r.codes) for r in reqs)} frames; kernel 7 a lane frame: {per_tick} tile "
+          f"launches expected, every tick "
+          f"{'so' if not bad else f'NOT so: {bad[:3]}'}; the run's "
+          f"launches {launches} ({want_tile} tile: the ticks', {admitted[0]} prefills of "
+          f"{n['layers']} and the text projections' {text_tiles}); plain version calls {plain[0]}")
+    check(distinct == len(texts), f"qwen3 serve: {distinct} distinct prompts")
+    check(not bad, f"qwen3 serve: kernel 7 launched otherwise than {per_tick} tiles a lane "
+          f"frame: {bad[:3]}")
+    check(launches.get("quantized_matvec_tile", 0) == launches.get("quantized_matvec", 0)
+          == want_tile and not launches.get("quantized_matvec_decode", 0),
+          f"qwen3 serve: launches {launches}, {want_tile} tiles and nothing else expected")
+    check(set(k for k, v in launches.items() if v) <= {"quantized_matvec",
+                                                      "quantized_matvec_tile"},
+          f"qwen3 serve: another kernel of the port ran: {launches}")
+    check(plain[0] == 0, "qwen3 serve: the plain version ran")
+    codec, hop = model.codec, model.codec.config.total_upsample
+    flush_err = 0.0
+    for r, f in zip(reqs, frames):
+        codes = np.stack(r.codes).astype(np.int64)
+        wav = np.concatenate(audio.get(r.request_id, [np.zeros(0, np.float32)]))
+        check(0 < len(codes) <= f and codes.shape[1] == model.config.talker.num_code_groups
+              and wav.shape == (len(codes) * hop,) and bool(np.isfinite(wav).all()),
+              f"qwen3 serve: request {r.request_id}: codes {codes.shape}, audio {wav.shape}")
+        with torch.no_grad():
+            state = init_streaming_state(codec.config, 1, dtype=codec.dtype, device=codec.device)
+            one = decoder_forward(codec.params, torch.from_numpy(codes.T[None]).to(codec.device),
+                                  codec.config, state)[0][0].float().cpu().numpy()
+        flush_err = max(flush_err, float(np.abs(one - wav).max()))
+    print(f"[qwen3 serve] audio: every request finite whole frames; chunks of "
+          f"{srv.chunk_frames} frames joined against one flush of its codes: max abs diff "
+          f"{flush_err:.3e} (atol {QWEN3_STREAM_ATOL})")
+    check(flush_err <= QWEN3_STREAM_ATOL, "qwen3 serve: chunked audio differs from a flush")
+    out = dict(requests=len(reqs), ticks=len(ticks), ticks_of_two_frames=two,
+               lane_counts=lane_counts, wall_s=wall, distinct_prompts=distinct,
+               prompt_rows=prompt_rows, distinct_first_frames=first,
+               distinct_prefixes=prefixes, prefix_frames=short,
+               frames=[len(r.codes) for r in reqs], tile_launches_a_tick=per_tick,
+               launches=launches, flush_max_abs_diff=flush_err)
+    return out, [np.stack(r.codes).astype(np.int64) for r in reqs], launches
+
+
+def qwen3_serve_throughput(model, smi: str) -> list:
+    """bench_qwen3_serving's protocol (QWEN3_TIMED_TICKS timed ticks after
+    two warm ones, every lane live) at QWEN3_THROUGHPUT_SLOTS, and one live
+    lane in the 4-slot engine as the single stream: aggregate frames/s
+    (lanes / ms a tick, as the bench; and the frames the timed ticks
+    emitted), ms a tick, per-lane realtime x; then one profiled tick: its
+    device busy share and events, kernel 7's device ms against its bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_audio_torch.core.generation import AudioGenerateParameters
+    from tpu_audio_torch.parallel.continuous_qwen3 import ContinuousQwen3TTS
+
+    n = qwen3_products(model)
+    gp = AudioGenerateParameters(temperature=0.9, top_k=50, max_tokens=QWEN3_TIMED_TICKS + 4,
+                                 streaming_interval=30.0)
+    rows, solo = [], None
+    for slots, live in [(QWEN3_THROUGHPUT_SLOTS[0], 1)] + [(s, s) for s in QWEN3_THROUGHPUT_SLOTS]:
+        srv = ContinuousQwen3TTS(model, slots=slots, generation_parameters=gp,
+                                 prefill_buckets=(64,))
+        reqs = [srv.submit(QWEN3_BENCH_TEXT, seed=i) for i in range(live)]
+        srv.step()
+        srv.step()
+        torch.cuda.synchronize()
+        before = sum(len(r.codes) for r in reqs)
+        t0 = time.perf_counter()
+        for _ in range(QWEN3_TIMED_TICKS):
+            srv.step()
+        torch.cuda.synchronize()
+        tick = (time.perf_counter() - t0) / QWEN3_TIMED_TICKS
+        emitted = sum(len(r.codes) for r in reqs) - before
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            srv.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_us, n_ev = device_busy(prof)
+        kernels = by_kernel(prof)
+        k7 = [c for name, c in kernels.items() if "quantized_matvec" in name]
+        k7_n = sum(c[0] for c in k7)
+        # a tile call is its split, tile and slice-sum kernels: fewer events
+        # than calls means the profile dropped some
+        k7_ms = sum(c[1] for c in k7) / 1e3 if k7_n >= n["decode"] + n["tile"] else None
+        lanes = max(2, live)
+        k7_bound = sum(qmm_bound(r * lanes, o, i, 8, 64)[0] for r, o, i in n["shapes"])
+        frames_s = live / tick
+        solo = frames_s if live == 1 else solo
+        row = dict(slots=slots, live=live, ms_a_tick=tick * 1e3, frames_s=frames_s,
+                   frames_emitted=emitted, frames_s_emitted=emitted / (tick * QWEN3_TIMED_TICKS),
+                   single_stream_frames_s=solo, vs_single=frames_s / solo,
+                   realtime_x_a_lane=frames_s / live / 12.5, profiled_tick_ms=wall_ms,
+                   device_ms_a_tick=busy_us / 1e3, busy_share=busy_us / 1e3 / wall_ms,
+                   device_events_a_tick=n_ev, kernel7_device_ms_a_tick=k7_ms,
+                   kernel7_events_a_tick=k7_n, kernel7_bound_ms_a_tick=k7_bound, smi=smi)
+        rows.append(row)
+        print(f"[qwen3 serve throughput slots={slots} live={live}] {tick * 1e3:.3f} ms a tick: "
+              f"{frames_s:.2f} frames/s ({emitted} frames emitted in the timed ticks), single "
+              f"stream {solo:.2f}, x{frames_s / solo:.2f}; realtime x a lane "
+              f"{frames_s / live / 12.5:.3f}; one profiled tick: device busy "
+              f"{busy_us / 1e3:.3f} of {wall_ms:.3f} ms (share {busy_us / 1e3 / wall_ms:.4f}), "
+              f"{n_ev} device events; kernel 7 {fmt(k7_ms)} ({k7_n} events) against its "
+              f"bound {k7_bound:.4f} ms (bytes; {smi})")
+        print_kernels(kernels, 1, top=8)
+        del srv, reqs
+    return rows
+
+
+def qwen3_http_phase(model) -> dict:
+    """Two concurrent /v1/audio/speech/stream POSTs of QWEN3_HTTP_FRAMES
+    frames through ``cli.serve.build_server(model, "tts", slots=2)``, the
+    model's default sampling: both answer 200 with whole frames."""
+    import numpy as np
+
+    from tpu_audio_torch.cli.serve import build_server
+    from tpu_audio_torch.parallel.continuous_qwen3 import Qwen3TTSEngineWorker
+
+    server = build_server(model, "tts", "qwen3-tts-random", port=0, slots=2)
+    check(isinstance(server.tts_worker, Qwen3TTSEngineWorker),
+          f"qwen3 http: the server built {type(server.tts_worker).__name__}")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/v1/audio/speech/stream"
+    results: dict = {}
+    try:
+        def post(i):
+            req = urllib.request.Request(url, data=json.dumps(
+                {"input": QWEN3_SERVE_TEXTS[i], "voice": QWEN3_SERVE_VOICES[i],
+                 "max_tokens": QWEN3_HTTP_FRAMES, "seed": i}).encode())
+            with urllib.request.urlopen(req, timeout=300) as r:
+                results[i] = (r.status, r.headers["Content-Type"], r.read())
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            check(not t.is_alive(), "qwen3 http: a request did not return")
+        wall = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    check(sorted(results) == [0, 1], "qwen3 http: missing responses")
+    hop = model.codec.config.total_upsample
+    samples = []
+    for i in range(2):
+        status, ctype, data = results[i]
+        pcm = np.frombuffer(data, "<i2")
+        samples.append(int(pcm.shape[0]))
+        check(status == 200 and ctype == f"audio/L16; rate={model.sample_rate}"
+              and 0 < pcm.shape[0] <= QWEN3_HTTP_FRAMES * hop and pcm.shape[0] % hop == 0,
+              f"qwen3 http {i}: status {status}, {ctype}, {pcm.shape[0]} samples")
+    print(f"[qwen3 http] 2 concurrent /v1/audio/speech/stream POSTs through "
+          f"Qwen3TTSEngineWorker (slots 2) in {wall:.3f} s: samples {samples} (whole "
+          f"{hop}-sample frames)")
+    return dict(requests=2, wall_s=wall, samples=samples)
+
+
+def qwen3_serve_phase(model, smi: str) -> tuple[dict, dict]:
+    """The ``[qwen3 serve]`` phase on the 8-bit model: the tile's rows
+    (``qwen3_lane_tile_checks``), the counted staggered run
+    (``qwen3_serve_run``), each request alone in a fresh engine (codes bit
+    for bit the same) and through solo ``generate`` (the same codes, or a
+    near tie, ``qwen3_witness``), the throughput (``qwen3_serve_throughput``)
+    and HTTP (``qwen3_http_phase``). Returns its JSON and kernel 7's serving
+    fields for the tile's record."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tile = qwen3_lane_tile_checks(model)
+    run, served, launches = qwen3_serve_run(model)
+    alone, solo_equal, witnesses = [], [], []
+    for text, voice, f, codes in zip(QWEN3_SERVE_TEXTS, QWEN3_SERVE_VOICES, QWEN3_SERVE_FRAMES,
+                                     served):
+        alone.append(bool(np.array_equal(qwen3_served_alone(model, text, voice, f), codes)))
+        solo = qwen3_solo_codes(model, text, voice, f)
+        solo_equal.append(bool(solo.shape == codes.shape and np.array_equal(solo, codes)))
+        if not solo_equal[-1]:
+            witnesses.append(qwen3_witness(model, text, voice, solo, codes))
+    print(f"[qwen3 serve] each request alone in a fresh {QWEN3_SERVE_SLOTS}-slot engine gives "
+          f"the same codes: {alone}; solo generate's codes (the decode kernel at 1 row) equal: "
+          f"{solo_equal}, {len(witnesses)} near-tie witness(es)")
+    check(all(alone), "qwen3 serve: a request's codes depend on the other lanes")
+    throughput = qwen3_serve_throughput(model, smi)
+    http = qwen3_http_phase(model)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = dict(tile=tile, run=run, alone_equal=alone, solo_equal=solo_equal,
+               witnesses=witnesses, throughput=throughput, http=http, peak_memory_gb=peak,
+               phase_s=time.perf_counter() - t_phase, smi=smi)
+    print(f"[qwen3 serve] peak device memory {peak:.2f} GB; phase {out['phase_s']:.1f} s")
+    k7 = dict(qwen3_serve_launches=launches["quantized_matvec_tile"],
+              qwen3_serve=dict(launches_a_tick=run["tile_launches_a_tick"], by_slots=[
+                  {k: r[k] for k in ("slots", "live", "kernel7_device_ms_a_tick",
+                                     "kernel7_bound_ms_a_tick", "ms_a_tick")}
+                  for r in throughput]))
+    return out, k7
+
+
 def qwen3_phase(dev, smi: str) -> tuple[dict, dict]:
     """The ``[qwen3 tts]`` phase: builds the bf16 and 8-bit models
     (``build_qwen3``), holds kernel 7 at every Qwen3 shape
     (``qwen3_qmm_checks``), runs the 8-bit greedy ``generate`` twice and
     ``generate_stream`` with the launch counts (``qwen3_generate_phase``),
     the teacher-forced logits (``qwen3_teacher_forced``), a greedy bf16
-    ``generate``, and the timings of both (``qwen3_timing``). Returns the
-    phase's JSON and kernel 7's Qwen3 fields for its two records."""
+    ``generate``, and the timings of both (``qwen3_timing``); then the
+    ``[qwen3 serve]`` phase on the 8-bit model (``qwen3_serve_phase``, its
+    JSON under ``serve``). Returns the phases' JSON and kernel 7's Qwen3
+    fields for its two records."""
     import numpy as np
     import torch
 
@@ -5016,6 +5551,10 @@ def qwen3_phase(dev, smi: str) -> tuple[dict, dict]:
           "quantized_matvec_tile": dict(qwen3_launches=launches["quantized_matvec_tile"],
                                         qwen3=dict(launches_a_frame=n["tile"]))}
     print(f"[qwen3 tts] phase {out['phase_s']:.1f} s")
+    out["serve"], serve_k7 = qwen3_serve_phase(q8, smi)
+    k7["quantized_matvec_tile"].update(serve_k7)
+    k7["quantized_matvec"]["qwen3_serve_launches"] = out["serve"]["run"]["launches"].get(
+        "quantized_matvec_decode", 0)
     del models, q8, bf16
     gc.collect()
     torch.cuda.empty_cache()
@@ -5737,8 +6276,9 @@ def qmm_main(smi: str) -> int:
 
 
 def qwen3_main(smi: str) -> int:
-    """``--qwen3``: the [qwen3 tts] phase alone, then its JSON and kernel
-    7's Qwen3 fields as one line (no "ok" line: not the full check)."""
+    """``--qwen3``: the [qwen3 tts] and [qwen3 serve] phases alone, then
+    their JSON and kernel 7's Qwen3 fields as one line (no "ok" line: not
+    the full check)."""
     import torch
 
     from tpu_audio_torch.ops import _lib
@@ -5913,7 +6453,8 @@ def main() -> int:
                              "lane_checks", "by_shape", "by_shape_8bit", "crossover",
                              "rel_err_bf16_x", "rel_err_f16_x", "library_dev_ms", "library_rel_err",
                              "library_error", "gemv_ms", "gemv_dev_ms", "gemv_checks",
-                             "gemv_rel_err", "qwen3_launches", "qwen3") if f in r})
+                             "gemv_rel_err", "qwen3_launches", "qwen3", "qwen3_serve_launches",
+                             "qwen3_serve") if f in r})
         for k, r in records.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"generate": runs, "smi": smi.splitlines()[0]}))

@@ -46,6 +46,8 @@ print("ok")
      "tpu_audio_torch.core.loading", "tpu_audio_torch.convert"],
     ["tpu_audio_torch.models.tts.qwen3_tts", "tpu_audio_torch.codecs.qwen3_codec",
      "tpu_audio_torch.models.tts", "tpu_audio_torch.cli.tts", "tpu_audio_torch.cli.serve"],
+    ["tpu_audio_torch.parallel.continuous_qwen3", "tpu_audio_torch.cli.serve",
+     "tpu_audio_torch.core.sampling"],
 ])
 def test_port_imports_without_jax(mods):
     res = subprocess.run([sys.executable, "-c", _BLOCKER.format(mods=mods)],

@@ -459,11 +459,24 @@ def test_cli_tts_refuses_orpheus_only_flags(dirs, tmp_path):
 
 
 def test_server_refuses_qwen3_at_several_slots(models):
+    """At ``slots > 1`` the server builds a ``Qwen3TTSEngineWorker`` for a
+    Qwen3-TTS model (tests/test_torch_qwen3_serving.py serves through it);
+    what it refuses there is reference-audio cloning, a solo-path
+    feature."""
     from tpu_audio_torch.cli.serve import build_server
+    from tpu_audio_torch.parallel.continuous_qwen3 import Qwen3TTSEngineWorker
 
     tm = models("rand", jax=False)
-    with pytest.raises(NotImplementedError, match="ContinuousQwen3TTS"):
-        build_server(tm, "tts", "q3", port=0, slots=2)
+    srv = build_server(tm, "tts", "q3", port=0, slots=2)
+    try:
+        assert isinstance(srv.tts_worker, Qwen3TTSEngineWorker)
+        assert srv.tts_worker._srv.slots == 2
+        with pytest.raises(ValueError, match="CustomVoice"):
+            next(srv.tts_worker.synthesize(TEXT, ref_audio=np.zeros(800, np.float32),
+                                           ref_text="hello"))
+    finally:
+        srv.server_close()
+    assert not srv.tts_worker._thread.is_alive()
 
 
 @pytest.mark.parametrize("path", ["/v1/audio/speech", "/v1/audio/speech/stream"])

@@ -28,7 +28,7 @@ from tpu_audio.parallel.continuous_stt import ContinuousSTT as JContinuousSTT
 from tpu_audio_torch.convert import from_jax_params
 from tpu_audio_torch.core import quant as tquant
 from tpu_audio_torch.core.generation import STTGenerateParameters as TParams
-from tpu_audio_torch.core.sampling import SamplingParams
+from tpu_audio_torch.core.sampling import SamplingParams, sample_keyed
 from tpu_audio_torch.models.stt import whisper as TW
 from tpu_audio_torch.ops import fused_decoder as TF
 from tpu_audio_torch.parallel import continuous as TC
@@ -401,15 +401,15 @@ def test_first_token_frequencies_follow_the_softmax(rich):
     rows = logits.expand(n, -1)
     seeds, idx = torch.arange(n), torch.zeros(n, dtype=torch.int64)
     probs = torch.softmax(logits[0] / 0.8, -1)
-    draws = TC._sample_one(rows, 11, seeds, idx, SamplingParams(temperature=0.8))
+    draws = sample_keyed(rows, 11, seeds, idx, SamplingParams(temperature=0.8))
     freq = torch.bincount(draws, minlength=probs.numel()).float() / n
     assert float((freq - probs).abs().max()) < 0.035
     assert float(probs.max()) < 0.9  # a spread distribution, not a near-argmax
     top3 = set(torch.topk(logits[0], 3).indices.tolist())
-    k_draws = TC._sample_one(rows, 11, seeds, idx, SamplingParams(temperature=0.8, top_k=3))
+    k_draws = sample_keyed(rows, 11, seeds, idx, SamplingParams(temperature=0.8, top_k=3))
     assert set(k_draws.tolist()) == top3
     # the sample index moves the draw: most seeds draw another token next
-    again = TC._sample_one(rows, 11, seeds, idx + 1, SamplingParams(temperature=0.8))
+    again = sample_keyed(rows, 11, seeds, idx + 1, SamplingParams(temperature=0.8))
     assert float((again != draws).float().mean()) > 1 - float((probs ** 2).sum()) - 0.05
 
 

@@ -20,12 +20,15 @@ audio API paths:
 
 With ``--slots N`` (N > 1) concurrent requests share continuously batched
 decode lanes: transcriptions of up to 30 s through
-``parallel.continuous_stt.STTEngineWorker``, speech through
-``parallel.continuous.TTSEngineWorker`` (sampling parameters then fixed
-per server); otherwise, and for longer audio, requests take turns on the
-model under a lock. Start with:
+``parallel.continuous_stt.STTEngineWorker``, Orpheus speech through
+``parallel.continuous.TTSEngineWorker`` and Qwen3-TTS speech through
+``parallel.continuous_qwen3.Qwen3TTSEngineWorker`` (one lane-batched frame
+a tick; no reference-audio cloning), with the sampling parameters then
+fixed per server; otherwise, and for longer audio, requests take turns on
+the model under a lock. Start with:
 
     python -m tpu_audio_torch.cli.serve --model DIR --task tts --quantize w8a8 --slots 4
+    python -m tpu_audio_torch.cli.serve --model QWEN3_TTS_DIR --task tts --slots 4
 
 The flags are the JAX server's, plus ``--device`` and ``--quantize w8a8``
 (int8 weights: the configuration whose serving tick runs a fused lanes
@@ -160,14 +163,15 @@ def build_server(model, task: str, model_name: str,
     "stt") or Orpheus (``task`` "tts") ``model``.
 
     ``slots > 1`` routes transcriptions of up to 30 s through a shared
-    :class:`~tpu_audio_torch.parallel.continuous_stt.STTEngineWorker`, and
+    :class:`~tpu_audio_torch.parallel.continuous_stt.STTEngineWorker`,
     Orpheus speech through a shared
-    :class:`~tpu_audio_torch.parallel.continuous.TTSEngineWorker` (with
-    ``generation_parameters`` fixed per server; ``max_tokens``, ``seed`` and
-    ``voice`` stay per request): concurrent requests decode together in one
-    continuously batched tick instead of serializing on the model lock.
-    ``server_close()`` stops the workers. A Qwen3-TTS model, whose engine
-    is not ported, is refused at ``slots > 1`` and served at one slot.
+    :class:`~tpu_audio_torch.parallel.continuous.TTSEngineWorker` and
+    Qwen3-TTS speech through a shared
+    :class:`~tpu_audio_torch.parallel.continuous_qwen3.Qwen3TTSEngineWorker`
+    (with ``generation_parameters`` fixed per server; ``max_tokens``,
+    ``seed`` and ``voice`` stay per request): concurrent requests decode
+    together in one continuously batched tick instead of serializing on the
+    model lock. ``server_close()`` stops the workers.
     """
     if task not in TASKS:
         raise NotImplementedError(
@@ -181,20 +185,19 @@ def build_server(model, task: str, model_name: str,
         stt_worker = STTEngineWorker(model, slots=slots, step_tokens=step_tokens,
                                      fused=fused)
     elif slots > 1:
-        from tpu_audio_torch.models.tts.llama_tts import LlamaTTS
-        from tpu_audio_torch.parallel.continuous import TTSEngineWorker
+        from tpu_audio_torch.models.tts.qwen3_tts import Qwen3TTS
 
-        if not isinstance(model, LlamaTTS):
-            # the engine decodes the Llama token contract; a Qwen3-TTS frame
-            # is a talker step and a code-predictor sub-loop
-            raise NotImplementedError(
-                f"--slots {slots}: {type(model).__name__} has no continuous-batching engine "
-                "in the port yet (the JAX package's ContinuousQwen3TTS is not ported); "
-                "serve it with --slots 1, which synthesizes through model.generate")
+        if isinstance(model, Qwen3TTS):
+            from tpu_audio_torch.parallel.continuous_qwen3 import Qwen3TTSEngineWorker
 
-        tts_worker = TTSEngineWorker(model, slots=slots,
-                                     generation_parameters=generation_parameters,
-                                     step_tokens=step_tokens, fused=fused)
+            tts_worker = Qwen3TTSEngineWorker(model, slots=slots,
+                                              generation_parameters=generation_parameters)
+        else:
+            from tpu_audio_torch.parallel.continuous import TTSEngineWorker
+
+            tts_worker = TTSEngineWorker(model, slots=slots,
+                                         generation_parameters=generation_parameters,
+                                         step_tokens=step_tokens, fused=fused)
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -403,7 +406,10 @@ def main(argv=None) -> None:
     parser.add_argument("--slots", type=int, default=1,
                         help="continuous-batching decode lanes (>1 lets "
                              "concurrent requests share the decoder; "
-                             "sampling params become per-server)")
+                             "sampling params become per-server; a "
+                             "Qwen3-TTS model serves through "
+                             "ContinuousQwen3TTS, an MLX tree on CUDA at "
+                             "most 32 lanes)")
     parser.add_argument("--fused", default="auto", choices=("auto", "off"),
                         help="the fused lanes tick for w8a8 whisper and "
                              "Orpheus (auto takes it when supported; off "
@@ -412,7 +418,8 @@ def main(argv=None) -> None:
     parser.add_argument("--step-tokens", type=int, default=7,
                         help="decode tokens per tick under --slots "
                              "(amortizes host work; tokens are identical "
-                             "for any value)")
+                             "for any value; a Qwen3-TTS tick is one "
+                             "frame)")
     parser.add_argument("--warmup", action="store_true",
                         help="precompile steady-state graphs before "
                              "accepting traffic (not ported yet)")

@@ -1,7 +1,8 @@
 """Token sampling on the device: temperature / top-k / top-p / min-p /
 repetition penalty (port of the parts of tpu_audio.core.sampling that the
-serving engine calls), plus :func:`gumbel_noise`, the port's
-counter-based random numbers.
+serving engines call), plus :func:`gumbel_noise`, the port's
+counter-based random numbers, and :func:`sample_keyed`, the engines'
+draw from them.
 
 Everything here is tensor code over ``[rows, V]`` logits: nothing reads a
 device value on the host. The JAX package draws with threefry keys; the
@@ -17,7 +18,7 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["SamplingParams", "apply_repetition_penalty", "gumbel_noise"]
+__all__ = ["SamplingParams", "apply_repetition_penalty", "gumbel_noise", "sample_keyed"]
 
 
 @dataclass(frozen=True)
@@ -112,3 +113,23 @@ def gumbel_noise(seed: int, request_seeds: torch.Tensor,
     h = _mix32(h[:, None] ^ vid[None, :])
     u = ((h >> 8).to(torch.float32) + 0.5) * 2.0 ** -24
     return -torch.log(-torch.log(u))
+
+
+def sample_keyed(logits: torch.Tensor, seed: int, request_seeds: torch.Tensor,
+                 sample_index: torch.Tensor, s: SamplingParams) -> torch.Tensor:
+    """Sample one token from each row of ``logits [n, V]`` (each row on its
+    own; the JAX package vmaps this over rows). Greedy is the argmax;
+    otherwise top-k, top-p and min-p masks, then Gumbel-max at the
+    temperature with the request's own noise (:func:`gumbel_noise`). The
+    repetition penalty is applied by the caller."""
+    if s.temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    masked = logits
+    if s.top_k and s.top_k > 0:
+        masked = _mask_top_k(masked, s.top_k)
+    if s.top_p < 1.0:
+        masked = _mask_top_p(masked, s.top_p)
+    if s.min_p > 0.0:
+        masked = _mask_min_p(masked, s.min_p)
+    noise = gumbel_noise(seed, request_seeds, sample_index, logits.shape[-1])
+    return torch.argmax(masked / s.temperature + noise, dim=-1)

@@ -27,6 +27,12 @@ path).
   residual stream is f32, as in the JAX package.
 - ``generate_stream`` decodes every ``streaming_interval`` seconds of
   frames through the codec's streaming step.
+- ``_lane_frame`` is the serving engine's frame
+  (``parallel.continuous_qwen3``): ``_frame`` over ``n`` lanes at once, the
+  talker step through :func:`talker_lanes_forward` (each lane at its own
+  offset, ``valid_from`` and rotary position in stacked lane caches) and the
+  code predictor over all lanes in one fresh cache. On an MLX tree on CUDA
+  its products run kernel 7's tile (``n >= 2`` rows).
 """
 
 from __future__ import annotations
@@ -47,7 +53,8 @@ from tpu_audio_torch.models import llama
 from tpu_audio_torch.models.tts.llama_tts import _sync
 
 __all__ = ["Qwen3TTS", "Qwen3TTSConfig", "TalkerConfig", "CodePredictorConfig",
-           "talker_forward", "code_predictor_forward", "init_random_params"]
+           "talker_forward", "talker_lanes_forward", "code_predictor_forward",
+           "init_random_params"]
 
 CODEC_TOKEN_RATE_HZ = 12.5
 SUPPRESSED_BAND = 1024  # the talker vocabulary's last ids: special tokens, never sampled
@@ -175,6 +182,52 @@ def code_predictor_forward(params: dict, embeds: torch.Tensor, cache, group_idx:
     return nn.linear(params["lm_head"][str(group_idx)], hidden), cache
 
 
+def talker_lanes_forward(params: dict, embeds: torch.Tensor, cache: kv_cache.FusedLaneRow,
+                         lanes: torch.Tensor, span: int, cfg: TalkerConfig):
+    """One talker step of ``n`` serving lanes: ``embeds [n, 1, D]``, lane
+    ``j`` in slot ``lanes[j]`` of ``cache`` (``k``/``v`` ``[slots, L, 1,
+    n_kv, S, hd]``, ``offset`` and ``valid_from`` ``[slots]`` int64 on the
+    device). Each lane writes its K/V row at its own offset (clamped into
+    the cache: a frozen lane's garbage row), rotates at its own position and
+    attends causally from its own ``valid_from``, over the first ``span``
+    rows (the caller's bound on every lane's offset + 1); nothing is read
+    back to the host. Returns (codec logits ``[n, 1, V]``, hidden ``[n, 1,
+    D]``); the caller advances the offsets."""
+    lcfg = _talker_llama_cfg(cfg)
+    p = params["model"]
+    offsets, valid_from = cache.offset[lanes], cache.valid_from[lanes]
+    cos, sin = llama._rope_tables(lcfg, offsets)
+    cos, sin = cos[:, None, None], sin[:, None, None]  # over heads and the one row
+    key = torch.arange(span, device=embeds.device)[None, :]
+    mask = ((key <= offsets[:, None]) & (key >= valid_from[:, None]))[:, None, None]
+    write = offsets.clamp(max=cache.k.shape[-2] - 1)
+    x = embeds
+    for i, lp in enumerate(llama.layer_list(p["layers"])):
+        def kv_update(k, v, _i=i, _dtype=x.dtype):
+            kc, vc = cache.k[:, _i, 0], cache.v[:, _i, 0]  # [slots, n_kv, S, hd] views
+            kc[lanes, :, write] = k[:, :, 0].to(kc.dtype)
+            vc[lanes, :, write] = v[:, :, 0].to(vc.dtype)
+            return kc[lanes, :, :span].to(_dtype), vc[lanes, :, :span].to(_dtype)
+
+        x = llama.layer_forward(x, lp, lcfg, cos, sin, mask=mask, kv_update=kv_update)
+    hidden = nn.rms_norm(p["norm"], x, lcfg.rms_norm_eps)
+    return nn.linear(params["codec_head"], hidden), hidden
+
+
+def _penalized(logits: torch.Tensor, suppress: torch.Tensor | None,
+               history: torch.Tensor | None, valid: torch.Tensor | None,
+               repetition_penalty: float) -> torch.Tensor:
+    """``logits`` in f32 with the suppression added and the repetition
+    penalty over the ``valid`` entries of ``history``: what is sampled
+    from."""
+    logits = logits.to(torch.float32)
+    if suppress is not None:
+        logits = logits + suppress
+    if repetition_penalty != 1.0 and history is not None:
+        logits = apply_repetition_penalty(logits, history, valid, repetition_penalty)
+    return logits
+
+
 def _sample(gen: torch.Generator | None, logits: torch.Tensor, temperature: float,
             top_k: int, top_p: float, suppress: torch.Tensor | None = None,
             history: torch.Tensor | None = None, hist_len: int = 0,
@@ -182,13 +235,11 @@ def _sample(gen: torch.Generator | None, logits: torch.Tensor, temperature: floa
     """``logits [B, V]`` -> ids ``[B]``: suppression, the repetition penalty
     over the first ``hist_len`` entries of ``history``, then greedy at
     temperature 0, else top-k, top-p and a draw from ``gen``."""
-    logits = logits.to(torch.float32)
-    if suppress is not None:
-        logits = logits + suppress
+    valid = None
     if repetition_penalty != 1.0 and history is not None:
         valid = (torch.arange(history.shape[1], device=logits.device)[None, :]
                  < min(hist_len, history.shape[1])).expand_as(history)
-        logits = apply_repetition_penalty(logits, history, valid, repetition_penalty)
+    logits = _penalized(logits, suppress, history, valid, repetition_penalty)
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1)
     if top_k and top_k > 0:
@@ -395,25 +446,53 @@ class Qwen3TTS:
         """One talker step and the code predictor's ``G - 1`` passes.
         Returns the frame's codes ``[1, G]`` (on the device), the sum of
         its code embeddings ``[1, 1, D]`` and the talker's cache."""
-        tcfg, ccfg = self.config.talker, self.config.code_predictor
-        G = tcfg.num_code_groups
-        logits, hidden, cache = talker_forward(self.params, embeds, cache, tcfg)
+        logits, hidden, cache = talker_forward(self.params, embeds, cache, self.config.talker)
         c0 = _sample(gen, logits[:, -1], gp.temperature, gp.top_k, gp.top_p,
                      suppress=suppress, history=history, hist_len=hist_len,
                      repetition_penalty=gp.repetition_penalty)
+        codes, embed_sum = self._code_predictor_frame(
+            hidden[:, -1:], c0, lambda lg, g: _sample(gen, lg, gp.temperature, gp.top_k,
+                                                      gp.top_p))
+        return codes, embed_sum, cache
+
+    def _lane_frame(self, embeds: torch.Tensor, cache: kv_cache.FusedLaneRow,
+                    lanes: torch.Tensor, span: int, sample):
+        """One frame of ``n`` serving lanes at once (the serving engine's
+        tick; ``_frame`` batched over lanes): a talker step over the ``[n,
+        1, D]`` rows (:func:`talker_lanes_forward`), then the code predictor
+        over all lanes, pass 0 on ``[n, 2, D]`` and passes 1..G-2 on ``[n,
+        1, D]``. ``sample(logits [n, V], group) -> ids [n]`` draws group
+        ``group``'s codes (0: the talker's). Returns the codes ``[n, G]``
+        and the sums of their embeddings ``[n, 1, D]``; the caller advances
+        the lanes' offsets."""
+        logits, hidden = talker_lanes_forward(self.params, embeds, cache, lanes, span,
+                                              self.config.talker)
+        return self._code_predictor_frame(hidden, sample(logits[:, -1], 0), sample)
+
+    def _code_predictor_frame(self, hidden: torch.Tensor, c0: torch.Tensor, sample):
+        """Groups 1..G-1 of a frame of ``B`` rows from the talker's last
+        hidden state ``[B, 1, D]`` and codebook 0's codes ``c0 [B]``: pass
+        0 reads ``[hidden, codebook-0 embedding]``, pass g the embedding of
+        group g's code, each through group g's head over one fresh ``G +
+        2``-row cache; ``sample(logits, group)`` draws each group's codes.
+        Returns the codes ``[B, G]`` and the sum of their embeddings ``[B,
+        1, D]``."""
+        ccfg = self.config.code_predictor
+        G = self.config.talker.num_code_groups
         cp = self.params["code_predictor"]
-        cp_cache = kv_cache.init_cache(ccfg.num_hidden_layers, 1, ccfg.num_key_value_heads,
-                                       ccfg.head_dim, G + 2, embeds.dtype, embeds.device)
+        cp_cache = kv_cache.init_cache(ccfg.num_hidden_layers, hidden.shape[0],
+                                       ccfg.num_key_value_heads, ccfg.head_dim, G + 2,
+                                       hidden.dtype, hidden.device)
         c0_embed = self._codec_embed(c0[:, None])
-        code_input = torch.cat([hidden[:, -1:], c0_embed], dim=1)  # promotes, as in JAX
+        code_input = torch.cat([hidden, c0_embed], dim=1)  # promotes, as in JAX
         codes, embed_sum = [c0], c0_embed
         for g in range(G - 1):
             cp_logits, cp_cache = code_predictor_forward(cp, code_input, cp_cache, g, ccfg)
-            cg = _sample(gen, cp_logits[:, -1], gp.temperature, gp.top_k, gp.top_p)
+            cg = sample(cp_logits[:, -1], g + 1)
             codes.append(cg)
             code_input = nn.embedding(cp["model"]["codec_embedding"][str(g)], cg[:, None])
             embed_sum = embed_sum + code_input
-        return torch.stack(codes, dim=1), embed_sum, cache
+        return torch.stack(codes, dim=1), embed_sum
 
     # -- generation ---------------------------------------------------------------------
 

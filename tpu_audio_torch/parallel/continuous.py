@@ -1,7 +1,7 @@
 """Continuous batching for autoregressive decode: slot-based serving (port
 of tpu_audio.parallel.continuous: ``GenRequest``, ``coerce_fused_flag``,
-``_sample_one``, ``ContinuousBatcher``, ``ContinuousTTS``,
-``EngineWorkerBase`` and ``TTSEngineWorker``).
+``ContinuousBatcher``, ``ContinuousTTS``, ``EngineWorkerBase`` and
+``TTSEngineWorker``; its ``_sample_one`` is ``core.sampling.sample_keyed``).
 
 The engine owns ``slots`` decode lanes. Each holds one in-flight request's
 caches, and a lane admits a new request the moment its occupant finishes.
@@ -50,18 +50,12 @@ import torch
 
 from tpu_audio_torch.core import kv_cache
 from tpu_audio_torch.core.generation import AudioGeneration, AudioGenerationError
-from tpu_audio_torch.core.sampling import (
-    SamplingParams,
-    _mask_min_p,
-    _mask_top_k,
-    _mask_top_p,
-    apply_repetition_penalty,
-    gumbel_noise,
-)
+from tpu_audio_torch.core.sampling import SamplingParams, apply_repetition_penalty, sample_keyed
 from tpu_audio_torch.models import llama
 
 __all__ = ["ContinuousBatcher", "ContinuousTTS", "EngineWorkerBase", "GenRequest",
-           "TTSEngineWorker", "coerce_fused_flag", "llama_lanes"]
+           "SlotEngine", "TTSEngineWorker", "coerce_fused_flag", "llama_lanes", "readback",
+           "to_device"]
 
 
 @dataclasses.dataclass
@@ -123,24 +117,27 @@ def coerce_fused_flag(fused) -> bool:
     return bool(fused)
 
 
-def _sample_one(logits: torch.Tensor, seed: int, request_seeds: torch.Tensor,
-                sample_index: torch.Tensor, s: SamplingParams) -> torch.Tensor:
-    """Sample one token from each row of ``logits [n, V]`` (each row on its
-    own; the JAX package vmaps this over rows). Greedy is the argmax;
-    otherwise top-k, top-p and min-p masks, then Gumbel-max at the
-    temperature with the request's own noise. The repetition penalty is
-    applied by the caller."""
-    if s.temperature == 0.0:
-        return torch.argmax(logits, dim=-1)
-    masked = logits
-    if s.top_k and s.top_k > 0:
-        masked = _mask_top_k(masked, s.top_k)
-    if s.top_p < 1.0:
-        masked = _mask_top_p(masked, s.top_p)
-    if s.min_p > 0.0:
-        masked = _mask_min_p(masked, s.min_p)
-    noise = gumbel_noise(seed, request_seeds, sample_index, logits.shape[-1])
-    return torch.argmax(masked / s.temperature + noise, dim=-1)
+def to_device(values: list[int], device: torch.device) -> torch.Tensor:
+    """int64 tensor of ``values`` on ``device``; on a CUDA device from pinned
+    host memory, without waiting for the copy."""
+    host = torch.tensor(values, dtype=torch.int64)
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def readback(packed: torch.Tensor) -> tuple[torch.Tensor, object]:
+    """Start a tick's one copy of its packed outputs to the host: ``(host,
+    ready)``, where on a CUDA device ``host`` is pinned memory filled
+    ``non_blocking`` and ``ready`` the CUDA event to wait on before reading
+    it (None on the CPU, where ``host`` is ``packed`` itself)."""
+    if packed.device.type != "cuda":
+        return packed, None
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(packed.device))
+    return host, ready
 
 
 def llama_lanes(cfg, max_len: int, params, dtype=None, step: Callable | None = None,
@@ -189,7 +186,103 @@ def llama_lanes(cfg, max_len: int, params, dtype=None, step: Callable | None = N
     return dict(step_fn=step_fn, prefill_fn=prefill_fn, cache_factory=cache_factory)
 
 
-class ContinuousBatcher:
+class SlotEngine:
+    """The slot lifecycle that the serving engines share: ``slots`` lanes,
+    a queue of pending requests, prefill buckets, pipelined ticks, cancel
+    and release.
+
+    A subclass calls :meth:`_init_slots` and provides ``buckets``, a
+    ``_state`` whose ``active`` is a ``[slots]`` bool tensor on the device,
+    and ``_admit()`` (pending requests into free lanes), ``_launch()``
+    (dispatch one tick over the live lanes, waiting for nothing) and
+    ``_harvest(tick)`` (its one wait, then its events). A request is any
+    object with ``request_id`` and ``done``; ``_forget(request_id)`` drops
+    what the subclass keeps beside it.
+    """
+
+    def _init_slots(self, slots: int, pipeline: bool) -> None:
+        self.slots = int(slots)
+        # pipelined ticks: launch tick N+1 before fetching tick N's packed
+        # outputs, so the copy rides the next tick; one tick of latency
+        self.pipeline = bool(pipeline)
+        self._inflight = None
+        self._next_id = 0
+        self._pending: list = []
+        self._lane: list = [None] * self.slots
+        self._pos = [0] * self.slots  # host bound of each lane's offset
+        self.requests: dict = {}
+
+    def _bucket(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        big = self.buckets[-1]
+        return ((n + big - 1) // big) * big
+
+    def _forget(self, request_id: int) -> None:
+        """Drop what the subclass keeps beside a done request."""
+
+    @property
+    def idle(self) -> bool:
+        return (not self._pending and self._inflight is None
+                and all(r is None for r in self._lane))
+
+    def release(self, request_id: int) -> None:
+        """Forget a finished or cancelled request (a long-running server
+        must release consumed requests, or ``requests`` grows without
+        bound)."""
+        req = self.requests.get(request_id)
+        if req is not None and req.done:
+            del self.requests[request_id]
+            self._forget(request_id)
+
+    def cancel(self, request_id: int) -> bool:
+        """Abort a request: a pending one is dequeued; a live one frees its
+        lane at once (its device flag flips, so it emits nothing more).
+        Returns False for unknown or finished ids. What it already emitted
+        stays on the request."""
+        req = self.requests.get(request_id)
+        if req is None or req.done:
+            return False
+        if req in self._pending:
+            self._pending.remove(req)
+        for slot, occupant in enumerate(self._lane):
+            if occupant is req:
+                self._state.active[slot] = False
+                self._lane[slot] = None
+        req.done = True
+        self._forget(request_id)
+        if self._inflight is not None and all(r is None for r in self._lane):
+            # the in-flight tick concerns only done requests: drop it
+            # unharvested (the device state after it is current)
+            self._inflight = None
+        return True
+
+    @torch.no_grad()
+    def step(self) -> list:
+        """Admit pending requests, then run ONE tick. Returns its events:
+        this tick's with ``pipeline=False``, the PREVIOUS tick's with
+        ``pipeline=True`` (the new tick is dispatched before the old tick's
+        readback is waited on, so the copy rides the next tick)."""
+        self._admit()
+        prev, self._inflight = self._inflight, None
+        if any(r is not None for r in self._lane):
+            tick = self._launch()
+            if self.pipeline:
+                self._inflight = tick
+            else:
+                events = self._harvest(prev) if prev is not None else []
+                return events + self._harvest(tick)
+        return self._harvest(prev) if prev is not None else []
+
+    def run(self):
+        """Generator draining the engine: yields :meth:`step`'s events
+        until every submitted request is done."""
+        while not self.idle:
+            yield from self.step()
+
+
+class ContinuousBatcher(SlotEngine):
     """Slot-based continuous batching over a model's decode step.
 
     >>> eng = ContinuousBatcher(params, cfg, slots=4, max_len=512,
@@ -242,7 +335,8 @@ class ContinuousBatcher:
     happens at tick boundaries. ``min_tick_tokens=T`` makes every tick
     decode at least T live tokens (:meth:`_tick_k`). ``pipeline=True``
     launches tick N+1 before fetching tick N's tokens, so :meth:`step`
-    returns the previous tick's tokens.
+    returns the previous tick's tokens. Its events are ``(request_id,
+    token)`` pairs in per-lane sample order.
     """
 
     def __init__(self, params, cfg=None, *, slots: int = 4, max_len: int = 1024,
@@ -260,7 +354,7 @@ class ContinuousBatcher:
                  min_tick_tokens: int | None = None,
                  pipeline: bool = False):
         self.params = params
-        self.slots = int(slots)
+        self._init_slots(slots, pipeline)
         self.max_len = int(max_len)
         if (step_fn is None and batch_step_fn is None) or prefill_fn is None \
                 or cache_factory is None:
@@ -280,8 +374,6 @@ class ContinuousBatcher:
             raise ValueError(f"step_tokens must be >= 1, got {step_tokens}")
         self.min_tick_tokens = (None if min_tick_tokens is None
                                 else int(min_tick_tokens))
-        self.pipeline = bool(pipeline)
-        self._inflight: _Tick | None = None
         self.buckets = tuple(sorted(prefill_buckets))
         self.pad_token = int(pad_token)
         self._token_map = token_map
@@ -296,11 +388,6 @@ class ContinuousBatcher:
         self._batch_step_fn = batch_step_fn
         self._prefill = prefill_fn
         self._logits_hook = logits_hook
-        self._next_id = 0
-        self._pending: list[GenRequest] = []
-        self._lane: list[GenRequest | None] = [None] * self.slots
-        self._pos = [0] * self.slots  # host bound of each lane's offset
-        self.requests: dict[int, GenRequest] = {}
         self._ctx = (None if context_template is None else tuple(
             torch.zeros((self.slots,) + tuple(t.shape), dtype=t.dtype,
                         device=self.device) for t in context_template))
@@ -317,21 +404,6 @@ class ContinuousBatcher:
                       max_new=zeros(), seeds=zeros(),
                       hist=zeros(self.slots, self.history_size), hpos=zeros(),
                       offset=self._cache.offset)
-
-    def _bucket(self, n: int) -> int:
-        for b in self.buckets:
-            if n <= b:
-                return b
-        big = self.buckets[-1]
-        return ((n + big - 1) // big) * big
-
-    def _to_device(self, values: list[int]) -> torch.Tensor:
-        """int64 tensor on the engine's device; from pinned host memory
-        without waiting for the copy on a CUDA device."""
-        host = torch.tensor(values, dtype=torch.int64)
-        if self.device.type != "cuda":
-            return host.to(self.device)
-        return host.pin_memory().to(self.device, non_blocking=True)
 
     # -- public API ----------------------------------------------------
 
@@ -367,11 +439,6 @@ class ContinuousBatcher:
         self.requests[req.request_id] = req
         return req
 
-    @property
-    def idle(self) -> bool:
-        return (not self._pending and self._inflight is None
-                and all(r is None for r in self._lane))
-
     def _tick_k(self, live: int) -> int:
         """Decode steps for a tick over ``live`` occupied lanes: enough
         that the tick decodes >= ``min_tick_tokens`` live tokens in all,
@@ -382,34 +449,6 @@ class ContinuousBatcher:
         steps = -(-self.min_tick_tokens // max(1, live))    # ceil div
         return max(self.step_tokens,
                    -(-steps // self.step_tokens) * self.step_tokens)
-
-    def release(self, request_id: int) -> None:
-        """Forget a finished/cancelled request (long-running servers must
-        release consumed requests or ``requests`` grows unboundedly)."""
-        req = self.requests.get(request_id)
-        if req is not None and req.done:
-            del self.requests[request_id]
-
-    def cancel(self, request_id: int) -> bool:
-        """Abort a request: a pending one is dequeued; an in-flight one
-        frees its lane at once (its device flag flips so the next tick
-        spends nothing on it). Returns False for unknown/finished ids.
-        Tokens already sampled stay on the request."""
-        req = self.requests.get(request_id)
-        if req is None or req.done:
-            return False
-        if req in self._pending:
-            self._pending.remove(req)
-        for slot, occupant in enumerate(self._lane):
-            if occupant is req:
-                self._state.active[slot] = False
-                self._lane[slot] = None
-        req.done = True
-        if self._inflight is not None and all(r is None for r in self._lane):
-            # the in-flight tick concerns only done/cancelled requests:
-            # drop it unharvested (post-tick device state is current)
-            self._inflight = None
-        return True
 
     def _admit(self) -> None:
         """Prefill pending requests into free lanes. The prefill covers
@@ -461,7 +500,7 @@ class ContinuousBatcher:
             hvalid = (torch.arange(H, device=logits.device)[None, :]
                       < torch.clamp(sub.hpos, max=H)[:, None])
             logits = apply_repetition_penalty(logits, sub.hist, hvalid, penalty)
-        idx = _sample_one(logits, self.seed, sub.seeds, sub.n_new, self.sampling)
+        idx = sample_keyed(logits, self.seed, sub.seeds, sub.n_new, self.sampling)
         active = sub.active
         ring = (sub.hpos % H)[:, None]
         kept = sub.hist.gather(1, ring)[:, 0]
@@ -484,7 +523,7 @@ class ContinuousBatcher:
         live = [s for s, r in enumerate(self._lane) if r is not None]
         reqs = [self._lane[s] for s in live]
         k = self._tick_k(len(live))
-        lanes = self._to_device(live)
+        lanes = to_device(live, self.device)
         sub = self._state.select(lanes)
         toks, valid = [], []
         for step in range(k):
@@ -496,13 +535,7 @@ class ContinuousBatcher:
             self._pos[s] += k
         packed = torch.cat([torch.stack(toks), torch.stack(valid).long(),
                             sub.active[None].long()]).to(torch.int32)
-        if packed.device.type != "cuda":
-            return _Tick(packed, None, live, reqs, k)
-        host = torch.empty(packed.shape, dtype=torch.int32, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(self.device))
-        return _Tick(host, ready, live, reqs, k)
+        return _Tick(*readback(packed), live, reqs, k)
 
     def _harvest(self, tick: _Tick) -> list[tuple[int, int]]:
         """Fetch a launched tick's outputs and credit them to requests.
@@ -531,32 +564,6 @@ class ContinuousBatcher:
                 if self._lane[slot] is req:
                     self._lane[slot] = None
         return emitted
-
-    @torch.no_grad()
-    def step(self) -> list[tuple[int, int]]:
-        """Admit pending requests, then run ONE decode tick
-        (``_tick_k(len(live))`` steps). Returns the ``(request_id,
-        token)`` pairs emitted in per-lane sample order: this tick's with
-        ``pipeline=False``, the PREVIOUS tick's with ``pipeline=True``
-        (the new tick is dispatched before the old tick's readback is
-        waited on, so the copy rides the decode)."""
-        self._admit()
-        prev, self._inflight = self._inflight, None
-        if any(r is not None for r in self._lane):
-            tick = self._launch()
-            if self.pipeline:
-                self._inflight = tick
-            else:
-                emitted = self._harvest(prev) if prev is not None else []
-                return emitted + self._harvest(tick)
-        return self._harvest(prev) if prev is not None else []
-
-    def run(self):
-        """Generator draining the engine: yields ``(request_id, token)``
-        until every submitted request is done."""
-        while not self.idle:
-            yield from self.step()
-
 
 class EngineWorkerBase:
     """Owns a slot engine on a dedicated thread; callers on any thread
