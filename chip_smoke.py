@@ -34,9 +34,10 @@ so a kernel that reads the wrong bias or LayerNorm row disagrees), and:
    way, against its plain version fed its own codes, and one call at 1 and
    at 4 lanes must launch 14 kernels a layer;
 2. transcribes ``tests/media/speech_16k.wav`` padded to one 30 s window
-   through ``Whisper.generate`` in the w8 kv8d and bf16 kv8d configurations,
-   twice each, with every launch counter reset just before and read just
-   after, and fails unless each kernel of the path launched;
+   through ``Whisper.generate`` in the w8 kv8d and bf16 kv8d (to 224
+   tokens) configurations, twice each, with every launch counter reset just
+   before and read just after, and fails unless each kernel of the path
+   launched;
 3. teacher-forces the generated tokens through the kernel path and the
    plain path and compares the logits of every step; then, in the
    ``[whisper longform]`` phase, transcribes a 240 s file of 8 windows
@@ -191,6 +192,32 @@ kernel 7's short calls then read "not measured".)
    against its bound); two concurrent streamed speech POSTs through
    ``cli.serve.build_server(model, "tts", slots=2)``; the peak device memory.
    ``python3 chip_smoke.py --qwen3`` runs phases 18 and 19 alone.
+20. ``[parakeet]`` (run third, after phase 19): Parakeet-TDT-0.6B at its
+   published widths (a 24 x 1024 FastConformer behind dw_striding
+   subsampling by 8, 1,024 pieces + blank, durations 0-4, a 640-wide LSTM
+   prediction network and joint), random weights from seed 0 with seeded
+   non-unit LayerNorm and BatchNorm parameters and running statistics, in
+   bf16 and as MLX 8-bit in groups of 64 quantized on the card (the
+   prediction embedding and the joint's three products included):
+   ``bench_parakeet_batch``'s protocol on the bf16 model (8 x 30 s of
+   seeded noise through ``generate_batch``, one warm run and three timed,
+   every run's lattice bit for bit the same; RTFx, the frontend, encoder and
+   decode-loop split, decode steps, host reads and device events a step,
+   the loop's busy share and the peak device memory); a mixed batch (the
+   speech and two-speaker clips, 12 s and 30 s of noise) whose steps between
+   stop reads run under ``torch.cuda.set_sync_debug_mode("error")``, each
+   row's decisions against that row decoded alone over the same features,
+   and one row alone against the serial host reference of
+   tests/test_parakeet.py, each equal or parted at a witnessed near tie (the
+   reference route's top two within the routes' joint-logit difference at
+   that step); on the 8-bit tree kernel 7 against its plain version at the
+   joint's three shapes at 1 and 8 rows, a ``generate_batch`` with the
+   counters reset just before and read just after (the tile exactly 3 times
+   a decode step, no decode kernel, no GEMV, no plain call, no dequantized
+   joint; the packed embedding's LSTM state in f32), the lattice against
+   kernel 7's plain version on the same features, and its RTFx; then a 60 s
+   clip through ``generate`` in 20 s chunks (one batch, merged; segment
+   starts rise). ``python3 chip_smoke.py --parakeet`` runs it alone.
 
 Each kernel's record carries its bound on the H100 (``bound_ms``: the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate
@@ -609,6 +636,18 @@ QWEN3_THROUGHPUT_SLOTS = (4, 8)
 QWEN3_TIMED_TICKS = 8
 QWEN3_BENCH_TEXT = "the quick brown fox jumps over the lazy dog " * 2
 QWEN3_HTTP_FRAMES = 8
+# the [parakeet] phase: Parakeet-TDT-0.6B at its published widths (24 x 1024
+# FastConformer, subsampling 8, 1,024 pieces + blank, durations 0-4, a
+# 640-wide LSTM prediction network and joint), bench_parakeet_batch's
+# protocol: 8 clips of 30 s seeded noise, one warm batch and 3 timed
+PARAKEET_CLIPS, PARAKEET_CLIP_S, PARAKEET_TIMED = 8, 30.0, 3
+PARAKEET_MIXED_NOISE_S = (12.0, 30.0)  # beside the speech and two-speaker clips
+PARAKEET_LONG_S, PARAKEET_CHUNK_S = 60.0, 20.0  # chunked generate: 4 chunks, 2 s overlap
+# two routes' joint logits at a step where their lattices part, relative to
+# the largest: bf16 products rounded by row count (cuBLAS) or by route
+# (kernel 7 against its plain version), as LOGITS_RTOL
+PARAKEET_LOGITS_RTOL = 3e-2
+BF16_GENERATE_TOKENS = 224  # the bf16 kv8d Whisper generate's budget (448 before)
 # the standing mutation check (--mutations): for each kernel, its source,
 # the function here that runs its check alone, and its mutations (name,
 # original text, mutated text); a kernel ported later adds its entry
@@ -1919,8 +1958,9 @@ def kernel_phases(models, cfg, audio, dev) -> tuple[dict, object]:
 
 
 def generate_path(models, audio, seconds, gp) -> tuple[dict, list, dict]:
-    """Whisper.generate in both configurations, GENERATE_RUNS times each,
-    with every launch counter reset just before and read just after."""
+    """Whisper.generate in both configurations, GENERATE_RUNS times each
+    (the bf16 kv8d one to BF16_GENERATE_TOKENS tokens), with every launch
+    counter reset just before and read just after."""
     import torch
 
     from tpu_audio_torch.ops import _lib
@@ -1928,11 +1968,13 @@ def generate_path(models, audio, seconds, gp) -> tuple[dict, list, dict]:
     outputs, runs = {}, []
     _lib.reset_launches()
     for cfg_name, model in models.items():
+        p = (dataclasses.replace(gp, max_tokens=BF16_GENERATE_TOKENS) if cfg_name == "bf16_kv8d"
+             else gp)
         for run in range(GENERATE_RUNS):
             before = dict(_lib.launches)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = model.generate(audio, gp)
+            out = model.generate(audio, p)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             grew = {k: v - before.get(k, 0) for k, v in _lib.launches.items()}
@@ -5110,10 +5152,11 @@ def qwen3_forced(model, text: str, voice: str, codes: np.ndarray, served: bool,
     it, seen = iter(np.asarray(codes).reshape(-1).tolist()), []
     if served:
         def read(logits, seed, seeds, index, s):
+            # every row is this request's (a lone lane runs as two rows):
+            # each takes the forced code, as each would draw the same one
             seen.append(logits[0].float())
-            out = torch.zeros(logits.shape[0], dtype=torch.int64, device=logits.device)
-            out[0] = next(it)
-            return out
+            return torch.full((logits.shape[0],), next(it), dtype=torch.int64,
+                              device=logits.device)
 
         keyed, CQ.sample_keyed = CQ.sample_keyed, read
         try:
@@ -5556,6 +5599,553 @@ def qwen3_phase(dev, smi: str) -> tuple[dict, dict]:
     k7["quantized_matvec"]["qwen3_serve_launches"] = out["serve"]["run"]["launches"].get(
         "quantized_matvec_decode", 0)
     del models, q8, bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, k7
+
+
+def parakeet_config():
+    """Parakeet-TDT-0.6B at its published widths (nvidia/parakeet-tdt-0.6b-v2):
+    128 mel features, a 24-layer FastConformer of d_model 1024 (8 heads, ff
+    x4, rel_pos attention, conv kernel 9) behind dw_striding subsampling by 8
+    with 256 channels, 1,024 pieces and the blank, durations 0-4, at most 10
+    symbols a frame, a 1-layer LSTM prediction network of 640 and a ReLU
+    joint of 640. The pieces are stand-ins (letters, every 41st a period)."""
+    from tpu_audio_torch.models.stt import parakeet as TP
+
+    vocab = ["." if i % 41 == 40 else ("▁" if i % 3 == 0 else "") + chr(ord("a") + i % 26)
+             for i in range(1024)]
+    return TP.ParakeetConfig(
+        variant="tdt", preprocess=TP.PreprocessConfig(features=128),
+        encoder=TP.ConformerConfig(feat_in=128, n_layers=24, d_model=1024, n_heads=8,
+                                   ff_expansion_factor=4, subsampling_factor=8,
+                                   subsampling_conv_channels=256, conv_kernel_size=9),
+        vocabulary=vocab, durations=[0, 1, 2, 3, 4], max_symbols=10, pred_hidden=640,
+        pred_rnn_layers=1, joint_hidden=640)
+
+
+def randomize_parakeet_norms(tree: dict, gen) -> None:
+    """Give every LayerNorm and BatchNorm weight 1 + N(0, 0.1) and bias N(0,
+    0.1), every BatchNorm running mean N(0, 0.1) and running variance 1 +
+    |N(0, 0.2)|, in place (init makes them 1 and 0, which a wrong row would
+    not show)."""
+    import torch
+
+    def randn(t, std, mean=0.0):
+        return (mean + std * torch.randn(t.shape, generator=gen, device=t.device)).to(t.dtype)
+
+    for k, v in tree.items():
+        if isinstance(v, dict) and (k.startswith("norm_") or k == "batch_norm"):
+            v["weight"] = randn(v["weight"], 0.1, 1.0)
+            v["bias"] = randn(v["bias"], 0.1)
+            if k == "batch_norm":
+                v["running_mean"] = randn(v["running_mean"], 0.1)
+                v["running_var"] = (1.0 + randn(v["running_var"], 0.2).float().abs()
+                                    ).to(v["running_var"].dtype)
+        elif isinstance(v, dict):
+            randomize_parakeet_norms(v, gen)
+
+
+def build_parakeet(dev) -> dict:
+    """The bf16 model from seed-0 random weights (``init_random_params``)
+    with seeded norms and BatchNorm statistics, and the same weights MLX
+    8-bit in groups of 64 quantized on the card (every eligible linear, the
+    prediction embedding and the joint's three products among them)."""
+    import torch
+
+    from tpu_audio_torch.core import quant
+    from tpu_audio_torch.models.stt import parakeet as TP
+
+    cfg = parakeet_config()
+    params = TP.init_random_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    randomize_parakeet_norms(params, torch.Generator(device=dev).manual_seed(5))
+    q8 = quant.quantize_tree(params, bits=8, group_size=64, scheme="mlx")
+    packed = [q8["decoder"]["prediction"]["embed"]["weight"]] + [
+        q8["joint"][n]["weight"] for n in ("enc", "pred", "joint_net")]
+    check(all(isinstance(w, quant.QuantizedTensor) and w.bits == 8 for w in packed),
+          "Parakeet 8-bit: the prediction embedding or a joint product is not packed")
+    return {"bf16": TP.Parakeet(cfg, params, torch.bfloat16),
+            "8bit": TP.Parakeet(cfg, q8, torch.bfloat16)}
+
+
+def parakeet_encoder_flops(cfg, b: int, t: int, bucket: int) -> float:
+    """The encoder's multiply-adds x 2 for ``b`` rows of ``bucket`` mel
+    frames, ``t`` encoder frames: the subsampling convolutions and output
+    projection, and in every layer the two FFNs, q/k/v/out, the position
+    projection over 2t - 1 rows, the content and position scores, p @ v and
+    the conv module."""
+    e = cfg.encoder
+    d, ch, k = e.d_model, e.subsampling_conv_channels, e.conv_kernel_size
+    h, f, flops = bucket, e.feat_in, 0.0
+    for i in range(int(math.log2(e.subsampling_factor))):
+        h, f = (h + 1) // 2, (f + 1) // 2
+        flops += 2 * b * h * f * ch * 9 * (1 if i == 0 else 1 + ch / 9)
+    flops += 2 * b * t * (ch * f) * d
+    layer = (2 * b * t * d * d * (2 * 2 * e.ff_expansion_factor + 4 + 3)
+             + 2 * (2 * t - 1) * d * d + 2 * b * d * (2 * t * t + t * (2 * t - 1))
+             + 2 * b * t * d * k)
+    return flops + e.n_layers * layer
+
+
+@contextlib.contextmanager
+def parakeet_calls(out: list):
+    """Record each ``TDTDecoder`` call's lattice (host arrays) and stats."""
+    from tpu_audio_torch.models.stt import parakeet as TP
+
+    call = TP.TDTDecoder.__call__
+
+    def recorded(self, *a, **kw):
+        lattice = call(self, *a, **kw)
+        out.append((lattice, dict(self.stats)))
+        return lattice
+
+    TP.TDTDecoder.__call__ = recorded
+    try:
+        yield
+    finally:
+        TP.TDTDecoder.__call__ = call
+
+
+@contextlib.contextmanager
+def strict_steps(decoder):
+    """Run the decoder's steps between stop reads under
+    ``torch.cuda.set_sync_debug_mode("error")``: a step that waits for the
+    device, or copies from it, raises."""
+    import torch
+
+    steps = decoder.steps
+
+    def strict(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return steps(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    decoder.steps = strict
+    try:
+        yield
+    finally:
+        del decoder.steps
+
+
+def same_lattices(a, b) -> bool:
+    import numpy as np
+
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def parakeet_traced(model, feats, lens, strict: bool = False):
+    """The decode loop over ``feats`` with every step traced: its lattice,
+    stats, and the host arrays of each step's active mask, token, jump
+    ``[S, B]`` and f32 joint logits ``[S, B, C]``."""
+    import torch
+
+    from tpu_audio_torch.models.stt import parakeet as TP
+
+    dec = TP.TDTDecoder(model.config, model.max_emit(feats.shape[1], 8192))
+    trace = []
+    with strict_steps(dec) if strict else contextlib.nullcontext():
+        lattice = dec(model.params, feats, lens, trace=trace)
+    rows = tuple(torch.stack([t[i] for t in trace]).cpu().numpy() for i in (1, 2, 3, 4))
+    return lattice, dict(dec.stats), rows
+
+
+def parakeet_serial(model, feats, length: int):
+    """The serial host reference of tests/test_parakeet.py (one row, a host
+    read every step) on the card, traced as ``parakeet_traced`` traces."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.models.stt import parakeet as TP
+
+    cfg, blank, dev = model.config, model.config.blank_token, feats.device
+    sdt = TP.prediction_dtype(model.params, model.dtype)
+    h = torch.zeros((cfg.pred_rnn_layers, 1, cfg.pred_hidden), dtype=sdt, device=dev)
+    c = torch.zeros_like(h)
+    t, new_sym, last = 0, 0, blank
+    toks, jumps, logits = [], [], []
+    while t < length:
+        pred, h_new, c_new = TP._predict_step(
+            model.params, torch.tensor([last], dtype=torch.int32, device=dev), h, c, cfg)
+        lg = TP._joint(model.params, feats[:1, t], pred.to(feats.dtype), cfg).float()
+        lg = lg[0].cpu().numpy()
+        tok = int(np.argmax(lg[: blank + 1]))
+        jump = cfg.durations[int(np.argmax(lg[blank + 1:]))]
+        next_t, next_new = t + jump, (0 if jump != 0 else new_sym + 1)
+        if jump == 0 and next_new >= cfg.max_symbols:
+            next_t, next_new = next_t + 1, 0
+        if tok != blank:
+            last, h, c = tok, h_new, c_new
+        toks.append(tok)
+        jumps.append(jump)
+        logits.append(lg)
+        t, new_sym = next_t, next_new
+    n = len(toks)
+    return (np.ones((n, 1), bool), np.asarray(toks)[:, None], np.asarray(jumps)[:, None],
+            np.stack(logits)[:, None])
+
+
+def parakeet_parting(label: str, blank: int, ref, got, r_ref: int, r_got: int) -> dict:
+    """One row's decisions (token, jump at each of its active steps) on two
+    routes: equal, or parting first at a step where the reference route's
+    top two (of the tokens, or of the durations, whichever parted) lie
+    within the routes' largest joint-logit difference at that step, and
+    that within PARAKEET_LOGITS_RTOL of the largest logit: a near tie that
+    the routes' rounding decides."""
+    import numpy as np
+
+    ia, ib = np.nonzero(ref[0][:, r_ref])[0], np.nonzero(got[0][:, r_got])[0]
+    da = list(zip(ref[1][ia, r_ref].tolist(), ref[2][ia, r_ref].tolist()))
+    db = list(zip(got[1][ib, r_got].tolist(), got[2][ib, r_got].tolist()))
+    k = next((i for i, (x, y) in enumerate(zip(da, db)) if x != y), None)
+    if k is None:
+        check(len(da) == len(db), f"{label}: the same decisions over {min(len(da), len(db))} "
+              f"steps, but {len(da)} against {len(db)} steps")
+        return dict(equal=True, steps=len(da))
+    la, lb = ref[3][ia[k], r_ref], got[3][ib[k], r_got]
+    diff = float(np.abs(la - lb).max())
+    rel = diff / float(np.abs(la).max())
+    margins = {}
+    for part, sl, differs in (("token", slice(0, blank + 1), da[k][0] != db[k][0]),
+                              ("duration", slice(blank + 1, None), da[k][1] != db[k][1])):
+        if differs and la[sl].size > 1:
+            top = np.sort(la[sl])[::-1]
+            margins[part] = float(top[0] - top[1])
+    ok = all(m <= diff for m in margins.values()) and rel <= PARAKEET_LOGITS_RTOL
+    print(f"[parakeet witness] {label}: decisions part at step {k} of {len(da)} ({da[k]} "
+          f"against {db[k]}): top-two margins {margins}, joint logits {diff:.4e} apart (rel "
+          f"{rel:.3e}, rtol {PARAKEET_LOGITS_RTOL}): "
+          f"{'a near tie' if ok else 'NOT a near tie'}")
+    check(ok, f"{label}: lattices part at step {k} without a witnessed near tie")
+    return dict(equal=False, step=k, steps=len(da), margins=margins, max_diff=diff,
+                rel_diff=rel)
+
+
+def parakeet_batch_phase(model, clips) -> dict:
+    """``bench_parakeet_batch``'s protocol on the bf16 model: one warm
+    ``generate_batch`` of the clips, then PARAKEET_TIMED timed, every run's
+    lattice bit for bit the same; RTFx over the fastest; the frontend,
+    encoder and decode-loop split (CUDA events), decode steps, host reads
+    and device events a step, the loop's busy share (``torch.profiler``,
+    the union of its intervals over the loop's wall) and the peak device
+    memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_audio_torch.core.generation import STTGenerateParameters
+    from tpu_audio_torch.models.stt import parakeet as TP
+
+    gp = STTGenerateParameters(max_tokens=8192)
+    seconds = sum(len(c) for c in clips) / 16000
+    calls, walls = [], []
+    with parakeet_calls(calls):
+        outs = model.generate_batch(clips, gp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(PARAKEET_TIMED):
+            t0 = time.perf_counter()
+            again = model.generate_batch(clips, gp)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(same_lattices(calls[0][0], c[0]) for c in calls[1:])
+          and [o.text for o in outs] == [o.text for o in again],
+          "parakeet bf16: the lattices of two generate_batch runs differ")
+    counts = calls[0][0][3]
+    check(all(o.generation_token_count > 0 for o in outs) and bool((counts > 0).all()),
+          f"parakeet bf16: a clip emitted nothing ({counts.tolist()})")
+    stats = calls[0][1]
+    # the split: each piece between CUDA events
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    batch, lengths = model.mel_batch(clips)
+    ev[1].record()
+    feats, lens = model._encode(model.params, batch, lengths)
+    ev[2].record()
+    dec = TP.TDTDecoder(model.config, model.max_emit(feats.shape[1], gp.max_tokens))
+    t0 = time.perf_counter()
+    lattice = dec(model.params, feats, lens)
+    loop_wall = time.perf_counter() - t0
+    ev[3].record()
+    torch.cuda.synchronize()
+    check(same_lattices(lattice, calls[0][0]), "parakeet bf16: the split run's lattice differs")
+    split = dict(frontend_ms=ev[0].elapsed_time(ev[1]), encoder_ms=ev[1].elapsed_time(ev[2]),
+                 decode_ms=ev[2].elapsed_time(ev[3]))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        markers(STACK_READS[0][1])
+        t0 = time.perf_counter()
+        dec(model.params, feats, lens)
+        prof_wall = time.perf_counter() - t0
+    busy_us, n_events = device_busy(prof)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        markers(STACK_READS[0][1])
+        model._encode(model.params, batch, lengths)
+        torch.cuda.synchronize()
+    enc_busy_us = device_busy(prof)[0]
+    enc_kernels = sorted(((n, c, us / 1e3) for n, (c, us) in by_kernel(prof).items()
+                          if "spin_kernel" not in n), key=lambda k: -k[2])[:8]
+    steps = stats["steps"]
+    t_enc = int(feats.shape[1])
+    flops = parakeet_encoder_flops(model.config, len(clips), t_enc, int(batch.shape[1]))
+    enc_bound = bound(nbytes(batch, feats) + sum(
+        t.numel() * t.element_size() for t in _tensors(model.params["encoder"])),
+        bf16_ops=flops)
+    out = dict(clips=len(clips), audio_s=seconds, walls_s=walls, rtfx=seconds / min(walls),
+               mel_frames=int(lengths.max()), bucket=int(batch.shape[1]), encoder_frames=t_enc,
+               split_ms=split, decode_wall_ms=loop_wall * 1e3, steps=steps,
+               host_reads=stats["reads"], emitted=counts.tolist(),
+               device_events_a_step=n_events / steps,
+               decode_busy_ms=busy_us / 1e3, decode_profiled_wall_ms=prof_wall * 1e3,
+               decode_busy_share=busy_us / 1e3 / (prof_wall * 1e3),
+               host_ms_a_step=loop_wall * 1e3 / steps,
+               encoder_device_ms=enc_busy_us / 1e3,
+               encoder_kernels=[dict(name=n[:80], count=c, ms=ms) for n, c, ms in enc_kernels],
+               encoder_tflop=flops / 1e12, encoder_bound_ms=enc_bound[0],
+               encoder_bound_by=enc_bound[1], peak_memory_gb=peak / 1e9)
+    print(f"[parakeet bf16] {len(clips)} x {seconds / len(clips):.0f} s: walls "
+          f"{[round(w, 4) for w in walls]} s, RTFx {out['rtfx']:.1f}; split (CUDA events) "
+          f"frontend {split['frontend_ms']:.3f} ms, encoder {split['encoder_ms']:.3f} ms "
+          f"(bound {enc_bound[0]:.3f} ms by {enc_bound[1]}: {flops / 1e12:.3f} TFLOP bf16), "
+          f"decode loop {split['decode_ms']:.3f} ms; {lengths.max().item()} mel frames in a "
+          f"{batch.shape[1]}-frame bucket, {t_enc} encoder frames; {steps} decode steps, "
+          f"{stats['reads']} host reads, {loop_wall * 1e3 / steps:.4f} ms a step; emitted "
+          f"{counts.tolist()}; profiled loop: {n_events / steps:.1f} device events a step, "
+          f"busy {busy_us / 1e3:.3f} of {prof_wall * 1e3:.3f} ms (share "
+          f"{out['decode_busy_share']:.4f}); peak memory {peak / 1e9:.3f} GB")
+    print(f"[parakeet encoder] profiled: device busy {enc_busy_us / 1e3:.3f} ms; by kernel:")
+    for n, c, ms in enc_kernels:
+        print(f"  {ms:9.3f} ms {c:6d} x  {n[:90]}")
+    return out
+
+
+def _tensors(tree):
+    from tpu_audio_torch.core import quant
+
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, quant.QuantizedTensor):
+        yield from (tree.weight, tree.scales, tree.biases)
+    else:
+        yield tree
+
+
+def parakeet_mixed_phase(model, clips) -> dict:
+    """A mixed batch (the speech clip, the two-speaker clip, 12 s and 30 s
+    of noise) on the bf16 model: the loop over the batch with every step
+    between stop reads under ``set_sync_debug_mode("error")``; each row's
+    decisions against the loop on that row alone over the same features,
+    and row 0's against the serial host reference, each equal or parted at
+    a witnessed near tie."""
+    batch, lengths = model.mel_batch(clips)
+    feats, lens = model._encode(model.params, batch, lengths)
+    lattice, stats, rows = parakeet_traced(model, feats, lens, strict=True)
+    blank = model.config.blank_token
+    out = dict(seconds=[len(c) / 16000 for c in clips], encoder_frames=lens.tolist(),
+               steps=stats["steps"], host_reads=stats["reads"], emitted=lattice[3].tolist(),
+               rows=[])
+    alone0 = None
+    for r in range(len(clips)):
+        alone, _, arows = parakeet_traced(model, feats[r : r + 1], lens[r : r + 1])
+        alone0 = arows if r == 0 else alone0
+        out["rows"].append(parakeet_parting(f"mixed row {r} in the batch against alone", blank,
+                                            arows, rows, 0, r))
+    serial = parakeet_serial(model, feats[:1], int(lens[0]))
+    out["serial"] = parakeet_parting("row 0 alone against the serial host reference", blank,
+                                     serial, alone0, 0, 0)
+    print(f"[parakeet mixed] {len(clips)} clips ({[round(s, 1) for s in out['seconds']]} s): "
+          f"{stats['steps']} steps, {stats['reads']} host reads, no host sync between reads; "
+          f"emitted {lattice[3].tolist()}; rows equal alone: "
+          f"{[r['equal'] for r in out['rows']]}; serial reference equal: "
+          f"{out['serial']['equal']}")
+    return out
+
+
+def parakeet_q8_phase(model, clips) -> tuple[dict, dict]:
+    """The MLX 8-bit tree: kernel 7 against its plain version at the joint's
+    three shapes at 1 and 8 rows (bf16 x); a ``generate_batch`` of the clips
+    with the launch counters reset just before and read just after: the
+    tile 3 times a decode step, no decode kernel, no GEMV, no other kernel,
+    no plain call and no dequantized joint, the packed embedding's f32
+    LSTM state through bf16 features; the lattice against the same loop on
+    kernel 7's plain version over the same features; RTFx."""
+    import torch
+
+    from tpu_audio_torch.core import quant
+    from tpu_audio_torch.core.generation import STTGenerateParameters
+    from tpu_audio_torch.models.stt import parakeet as TP
+    from tpu_audio_torch.ops import _lib, qmm
+
+    joint = {n: model.params["joint"][n]["weight"] for n in ("enc", "pred", "joint_net")}
+    gen = torch.Generator(device=model.device).manual_seed(13)
+    checks = []
+    for n, w in joint.items():
+        for rows, want in ((1, "decode"), (PARAKEET_CLIPS, "tile")):
+            x = torch.randn((rows, w.weight.shape[1] * 32 // w.bits), generator=gen,
+                            device=model.device).to(torch.bfloat16)
+            err, _, ran = qmm_check(f"parakeet joint.{n} [{rows}]", x, w.weight, w.scales,
+                                    w.biases, w.group_size, w.bits)
+            check(ran == want, f"parakeet joint.{n} at {rows} rows ran the {ran}, not the {want}")
+            checks.append(dict(shape=f"joint.{n}", rows=rows, kernel=ran, o=w.weight.shape[0],
+                               i=x.shape[1], rel_err=err))
+    print("[parakeet qmm] kernel 7 at the joint's 3 shapes (8-bit, g 64, bf16 x): "
+          + ", ".join(f"{c['shape']} [{c['rows']}] {c['kernel']} rel err {c['rel_err']:.3e}"
+                      for c in checks) + f" (rtol {QMM_BF16_RTOL})")
+    check(TP.prediction_dtype(model.params, model.dtype) == torch.float32,
+          "parakeet 8-bit: the packed embedding's LSTM state is not f32")
+    gp = STTGenerateParameters(max_tokens=8192)
+    words = {w.weight.data_ptr() for w in joint.values()}
+    seen = {"ref": 0, "joint_dequantized": 0}
+    ref, deq = qmm.quantized_matvec_ref, quant.dequantize
+
+    def ref_spy(*a, **kw):
+        seen["ref"] += 1
+        return ref(*a, **kw)
+
+    def deq_spy(w, *a, **kw):
+        seen["joint_dequantized"] += w.data_ptr() in words
+        return deq(w, *a, **kw)
+
+    calls = []
+    qmm.quantized_matvec_ref, quant.dequantize = ref_spy, deq_spy
+    try:
+        _lib.reset_launches()
+        torch.cuda.synchronize()
+        with parakeet_calls(calls):
+            t0 = time.perf_counter()
+            outs = model.generate_batch(clips, gp)
+            torch.cuda.synchronize()
+            first_wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _lib.launches.items() if v}
+    finally:
+        qmm.quantized_matvec_ref, quant.dequantize = ref, deq
+    steps = calls[0][1]["steps"]
+    want = {"quantized_matvec": 3 * steps, "quantized_matvec_tile": 3 * steps}
+    print(f"[parakeet 8bit] generate_batch: {steps} decode steps, launches {launches} "
+          f"(expected {want}), plain calls {seen['ref']}, joint dequantized "
+          f"{seen['joint_dequantized']} times; emitted {calls[0][0][3].tolist()}")
+    check(launches == want and seen["ref"] == 0 and seen["joint_dequantized"] == 0,
+          f"parakeet 8-bit: launches {launches}, plain calls {seen['ref']}, joint dequantized "
+          f"{seen['joint_dequantized']} (expected {want}, none and none)")
+    check(all(o.generation_token_count > 0 for o in outs), "parakeet 8-bit: a clip emitted nothing")
+    walls = []
+    for _ in range(PARAKEET_TIMED):
+        t0 = time.perf_counter()
+        model.generate_batch(clips, gp)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    seconds = sum(len(c) for c in clips) / 16000
+    batch, lengths = model.mel_batch(clips)
+    feats, lens = model._encode(model.params, batch, lengths)
+    lattice, _, rows = parakeet_traced(model, feats, lens)
+    with plain_kernels():
+        plain_lattice, _, plain_rows = parakeet_traced(model, feats, lens)
+    blank = model.config.blank_token
+    vs_plain = [parakeet_parting(f"8-bit row {r}, kernel 7 against its plain version", blank,
+                                 plain_rows, rows, r, r) for r in range(len(clips))]
+    step_bound = sum(qmm_bound(len(clips), w.weight.shape[0], w.weight.shape[1] * 32 // w.bits,
+                               w.bits, w.group_size, x_bytes=2)[0] for w in joint.values())
+    # a decode step's three products at the batch's rows (bf16 x): the tile
+    # and its plain version, per step (CUDA events) and on the device
+    xs = [torch.randn((len(clips), w.weight.shape[1] * 32 // w.bits), generator=gen,
+                      device=model.device).to(torch.bfloat16) for w in joint.values()]
+
+    def step_products(fn):
+        return lambda: [fn(x, w.weight, w.scales, w.biases, w.group_size, w.bits)
+                        for x, w in zip(xs, joint.values())]
+
+    timed = dict(ms_a_step=cuda_ms(step_products(qmm.quantized_matvec)),
+                 plain_ms_a_step=cuda_ms(step_products(qmm.quantized_matvec_ref)),
+                 dev_ms_a_step=device_ms(step_products(qmm.quantized_matvec), launches=9),
+                 plain_dev_ms_a_step=device_ms(step_products(qmm.quantized_matvec_ref)))
+    out = dict(steps=steps, launches=launches, plain_calls=seen["ref"],
+               joint_dequantized=seen["joint_dequantized"], first_wall_s=first_wall,
+               walls_s=walls, rtfx=seconds / min(walls), qmm_checks=checks,
+               vs_plain=vs_plain, emitted=calls[0][0][3].tolist(),
+               kernel7_bound_ms_a_step=step_bound, kernel7_a_step=timed)
+    print(f"[parakeet 8bit] walls {[round(w, 4) for w in walls]} s, RTFx {out['rtfx']:.1f}; "
+          f"rows equal to the plain route: {[v['equal'] for v in vs_plain]}; kernel 7 a step "
+          f"(3 tiles at {len(clips)} rows): {timed['ms_a_step']:.4f} ms per step (CUDA events), "
+          f"{fmt(timed['dev_ms_a_step'])} device, plain {timed['plain_ms_a_step']:.4f} / "
+          f"{fmt(timed['plain_dev_ms_a_step'])}, bound {step_bound:.4f} ms (bytes)")
+    k7 = {"quantized_matvec_tile": dict(parakeet_launches=launches["quantized_matvec_tile"],
+                                        parakeet=dict(launches_a_step=3, rows=len(clips),
+                                                      steps=steps, bound_ms_a_step=step_bound,
+                                                      **timed)),
+          "quantized_matvec": dict(parakeet_launches=launches.get("quantized_matvec_decode", 0))}
+    return out, k7
+
+
+def parakeet_long_phase(model, speech) -> dict:
+    """A 60 s clip (the speech clip, then seeded noise) through ``generate``
+    with ``chunk_duration`` 20 s: its chunks decoded in one batch and
+    merged; the segment starts rise."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.core.generation import STTGenerateParameters
+
+    n = int(PARAKEET_LONG_S * 16000)
+    rng = np.random.default_rng(2)
+    audio = np.concatenate([speech, (rng.standard_normal(n) * 0.1).astype(np.float32)])[:n]
+    calls = []
+    with parakeet_calls(calls):
+        t0 = time.perf_counter()
+        out = model.generate(audio, STTGenerateParameters(max_tokens=8192,
+                                                          chunk_duration=PARAKEET_CHUNK_S))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    starts = [s.start for s in out.segments]
+    check(len(calls) == 1 and len(calls[0][0][3]) == 4,
+          f"parakeet 60 s: {len(calls)} decode calls of {[len(c[0][3]) for c in calls]} rows "
+          "(expected one of 4 chunks)")
+    check(starts == sorted(starts), f"parakeet 60 s: segment starts fall: {starts[:8]}")
+    res = dict(seconds=PARAKEET_LONG_S, chunk_s=PARAKEET_CHUNK_S, chunks=len(calls[0][0][3]),
+               tokens=out.generation_token_count, segments=len(out.segments),
+               text_chars=len(out.text), wall_s=wall, last_start=starts[-1] if starts else None)
+    print(f"[parakeet 60 s] generate (chunks of {PARAKEET_CHUNK_S:.0f} s): {res['chunks']} "
+          f"chunks in one batch, {res['tokens']} merged tokens, {res['segments']} segments "
+          f"(starts rise, last at {res['last_start']}), {len(out.text)} characters, "
+          f"{wall:.3f} s")
+    return res
+
+
+def parakeet_phase(dev, smi: str) -> tuple[dict, dict]:
+    """The ``[parakeet]`` phase: builds the bf16 and 8-bit models
+    (``build_parakeet``), runs ``bench_parakeet_batch``'s protocol on the
+    bf16 model (``parakeet_batch_phase``), the mixed batch
+    (``parakeet_mixed_phase``), the 8-bit tree (``parakeet_q8_phase``) and
+    the chunked 60 s ``generate`` (``parakeet_long_phase``). Returns the
+    phase's JSON and kernel 7's Parakeet fields for its two records."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.core.audio_io import load_audio
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    models = build_parakeet(dev)
+    torch.cuda.synchronize()
+    e = models["bf16"].config.encoder
+    print(f"Parakeet-TDT (FastConformer {e.n_layers} x {e.d_model}, subsampling "
+          f"{e.subsampling_factor}, vocab {len(models['bf16'].config.vocabulary)} + blank) bf16 "
+          f"and MLX 8-bit (g 64) built on the card in {time.perf_counter() - t0:.1f} s ({smi})")
+    rng = np.random.default_rng(0)
+    n = int(PARAKEET_CLIP_S * 16000)
+    clips = [(rng.standard_normal(n).astype(np.float32) * 0.1) for _ in range(PARAKEET_CLIPS)]
+    speech = load_audio(str(AUDIO), sample_rate=16000)[0]
+    noise = np.random.default_rng(1)
+    mixed = [speech, load_audio(str(AUDIO2), sample_rate=16000)[0]] + [
+        (noise.standard_normal(int(s * 16000)) * 0.1).astype(np.float32)
+        for s in PARAKEET_MIXED_NOISE_S]
+    out = dict(batch=parakeet_batch_phase(models["bf16"], clips),
+               mixed=parakeet_mixed_phase(models["bf16"], mixed))
+    out["8bit"], k7 = parakeet_q8_phase(models["8bit"], clips)
+    out["long"] = parakeet_long_phase(models["bf16"], speech)
+    out.update(phase_s=time.perf_counter() - t_phase, smi=smi)
+    print(f"[parakeet] phase {out['phase_s']:.1f} s")
+    del models
     gc.collect()
     torch.cuda.empty_cache()
     return out, k7
@@ -6292,6 +6882,22 @@ def qwen3_main(smi: str) -> int:
     return 0
 
 
+def parakeet_main(smi: str) -> int:
+    """``--parakeet``: the [parakeet] phase alone, then its JSON and kernel
+    7's Parakeet fields as one line (no "ok" line: not the full check)."""
+    import torch
+
+    from tpu_audio_torch.ops import _lib
+
+    t0 = time.perf_counter()
+    _lib.lib()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    out, k7 = parakeet_phase(torch.device("cuda", 0), smi)
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"parakeet": out, "kernel7": k7}))
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6309,7 +6915,7 @@ def main() -> int:
               "--fused-llama-timing": fused_llama_timing_main,
               "--llama-lanes-timing": llama_lanes_timing_main,
               "--kv-mel-timing": kv_mel_timing_main}.get(next(iter(sys.argv[1:]), ""))
-    if sys.argv[1:] not in ([], ["--qmm"], ["--qwen3"]) and not timing:
+    if sys.argv[1:] not in ([], ["--qmm"], ["--qwen3"], ["--parakeet"]) and not timing:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -6330,6 +6936,8 @@ def main() -> int:
         return qmm_main(smi.splitlines()[0])
     if sys.argv[1:] == ["--qwen3"]:
         return qwen3_main(smi.splitlines()[0])
+    if sys.argv[1:] == ["--parakeet"]:
+        return parakeet_main(smi.splitlines()[0])
     if timing:
         return timing(smi.splitlines()[0], [Path(a).resolve() for a in sys.argv[2:]])
     dev = torch.device("cuda", 0)
@@ -6348,6 +6956,11 @@ def main() -> int:
     # 7's device time a frame from the profiler
     qwen3, qwen3_k7 = qwen3_phase(dev, smi.splitlines()[0])
     for k, fields in qwen3_k7.items():
+        records[k].update(fields)
+    # the [parakeet] phase next, early too: it reads the decode loop's busy
+    # share from the profiler
+    parakeet, parakeet_k7 = parakeet_phase(dev, smi.splitlines()[0])
+    for k, fields in parakeet_k7.items():
         records[k].update(fields)
 
     t0 = time.perf_counter()
@@ -6454,7 +7067,7 @@ def main() -> int:
                              "rel_err_bf16_x", "rel_err_f16_x", "library_dev_ms", "library_rel_err",
                              "library_error", "gemv_ms", "gemv_dev_ms", "gemv_checks",
                              "gemv_rel_err", "qwen3_launches", "qwen3", "qwen3_serve_launches",
-                             "qwen3_serve") if f in r})
+                             "qwen3_serve", "parakeet_launches", "parakeet") if f in r})
         for k, r in records.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"generate": runs, "smi": smi.splitlines()[0]}))
@@ -6464,6 +7077,7 @@ def main() -> int:
     print(json.dumps({"tts_serving": tts_serving}))
     print(json.dumps({"mlx_4bit": mlx}))
     print(json.dumps({"qwen3_tts": qwen3}))
+    print(json.dumps({"parakeet": parakeet}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -48,6 +48,8 @@ print("ok")
      "tpu_audio_torch.models.tts", "tpu_audio_torch.cli.tts", "tpu_audio_torch.cli.serve"],
     ["tpu_audio_torch.parallel.continuous_qwen3", "tpu_audio_torch.cli.serve",
      "tpu_audio_torch.core.sampling"],
+    ["tpu_audio_torch.models.stt.parakeet", "tpu_audio_torch.models.stt.nemo_alignment",
+     "tpu_audio_torch.models.stt", "tpu_audio_torch.cli.stt", "tpu_audio_torch.cli.serve"],
 ])
 def test_port_imports_without_jax(mods):
     res = subprocess.run([sys.executable, "-c", _BLOCKER.format(mods=mods)],

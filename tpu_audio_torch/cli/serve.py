@@ -19,8 +19,9 @@ audio API paths:
   and wall-time totals.
 
 With ``--slots N`` (N > 1) concurrent requests share continuously batched
-decode lanes: transcriptions of up to 30 s through
-``parallel.continuous_stt.STTEngineWorker``, Orpheus speech through
+decode lanes: Whisper transcriptions of up to 30 s through
+``parallel.continuous_stt.STTEngineWorker`` (other STT models, such as
+Parakeet, answer every request through ``generate`` under the lock), Orpheus speech through
 ``parallel.continuous.TTSEngineWorker`` and Qwen3-TTS speech through
 ``parallel.continuous_qwen3.Qwen3TTSEngineWorker`` (one lane-batched frame
 a tick; no reference-audio cloning), with the sampling parameters then
@@ -159,10 +160,11 @@ def build_server(model, task: str, model_name: str,
                  host: str = "127.0.0.1", port: int = 8080,
                  slots: int = 1, generation_parameters=None,
                  step_tokens: int = 7, fused: str = "auto"):
-    """Construct (but don't start) the HTTP server for a Whisper (``task``
-    "stt") or Orpheus (``task`` "tts") ``model``.
+    """Construct (but don't start) the HTTP server for an STT (``task``
+    "stt": Whisper, Parakeet) or TTS (``task`` "tts": Orpheus, Qwen3-TTS)
+    ``model``.
 
-    ``slots > 1`` routes transcriptions of up to 30 s through a shared
+    ``slots > 1`` routes Whisper transcriptions of up to 30 s through a shared
     :class:`~tpu_audio_torch.parallel.continuous_stt.STTEngineWorker`,
     Orpheus speech through a shared
     :class:`~tpu_audio_torch.parallel.continuous.TTSEngineWorker` and
@@ -180,10 +182,13 @@ def build_server(model, task: str, model_name: str,
     metrics = _Metrics()
     stt_worker = tts_worker = None
     if slots > 1 and task == "stt":
-        from tpu_audio_torch.parallel.continuous_stt import STTEngineWorker
+        from tpu_audio_torch.models.stt.whisper import Whisper
 
-        stt_worker = STTEngineWorker(model, slots=slots, step_tokens=step_tokens,
-                                     fused=fused)
+        if isinstance(model, Whisper):  # other STT models answer through generate
+            from tpu_audio_torch.parallel.continuous_stt import STTEngineWorker
+
+            stt_worker = STTEngineWorker(model, slots=slots, step_tokens=step_tokens,
+                                         fused=fused)
     elif slots > 1:
         from tpu_audio_torch.models.tts.qwen3_tts import Qwen3TTS
 

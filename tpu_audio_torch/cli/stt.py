@@ -1,8 +1,11 @@
 """STT command line on the PyTorch port: wav -> text.
 
-Usage: ``python -m tpu_audio_torch.cli.stt audio.wav --model <dir>``, with
-the flags of ``tpu_audio.cli.stt`` (``--format txt|srt|json``, ``--stream``,
-``--kv-bits``, ``--quantized-kv-start``, ...) plus ``--device``.
+Usage: ``python -m tpu_audio_torch.cli.stt audio.wav --model <dir>`` (a
+Whisper or Parakeet checkpoint), with the flags of ``tpu_audio.cli.stt``
+(``--format txt|srt|json``, ``--stream``, ``--chunk-duration``,
+``--kv-bits``, ``--quantized-kv-start``, ...) plus ``--device``. A model
+ignores the flags it has no use for (Parakeet: the language, task,
+temperature and KV flags).
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ def main(argv=None):
     parser.add_argument("--temperature", type=float, default=0.0)
     parser.add_argument("--format", default="txt", choices=["txt", "srt", "json"])
     parser.add_argument("--stream", action="store_true", help="stream per-chunk text")
+    parser.add_argument("--chunk-duration", type=float, default=None,
+                        help="chunking window in seconds (Parakeet; default 1200)")
     parser.add_argument("--output", default=None, help="write result to file")
     parser.add_argument("--verbose", action="store_true")
     parser.add_argument("--kv-bits", type=int, default=None, choices=[4, 8],
@@ -53,7 +58,8 @@ def main(argv=None):
     audio, _sr = load_audio(args.audio, sample_rate=16000)
     params = STTGenerateParameters(
         language=args.language, task=args.task, max_tokens=args.max_tokens,
-        temperature=args.temperature, verbose=args.verbose,
+        temperature=args.temperature, chunk_duration=args.chunk_duration,
+        verbose=args.verbose,
         kv_bits=args.kv_bits, kv_group_size=args.kv_group_size,
         quantized_kv_start=args.quantized_kv_start,
         batch_windows=not args.no_batch_windows,

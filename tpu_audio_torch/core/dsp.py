@@ -1,11 +1,12 @@
-"""Whisper's log-mel frontend (port of the STFT and log-mel parts of
-tpu_audio.core.dsp).
+"""Windows, mel filterbanks, the STFT and Whisper's log-mel frontend
+(port of the window, STFT and log-mel parts of tpu_audio.core.dsp).
 
 Window and filterbank construction is host-side NumPy, identical to the
-JAX package's; the STFT runs through ``torch.stft``; the mel projection
-and log10 run through ``ops.mel.fused_log_mel`` (the CUDA kernel for CUDA
-tensors). The global ``max - 8`` clamp and ``(x + 4) / 4`` normalisation
-follow as in the JAX package.
+JAX package's; the STFT runs through ``torch.stft`` after reflect or
+constant centre padding; Whisper's mel projection and log10 run through
+``ops.mel.fused_log_mel`` (the CUDA kernel for CUDA tensors). The global
+``max - 8`` clamp and ``(x + 4) / 4`` normalisation follow as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch
 
 from tpu_audio_torch.ops.mel import fused_log_mel
 
-__all__ = ["hanning_window", "mel_filters", "stft", "log_mel_spectrogram"]
+__all__ = ["hanning_window", "hamming_window", "mel_filters", "stft",
+           "log_mel_spectrogram"]
 
 
 @functools.lru_cache(maxsize=32)
@@ -33,6 +35,20 @@ def hanning_window(size: int, periodic: bool = False) -> np.ndarray:
     denom = float(size if periodic else size - 1)
     w = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / denom))
     return w.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def hamming_window(size: int, periodic: bool = True) -> np.ndarray:
+    """Hamming window, periodic by default (``periodic=False``: the
+    symmetric window)."""
+    if size <= 0:
+        return np.zeros((0,), np.float32)
+    if size == 1:
+        return np.ones((1,), np.float32)
+    eff = size + 1 if periodic else size
+    n = np.arange(eff, dtype=np.float64)
+    w = 0.54 - 0.46 * np.cos(2.0 * np.pi * n / (eff - 1))
+    return w[:size].astype(np.float32)
 
 
 def _hz_to_mel(freq, mel_scale: str, f_min: float = 0.0):
@@ -104,13 +120,17 @@ def _reflect_pad_1d(audio: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 def stft(audio: torch.Tensor, window: np.ndarray, n_fft: int, hop_length: int,
-         center: bool = True) -> torch.Tensor:
-    """STFT of a 1D signal -> complex ``[n_frames, n_fft//2 + 1]``: reflect
-    centre padding by ``n_fft//2``, frames every ``hop_length``, window,
-    rfft."""
+         center: bool = True, pad_mode: str = "reflect") -> torch.Tensor:
+    """STFT of a 1D signal -> complex ``[n_frames, n_fft//2 + 1]``: centre
+    padding by ``n_fft//2`` (``pad_mode`` "reflect", or "constant" zeros),
+    frames every ``hop_length``, window, rfft."""
+    if pad_mode not in ("reflect", "constant"):
+        raise ValueError(f"unknown pad_mode {pad_mode!r}")
     x = audio.reshape(-1).to(torch.float32)
-    if center:
+    if center and pad_mode == "reflect":
         x = _reflect_pad_1d(x, n_fft // 2)
+    elif center:
+        x = torch.nn.functional.pad(x, (n_fft // 2, n_fft // 2))
     w = torch.from_numpy(np.asarray(window, np.float32)).to(x.device)
     spec = torch.stft(x, n_fft, hop_length=hop_length, win_length=n_fft,
                       window=w, center=False, return_complex=True)

@@ -1,8 +1,9 @@
 """Functional layers over parameter dicts (port of tpu_audio.core.nn).
 
 Weights keep the checkpoint (torch) layout: Linear ``weight [out, in]``,
-Conv1d ``weight [out, in, k]``. Activations are channels-last
-``[batch, length, channels]``, as in the JAX package, so the two compare
+Conv1d ``weight [out, in, k]``, Conv2d ``weight [out, in, kh, kw]``.
+Activations are channels-last (``[batch, length, channels]``, ``[batch,
+height, width, channels]``), as in the JAX package, so the two compare
 like with like.
 """
 
@@ -16,8 +17,9 @@ import torch.nn.functional as F
 from tpu_audio_torch.core import quant
 
 __all__ = ["linear", "embedding", "embedding_as_linear", "layer_norm",
-           "rms_norm", "conv1d", "conv_transpose1d", "gelu", "silu", "snake",
-           "rope_freqs", "apply_rope", "sdpa"]
+           "rms_norm", "batch_norm", "lstm_cell", "conv1d", "conv2d",
+           "conv_transpose1d", "gelu", "silu", "snake", "rope_freqs",
+           "apply_rope", "sdpa"]
 
 
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -84,11 +86,54 @@ def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * p["weight"].to(torch.float32)).to(x.dtype)
 
 
+def batch_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Inference-mode BatchNorm over channels-last ``[..., C]`` (running
+    statistics), computed in f32, returned in ``x.dtype``."""
+    mean = p["running_mean"].to(torch.float32)
+    var = p["running_var"].to(torch.float32)
+    y = (x.to(torch.float32) - mean) * torch.rsqrt(var + eps)
+    if "weight" in p:
+        y = y * p["weight"].to(torch.float32)
+    if "bias" in p:
+        y = y + p["bias"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+def lstm_cell(p: dict, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+    """One LSTM step in torch gate order (i, f, g, o): ``x [B, I]``, ``h``
+    and ``c [B, H]`` -> ``(h, c)``. Reads ``weight_ih``/``weight_hh``/
+    ``bias_ih``/``bias_hh`` or their ``_l0`` forms; the products run in
+    ``x.dtype`` (``h`` is cast to it) and the two biases are summed in their
+    own dtype first."""
+    w_ih = p["weight_ih_l0"] if "weight_ih_l0" in p else p["weight_ih"]
+    w_hh = p["weight_hh_l0"] if "weight_hh_l0" in p else p["weight_hh"]
+    gates = x @ w_ih.t().to(x.dtype) + h.to(x.dtype) @ w_hh.t().to(x.dtype)
+    b_ih = p.get("bias_ih_l0", p.get("bias_ih"))
+    b_hh = p.get("bias_hh_l0", p.get("bias_hh"))
+    if b_ih is not None:
+        gates = gates + (b_ih if b_hh is None else b_ih + b_hh).to(x.dtype)
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h = torch.sigmoid(o) * torch.tanh(c)
+    return h, c
+
+
 def conv1d(p: dict, x: torch.Tensor, stride: int = 1, padding: int = 0,
            dilation: int = 1, groups: int = 1) -> torch.Tensor:
     """1D conv on channels-last ``[B, L, C_in]`` with ``weight [O, I/g, K]``."""
     y = F.conv1d(x.transpose(1, 2), p["weight"].to(x.dtype), stride=stride,
                  padding=padding, dilation=dilation, groups=groups).transpose(1, 2)
+    if "bias" in p:
+        y = y + p["bias"].to(y.dtype)
+    return y
+
+
+def conv2d(p: dict, x: torch.Tensor, stride=(1, 1), padding=(0, 0),
+           dilation=(1, 1), groups: int = 1) -> torch.Tensor:
+    """2D conv on channels-last ``[B, H, W, C_in]`` with ``weight [O, I/g,
+    Kh, Kw]``; ``stride``, ``padding`` and ``dilation`` are ints or pairs."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), p["weight"].to(x.dtype), stride=stride,
+                 padding=padding, dilation=dilation, groups=groups).permute(0, 2, 3, 1)
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y

@@ -1,5 +1,6 @@
 """STT task module: model registry + factory (port of
-tpu_audio.models.stt.load_model; Whisper is the only family ported)."""
+tpu_audio.models.stt.load_model; the families ported are Whisper and
+Parakeet)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ from tpu_audio_torch.core import hub
 
 _REGISTRY: dict[str, str] = {
     "whisper": "tpu_audio_torch.models.stt.whisper:Whisper",
+    "parakeet": "tpu_audio_torch.models.stt.parakeet:Parakeet",
 }
 
 
