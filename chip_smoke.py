@@ -34,7 +34,7 @@ so a kernel that reads the wrong bias or LayerNorm row disagrees), and:
    way, against its plain version fed its own codes, and one call at 1 and
    at 4 lanes must launch 14 kernels a layer;
 2. transcribes ``tests/media/speech_16k.wav`` padded to one 30 s window
-   through ``Whisper.generate`` in the w8 kv8d and bf16 kv8d (to 224
+   through ``Whisper.generate`` in the w8 kv8d and bf16 kv8d (to 192
    tokens) configurations, twice each, with every launch counter reset just
    before and read just after, and fails unless each kernel of the path
    launched;
@@ -132,7 +132,7 @@ kernel 7's short calls then read "not measured".)
    from), the tile at 8 bits, and the tile against the GEMV at 2-63 rows
    (where the tile takes over);
 16. builds Orpheus-3B quantized on the card to 4 bits in groups of 64 and
-   synthesises 280 tokens through ``LlamaTTS.generate`` (greedy), then 70
+   synthesises 112 tokens through ``LlamaTTS.generate`` (greedy), then 42
    through ``generate`` and ``generate_stream`` (the first run's prefix),
    then 21 tokens with the full tied head: kernel 7's
    tile launched 4 x 28 times for the prefill and its decode kernel 4 x 28
@@ -218,6 +218,29 @@ kernel 7's short calls then read "not measured".)
    kernel 7's plain version on the same features, and its RTFx; then a 60 s
    clip through ``generate`` in 20 s chunks (one batch, merged; segment
    starts rise). ``python3 chip_smoke.py --parakeet`` runs it alone.
+21. ``[vad]`` (run fourth, after phase 20; no kernel of the port runs
+   there, and the counters must stay at 0): Silero v5 (both branches, the
+   checkpoint's shapes, the STFT conv the Hann-windowed DFT basis) and
+   Sortformer-4spk (an 18 x 512 FastConformer over 128 mels, an 18 x 192
+   transformer, spkcache and FIFO of 188) from seeded random weights in
+   f32, under PyTorch's default cuDNN flags so that the models' own guard
+   keeps their convolutions in f32: ``bench_vad_silero``'s protocol (30 s
+   of seeded noise through ``predict_proba``, a warm-up, the fastest of 3
+   walls) at 16 kHz and decimated to 8 kHz, 4 rows against each alone,
+   ``feed`` over all 938 chunks against ``predict_proba`` (1e-5), the card
+   against the port's CPU run (SILERO_CARD_ATOL), timestamps and speech runs
+   of the two media clips equal to the CPU's, device events, host ms and
+   busy share a chunk; ``bench_vad_diarization``'s protocol (the same noise
+   through ``generate_stream`` in 5 s chunks), the stream reaching the AOSC
+   compression (spkcache and FIFO lengths a chunk), each chunk held against
+   the port's CPU run from the card's state before it (speaker
+   probabilities within SORTFORMER_CARD_ATOL, state lengths, AOSC picks
+   equal or parted at a witnessed near tie), per-chunk host ms, device ms
+   and events, the encoder's device ms against its bound, the peak device
+   memory, and offline ``generate`` on the two-speaker clip against the CPU
+   (segments and RTTM). A control runs each model with the guard bypassed
+   (convolutions in TF32) and must land outside its card-against-CPU limit.
+   ``python3 chip_smoke.py --vad`` runs it alone.
 
 Each kernel's record carries its bound on the H100 (``bound_ms``: the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate
@@ -287,10 +310,10 @@ mutant must fail its check and every sound copy pass.
 
 TF32 is off for matmuls and convolutions, so float32 references are full
 float32. Any failed check raises and ends the run with a non-zero code.
-The last nine lines of output are JSON: the generate runs, the long-form
+The last eleven lines of output are JSON: the generate runs, the long-form
 results, the serving results, the TTS results, the TTS serving results, the
-MLX 4-bit results, the Qwen3-TTS results (its serving under ``serve``),
-the kernels' records (kernel 7's with its Qwen3 launches,
+MLX 4-bit results, the Qwen3-TTS results (its serving under ``serve``), the
+Parakeet results, the VAD results, the kernels' records (kernel 7's with its Qwen3 launches,
 ``qwen3_launches`` and ``qwen3``, and its serving ones,
 ``qwen3_serve_launches`` and ``qwen3_serve``), then ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside the repository, it
@@ -585,10 +608,12 @@ QMM_COLD_BYTES = 100e6
 # over 8 steps on an H100)
 Q4_LOGITS_RTOL = 1e-3
 Q4_FULL_TOKENS = 21  # the full-head run
-# the repeat of the 280-token generate and the stream: fewer tokens (host
-# bound at ~40 ms a token), held to the first run's on the prefix
-Q4_REPEAT_TOKENS = 70
-Q4_SERVE_SLOTS, Q4_SERVE_MAX_TOKENS = 4, 35
+# the 4-bit generate's budget (16 frames; TTS_TOKENS before: host bound at
+# ~40-57 ms a token), its repeat and the stream, held to the first run's on
+# the prefix
+Q4_TOKENS = 112
+Q4_REPEAT_TOKENS = 42  # 6 frames (70 before)
+Q4_SERVE_SLOTS, Q4_SERVE_MAX_TOKENS = 4, 21  # 3 frames a request (35 before)
 Q4_SERVE_TEXTS = TTS_SERVE_TEXTS[:4]
 Q4_WHISPER_TOKENS = 24
 Q4_PROFILE_TOKENS = 8  # ~1,600 device events a token: a short profiled chunk
@@ -647,7 +672,18 @@ PARAKEET_LONG_S, PARAKEET_CHUNK_S = 60.0, 20.0  # chunked generate: 4 chunks, 2 
 # the largest: bf16 products rounded by row count (cuBLAS) or by route
 # (kernel 7 against its plain version), as LOGITS_RTOL
 PARAKEET_LOGITS_RTOL = 3e-2
-BF16_GENERATE_TOKENS = 224  # the bf16 kv8d Whisper generate's budget (448 before)
+BF16_GENERATE_TOKENS = 192  # the bf16 kv8d Whisper generate's budget (448, then 224 before)
+# the [vad] phase: bench_vad_silero's and bench_vad_diarization's protocol,
+# 30 s of seeded noise x 0.1, a warm-up and the fastest of 3 walls; Silero
+# also as 4 rows; Sortformer's stream in 5 s chunks
+VAD_SECONDS, VAD_TIMED, VAD_ROWS = 30.0, 3, 4
+SORTFORMER_CHUNK_S = 5.0
+SILERO_FEED_ATOL = 1e-5    # feed against predict_proba, rows against alone (tests/test_vad.py)
+# card against the port's CPU run, between the sound readings (Silero 1.2e-7,
+# Sortformer <= 8.6e-7) and the TF32 control's (tf32_leak), which vad_phase
+# checks lies above each limit
+SILERO_CARD_ATOL = 2e-6      # Silero's probabilities
+SORTFORMER_CARD_ATOL = 1e-5  # Sortformer's speaker probabilities
 # the standing mutation check (--mutations): for each kernel, its source,
 # the function here that runs its check alone, and its mutations (name,
 # original text, mutated text); a kernel ported later adds its entry
@@ -921,6 +957,10 @@ def device_ms(fn, reps: int = 10, launches: int = 0, busy: float = 0.0) -> float
 
 def fmt(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def fmt_share(share):
+    return "not measured" if share is None else f"{share:.4f}"
 
 
 def fmt_rate(tok_s):
@@ -4269,7 +4309,7 @@ def counting(module, name: str, counter: list):
 
 
 def q4_generate_phase(model, full) -> tuple[list, dict, list]:
-    """Phase 16's offline runs: ``generate`` (greedy, TTS_TOKENS tokens),
+    """Phase 16's offline runs: ``generate`` (greedy, Q4_TOKENS tokens),
     again at Q4_REPEAT_TOKENS (its tokens the first run's prefix, its
     waveform bit for bit the decode of that prefix) and ``generate_stream``
     at Q4_REPEAT_TOKENS (the same prefix, the repeat's number of samples),
@@ -4291,7 +4331,7 @@ def q4_generate_phase(model, full) -> tuple[list, dict, list]:
     hop = model.codec.config.hop_length
     plain = [0]
     runs, first, short, launches = [], None, None, {}
-    for run, (m, n, stream) in enumerate([(model, TTS_TOKENS, False),
+    for run, (m, n, stream) in enumerate([(model, Q4_TOKENS, False),
                                           (model, Q4_REPEAT_TOKENS, False),
                                           (model, Q4_REPEAT_TOKENS, True),
                                           (full, Q4_FULL_TOKENS, False)]):
@@ -4409,7 +4449,7 @@ def q4_teacher_forced(model, tokens) -> float:
     prompt = model.prepare_input_ids(TTS_TEXT)
     worst = 0.0
     with torch.inference_mode():
-        cache, last = q4_prefill(model, prompt, TTS_TOKENS)
+        cache, last = q4_prefill(model, prompt, Q4_TOKENS)
         caches = {m: cache._replace(k=cache.k.clone(), v=cache.v.clone())
                   for m in ("kernel", "plain")}
         kernel = qmm.quantized_matvec
@@ -6151,6 +6191,528 @@ def parakeet_phase(dev, smi: str) -> tuple[dict, dict]:
     return out, k7
 
 
+# -- [vad]: Silero VAD and Sortformer-4spk (BASELINE config 2) ------------------
+
+
+def vad_sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def sortformer_config():
+    """Sortformer-4spk at the widths of ``bench_vad_diarization``
+    (``bench.py:903-905``): an 18 x 512 FastConformer (8 heads, ff 2,048, conv
+    kernel 9) behind conv subsampling by 8 with 256 channels over 128 mels,
+    an 18 x 192 transformer (8 heads, ffn 768) with ``TFEncoderConfig``'s
+    1,500 learned positions, and ``ModulesConfig``'s defaults (spkcache and
+    FIFO 188, update period 144, 3 silence frames a speaker)."""
+    from tpu_audio_torch.models.vad import sortformer as TS
+
+    return TS.SortformerConfig(
+        fc_encoder=TS.FCEncoderConfig(hidden_size=512, num_hidden_layers=18,
+                                      num_attention_heads=8, intermediate_size=2048,
+                                      num_mel_bins=128, subsampling_conv_channels=256),
+        tf_encoder=TS.TFEncoderConfig(d_model=192, encoder_layers=18, encoder_attention_heads=8,
+                                      encoder_ffn_dim=768, max_source_positions=1500),
+        modules=TS.ModulesConfig(),
+        processor=TS.ProcessorConfig(feature_size=128))
+
+
+def build_vad(dev, cfg=None) -> dict:
+    """Silero v5 (both branches) and Sortformer-4spk (``cfg``, by default
+    ``sortformer_config()``) from seeded random weights built on ``dev``
+    (f32), and the same weights copied to the CPU for the port's CPU runs."""
+    import torch
+
+    from tpu_audio_torch.core import loading
+    from tpu_audio_torch.models.vad import silero as TSil
+    from tpu_audio_torch.models.vad import sortformer as TS
+
+    cfg = cfg or sortformer_config()
+    sil = TSil.init_random_params(seed=0, device=dev)
+    srt = TS.init_random_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    return {"silero": TSil.SileroVAD(TSil.SileroVADConfig(), sil),
+            "silero_cpu": TSil.SileroVAD(TSil.SileroVADConfig(), loading.to_device(sil, "cpu")),
+            "sortformer": TS.Sortformer(cfg, srt, torch.float32),
+            "sortformer_cpu": TS.Sortformer(cfg, loading.to_device(srt, "cpu"), torch.float32)}
+
+
+def timed_walls(fn, dev, reps: int = VAD_TIMED):
+    """One warm-up call of ``fn``, then ``reps`` walls (host clock, the
+    device synchronized): (first result, walls)."""
+    out = fn()
+    vad_sync(dev)
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        vad_sync(dev)
+        walls.append(time.perf_counter() - t0)
+    return out, walls
+
+
+def marked_window(fn, label: str) -> tuple[float | None, int]:
+    """(device busy microseconds, device events) of one call of ``fn`` under
+    ``torch.profiler`` (device activity only: the host side of a few
+    thousand eager launches would cost the profiler seconds to gather).
+    As in ``stack_launches``, each window brackets the call with sleep
+    kernels before and after it, each set behind a synchronize and a wait
+    on the host (STACK_READS); the markers are not counted. A window that
+    kept no leading or no trailing marker may have lost events of the call
+    (late in the full run the profiler drops a window's first events), and
+    is read again with a longer wait and more leading markers; after the
+    last read the call is "not measured" (None, 0)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for lead, leading in STACK_READS:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(lead)
+            markers(leading)
+            fn()
+            torch.cuda.synchronize()
+            markers(STACK_MARKERS)
+            time.sleep(lead)
+        spans = device_intervals(prof)
+        call = [i for i, s in enumerate(spans) if "spin_kernel" not in s[2]]
+        if call and call[0] > 0 and call[-1] < len(spans) - 1:
+            return interval_union([spans[i] for i in call]), len(call)
+        print(f"[{label} profile] {len(call)} events, {call[0] if call else 0} of {leading} "
+              f"leading and {len(spans) - 1 - call[-1] if call else 0} of {STACK_MARKERS} "
+              f"trailing markers kept, {lead} s wait: reading again")
+    print(f"[{label} profile] no window kept its markers: not measured")
+    return None, 0
+
+
+def profiled(fn, dev, label: str) -> tuple[float, float, int]:
+    """(wall ms, device busy ms, device events) of one call of ``fn``: the
+    wall from its own call, the device's from a ``marked_window`` (the union
+    of the device intervals; None and 0 on the CPU or where not measured)."""
+    import torch
+
+    t0 = time.perf_counter()
+    fn()
+    if dev.type != "cuda":
+        return (time.perf_counter() - t0) * 1e3, None, 0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy_us, events = marked_window(fn, label)
+    return wall * 1e3, None if busy_us is None else busy_us / 1e3, events
+
+
+def profiled_feeds(model, records) -> list[tuple[float | None, int]]:
+    """(device busy ms, device events) of ``model.feed`` on each recorded
+    chunk from its recorded state, each in a ``marked_window`` of its own."""
+    out = []
+    for i, r in enumerate(records):
+        busy_us, events = marked_window(
+            lambda: model.feed(r["chunk"], copy_state(r["before"])), f"vad sortformer chunk {i}")
+        out.append((None if busy_us is None else busy_us / 1e3, events))
+    return out
+
+
+@contextlib.contextmanager
+def tf32_leak():
+    """The control of the card-against-CPU limits: the models'
+    ``nn.f32_convolutions`` guard bypassed, so that their convolutions run
+    in TF32 (cuDNN's default, left on around the models by ``vad_phase``).
+    ``vad_phase`` checks that each limit lies below the control's reading,
+    so that a leak of TF32 into the convolutions fails the run."""
+    from tpu_audio_torch.core import nn
+
+    guard = nn.f32_convolutions
+    nn.f32_convolutions = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        nn.f32_convolutions = guard
+
+
+def silero_phase(models, dev, smi: str) -> dict:
+    """``bench_vad_silero``'s protocol (30 s of seeded noise x 0.1 through
+    ``predict_proba``, a warm-up, the fastest of 3 walls) at 16 kHz and on
+    the same noise decimated to 8 kHz; B = 4 rows against each row alone;
+    ``feed`` over every chunk against ``predict_proba``; the card against
+    the port's CPU run, and its TF32 control (``tf32_leak``); timestamps
+    and speech runs of the two media clips; device events, host ms and busy
+    share a chunk."""
+    import numpy as np
+
+    from tpu_audio_torch.core.audio_io import load_audio
+    from tpu_audio_torch.models.vad.segmenter import SpeechSegmentConfig, detect_speech_runs
+
+    card, cpu = models["silero"], models["silero_cpu"]
+    t_part, parts = time.perf_counter(), {}
+    rng = np.random.default_rng(0)
+    audio = rng.standard_normal(int(16000 * VAD_SECONDS)).astype(np.float32) * 0.1
+    out = {}
+    for sr in (16000, 8000):
+        # 8 kHz: each pair of samples averaged (a 2:1 decimation behind a box filter)
+        a = audio if sr == 16000 else audio.reshape(-1, 2).mean(axis=1)
+        parts[f"{sr // 1000}k input"] = time.perf_counter() - t_part
+        probs, walls = timed_walls(lambda: card.predict_proba(a, sr), dev)
+        parts[f"{sr // 1000}k walls"] = time.perf_counter() - t_part
+        ref = cpu.predict_proba(a, sr)
+        err = float(np.abs(probs - ref).max())
+        with tf32_leak():
+            leak = float(np.abs(card.predict_proba(a, sr) - ref).max())
+        n = probs.shape[0]
+        parts[f"{sr // 1000}k CPU"] = time.perf_counter() - t_part
+        # the 16 kHz call profiled (the 8 kHz one runs as many LSTM steps)
+        wall_ms, busy_ms, events = (
+            profiled(lambda: card.predict_proba(a, sr), dev, "vad silero")
+            if sr == 16000 else (None, None, 0))
+        check(probs.shape == ref.shape == (-(-a.shape[0] // (512 if sr == 16000 else 256)),)
+              and bool(np.isfinite(probs).all()), f"silero {sr} Hz: probabilities {probs.shape}")
+        check(err <= SILERO_CARD_ATOL, f"silero {sr} Hz: card against CPU {err:.3e} > "
+              f"{SILERO_CARD_ATOL}")
+        res = dict(chunks=n, walls_s=walls, rtf=min(walls) / VAD_SECONDS,
+                   card_vs_cpu=err, tf32_control=leak, host_ms_a_chunk=min(walls) * 1e3 / n,
+                   device_events_a_chunk=events / n, profiled_wall_ms=wall_ms,
+                   busy_ms=busy_ms, busy_share=None if busy_ms is None else busy_ms / wall_ms,
+                   probs_range=[float(probs.min()), float(probs.max())])
+        out[f"{sr // 1000}k"] = res
+        parts[f"{sr // 1000}k"] = time.perf_counter() - t_part
+        print(f"[vad silero {sr // 1000}k] {VAD_SECONDS:.0f} s of noise, {n} chunks: walls "
+              f"{[round(w, 4) for w in walls]} s, RTF {res['rtf']:.6f} "
+              f"({res['host_ms_a_chunk']:.4f} host ms a chunk); card against CPU "
+              f"{err:.3e} (atol {SILERO_CARD_ATOL}; TF32 control {leak:.3e}); "
+              + (f"profiled: {events / n:.2f} device events a chunk, busy {fmt(busy_ms)} of "
+                 f"{wall_ms:.3f} ms (share {fmt_share(res['busy_share'])}); "
+                 if wall_ms is not None else "")
+              + f"probabilities {res['probs_range']} ({smi})")
+    full = out["16k"]
+    probs = card.predict_proba(audio)
+    rows = np.stack([audio] + [rng.standard_normal(audio.shape[0]).astype(np.float32) * 0.1
+                               for _ in range(VAD_ROWS - 1)])
+    batch = card.predict_proba(rows)
+    rows_err = max(float(np.abs(batch[i] - card.predict_proba(rows[i])).max())
+                   for i in range(VAD_ROWS))
+    check(rows_err <= SILERO_FEED_ATOL, f"silero: {VAD_ROWS} rows against each alone "
+          f"{rows_err:.3e} > {SILERO_FEED_ATOL}")
+    state, fed = None, []
+    vad_sync(dev)
+    t0 = time.perf_counter()
+    for i in range(probs.shape[0]):
+        chunk = audio[i * 512:(i + 1) * 512]
+        p, state = card.feed(np.pad(chunk, (0, 512 - chunk.shape[0])), state)
+        fed.append(p[0])
+    feed_wall = time.perf_counter() - t0
+    feed_err = float(np.abs(np.asarray(fed) - probs).max())
+    check(feed_err <= SILERO_FEED_ATOL, f"silero: feed against predict_proba {feed_err:.3e} > "
+          f"{SILERO_FEED_ATOL}")
+    check(state["h"].device.type == dev.type, "silero: the feed state left the device")
+    _, feed_busy, feed_events = profiled(lambda: card.feed(audio[:512], None), dev,
+                                           "vad silero feed")
+    parts["rows and feed"] = time.perf_counter() - t_part
+    full.update(rows=VAD_ROWS, rows_vs_alone=rows_err, feed_vs_predict=feed_err,
+                feed_host_ms_a_chunk=feed_wall * 1e3 / len(fed),
+                feed_device_events_a_chunk=feed_events, feed_busy_ms=feed_busy)
+    print(f"[vad silero] {VAD_ROWS} rows against each alone {rows_err:.3e}; feed over "
+          f"{len(fed)} chunks against predict_proba {feed_err:.3e} (atol {SILERO_FEED_ATOL}), "
+          f"{feed_wall * 1e3 / len(fed):.4f} host ms and {feed_events} device events a chunk")
+    media = {}
+    for path in (AUDIO, AUDIO2):
+        a = load_audio(str(path), sample_rate=16000)[0]
+        ts = [(t.start, t.end) for t in card.get_speech_timestamps(a)]
+        ts_cpu = [(t.start, t.end) for t in cpu.get_speech_timestamps(a)]
+        runs = detect_speech_runs(a, 16000, card, SpeechSegmentConfig())
+        runs_cpu = detect_speech_runs(a, 16000, cpu, SpeechSegmentConfig())
+        check(ts == ts_cpu and runs == runs_cpu, f"silero {path.name}: card {ts} / {runs}, "
+              f"CPU {ts_cpu} / {runs_cpu}")
+        media[path.name] = dict(timestamps=ts, runs=runs)
+        print(f"[vad silero] {path.name}: timestamps {ts}, speech runs {runs} (CPU the same)")
+    out["media"] = media
+    parts["media"] = time.perf_counter() - t_part
+    out["parts_s"] = parts
+    print(f"[vad silero] seconds from its start at the end of each part: {parts}")
+    return out
+
+
+def sortformer_flops(cfg, t: int) -> float:
+    """Multiply-adds x 2 of ``encode_sequence`` over ``t`` frames: in each
+    conformer layer the two FFNs, q/k/v/o, the position projection over
+    2t - 1 rows, the content and position scores, p @ v and the conv module;
+    the encoder projection; in each transformer layer q/k/v/o, scores, p @ v
+    and the FFN; the speaker head."""
+    fc, tf = cfg.fc_encoder, cfg.tf_encoder
+    d, f, k = fc.hidden_size, fc.intermediate_size, fc.conv_kernel_size
+    conformer = (8 * t * d * f + 8 * t * d * d + 2 * (2 * t - 1) * d * d + 4 * t * t * d
+                 + 2 * t * (2 * t - 1) * d + 6 * t * d * d + 2 * t * d * k)
+    D, F = tf.d_model, tf.encoder_ffn_dim
+    transformer = 8 * t * D * D + 4 * t * t * D + 4 * t * D * F
+    head = 2 * t * d * D + 2 * t * D * D + 2 * t * D * cfg.modules.num_speakers
+    return fc.num_hidden_layers * conformer + tf.encoder_layers * transformer + head
+
+
+def copy_state(state: dict) -> dict:
+    import numpy as np
+
+    return {k: (np.array(v) if isinstance(v, np.ndarray) else v) for k, v in state.items()}
+
+
+@contextlib.contextmanager
+def recorded_feeds(model, records: list):
+    """Record each ``feed`` of ``model`` (its chunk, the state before and
+    after, its output) and the ``preds`` of every AOSC compression it ran."""
+    import numpy as np
+
+    from tpu_audio_torch.models.vad import sortformer as TS
+
+    feed, compress, calls = model.feed, TS._compress_aosc, []
+
+    def spy_compress(embs, preds, mean_sil, mc):
+        calls.append(np.array(preds))
+        return compress(embs, preds, mean_sil, mc)
+
+    def spy_feed(chunk, state, *a, **k):
+        before, n = copy_state(state), len(calls)
+        out, after = feed(chunk, state, *a, **k)
+        records.append(dict(chunk=np.array(chunk), before=before, out=out,
+                            after=copy_state(after), compress=calls[n:]))
+        return out, after
+
+    model.feed, TS._compress_aosc = spy_feed, spy_compress
+    try:
+        yield
+    finally:
+        del model.feed
+        TS._compress_aosc = compress
+
+
+def aosc_parting(label: str, mc, ref, got) -> dict:
+    """The AOSC picks of ``got`` against ``ref`` (two routes' speaker
+    probabilities over the same frames): equal, or parted at a witnessed
+    near tie. The picks are a step function of the probabilities; where they
+    part, bisection along the straight line from ``ref`` to ``got`` finds
+    where they switch, so the tie lies within the routes' difference (at
+    most SORTFORMER_CARD_ATOL, checked by the caller)."""
+    import numpy as np
+
+    from tpu_audio_torch.models.vad import sortformer as TS
+
+    def picks(p):
+        return TS.aosc_picks(p.astype(np.float32), mc)
+
+    def same(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    a, b = picks(ref), picks(got)
+    diff = float(np.abs(got - ref).max())
+    if same(a, b):
+        return dict(equal=True, preds_diff=diff)
+    lo, hi = 0.0, 1.0
+    for _ in range(40):
+        mid = (lo + hi) / 2
+        if same(picks(ref + mid * (got - ref)), a):
+            lo = mid
+        else:
+            hi = mid
+    parted = int((a[0] != b[0]).sum() + (a[1] != b[1]).sum())
+    print(f"[vad sortformer] {label}: AOSC picks part at {parted} of {a[0].shape[0]} positions; "
+          f"witness: they switch at {hi:.6f} of the way from the CPU's probabilities to the "
+          f"card's, which lie {diff:.3e} apart")
+    return dict(equal=False, preds_diff=diff, parted=parted, switch_at=hi)
+
+
+def sortformer_phase(models, dev, smi: str) -> dict:
+    """``bench_vad_diarization``'s protocol (30 s of seeded noise x 0.1
+    through ``generate_stream`` at 5 s chunks, a warm-up, the fastest of 3
+    walls); the stream reaching the AOSC compression, with spkcache and FIFO
+    lengths a chunk; each chunk held against the port's CPU run from the
+    card's state before it (speaker probabilities, state lengths, AOSC
+    picks); offline ``generate`` on the two-speaker clip against the CPU;
+    host ms, device ms and events a chunk, the encoder's device ms and
+    bound, the peak device memory; the TF32 control (``tf32_leak``) of the
+    last chunk and of ``generate``."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.core import nn
+    from tpu_audio_torch.core.audio_io import load_audio
+    from tpu_audio_torch.models.vad import sortformer as TS
+
+    card, cpu = models["sortformer"], models["sortformer_cpu"]
+    t_part, parts = time.perf_counter(), {}
+    mc = card.config.modules
+    rng = np.random.default_rng(0)
+    audio = rng.standard_normal(int(16000 * VAD_SECONDS)).astype(np.float32) * 0.1
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    outs, walls = timed_walls(
+        lambda: list(card.generate_stream(audio, chunk_duration=SORTFORMER_CHUNK_S)), dev)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+    records = []
+    with recorded_feeds(card, records):
+        again = list(card.generate_stream(audio, chunk_duration=SORTFORMER_CHUNK_S))
+    check(len(again) == len(outs) == len(records) and all(
+        np.array_equal(x["speaker_probs"], y["speaker_probs"]) for x, y in zip(outs, again)),
+        "sortformer: two streams differ")
+    parts["protocol"] = time.perf_counter() - t_part
+    spk = [r["after"]["spkcache"].shape[1] for r in records]
+    fifo = [r["after"]["fifo"].shape[1] for r in records]
+    n_compress = [len(r["compress"]) for r in records]
+    first = next((i for i, n in enumerate(n_compress) if n), None)
+    print(f"[vad sortformer] {VAD_SECONDS:.0f} s of noise in {len(outs)} chunks of "
+          f"{SORTFORMER_CHUNK_S} s: walls {[round(w, 4) for w in walls]} s, RTF "
+          f"{min(walls) / VAD_SECONDS:.6f}; spkcache {spk}, FIFO {fifo} after each chunk; "
+          f"AOSC compressions a chunk {n_compress}; peak memory "
+          f"{'not measured' if peak is None else f'{peak:.3f} GB'} ({smi})")
+    check(first is not None and max(spk) == mc.spkcache_len and max(fifo) == mc.fifo_len,
+          f"sortformer: the stream did not reach the AOSC compression (spkcache {spk})")
+    chunks, compress = [], []
+    for i, r in enumerate(records):
+        want = r["out"]["speaker_probs"]
+        check(bool(np.isfinite(want).all()) and want.shape[1] == mc.num_speakers,
+              f"sortformer chunk {i}: probabilities {want.shape}")
+        cpu_records = []
+        with recorded_feeds(cpu, cpu_records):
+            cpu.feed(r["chunk"], copy_state(r["before"]))
+        c = cpu_records[0]
+        err = float(np.abs(c["out"]["speaker_probs"] - want).max())
+        lens = [(r["after"][k].shape, c["after"][k].shape) for k in ("spkcache", "fifo")]
+        check(err <= SORTFORMER_CARD_ATOL, f"sortformer chunk {i}: card against CPU "
+              f"{err:.3e} > {SORTFORMER_CARD_ATOL}")
+        check(all(a == b for a, b in lens) and len(c["compress"]) == len(r["compress"]),
+              f"sortformer chunk {i}: state lengths {lens}, compressions "
+              f"{len(r['compress'])} / {len(c['compress'])}")
+        for j, (got, ref) in enumerate(zip(r["compress"], c["compress"])):
+            part = aosc_parting(f"chunk {i} compression {j}", mc, ref, got)
+            check(part["preds_diff"] <= SORTFORMER_CARD_ATOL,
+                  f"sortformer chunk {i}: compression inputs {part['preds_diff']:.3e} apart")
+            compress.append(dict(chunk=i, **part))
+        chunks.append(dict(chunk=i, frames=int(want.shape[0]), card_vs_cpu=err,
+                           spkcache=spk[i], fifo=fifo[i]))
+    with tf32_leak():  # the control: the last chunk with the guard bypassed
+        leak, _ = card.feed(records[-1]["chunk"], copy_state(records[-1]["before"]))
+    controls = dict(chunk=float(np.abs(leak["speaker_probs"]
+                                       - c["out"]["speaker_probs"]).max()))
+    parts["against the CPU"] = time.perf_counter() - t_part
+    # one chunk at a time from its recorded state: host ms, then device ms
+    # and events in one profiled pass, the chunks parted by marker kernels
+    for i, r in enumerate(records):
+        vad_sync(dev)
+        t0 = time.perf_counter()
+        card.feed(r["chunk"], copy_state(r["before"]))
+        vad_sync(dev)
+        st = r["before"]
+        total = st["spkcache"].shape[1] + st["fifo"].shape[1] + min(
+            1, st["fifo"].shape[1]) + chunks[i]["frames"]
+        chunks[i].update(host_ms=(time.perf_counter() - t0) * 1e3, frames_in=total,
+                         bucket=max(32, -(-total // 32) * 32), device_ms=None, events=0)
+    if dev.type == "cuda":
+        for c, (busy_ms, events) in zip(chunks, profiled_feeds(card, records)):
+            c.update(device_ms=busy_ms, events=events)
+    for c in chunks:
+        print(f"[vad sortformer chunk {c['chunk']}] {c['frames']} frames, {c['frames_in']} in a "
+              f"{c['bucket']}-frame bucket: card against CPU {c['card_vs_cpu']:.3e} (atol "
+              f"{SORTFORMER_CARD_ATOL}); host {c['host_ms']:.3f} ms, device {fmt(c['device_ms'])} "
+              f"in {c['events']} events; spkcache {c['spkcache']}, FIFO {c['fifo']}")
+    parts["chunks profiled"] = time.perf_counter() - t_part
+    # the encoder alone over the largest bucket
+    big = max(chunks, key=lambda c: c["bucket"])
+    x = torch.zeros((1, big["bucket"], card.config.fc_encoder.hidden_size), device=dev)
+    x[:, :big["frames_in"]] = torch.randn((1, big["frames_in"], x.shape[2]), device=dev,
+                                          generator=torch.Generator(device=dev).manual_seed(1))
+
+    def encode():
+        with torch.inference_mode(), nn.f32_convolutions():
+            return TS.encode_sequence(card.params, x, big["frames_in"], card.config)
+
+    encode()
+    _, enc_ms, enc_events = profiled(encode, dev, "vad sortformer encoder")
+    flops = sortformer_flops(card.config, big["bucket"])
+    weights = sum(t.numel() * t.element_size() for t in _tensors(card.params))
+    enc_bound = bound(weights + 2 * x.numel() * 4, f32_ops=flops)
+    print(f"[vad sortformer encoder] {big['bucket']} frames: device {fmt(enc_ms)} in "
+          f"{enc_events} events; {flops / 1e9:.1f} GFLOP f32, bound {enc_bound[0]:.4f} ms by "
+          f"{enc_bound[1]} ({weights / 1e6:.1f} MB of weights)")
+    parts["encoder"] = time.perf_counter() - t_part
+    # offline generate on the two-speaker clip
+    a = load_audio(str(AUDIO2), sample_rate=16000)[0]
+    _, gen_walls = timed_walls(lambda: card.generate(a), dev, reps=1)
+    res, ref = card.generate(a), cpu.generate(a)
+    gen_err = float(np.abs(res["speaker_probs"] - ref["speaker_probs"]).max())
+    with tf32_leak():
+        controls["generate"] = float(np.abs(card.generate(a)["speaker_probs"]
+                                            - ref["speaker_probs"]).max())
+    segs = [(s.start, s.end, s.speaker) for s in res["segments"]]
+    segs_cpu = [(s.start, s.end, s.speaker) for s in ref["segments"]]
+    near = int((np.abs(ref["speaker_probs"] - 0.5) <= gen_err).sum())
+    check(gen_err <= SORTFORMER_CARD_ATOL, f"sortformer generate: card against CPU "
+          f"{gen_err:.3e} > {SORTFORMER_CARD_ATOL}")
+    check(segs == segs_cpu or near > 0, f"sortformer generate: segments {segs} / {segs_cpu} "
+          "part with no probability within the routes' difference of 0.5")
+    parts["generate"] = time.perf_counter() - t_part
+    print(f"[vad sortformer] seconds from its start at the end of each part: {parts}")
+    print(f"[vad sortformer] TF32 control (convolutions in TF32), card against CPU: last chunk "
+          f"{controls['chunk']:.3e}, generate {controls['generate']:.3e} (atol "
+          f"{SORTFORMER_CARD_ATOL})")
+    rttm = TS.segments_to_rttm(res["segments"], AUDIO2.stem)
+    print(f"[vad sortformer generate] {AUDIO2.name} ({a.shape[0] / 16000:.2f} s): "
+          f"{res['speaker_probs'].shape[0]} frames in {gen_walls[0]:.4f} s; card against CPU "
+          f"{gen_err:.3e}; {len(segs)} segments, {res['num_speakers']} speakers, equal to the "
+          f"CPU's: {segs == segs_cpu}; RTTM:\n" + "\n".join(rttm.splitlines()[:6]))
+    return dict(chunks_n=len(outs), walls_s=walls, rtf=min(walls) / VAD_SECONDS, parts_s=parts,
+                spkcache=spk, fifo=fifo, compressions=n_compress, first_compression=first,
+                chunks=chunks, aosc=compress, peak_memory_gb=peak, tf32_control=controls,
+                encoder=dict(frames=big["bucket"], device_ms=enc_ms, events=enc_events,
+                             gflop=flops / 1e9, bound_ms=enc_bound[0], bound_by=enc_bound[1]),
+                generate=dict(frames=int(res["speaker_probs"].shape[0]), wall_s=gen_walls[0],
+                              card_vs_cpu=gen_err, segments=len(segs),
+                              num_speakers=res["num_speakers"], equal=segs == segs_cpu))
+
+
+def vad_phase(dev, smi: str, cfg=None) -> dict:
+    """The ``[vad]`` phase: Silero v5 and Sortformer-4spk from seeded random
+    weights on the card (``build_vad``), ``silero_phase`` and
+    ``sortformer_phase``, under PyTorch's default cuDNN flags (TF32
+    allowed), so that the models' own ``nn.f32_convolutions`` keeps their
+    convolutions in f32. No kernel of the port runs here. ``cfg`` replaces
+    ``sortformer_config()`` (a narrow one rehearses the phase on the CPU)."""
+    import torch
+
+    from tpu_audio_torch.ops import _lib
+
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        models = build_vad(dev, cfg)
+        vad_sync(dev)
+        cfg = models["sortformer"].config
+        print(f"[vad] Silero v5 (16 and 8 kHz) and Sortformer-4spk (FastConformer "
+              f"{cfg.fc_encoder.num_hidden_layers} x {cfg.fc_encoder.hidden_size}, transformer "
+              f"{cfg.tf_encoder.encoder_layers} x {cfg.tf_encoder.d_model}, "
+              f"{cfg.processor.feature_size} mels) f32 built in "
+              f"{time.perf_counter() - t_phase:.1f} s; cuDNN allow_tf32 "
+              f"{torch.backends.cudnn.allow_tf32} outside the models")
+        _lib.reset_launches()
+        out = dict(silero=silero_phase(models, dev, smi),
+                   sortformer=sortformer_phase(models, dev, smi))
+        for name, atol, leaks in (
+                ("silero", SILERO_CARD_ATOL, [out["silero"][k]["tf32_control"]
+                                              for k in ("16k", "8k")]),
+                ("sortformer", SORTFORMER_CARD_ATOL,
+                 list(out["sortformer"]["tf32_control"].values()))):
+            check(dev.type != "cuda" or min(leaks) > atol, f"{name}: with its convolutions in "
+                  f"TF32 the card stays within {atol} of the CPU ({leaks}): the limit would "
+                  "not catch a TF32 leak")
+        check(not any(_lib.launches.values()), f"a kernel of the port ran in [vad]: "
+              f"{dict(_lib.launches)}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    out.update(phase_s=time.perf_counter() - t_phase, smi=smi)
+    print(f"[vad] phase {out['phase_s']:.1f} s")
+    del models
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def mutations_main(kernels: list) -> int:
     """The standing mutation check: for each kernel of MUTATIONS (those named
     in ``kernels``, or all), its check alone (timing off) on copies of the
@@ -6898,6 +7460,18 @@ def parakeet_main(smi: str) -> int:
     return 0
 
 
+def vad_main(smi: str) -> int:
+    """``--vad``: the [vad] phase alone, then its JSON as one line (no "ok"
+    line: not the full check). It builds no kernel: none runs there."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = vad_phase(torch.device("cuda", 0), smi)
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"vad": out}))
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6915,7 +7489,7 @@ def main() -> int:
               "--fused-llama-timing": fused_llama_timing_main,
               "--llama-lanes-timing": llama_lanes_timing_main,
               "--kv-mel-timing": kv_mel_timing_main}.get(next(iter(sys.argv[1:]), ""))
-    if sys.argv[1:] not in ([], ["--qmm"], ["--qwen3"], ["--parakeet"]) and not timing:
+    if sys.argv[1:] not in ([], ["--qmm"], ["--qwen3"], ["--parakeet"], ["--vad"]) and not timing:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -6938,6 +7512,8 @@ def main() -> int:
         return qwen3_main(smi.splitlines()[0])
     if sys.argv[1:] == ["--parakeet"]:
         return parakeet_main(smi.splitlines()[0])
+    if sys.argv[1:] == ["--vad"]:
+        return vad_main(smi.splitlines()[0])
     if timing:
         return timing(smi.splitlines()[0], [Path(a).resolve() for a in sys.argv[2:]])
     dev = torch.device("cuda", 0)
@@ -6962,6 +7538,9 @@ def main() -> int:
     parakeet, parakeet_k7 = parakeet_phase(dev, smi.splitlines()[0])
     for k, fields in parakeet_k7.items():
         records[k].update(fields)
+    # the [vad] phase next, early too: it reads device time a chunk from the
+    # profiler (no kernel of the port runs there)
+    vad = vad_phase(dev, smi.splitlines()[0])
 
     t0 = time.perf_counter()
     cfg, models = build_models(dev)
@@ -7078,6 +7657,7 @@ def main() -> int:
     print(json.dumps({"mlx_4bit": mlx}))
     print(json.dumps({"qwen3_tts": qwen3}))
     print(json.dumps({"parakeet": parakeet}))
+    print(json.dumps({"vad": vad}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -50,6 +50,9 @@ print("ok")
      "tpu_audio_torch.core.sampling"],
     ["tpu_audio_torch.models.stt.parakeet", "tpu_audio_torch.models.stt.nemo_alignment",
      "tpu_audio_torch.models.stt", "tpu_audio_torch.cli.stt", "tpu_audio_torch.cli.serve"],
+    ["tpu_audio_torch.models.vad", "tpu_audio_torch.models.vad.silero",
+     "tpu_audio_torch.models.vad.sortformer", "tpu_audio_torch.models.vad.segmenter",
+     "tpu_audio_torch.cli.serve"],
 ])
 def test_port_imports_without_jax(mods):
     res = subprocess.run([sys.executable, "-c", _BLOCKER.format(mods=mods)],

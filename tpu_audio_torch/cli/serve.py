@@ -14,6 +14,11 @@ audio API paths:
 - ``POST /v1/audio/speech/stream``: same body; chunked raw PCM16
   (``Content-Type: audio/L16; rate=<sr>``), each synthesized chunk flushed
   as the model emits it.
+- ``POST /v1/audio/vad``: raw WAV in; JSON speech segments. Sortformer:
+  ``{"segments": [{"start", "end", "speaker"}], "num_speakers"}`` from
+  ``generate``; Silero: ``{"segments": [{"start", "end"}]}`` from the
+  speech segmenter's runs (seconds, rounded to ms). Requests take turns on
+  the model under the lock.
 - ``GET /healthz``: liveness + model metadata.
 - ``GET /metrics``: Prometheus text format: per-route request/error counts
   and wall-time totals.
@@ -30,11 +35,12 @@ the model under a lock. Start with:
 
     python -m tpu_audio_torch.cli.serve --model DIR --task tts --quantize w8a8 --slots 4
     python -m tpu_audio_torch.cli.serve --model QWEN3_TTS_DIR --task tts --slots 4
+    python -m tpu_audio_torch.cli.serve --model SORTFORMER_DIR --task vad
 
 The flags are the JAX server's, plus ``--device`` and ``--quantize w8a8``
 (int8 weights: the configuration whose serving tick runs a fused lanes
-kernel). ``--task auto`` finds the task through the port's STT and TTS
-registries. Other tasks, ``--tp > 1`` and ``--warmup`` are not ported yet
+kernel). ``--task auto`` finds the task through the port's STT, TTS and
+VAD registries. Other tasks, ``--tp > 1`` and ``--warmup`` are not ported yet
 and stop with a message.
 """
 
@@ -53,7 +59,7 @@ import numpy as np
 
 __all__ = ["main", "build_server"]
 
-TASKS = ("stt", "tts")  # the tasks the port serves
+TASKS = ("stt", "tts", "vad")  # the tasks the port serves
 
 
 def _wav_bytes(audio: np.ndarray, sample_rate: int) -> bytes:
@@ -90,7 +96,7 @@ def _ref_audio(req: dict, model):
 
 _KNOWN_ROUTES = (
     "/v1/audio/transcriptions", "/v1/audio/transcriptions/stream",
-    "/v1/audio/speech", "/v1/audio/speech/stream",
+    "/v1/audio/speech", "/v1/audio/speech/stream", "/v1/audio/vad",
     "/healthz", "/metrics",
 )
 
@@ -156,13 +162,28 @@ def _segments(out) -> list[dict]:
             for s in (out.segments or [])]
 
 
+def _vad_payload(model, audio: np.ndarray) -> dict:
+    """The VAD route's JSON: Sortformer's speaker segments through
+    ``generate``, Silero's speech runs through the segmenter."""
+    if hasattr(model, "generate"):  # diarization
+        out = model.generate(audio)
+        return {"segments": [{"start": round(float(s.start), 3), "end": round(float(s.end), 3),
+                              "speaker": int(s.speaker)} for s in out["segments"]],
+                "num_speakers": out["num_speakers"]}
+    from tpu_audio_torch.models.vad.segmenter import SpeechSegmentConfig, detect_speech_runs
+
+    runs = detect_speech_runs(audio, 16000, model, SpeechSegmentConfig())
+    return {"segments": [{"start": round(s / 16000.0, 3), "end": round(e / 16000.0, 3)}
+                         for s, e in runs]}
+
+
 def build_server(model, task: str, model_name: str,
                  host: str = "127.0.0.1", port: int = 8080,
                  slots: int = 1, generation_parameters=None,
                  step_tokens: int = 7, fused: str = "auto"):
     """Construct (but don't start) the HTTP server for an STT (``task``
-    "stt": Whisper, Parakeet) or TTS (``task`` "tts": Orpheus, Qwen3-TTS)
-    ``model``.
+    "stt": Whisper, Parakeet), TTS (``task`` "tts": Orpheus, Qwen3-TTS) or
+    VAD (``task`` "vad": Silero, Sortformer) ``model``.
 
     ``slots > 1`` routes Whisper transcriptions of up to 30 s through a shared
     :class:`~tpu_audio_torch.parallel.continuous_stt.STTEngineWorker`,
@@ -189,7 +210,7 @@ def build_server(model, task: str, model_name: str,
 
             stt_worker = STTEngineWorker(model, slots=slots, step_tokens=step_tokens,
                                          fused=fused)
-    elif slots > 1:
+    elif slots > 1 and task == "tts":
         from tpu_audio_torch.models.tts.qwen3_tts import Qwen3TTS
 
         if isinstance(model, Qwen3TTS):
@@ -363,6 +384,10 @@ def build_server(model, task: str, model_name: str,
                         self._speech_batched(req)
                     else:
                         self._speech(req)
+                elif self.path == "/v1/audio/vad" and task == "vad":
+                    audio, _ = _load_wav_body(body, 16000)
+                    with lock:
+                        self._json(200, _vad_payload(model, audio))
                 else:
                     failed = True
                     self._json(404, {"error":
@@ -448,16 +473,23 @@ def main(argv=None) -> None:
             raise SystemExit("cannot infer a servable task; pass --task")
     if task not in TASKS:
         raise SystemExit(f"--task {task}: not ported yet; the PyTorch server "
-                         f"serves {' and '.join(TASKS)}")
+                         f"serves {', '.join(TASKS)}")
 
     if task == "stt":
         from tpu_audio_torch.models.stt import load_model
 
         model = load_model(args.model, device=args.device, quantize=args.quantize)
-    else:
+    elif task == "tts":
         from tpu_audio_torch.models.tts import load_model
 
         model = load_model(args.model, device=args.device, quantize_bits=args.quantize)
+    else:
+        if args.quantize is not None:
+            raise SystemExit(f"--quantize {args.quantize}: the VAD models have no "
+                             "load-time quantization")
+        from tpu_audio_torch.models.vad import load_model
+
+        model = load_model(args.model, device=args.device)
     server = build_server(model, task, args.model, args.host, args.port,
                           slots=args.slots, step_tokens=args.step_tokens,
                           fused=args.fused)

@@ -9,6 +9,7 @@ like with like.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -17,9 +18,9 @@ import torch.nn.functional as F
 from tpu_audio_torch.core import quant
 
 __all__ = ["linear", "embedding", "embedding_as_linear", "layer_norm",
-           "rms_norm", "batch_norm", "lstm_cell", "conv1d", "conv2d",
+           "rms_norm", "batch_norm", "lstm_cell", "lstm", "conv1d", "conv2d",
            "conv_transpose1d", "gelu", "silu", "snake", "rope_freqs",
-           "apply_rope", "sdpa"]
+           "apply_rope", "sdpa", "f32_convolutions"]
 
 
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -118,6 +119,48 @@ def lstm_cell(p: dict, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
     return h, c
 
 
+def lstm(p: dict, x: torch.Tensor, h0: torch.Tensor | None = None,
+         c0: torch.Tensor | None = None):
+    """Single-layer LSTM over ``[B, T, I]`` in torch gate order, the names
+    :func:`lstm_cell` reads -> ``(outputs [B, T, H], (h, c))``. The input
+    projection of every step is one product hoisted out of the recurrence
+    (as in the JAX package, whose bias is summed into it); an MLX LSTM's
+    single ``bias_ih`` is the sum of the two. ``h0`` and ``c0`` default to
+    zeros."""
+    w_ih = p["weight_ih_l0"] if "weight_ih_l0" in p else p["weight_ih"]
+    w_hh = p["weight_hh_l0"] if "weight_hh_l0" in p else p["weight_hh"]
+    b_ih = p.get("bias_ih_l0", p.get("bias_ih"))
+    b_hh = p.get("bias_hh_l0", p.get("bias_hh"))
+    x_proj = x @ w_ih.t().to(x.dtype)  # [B, T, 4H]
+    if b_ih is not None:
+        x_proj = x_proj + (b_ih if b_hh is None else b_ih + b_hh).to(x.dtype)
+    bsz, hidden = x.shape[0], w_hh.shape[1]
+    h = h0 if h0 is not None else x.new_zeros((bsz, hidden))
+    c = c0 if c0 is not None else x.new_zeros((bsz, hidden))
+    w_hh_t = w_hh.t().to(x.dtype)
+    ys = []
+    for t in range(x.shape[1]):
+        gates = torch.addmm(x_proj[:, t], h, w_hh_t)
+        s = torch.sigmoid(gates)
+        i, f, o = s[:, :hidden], s[:, hidden:2 * hidden], s[:, 3 * hidden:]
+        c = torch.addcmul(f * c, i, torch.tanh(gates[:, 2 * hidden:3 * hidden]))
+        h = o * torch.tanh(c)
+        ys.append(h)
+    out = torch.stack(ys, 1) if ys else x_proj.new_zeros((bsz, 0, hidden))
+    return out, (h, c)
+
+
+@contextlib.contextmanager
+def f32_convolutions():
+    """cuDNN convolutions in full f32 inside the block (PyTorch runs them
+    in TF32 by default, ~1e-3 from the f32 reference); the other cuDNN flags
+    stay as they are, and all are restored on exit."""
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        yield
+
+
 def conv1d(p: dict, x: torch.Tensor, stride: int = 1, padding: int = 0,
            dilation: int = 1, groups: int = 1) -> torch.Tensor:
     """1D conv on channels-last ``[B, L, C_in]`` with ``weight [O, I/g, K]``."""
@@ -214,9 +257,10 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          scale: float | None = None) -> torch.Tensor:
     """Attention over ``[B, H, S, D]`` (K/V may have fewer heads: grouped
     query attention, query head ``h`` reading K/V head ``h // (H / H_kv)``):
-    f32 scores and softmax, masked positions set to -1e9 (finite, so fully
-    masked rows stay finite), probabilities cast back to ``q.dtype`` before
-    the value product."""
+    f32 scores and softmax, probabilities cast back to ``q.dtype`` before
+    the value product. A boolean ``mask`` keeps the positions where it is
+    True and sets the others to -1e9 (finite, so fully masked rows stay
+    finite); a float ``mask`` is added to the scores."""
     b, n_heads, s_q, d = q.shape
     n_kv = k.shape[1]
     if n_kv != n_heads:
@@ -231,7 +275,9 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         causal = torch.ones((s_q, s_k), dtype=torch.bool,
                             device=q.device).tril(s_k - s_q)
         scores = scores.masked_fill(~causal, -1e9)
-    if mask is not None:
+    if mask is not None and mask.dtype == torch.bool:
         scores = scores.masked_fill(~mask, -1e9)
+    elif mask is not None:
+        scores = scores + mask.to(scores.dtype)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return probs @ v.to(q.dtype)

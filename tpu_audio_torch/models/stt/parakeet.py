@@ -283,13 +283,15 @@ def _rel_pos_attention(p, x, pos_emb, n_heads: int):
     return nn.linear(p["linear_out"], o)
 
 
-def _conformer_conv(p, x, kernel_size: int):
+def _conformer_conv(p, x, kernel_size: int, norm: str = "batch_norm"):
+    """The conformer's GLU conv module; ``norm`` names its BatchNorm subtree
+    (Sortformer's checkpoints call it ``norm``)."""
     pw = nn.conv1d(p["pointwise_conv1"], x)
     a, g = pw.chunk(2, dim=-1)
     y = a * torch.sigmoid(g)
     y = nn.conv1d(p["depthwise_conv"], y, padding=(kernel_size - 1) // 2,
                   groups=y.shape[-1])
-    y = nn.silu(nn.batch_norm(p["batch_norm"], y))
+    y = nn.silu(nn.batch_norm(p[norm], y))
     return nn.conv1d(p["pointwise_conv2"], y)
 
 
