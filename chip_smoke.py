@@ -49,7 +49,7 @@ so a kernel that reads the wrong bias or LayerNorm row disagrees), and:
    version; every window's tokens equal its per-window decode's (kernel
    3), batched and per-window timed in turns; the int8 encoder against the
    bf16 one; kernel 2 over all 8 windows' heads bit-equal to 8 calls of
-   one window's; and the bf16 kv8d and dense routes on 4 windows with 32
+   one window's; and the bf16 kv8d and dense routes on 2 windows with 32
    tokens, their teacher-forced logits against the per-window route's;
 4. serves six staggered requests through ``ContinuousSTT`` (w8, 4 slots)
    with the counters reset just before and read just after, every tick
@@ -241,6 +241,25 @@ kernel 7's short calls then read "not measured".)
    (segments and RTTM). A control runs each model with the guard bypassed
    (convolutions in TF32) and must land outside its card-against-CPU limit.
    ``python3 chip_smoke.py --vad`` runs it alone.
+22. ``[vad turn lid]`` (run fifth, after phase 21): FSMN VAD at
+   ``FSMNVADConfig()`` (FunASR fsmn-vad's topology) with a seeded CMVN,
+   SmartTurn at ``SmartTurnConfig()`` (384 x 4 layers, 8 s) and ECAPA-TDNN
+   LID at ``bench_lid``'s voxlingua107 geometry (1,024 channels, 107
+   languages), from seeded random weights in f32 under PyTorch's default
+   cuDNN flags, on a 30 s signal of the two media clips: FSMN's ``scores``
+   and ``detect`` against the CPU (segments equal); SmartTurn's
+   ``predict_endpoint`` on the last 8 s, on 3 s (left-padded) and at 8 kHz,
+   each with kernel 1 launched exactly once (the counters reset just before
+   and read just after, and one kernel-1 launch in a marked profiler
+   window), against the CPU, batch against each alone, and kernel 1 at the
+   path's 800 x 201 x 80 shape against its plain version and timed; ECAPA's
+   ``predict`` by ``bench_lid``'s protocol (10 s, the fastest of 5) against
+   the CPU, ``predict_batch`` over three length buckets and a 35 s clip
+   against the CPU's and each solo ``predict``; the ``lid`` route alone and
+   with six concurrent requests through the micro-batcher, the ``vad``
+   route on FSMN; walls, device ms and events, bounds, peak memory. Each
+   model's card-against-CPU limit must lie below its TF32 control
+   (``tf32_leak``). ``python3 chip_smoke.py --turn-lid`` runs it alone.
 
 Each kernel's record carries its bound on the H100 (``bound_ms``: the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate
@@ -310,12 +329,14 @@ mutant must fail its check and every sound copy pass.
 
 TF32 is off for matmuls and convolutions, so float32 references are full
 float32. Any failed check raises and ends the run with a non-zero code.
-The last eleven lines of output are JSON: the generate runs, the long-form
+The last twelve lines of output are JSON: the generate runs, the long-form
 results, the serving results, the TTS results, the TTS serving results, the
 MLX 4-bit results, the Qwen3-TTS results (its serving under ``serve``), the
-Parakeet results, the VAD results, the kernels' records (kernel 7's with its Qwen3 launches,
-``qwen3_launches`` and ``qwen3``, and its serving ones,
-``qwen3_serve_launches`` and ``qwen3_serve``), then ``{"ok": true,
+Parakeet results, the VAD results, the FSMN / SmartTurn / LID results, the
+kernels' records (kernel 7's with its Qwen3 launches, ``qwen3_launches`` and
+``qwen3``, and its serving ones, ``qwen3_serve_launches`` and
+``qwen3_serve``; kernel 1's with SmartTurn's, ``smart_turn_launches`` and
+``smart_turn``), then ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside the repository, it
 exits non-zero before printing any of them.
 """
@@ -537,9 +558,10 @@ LLAMA_LANES_TIMING_COUNTS = (1, 4, 8, 28)
 # the w8 w8e kv8d model, LONG_TOKENS decode tokens a window (bench.py's
 # bench_whisper_longfile defaults, bench.py:210), then the bf16 kv8d and
 # bf16 dense routes on its first LONG_BF16_WINDOWS windows with
-# LONG_BF16_TOKENS tokens each (cut: their step is host-bound, ~40 ms)
+# LONG_BF16_TOKENS tokens each (cut: their step is host-bound, ~40 ms; 4
+# windows before, 24.0 s of the phase)
 LONG_WINDOWS, LONG_TOKENS = 8, 224
-LONG_BF16_WINDOWS, LONG_BF16_TOKENS = 4, 32
+LONG_BF16_WINDOWS, LONG_BF16_TOKENS = 2, 32
 # in turns: the counted batched and per-window runs, then two more
 LONG_TIMED = ("batched", "per-window", "per-window", "batched")
 LONG_STEP_OFFSET = 100  # the timed decode step's position
@@ -620,10 +642,11 @@ Q4_PROFILE_TOKENS = 8  # ~1,600 device events a token: a short profiled chunk
 # Qwen3-TTS (BASELINE.json:11: 0.6B, MLX 8-bit, streaming), the [qwen3 tts]
 # phase: the talker's vocabulary reaches past codec_bos_id 4197, as a
 # checkpoint's does (bench.py:536-540; the bare default of 4096 is the EOS id
-# itself); greedy runs of QWEN3_FRAMES frames (3.2 s of audio)
+# itself); greedy runs of QWEN3_FRAMES frames (1.6 s of audio; 40 before, ~5.9
+# s a run)
 QWEN3_VOCAB = 4198
 QWEN3_TEXT = TTS_TEXT
-QWEN3_FRAMES = 40
+QWEN3_FRAMES = 20
 QWEN3_TEACHER_FRAMES = 6
 # teacher-forced logits, kernel 7 against its plain version: the prompt and
 # the first talker step run in bf16, where a product's bf16 rounding may
@@ -684,6 +707,37 @@ SILERO_FEED_ATOL = 1e-5    # feed against predict_proba, rows against alone (tes
 # checks lies above each limit
 SILERO_CARD_ATOL = 2e-6      # Silero's probabilities
 SORTFORMER_CARD_ATOL = 1e-5  # Sortformer's speaker probabilities
+# the [vad turn lid] phase: FSMN VAD, SmartTurn and ECAPA-TDNN LID from seeded
+# random weights in f32, FSMN and SmartTurn at the JAX package's defaults,
+# ECAPA at bench_lid's voxlingua107 geometry (bench.py:1042); a 30 s signal of
+# the two media clips with a second of zeros after each, repeated
+TURN_LID_SECONDS = 30.0
+FSMN_SIL_QUANTILE = 0.5  # the silence bias puts this quantile of frames at the speech threshold
+FSMN_SIL_STEPS = 8
+ECAPA_GEOMETRY = dict(channels=1024, embed_dim=256, classifier_hidden_dim=512, num_classes=107,
+                      input_size=60, res2net_scale=8, se_channels=128, attention_channels=128)
+ECAPA_SECONDS, ECAPA_TIMED = 10.0, 5  # bench_lid's clip; the fastest of 5 walls
+ECAPA_BATCH_S = (3.0, 7.0, 10.0, 35.0)  # buckets of 4, 8 and 16 s, and predict past 30 s
+LID_HTTP_S = (1.0, 2.0, 4.0, 8.0, 2.0, 4.0)  # concurrent requests, each filling its bucket
+SMART_TURN_TIMED = 5
+# card against the port's CPU run, between the sound readings and the TF32
+# controls' (tf32_leak), which turn_lid_phase checks lie above each limit
+# FSMN's scores: 1.0e-5 read against a TF32-matmul control of 2.8e-2; its
+# depthwise memory convolutions take no TF32 path (the conv-only control read
+# the sound 1.0e-5), so its control is the one with TF32 matmuls too
+FSMN_CARD_ATOL = 1e-4
+SMART_TURN_CARD_ATOL = 1e-6  # SmartTurn's probability: 6.0e-8 read, TF32 control 1.5e-5-2.2e-5
+ECAPA_CARD_ATOL = 1e-5       # ECAPA's probabilities: <= 3.8e-6 read, TF32 control >= 6.7e-5
+SMART_TURN_BATCH_ATOL = 1e-5  # batched rows against each alone (tests/test_smart_turn.py)
+# a padded batched row against its solo predict: the same top-1, its
+# confidence within ECAPA_SOLO_ATOL. The JAX package's predict_batch, which
+# the port matches within 1e-5 on the CPU, masks the pooling but not the SE
+# blocks' time means, so the padding moves a row further than the
+# convolutions' edges do: 0.120 / 0.013 / 0.150 on this random model at 3 /
+# 7 / 10 s (0.032 / 0.006 / 0.010 with masked SE means, on the CPU at 256
+# channels); tests/test_ecapa.py's 0.05 holds on its narrow fixture only. A
+# clip that fills its bucket: that test's 1e-4
+ECAPA_SOLO_ATOL, ECAPA_FILLED_ATOL = 0.25, 1e-4
 # the standing mutation check (--mutations): for each kernel, its source,
 # the function here that runs its check alone, and its mutations (name,
 # original text, mutated text); a kernel ported later adds its entry
@@ -6254,8 +6308,15 @@ def timed_walls(fn, dev, reps: int = VAD_TIMED):
 
 
 def marked_window(fn, label: str) -> tuple[float | None, int]:
-    """(device busy microseconds, device events) of one call of ``fn`` under
-    ``torch.profiler`` (device activity only: the host side of a few
+    """(device busy microseconds, device events) of one call of ``fn`` from
+    ``marked_spans``; (None, 0) where not measured."""
+    spans = marked_spans(fn, label)
+    return (None, 0) if spans is None else (interval_union(spans), len(spans))
+
+
+def marked_spans(fn, label: str) -> list | None:
+    """The device activities, (start, end, name), of one call of ``fn``
+    under ``torch.profiler`` (device activity only: the host side of a few
     thousand eager launches would cost the profiler seconds to gather).
     As in ``stack_launches``, each window brackets the call with sleep
     kernels before and after it, each set behind a synchronize and a wait
@@ -6263,7 +6324,7 @@ def marked_window(fn, label: str) -> tuple[float | None, int]:
     kept no leading or no trailing marker may have lost events of the call
     (late in the full run the profiler drops a window's first events), and
     is read again with a longer wait and more leading markers; after the
-    last read the call is "not measured" (None, 0)."""
+    last read the call is "not measured" (None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -6278,12 +6339,12 @@ def marked_window(fn, label: str) -> tuple[float | None, int]:
         spans = device_intervals(prof)
         call = [i for i, s in enumerate(spans) if "spin_kernel" not in s[2]]
         if call and call[0] > 0 and call[-1] < len(spans) - 1:
-            return interval_union([spans[i] for i in call]), len(call)
+            return [spans[i] for i in call]
         print(f"[{label} profile] {len(call)} events, {call[0] if call else 0} of {leading} "
               f"leading and {len(spans) - 1 - call[-1] if call else 0} of {STACK_MARKERS} "
               f"trailing markers kept, {lead} s wait: reading again")
     print(f"[{label} profile] no window kept its markers: not measured")
-    return None, 0
+    return None
 
 
 def profiled(fn, dev, label: str) -> tuple[float, float, int]:
@@ -6314,20 +6375,25 @@ def profiled_feeds(model, records) -> list[tuple[float | None, int]]:
 
 
 @contextlib.contextmanager
-def tf32_leak():
+def tf32_leak(matmul: bool = False):
     """The control of the card-against-CPU limits: the models'
     ``nn.f32_convolutions`` guard bypassed, so that their convolutions run
-    in TF32 (cuDNN's default, left on around the models by ``vad_phase``).
-    ``vad_phase`` checks that each limit lies below the control's reading,
+    in TF32 (cuDNN's default, left on around the models by ``vad_phase`` and
+    ``turn_lid_phase``), and with ``matmul`` their matrix products too.
+    Those phases check that each limit lies below the control's reading,
     so that a leak of TF32 into the convolutions fails the run."""
+    import torch
+
     from tpu_audio_torch.core import nn
 
-    guard = nn.f32_convolutions
+    guard, mm = nn.f32_convolutions, torch.backends.cuda.matmul.allow_tf32
     nn.f32_convolutions = contextlib.nullcontext
+    torch.backends.cuda.matmul.allow_tf32 = matmul or mm
     try:
         yield
     finally:
         nn.f32_convolutions = guard
+        torch.backends.cuda.matmul.allow_tf32 = mm
 
 
 def silero_phase(models, dev, smi: str) -> dict:
@@ -6711,6 +6777,523 @@ def vad_phase(dev, smi: str, cfg=None) -> dict:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+def speech_signal(seconds: float):
+    """The speech clip, a second of zeros, the two-speaker clip and a second
+    of zeros, repeated to ``seconds`` (16 kHz, f32 numpy)."""
+    import numpy as np
+
+    from tpu_audio_torch.core.audio_io import load_audio
+
+    z = np.zeros(16000, np.float32)
+    unit = np.concatenate([load_audio(str(AUDIO), sample_rate=16000)[0], z,
+                           load_audio(str(AUDIO2), sample_rate=16000)[0], z])
+    n = int(16000 * seconds)
+    return np.tile(unit, -(-n // unit.shape[0]))[:n]
+
+
+def wav_body(audio) -> bytes:
+    """WAV bytes (PCM16, 16 kHz) of ``audio``, as a client posts them."""
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((audio * 32767).clip(-32768, 32767).astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def posted(server, path: str, bodies: list) -> tuple[list, float]:
+    """POST each of ``bodies`` to ``path`` on ``server`` at once (a thread
+    each, released together): (JSON answers in order, wall seconds)."""
+    url = f"http://127.0.0.1:{server.server_address[1]}{path}"
+    out = [None] * len(bodies)
+    start = threading.Barrier(len(bodies))
+
+    def post(i):
+        start.wait()
+        req = urllib.request.Request(url, data=bodies[i], headers={"Content-Type": "audio/wav"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out[i] = json.loads(r.read())
+
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        workers = [threading.Thread(target=post, args=(i,)) for i in range(len(bodies))]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=300)
+            check(not w.is_alive(), f"a POST to {path} did not return")
+        wall = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    check(all(o is not None for o in out), f"a POST to {path} failed")
+    return out, wall
+
+
+def card_and_cpu(dev, build) -> tuple:
+    """``build(device, params)`` on the card (params None: seeded random
+    ones built there) and on the CPU from a copy of the card's, with the
+    card's peak memory counted from just before the build."""
+    import torch
+
+    from tpu_audio_torch.core import loading
+
+    torch.cuda.reset_peak_memory_stats()
+    card = build(dev, None)
+    return card, build("cpu", loading.to_device(card.params, "cpu"))
+
+
+def peak_gb() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def no_launches(label: str) -> None:
+    """No kernel of the port ran since the counters' last reset."""
+    from tpu_audio_torch.ops import _lib
+
+    check(not any(_lib.launches.values()), f"a kernel of the port ran in {label}: "
+          f"{dict(_lib.launches)}")
+
+
+def fsmn_flops(cfg, t: int) -> float:
+    """Multiply-adds x 2 of the FSMN encoder over ``t`` frames and of the
+    fbank's mel projection (the rfft left out)."""
+    c = cfg.encoder
+    per_layer = 2 * c.linear_dim * c.proj_dim + c.proj_dim * c.lorder
+    return 2.0 * t * (c.input_dim * c.input_affine_dim + c.input_affine_dim * c.linear_dim
+                      + c.fsmn_layers * per_layer + c.linear_dim * c.output_affine_dim
+                      + c.output_affine_dim * c.output_dim + 257 * cfg.n_mels)
+
+
+def fsmn_turn_phase(dev, signal, smi: str) -> dict:
+    """FSMN VAD at ``FSMNVADConfig()`` (FunASR fsmn-vad: 400 -> 140, 4 x (250 ->
+    128, lorder 20), 140 -> 248) with a seeded CMVN: the silence state's
+    output bias set so that FSMN_SIL_QUANTILE of the signal's frames sit at
+    the speech threshold (on card and CPU alike); ``scores`` and ``detect``
+    on the 30 s signal against the CPU (scores within FSMN_CARD_ATOL,
+    segments equal) and the TF32 controls; walls, a profiled ``scores``
+    (device ms, events), the bound, the peak memory."""
+    import numpy as np
+
+    from tpu_audio_torch.models.vad import fsmn_vad as TF
+    from tpu_audio_torch.ops import _lib
+
+    cfg = TF.FSMNVADConfig()
+    rng = np.random.default_rng(0)
+    cmvn = ((-12.0 - 2.0 * rng.standard_normal(cfg.encoder.input_dim)).astype(np.float32),
+            (0.25 + 0.1 * rng.random(cfg.encoder.input_dim)).astype(np.float32))
+    card, cpu = card_and_cpu(dev, lambda d, p: TF.FSMNVAD(
+        cfg, p if p is not None else TF.init_random_params(cfg.encoder, seed=0, device=d), cmvn))
+    # the random model's silence posteriors lie far below f32's reach: step
+    # the bias by the log-odds of the clipped quantile until it settles
+    delta = 0.0
+    for _ in range(FSMN_SIL_STEPS):
+        sil = np.clip(card.scores(signal)[:, 0], 1e-7, 1 - 1e-7)
+        step = float(np.log(0.2 / 0.8) - np.quantile(np.log(sil / (1 - sil)), FSMN_SIL_QUANTILE))
+        for m in (card, cpu):
+            m.params["out_linear2"]["bias"][0] += step
+        delta += step
+        if abs(step) < 1e-3:
+            break
+    _lib.reset_launches()
+    scores, walls = timed_walls(lambda: card.scores(signal), dev)
+    segs, det_walls = timed_walls(lambda: card.detect(signal), dev)
+    no_launches("FSMN VAD")
+    ref = cpu.scores(signal)
+    segs_cpu = cpu.detect(signal)
+    err = float(np.abs(scores - ref).max())
+    with tf32_leak():
+        leak = float(np.abs(card.scores(signal) - ref).max())
+    with tf32_leak(matmul=True):
+        leak_mm = float(np.abs(card.scores(signal) - ref).max())
+    wall_ms, busy_ms, events = profiled(lambda: card.scores(signal), dev, "turn fsmn")
+    peak = peak_gb()
+    frames = scores.shape[0]
+    n_params = sum(t.numel() for t in _tensors(card.params))
+    b_ms, b_by = bound(4 * (signal.shape[0] + n_params + scores.size),
+                       f32_ops=fsmn_flops(cfg, frames))
+    res = dict(frames=frames, states=int(scores.shape[1]), silence_bias_shift=delta,
+               speech_frames=int((scores[:, 0] <= 0.2).sum()), segments=segs,
+               segments_equal=segs == segs_cpu, card_vs_cpu=err,
+               tf32_control=leak, tf32_matmul_control=leak_mm, scores_walls_s=walls,
+               detect_walls_s=det_walls, rtf=min(det_walls) / TURN_LID_SECONDS,
+               profiled_wall_ms=wall_ms, busy_ms=busy_ms, device_events=events,
+               bound_ms=b_ms, bound_by=b_by, peak_memory_gb=peak)
+    print(f"[turn fsmn] FSMNVADConfig() ({cfg.encoder.input_dim} -> {cfg.encoder.input_affine_dim}, "
+          f"{cfg.encoder.fsmn_layers} x ({cfg.encoder.linear_dim} -> {cfg.encoder.proj_dim}, lorder "
+          f"{cfg.encoder.lorder}), -> {cfg.encoder.output_dim}), {TURN_LID_SECONDS:.0f} s: {frames} "
+          f"frames, {res['speech_frames']} at speech (silence bias {delta:+.4f}); segments "
+          f"{segs} (CPU equal: {segs == segs_cpu}); scores card against CPU {err:.3e} (atol "
+          f"{FSMN_CARD_ATOL}; TF32 control {leak:.3e}, with TF32 matmuls {leak_mm:.3e}); scores "
+          f"walls {[round(w, 4) for w in walls]} s, detect walls "
+          f"{[round(w, 4) for w in det_walls]} s (RTF {res['rtf']:.6f}); profiled scores: "
+          f"{events} device events, busy {fmt(busy_ms)} of {wall_ms:.3f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}); peak {peak:.3f} GB ({smi})")
+    check(scores.shape == ref.shape and bool(np.isfinite(scores).all())
+          and np.allclose(scores.sum(axis=1), 1.0, atol=1e-5), f"fsmn: scores {scores.shape}")
+    check(segs == segs_cpu and len(segs) > 1, f"fsmn: segments {segs}, CPU {segs_cpu}")
+    res["card_model"] = card
+    return res
+
+
+def smart_turn_flops(cfg, frames: int) -> float:
+    """Multiply-adds x 2 of SmartTurn's forward over ``frames`` mel frames:
+    the two convolutions, each layer's q/k/v/o, scores, p @ v and FFN, the
+    pooling and the classifier."""
+    d, f, m, t = cfg.d_model, cfg.encoder_ffn_dim, cfg.num_mel_bins, frames // 2
+    conv = frames * m * d * 3 + t * d * d * 3
+    layer = 4 * t * d * d + 2 * t * t * d + 2 * t * d * f
+    return 2.0 * (conv + cfg.encoder_layers * layer + t * d * 256 + 256 + d * 256 + 256 * 64)
+
+
+def smart_turn_phase(dev, signal, smi: str) -> tuple[dict, dict]:
+    """SmartTurn at ``SmartTurnConfig()`` (384 x 4 layers, 6 heads, ffn
+    1,536, 80 mels, 8 s): ``predict_endpoint`` on the signal's last 8 s, on
+    3 s of the speech clip (left-padded) and on the speech clip at 8 kHz
+    (resampled), each with the counters reset just before and read just
+    after (kernel 1 exactly once, no other kernel) and profiled in a marked
+    window (exactly one kernel-1 launch among its device events), against
+    the CPU within SMART_TURN_CARD_ATOL and the TF32 controls; the features
+    against the CPU's within MEL_ATOL; ``__call__`` on a batch of 2 against
+    each alone; kernel 1 at the path's shape (800 frames x 201 bins x 80
+    mels) against its plain version and timed. Returns the phase's record
+    and kernel 1's fields."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.core import dsp
+    from tpu_audio_torch.core.audio_io import load_audio, resample_audio
+    from tpu_audio_torch.models.vad import smart_turn as TS
+    from tpu_audio_torch.ops import _lib
+    from tpu_audio_torch.ops import mel as M
+
+    cfg = TS.SmartTurnConfig()
+    card, cpu = card_and_cpu(dev, lambda d, p: TS.SmartTurn(
+        cfg, p if p is not None else TS.init_random_params(cfg, seed=0, device=d)))
+    speech = load_audio(str(AUDIO), sample_rate=16000)[0]
+    window = cfg.max_audio_seconds * cfg.sampling_rate
+    clips = {"last 8 s": (signal[-window:], None), "3 s": (speech[:48000], None),
+             "8 kHz": (resample_audio(speech, 16000, 8000), 8000)}
+    calls, launches = {}, 0
+    for label, (a, sr) in clips.items():
+        _lib.reset_launches()
+        out = card.predict_endpoint(a, sr)
+        got = dict(_lib.launches)
+        check(got == {"fused_log_mel": 1}, f"smart turn {label}: launches {got} (kernel 1 once)")
+        launches += got["fused_log_mel"]
+        ref = cpu.predict_endpoint(a, sr)
+        err = abs(out.probability - ref.probability)
+        with tf32_leak():
+            leak = abs(card.predict_endpoint(a, sr).probability - ref.probability)
+        with tf32_leak(matmul=True):
+            leak_mm = abs(card.predict_endpoint(a, sr).probability - ref.probability)
+        _, walls = timed_walls(lambda: card.predict_endpoint(a, sr), dev, SMART_TURN_TIMED)
+        spans = marked_spans(lambda: card.predict_endpoint(a, sr), f"turn smart {label}")
+        k1 = None if spans is None else sum("fused_log_mel_kernel" in n for *_, n in spans)
+        check(spans is None or k1 == 1, f"smart turn {label}: {k1} kernel-1 launches profiled")
+        busy = None if spans is None else interval_union(spans) / 1e3
+        feat_err = float((card.prepare_input_features(a, sr).cpu()
+                          - cpu.prepare_input_features(a, sr)).abs().max())
+        calls[label] = dict(probability=out.probability, prediction=out.prediction,
+                            card_vs_cpu=err, tf32_control=leak, tf32_matmul_control=leak_mm,
+                            features_card_vs_cpu=feat_err, walls_s=walls,
+                            host_ms=min(walls) * 1e3, busy_ms=busy,
+                            device_events=0 if spans is None else len(spans),
+                            kernel1_profiled=k1)
+        print(f"[turn smart {label}] probability {out.probability:.6f} (prediction "
+              f"{out.prediction}); card against CPU {err:.3e} (atol {SMART_TURN_CARD_ATOL}; TF32 "
+              f"control {leak:.3e}, with TF32 matmuls {leak_mm:.3e}); features {feat_err:.3e} "
+              f"(atol {MEL_ATOL}); kernel 1 launched {got['fused_log_mel']} time(s), "
+              f"{k1} in the profile; walls {[round(w * 1e3, 3) for w in walls]} ms, "
+              f"{calls[label]['device_events']} device events, busy {fmt(busy)}")
+        check(0.0 <= out.probability <= 1.0 and np.isfinite(out.probability),
+              f"smart turn {label}: probability {out.probability}")
+        check(feat_err <= MEL_ATOL, f"smart turn {label}: features {feat_err:.3e} from the CPU's")
+    # kernel 1 at the path's shape: the STFT of the signal's prepared last 8 s
+    x = torch.from_numpy(card.prepare_audio(clips["last 8 s"][0])).to(dev)
+    spec = dsp.stft(x, dsp.hanning_window(cfg.n_fft, periodic=True), cfg.n_fft,
+                    cfg.hop_length)[:-1]
+    re, im = spec.real.contiguous(), spec.imag.contiguous()
+    fb = torch.from_numpy(dsp.mel_filters(cfg.sampling_rate, cfg.n_fft, cfg.n_mels, f_min=0.0,
+                                          f_max=cfg.sampling_rate / 2.0, norm="slaney",
+                                          mel_scale="slaney")).to(dev)
+    got, want, k1_err = mel_check("smart turn, 8 s, 80 mels", lambda: M.fused_log_mel(re, im, fb),
+                                  re, im, fb)
+    check(got.shape == (window // cfg.hop_length, cfg.n_mels), f"smart turn mel {got.shape}")
+    b_ms, b_by = mel_bound(re, im, fb, got)
+    k1 = dict(shape=[re.shape[0], re.shape[1], fb.shape[1]], max_abs_err=k1_err,
+              rel_err=rel_err(got, want), bound_ms=b_ms, bound_by=b_by,
+              ms=cuda_ms(lambda: M.fused_log_mel(re, im, fb)),
+              plain_ms=cuda_ms(lambda: M.fused_log_mel_ref(re, im, fb)),
+              dev_ms=device_ms(lambda: M.fused_log_mel(re, im, fb)),
+              plain_dev_ms=device_ms(lambda: M.fused_log_mel_ref(re, im, fb)))
+    print(f"[turn smart mel] kernel 1 at [{re.shape[0]},{re.shape[1]}]x[{fb.shape[0]},"
+          f"{fb.shape[1]}]: max abs err {k1_err:.3e} (atol {MEL_ATOL}); per call kernel "
+          f"{k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms; device kernel {fmt(k1['dev_ms'])}, "
+          f"plain {fmt(k1['plain_dev_ms'])}; bound {b_ms:.6f} ms ({b_by}) ({smi})")
+    # __call__ on a batch of 2 against each alone, and against the CPU
+    _lib.reset_launches()
+    feats = [card.prepare_input_features(a, sr) for a, sr in list(clips.values())[:2]]
+    check(_lib.launches["fused_log_mel"] == 2, "smart turn: kernel 1 not once a clip")
+    batched = card(torch.stack(feats)).cpu()
+    alone = torch.cat([card(f).cpu() for f in feats])
+    batch_err = float((batched - alone).abs().max())
+    batch_cpu = float((batched - cpu(torch.stack([f.cpu() for f in feats]))).abs().max())
+    fwd = smart_turn_flops(cfg, window // cfg.hop_length)
+    n_params = sum(t.numel() for t in _tensors(card.params))
+    f_ms, f_by = bound(4 * (n_params + feats[0].numel()), f32_ops=fwd)
+    _, fwd_busy, fwd_events = profiled(lambda: card(feats[0]), dev, "turn smart forward")
+    peak = peak_gb()
+    print(f"[turn smart batch] 2 rows against each alone {batch_err:.3e} (atol "
+          f"{SMART_TURN_BATCH_ATOL}), against the CPU {batch_cpu:.3e}; the forward alone: "
+          f"{fwd_events} device events, busy {fmt(fwd_busy)}, bound {f_ms:.4f} ms ({f_by}, "
+          f"{fwd / 1e9:.3f} GFLOP f32); peak {peak:.3f} GB")
+    check(batch_err <= SMART_TURN_BATCH_ATOL, f"smart turn: batch against alone {batch_err:.3e}")
+    check(batch_cpu <= SMART_TURN_CARD_ATOL, f"smart turn: batch against the CPU {batch_cpu:.3e}")
+    res = dict(calls=calls, kernel1=k1, kernel1_launches=launches, batch_vs_alone=batch_err,
+               batch_vs_cpu=batch_cpu, forward=dict(busy_ms=fwd_busy, device_events=fwd_events,
+                                                    gflop=fwd / 1e9, bound_ms=f_ms,
+                                                    bound_by=f_by), peak_memory_gb=peak)
+    return res, dict(smart_turn_launches=launches, smart_turn=k1)
+
+
+def ecapa_flops(cfg, frames: int) -> float:
+    """Multiply-adds x 2 of ECAPA over ``frames`` mel frames: the mel
+    projection, block 0, three SE-Res2Net blocks (two 1x1 convs, the
+    Res2Net convs, SE), the aggregation, attentive pooling, the embedding
+    and the classifier (the STFT left out)."""
+    c, s, k = cfg.channels, cfg.res2net_scale, cfg.kernel_sizes
+    res2 = sum((s - 1) * (c // s) ** 2 * k[i] for i in (1, 2, 3))
+    per_frame = (201 * 60 + cfg.input_size * c * k[0] + 3 * 2 * c * c + res2
+                 + 9 * c * c * k[4] + 2 * 3 * c * cfg.attention_channels)
+    head = (6 * c * cfg.embed_dim + cfg.embed_dim * cfg.classifier_hidden_dim
+            + cfg.classifier_hidden_dim * cfg.num_classes + 3 * 2 * c * cfg.se_channels)
+    return 2.0 * (frames * per_frame + head)
+
+
+def ecapa_phase(dev, signal, smi: str) -> tuple[dict, object]:
+    """ECAPA-TDNN LID at ECAPA_GEOMETRY: ``predict`` on bench_lid's 10 s of
+    seeded noise (x 0.1) and on 10 s of the signal against the CPU within
+    ECAPA_CARD_ATOL, top-1 equal, and the TF32 controls; the per-clip ms as
+    the fastest of ECAPA_TIMED walls (readback included), a profiled
+    ``predict_device`` (device ms, events) and the bound; ``predict_batch``
+    on ECAPA_BATCH_S seconds of the signal (three buckets and ``predict``
+    past 30 s): each row against the CPU's ``predict_batch`` and against its
+    solo ``predict`` (top-1 equal, its confidence within ECAPA_SOLO_ATOL;
+    every probability's difference read); the peak memory.
+    Returns the record and the card's model."""
+    import numpy as np
+
+    from tpu_audio_torch.models.lid import ecapa_lid as TE
+    from tpu_audio_torch.ops import _lib
+
+    cfg = TE.EcapaConfig(**ECAPA_GEOMETRY, id2label={str(i): f"lang{i}" for i in range(107)})
+    card, cpu = card_and_cpu(dev, lambda d, p: TE.EcapaLID(
+        cfg, p if p is not None else TE.init_random_params(cfg, seed=0, device=d)))
+    n = int(16000 * ECAPA_SECONDS)
+    noise = np.random.default_rng(0).standard_normal(n).astype(np.float32) * 0.1
+    _lib.reset_launches()
+    probs = {}
+    for label, a in (("noise", noise), ("signal", signal[:n])):
+        got = card.predict_device(a).cpu().numpy()
+        ref = cpu.predict_device(a).numpy()
+        with tf32_leak():
+            leak = float(np.abs(card.predict_device(a).cpu().numpy() - ref).max())
+        with tf32_leak(matmul=True):
+            leak_mm = float(np.abs(card.predict_device(a).cpu().numpy() - ref).max())
+        probs[label] = dict(card_vs_cpu=float(np.abs(got - ref).max()), tf32_control=leak,
+                            tf32_matmul_control=leak_mm, top1=int(got.argmax()),
+                            top1_cpu=int(ref.argmax()), max_prob=float(got.max()))
+        print(f"[turn ecapa {label}] {ECAPA_SECONDS:.0f} s: top-1 lang{got.argmax()} "
+              f"({got.max():.4f}; CPU lang{ref.argmax()}); card against CPU "
+              f"{probs[label]['card_vs_cpu']:.3e} (atol {ECAPA_CARD_ATOL}; TF32 control "
+              f"{leak:.3e}, with TF32 matmuls {leak_mm:.3e})")
+        check(got.shape == (107,) and bool(np.isfinite(got).all())
+              and abs(float(got.sum()) - 1.0) < 1e-4, f"ecapa {label}: probabilities")
+        check(got.argmax() == ref.argmax(), f"ecapa {label}: top-1 differs from the CPU's")
+    out, walls = timed_walls(lambda: card.predict(noise), dev, ECAPA_TIMED)
+    wall_ms, busy_ms, events = profiled(lambda: card.predict_device(noise), dev, "turn ecapa")
+    frames = 1 + n // 160
+    flops = ecapa_flops(cfg, frames)
+    n_params = sum(t.numel() for t in _tensors(card.params))
+    b_ms, b_by = bound(4 * (n + n_params + 107), f32_ops=flops)
+    print(f"[turn ecapa predict] bench_lid's {ECAPA_SECONDS:.0f} s clip: walls "
+          f"{[round(w * 1e3, 3) for w in walls]} ms (fastest {min(walls) * 1e3:.3f} ms a clip, "
+          f"readback and top-k included); profiled predict_device: {events} device events, busy "
+          f"{fmt(busy_ms)} of {wall_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.2f} "
+          f"GFLOP f32) ({smi})")
+    # predict_batch over three buckets and the solo route past 30 s
+    long = speech_signal(max(ECAPA_BATCH_S))
+    clips = [long[: int(16000 * s)] for s in ECAPA_BATCH_S]
+    batch = card.predict_batch(clips, top_k=107)
+    batch_cpu = cpu.predict_batch(clips, top_k=107)
+    rows = []
+    for s, c, b, r in zip(ECAPA_BATCH_S, clips, batch, batch_cpu):
+        pb = lid_probs(b)
+        solo = card.predict_device(c).cpu().numpy()
+        rows.append(dict(seconds=s, card_vs_cpu=float(np.abs(pb - lid_probs(r)).max()),
+                         vs_solo=abs(b.confidence - float(solo.max())),
+                         probs_vs_solo=float(np.abs(pb - solo).max()), top1=b.language,
+                         top1_solo=f"lang{solo.argmax()}", top1_cpu=r.language))
+    cpu_errs = ", ".join(f"{r['card_vs_cpu']:.3e}" for r in rows)
+    solo_errs = ", ".join(f"{r['vs_solo']:.3e}" for r in rows)
+    probs_errs = ", ".join(f"{r['probs_vs_solo']:.3e}" for r in rows)
+    print(f"[turn ecapa batch] {list(ECAPA_BATCH_S)} s in one predict_batch: card against the "
+          f"CPU's predict_batch [{cpu_errs}] (atol {ECAPA_CARD_ATOL}); against each solo "
+          f"predict: top-1 confidence [{solo_errs}] (atol {ECAPA_SOLO_ATOL}), every "
+          f"probability [{probs_errs}]; top-1 {[r['top1'] for r in rows]}, solo "
+          f"{[r['top1_solo'] for r in rows]}")
+    for r in rows:
+        check(r["top1"] == r["top1_solo"] == r["top1_cpu"], f"ecapa batch {r['seconds']} s: top-1 "
+              f"{r['top1']}, solo {r['top1_solo']}, CPU {r['top1_cpu']}")
+        check(r["vs_solo"] <= ECAPA_SOLO_ATOL, f"ecapa batch {r['seconds']} s: against solo "
+              f"{r['vs_solo']:.3e}")
+    check(rows[-1]["probs_vs_solo"] <= ECAPA_CARD_ATOL, "ecapa: the clip past 30 s left predict")
+    no_launches("ECAPA LID")
+    peak = peak_gb()
+    res = dict(predict=probs, language=out.language, walls_s=walls, ms_a_clip=min(walls) * 1e3,
+               profiled_wall_ms=wall_ms, busy_ms=busy_ms, device_events=events, frames=frames,
+               gflop=flops / 1e9, bound_ms=b_ms, bound_by=b_by, batch=rows, peak_memory_gb=peak)
+    return res, card
+
+
+def lid_probs(out) -> "np.ndarray":
+    """An ``LIDOutput`` of every language as probabilities by class index."""
+    import numpy as np
+
+    p = np.zeros(len(out.top_languages), np.float32)
+    for t in out.top_languages:
+        p[int(t.language[4:])] = t.confidence
+    return p
+
+
+def turn_lid_serve(fsmn, ecapa, signal) -> dict:
+    """The ``lid`` route: one request alone, then len(LID_HTTP_S) at once
+    through the micro-batcher (fewer ``predict_batch`` calls than requests),
+    each answer's top 5 equal to ``predict``'s on the clip as the server
+    reads it back (each clip fills its bucket: confidences within
+    ECAPA_FILLED_ATOL); the ``vad`` route with FSMN: ``detect``'s spans."""
+    from tpu_audio_torch.cli.serve import _load_wav_body, build_server
+
+    calls = []
+    real = ecapa.predict_batch
+
+    def counting(waveforms, top_k=5):
+        calls.append(len(waveforms))
+        return real(waveforms, top_k=top_k)
+
+    def same(answer, audio) -> float:
+        want = ecapa.predict(audio, top_k=5)
+        check([p["language"] for p in answer["top"]] == [p.language for p in want.top_languages],
+              f"lid route: {answer['top']} against predict's {want.top_languages}")
+        return max(abs(p["confidence"] - w.confidence)
+                   for p, w in zip(answer["top"], want.top_languages))
+
+    ecapa.predict_batch = counting
+    try:
+        one = wav_body(signal[16000 * 5: 16000 * 9])
+        alone, alone_wall = posted(build_server(ecapa, "lid", "ecapa", port=0),
+                                   "/v1/audio/lid", [one])
+        errs = [same(alone[0], _load_wav_body(one, 16000)[0])]
+        bodies = [wav_body(signal[16000 * i: 16000 * i + int(16000 * s)])
+                  for i, s in enumerate(LID_HTTP_S)]
+        calls.clear()
+        answers, wall = posted(build_server(ecapa, "lid", "ecapa", port=0), "/v1/audio/lid",
+                               bodies)
+        errs += [same(a, _load_wav_body(b, 16000)[0]) for a, b in zip(answers, bodies)]
+    finally:
+        del ecapa.predict_batch
+    body = wav_body(signal)
+    (vad,), vad_wall = posted(build_server(fsmn, "vad", "fsmn", port=0), "/v1/audio/vad", [body])
+    want = [{"start": round(s / 1000.0, 3), "end": round(e / 1000.0, 3)}
+            for s, e in fsmn.detect(_load_wav_body(body, 16000)[0], 16000)]
+    print(f"[turn serve] lid: one request in {alone_wall * 1e3:.1f} ms, {len(bodies)} at once in "
+          f"{wall * 1e3:.1f} ms through {len(calls)} predict_batch calls of {calls} rows; each "
+          f"answer's top 5 equal to predict's, confidences within {max(errs):.3e} (atol "
+          f"{ECAPA_FILLED_ATOL}); vad (FSMN): {len(vad['segments'])} segments in "
+          f"{vad_wall * 1e3:.1f} ms, equal to detect's: {vad['segments'] == want}")
+    check(max(errs) <= ECAPA_FILLED_ATOL, f"lid route: confidences {max(errs):.3e} from predict's")
+    check(sum(calls) == len(bodies) and len(calls) < len(bodies),
+          f"lid route: {len(bodies)} concurrent requests in predict_batch calls of {calls}")
+    check(vad["segments"] == want and len(want) > 1, f"vad route: {vad} against detect's {want}")
+    return dict(lid_alone_ms=alone_wall * 1e3, lid_concurrent=len(bodies),
+                lid_concurrent_ms=wall * 1e3, lid_batches=calls, lid_confidence_err=max(errs),
+                vad_segments=len(want), vad_ms=vad_wall * 1e3)
+
+
+def turn_lid_phase(dev, smi: str) -> tuple[dict, dict]:
+    """The ``[vad turn lid]`` phase: FSMN VAD, SmartTurn and ECAPA-TDNN LID
+    (``fsmn_turn_phase``, ``smart_turn_phase``, ``ecapa_phase``,
+    ``turn_lid_serve``) under PyTorch's default cuDNN flags (TF32 allowed),
+    so that the models' own ``nn.f32_convolutions`` keeps their
+    convolutions in f32; each card-against-CPU limit must lie below its TF32
+    control's reading. Only SmartTurn's log-mel runs a kernel of the port
+    (kernel 1). Returns the record and kernel 1's fields."""
+    import torch
+
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        signal = speech_signal(TURN_LID_SECONDS)
+        fsmn = fsmn_turn_phase(dev, signal, smi)
+        t_fsmn = time.perf_counter() - t_phase
+        smart, k1 = smart_turn_phase(dev, signal, smi)
+        t_smart = time.perf_counter() - t_phase
+        ecapa, ecapa_model = ecapa_phase(dev, signal, smi)
+        t_ecapa = time.perf_counter() - t_phase
+        serve = turn_lid_serve(fsmn.pop("card_model"), ecapa_model, signal)
+        controls = {
+            "fsmn": (FSMN_CARD_ATOL, [fsmn["tf32_matmul_control"]]),
+            "smart_turn": (SMART_TURN_CARD_ATOL, [c["tf32_control"]
+                                                  for c in smart["calls"].values()]),
+            "ecapa": (ECAPA_CARD_ATOL, [p["tf32_control"] for p in ecapa["predict"].values()])}
+        sound = {"fsmn": [fsmn["card_vs_cpu"]],
+                 "smart_turn": [c["card_vs_cpu"] for c in smart["calls"].values()],
+                 "ecapa": [p["card_vs_cpu"] for p in ecapa["predict"].values()]
+                 + [r["card_vs_cpu"] for r in ecapa["batch"]]}
+        for name, (atol, leaks) in controls.items():
+            print(f"[vad turn lid] {name}: card against CPU {max(sound[name]):.3e} <= atol {atol} "
+                  f"< TF32 control {min(leaks):.3e}")
+        for name, (atol, leaks) in controls.items():
+            check(max(sound[name]) <= atol, f"{name}: card against CPU {sound[name]} > {atol}")
+            check(min(leaks) > atol, f"{name}: with its convolutions in TF32 the card stays "
+                  f"within {atol} of the CPU ({leaks}): the limit would not catch a TF32 leak")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    out = dict(fsmn=fsmn, smart_turn=smart, ecapa=ecapa, serve=serve,
+               parts_s=dict(fsmn=t_fsmn, smart_turn=t_smart, ecapa=t_ecapa),
+               phase_s=time.perf_counter() - t_phase, smi=smi)
+    print(f"[vad turn lid] phase {out['phase_s']:.1f} s (seconds from its start at the end of "
+          f"each part: {out['parts_s']})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, k1
+
+
+def turn_lid_main(smi: str) -> int:
+    """``--turn-lid``: the [vad turn lid] phase alone, then its JSON and
+    kernel 1's SmartTurn fields as one line (no "ok" line: not the full
+    check)."""
+    import torch
+
+    from tpu_audio_torch.ops import _lib
+
+    t0 = time.perf_counter()
+    _lib.lib()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    out, k1 = turn_lid_phase(torch.device("cuda", 0), smi)
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"turn_lid": out, "kernel1": k1}))
+    return 0
 
 
 def mutations_main(kernels: list) -> int:
@@ -7489,7 +8072,8 @@ def main() -> int:
               "--fused-llama-timing": fused_llama_timing_main,
               "--llama-lanes-timing": llama_lanes_timing_main,
               "--kv-mel-timing": kv_mel_timing_main}.get(next(iter(sys.argv[1:]), ""))
-    if sys.argv[1:] not in ([], ["--qmm"], ["--qwen3"], ["--parakeet"], ["--vad"]) and not timing:
+    if sys.argv[1:] not in ([], ["--qmm"], ["--qwen3"], ["--parakeet"], ["--vad"],
+                            ["--turn-lid"]) and not timing:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -7514,6 +8098,8 @@ def main() -> int:
         return parakeet_main(smi.splitlines()[0])
     if sys.argv[1:] == ["--vad"]:
         return vad_main(smi.splitlines()[0])
+    if sys.argv[1:] == ["--turn-lid"]:
+        return turn_lid_main(smi.splitlines()[0])
     if timing:
         return timing(smi.splitlines()[0], [Path(a).resolve() for a in sys.argv[2:]])
     dev = torch.device("cuda", 0)
@@ -7541,6 +8127,9 @@ def main() -> int:
     # the [vad] phase next, early too: it reads device time a chunk from the
     # profiler (no kernel of the port runs there)
     vad = vad_phase(dev, smi.splitlines()[0])
+    # the [vad turn lid] phase next, early for the same reason: SmartTurn's
+    # kernel-1 launches and every model's device time come from the profiler
+    turn_lid, turn_lid_k1 = turn_lid_phase(dev, smi.splitlines()[0])
 
     t0 = time.perf_counter()
     cfg, models = build_models(dev)
@@ -7556,6 +8145,7 @@ def main() -> int:
 
     kernel_records, enc = kernel_phases(models, cfg, audio, dev)
     records.update(kernel_records)
+    records["fused_log_mel"].update(turn_lid_k1)
     w8 = models["w8_kv8d"]
     records["fused_stack_lanes"] = lanes_phase(w8, cfg, lane_encoders(w8, enc, clips, rng),
                                                dev)
@@ -7646,7 +8236,8 @@ def main() -> int:
                              "rel_err_bf16_x", "rel_err_f16_x", "library_dev_ms", "library_rel_err",
                              "library_error", "gemv_ms", "gemv_dev_ms", "gemv_checks",
                              "gemv_rel_err", "qwen3_launches", "qwen3", "qwen3_serve_launches",
-                             "qwen3_serve", "parakeet_launches", "parakeet") if f in r})
+                             "qwen3_serve", "parakeet_launches", "parakeet",
+                             "smart_turn_launches", "smart_turn") if f in r})
         for k, r in records.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"generate": runs, "smi": smi.splitlines()[0]}))
@@ -7658,6 +8249,7 @@ def main() -> int:
     print(json.dumps({"qwen3_tts": qwen3}))
     print(json.dumps({"parakeet": parakeet}))
     print(json.dumps({"vad": vad}))
+    print(json.dumps({"turn_lid": turn_lid}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -53,6 +53,11 @@ print("ok")
     ["tpu_audio_torch.models.vad", "tpu_audio_torch.models.vad.silero",
      "tpu_audio_torch.models.vad.sortformer", "tpu_audio_torch.models.vad.segmenter",
      "tpu_audio_torch.cli.serve"],
+    ["tpu_audio_torch.models.vad.fsmn_vad", "tpu_audio_torch.models.vad.smart_turn",
+     "tpu_audio_torch.models.vad", "tpu_audio_torch.core.dsp"],
+    ["tpu_audio_torch.models.lid", "tpu_audio_torch.models.lid.ecapa_lid",
+     "tpu_audio_torch.models.lid.wav2vec2_lid", "tpu_audio_torch.cli.lid",
+     "tpu_audio_torch.cli.serve"],
 ])
 def test_port_imports_without_jax(mods):
     res = subprocess.run([sys.executable, "-c", _BLOCKER.format(mods=mods)],

@@ -1,6 +1,6 @@
-"""Transcription and speech HTTP server on the PyTorch port (port of the
-STT and TTS routes of tpu_audio.cli.serve). Endpoints follow the OpenAI
-audio API paths:
+"""Transcription, speech, VAD and language-ID HTTP server on the PyTorch
+port (port of the STT, TTS, VAD and LID routes of tpu_audio.cli.serve).
+Endpoints follow the OpenAI audio API paths:
 
 - ``POST /v1/audio/transcriptions``: body = raw WAV bytes
   (``curl --data-binary @in.wav``); JSON out: text/segments/language +
@@ -16,9 +16,14 @@ audio API paths:
   as the model emits it.
 - ``POST /v1/audio/vad``: raw WAV in; JSON speech segments. Sortformer:
   ``{"segments": [{"start", "end", "speaker"}], "num_speakers"}`` from
-  ``generate``; Silero: ``{"segments": [{"start", "end"}]}`` from the
-  speech segmenter's runs (seconds, rounded to ms). Requests take turns on
-  the model under the lock.
+  ``generate``; FSMN VAD: ``{"segments": [{"start", "end"}]}`` from
+  ``detect``'s spans; Silero: the same from the speech segmenter's runs
+  (seconds, rounded to ms). Requests take turns on the model under the lock.
+  SmartTurn has no VAD route, as in the JAX server.
+- ``POST /v1/audio/lid``: raw WAV in; JSON ``{"language", "confidence",
+  "top": [{"language", "confidence"}, ...]}`` (``?top_k=N``, default 5).
+  ECAPA-TDNN: concurrent requests go through a micro-batcher (one
+  ``predict_batch`` a 4 ms window of up to 16 requests).
 - ``GET /healthz``: liveness + model metadata.
 - ``GET /metrics``: Prometheus text format: per-route request/error counts
   and wall-time totals.
@@ -36,12 +41,13 @@ the model under a lock. Start with:
     python -m tpu_audio_torch.cli.serve --model DIR --task tts --quantize w8a8 --slots 4
     python -m tpu_audio_torch.cli.serve --model QWEN3_TTS_DIR --task tts --slots 4
     python -m tpu_audio_torch.cli.serve --model SORTFORMER_DIR --task vad
+    python -m tpu_audio_torch.cli.serve --model ECAPA_DIR --task lid
 
 The flags are the JAX server's, plus ``--device`` and ``--quantize w8a8``
 (int8 weights: the configuration whose serving tick runs a fused lanes
-kernel). ``--task auto`` finds the task through the port's STT, TTS and
-VAD registries. Other tasks, ``--tp > 1`` and ``--warmup`` are not ported yet
-and stop with a message.
+kernel). ``--task auto`` finds the task through the port's STT, TTS, VAD and
+LID registries. Other tasks (``sts``, ``codec``), ``--tp > 1`` and
+``--warmup`` are not ported yet and stop with a message.
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ import numpy as np
 
 __all__ = ["main", "build_server"]
 
-TASKS = ("stt", "tts", "vad")  # the tasks the port serves
+TASKS = ("stt", "tts", "vad", "lid")  # the tasks the port serves
 
 
 def _wav_bytes(audio: np.ndarray, sample_rate: int) -> bytes:
@@ -96,8 +102,8 @@ def _ref_audio(req: dict, model):
 
 _KNOWN_ROUTES = (
     "/v1/audio/transcriptions", "/v1/audio/transcriptions/stream",
-    "/v1/audio/speech", "/v1/audio/speech/stream", "/v1/audio/vad",
-    "/healthz", "/metrics",
+    "/v1/audio/speech", "/v1/audio/speech/stream", "/v1/audio/lid",
+    "/v1/audio/vad", "/healthz", "/metrics",
 )
 
 
@@ -143,16 +149,87 @@ class _Metrics:
         return "\n".join(lines) + "\n"
 
 
+class _LIDBatcher:
+    """Micro-batches concurrent ``/v1/audio/lid`` requests into one
+    ``predict_batch`` call: its thread drains what arrived within WINDOW_S
+    of the first request (up to MAX_BATCH) and classifies it in one padded,
+    masked call a length bucket. The thread is the only user of the device
+    for this task (PyTorch's default stream, as the request threads would
+    use), so no lock is taken; an error unblocks every waiter of its
+    batch."""
+
+    WINDOW_S, MAX_BATCH = 0.004, 16
+
+    def __init__(self, model):
+        import queue
+
+        self.model = model
+        self._q: queue.Queue = queue.Queue()
+        self._empty = queue.Empty
+        self._thread = threading.Thread(target=self._run, daemon=True, name="lid-batcher")
+        self._thread.start()
+
+    def predict(self, audio, top_k: int):
+        done = threading.Event()
+        box: dict = {}
+        self._q.put((audio, int(top_k), done, box))
+        done.wait()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    def close(self) -> None:
+        """Stop the thread after the requests already queued."""
+        self._q.put(None)
+        self._thread.join(timeout=60)
+
+    def _run(self) -> None:
+        from tpu_audio_torch.models.lid.wav2vec2_lid import LIDOutput
+
+        while True:
+            first = self._q.get()
+            if first is None:
+                return
+            batch, stop = [first], False
+            deadline = time.perf_counter() + self.WINDOW_S
+            while len(batch) < self.MAX_BATCH:
+                left = deadline - time.perf_counter()
+                if left <= 0:
+                    break
+                try:
+                    item = self._q.get(timeout=left)
+                except self._empty:
+                    break
+                if item is None:
+                    stop = True
+                    break
+                batch.append(item)
+            try:
+                k_max = max(k for _, k, _, _ in batch)
+                outs = self.model.predict_batch([a for a, _, _, _ in batch], top_k=k_max)
+                for (_, k, done, box), o in zip(batch, outs):
+                    box["out"] = LIDOutput(o.language, o.confidence, o.top_languages[:k])
+                    done.set()
+            except Exception as e:  # noqa: BLE001 — unblock every waiter
+                for _, _, done, box in batch:
+                    box["err"] = e
+                    done.set()
+            if stop:
+                return
+
+
 class _Server(ThreadingHTTPServer):
-    """The HTTP server; closing it also stops the engine workers."""
+    """The HTTP server; closing it also stops the engine workers and the
+    LID micro-batcher."""
 
     daemon_threads = True
     stt_worker = None
     tts_worker = None
+    lid_batcher = None
 
     def server_close(self) -> None:
         super().server_close()
-        for worker in (self.stt_worker, self.tts_worker):
+        for worker in (self.stt_worker, self.tts_worker, self.lid_batcher):
             if worker is not None:
                 worker.close()
 
@@ -164,12 +241,16 @@ def _segments(out) -> list[dict]:
 
 def _vad_payload(model, audio: np.ndarray) -> dict:
     """The VAD route's JSON: Sortformer's speaker segments through
-    ``generate``, Silero's speech runs through the segmenter."""
+    ``generate``, FSMN's ms spans through ``detect``, Silero's speech runs
+    through the segmenter (the JAX route's order)."""
     if hasattr(model, "generate"):  # diarization
         out = model.generate(audio)
         return {"segments": [{"start": round(float(s.start), 3), "end": round(float(s.end), 3),
                               "speaker": int(s.speaker)} for s in out["segments"]],
                 "num_speakers": out["num_speakers"]}
+    if hasattr(model, "detect"):  # FSMN: [start_ms, end_ms] spans
+        return {"segments": [{"start": round(s / 1000.0, 3), "end": round(e / 1000.0, 3)}
+                             for s, e in model.detect(audio, 16000)]}
     from tpu_audio_torch.models.vad.segmenter import SpeechSegmentConfig, detect_speech_runs
 
     runs = detect_speech_runs(audio, 16000, model, SpeechSegmentConfig())
@@ -182,8 +263,9 @@ def build_server(model, task: str, model_name: str,
                  slots: int = 1, generation_parameters=None,
                  step_tokens: int = 7, fused: str = "auto"):
     """Construct (but don't start) the HTTP server for an STT (``task``
-    "stt": Whisper, Parakeet), TTS (``task`` "tts": Orpheus, Qwen3-TTS) or
-    VAD (``task`` "vad": Silero, Sortformer) ``model``.
+    "stt": Whisper, Parakeet), TTS (``task`` "tts": Orpheus, Qwen3-TTS), VAD
+    (``task`` "vad": Silero, Sortformer, FSMN VAD) or LID (``task`` "lid":
+    ECAPA-TDNN, through a micro-batcher) ``model``.
 
     ``slots > 1`` routes Whisper transcriptions of up to 30 s through a shared
     :class:`~tpu_audio_torch.parallel.continuous_stt.STTEngineWorker`,
@@ -224,6 +306,7 @@ def build_server(model, task: str, model_name: str,
             tts_worker = TTSEngineWorker(model, slots=slots,
                                          generation_parameters=generation_parameters,
                                          step_tokens=step_tokens, fused=fused)
+    lid_batcher = _LIDBatcher(model) if task == "lid" else None
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -384,6 +467,18 @@ def build_server(model, task: str, model_name: str,
                         self._speech_batched(req)
                     else:
                         self._speech(req)
+                elif self.path.split("?")[0] == "/v1/audio/lid" and task == "lid":
+                    from urllib.parse import parse_qs, urlparse
+
+                    top_k = int(parse_qs(urlparse(self.path).query).get("top_k", ["5"])[0])
+                    audio, _ = _load_wav_body(body, 16000)
+                    out = lid_batcher.predict(audio, top_k)
+                    self._json(200, {
+                        "language": out.language,
+                        "confidence": round(out.confidence, 6),
+                        "top": [{"language": p.language, "confidence": round(p.confidence, 6)}
+                                for p in out.top_languages],
+                    })
                 elif self.path == "/v1/audio/vad" and task == "vad":
                     audio, _ = _load_wav_body(body, 16000)
                     with lock:
@@ -407,6 +502,7 @@ def build_server(model, task: str, model_name: str,
 
     server = _Server((host, port), Handler)
     server.stt_worker, server.tts_worker = stt_worker, tts_worker
+    server.lid_batcher = lid_batcher
     return server
 
 
@@ -485,11 +581,12 @@ def main(argv=None) -> None:
         model = load_model(args.model, device=args.device, quantize_bits=args.quantize)
     else:
         if args.quantize is not None:
-            raise SystemExit(f"--quantize {args.quantize}: the VAD models have no "
-                             "load-time quantization")
-        from tpu_audio_torch.models.vad import load_model
+            raise SystemExit(f"--quantize {args.quantize}: the {task.upper()} models have "
+                             "no load-time quantization")
+        import importlib
 
-        model = load_model(args.model, device=args.device)
+        model = importlib.import_module(f"tpu_audio_torch.models.{task}").load_model(
+            args.model, device=args.device)
     server = build_server(model, task, args.model, args.host, args.port,
                           slots=args.slots, step_tokens=args.step_tokens,
                           fused=args.fused)

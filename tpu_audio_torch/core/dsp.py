@@ -1,5 +1,6 @@
-"""Windows, mel filterbanks, the STFT and Whisper's log-mel frontend
-(port of the window, STFT and log-mel parts of tpu_audio.core.dsp).
+"""Windows, mel filterbanks, the STFT, power to dB and Whisper's log-mel
+frontend (port of the window, STFT, dB and log-mel parts of
+tpu_audio.core.dsp).
 
 Window and filterbank construction is host-side NumPy, identical to the
 JAX package's; the STFT runs through ``torch.stft`` after reflect or
@@ -20,7 +21,7 @@ import torch
 from tpu_audio_torch.ops.mel import fused_log_mel
 
 __all__ = ["hanning_window", "hamming_window", "mel_filters", "stft",
-           "log_mel_spectrogram"]
+           "power_to_db", "log_mel_spectrogram"]
 
 
 @functools.lru_cache(maxsize=32)
@@ -135,6 +136,16 @@ def stft(audio: torch.Tensor, window: np.ndarray, n_fft: int, hop_length: int,
     spec = torch.stft(x, n_fft, hop_length=hop_length, win_length=n_fft,
                       window=w, center=False, return_complex=True)
     return spec.transpose(0, 1)
+
+
+def power_to_db(spectrogram: torch.Tensor, amin: float = 1e-10,
+                top_db: float | None = None) -> torch.Tensor:
+    """Power to dB, ``10 log10(max(x, amin))``, with the optional
+    dynamic-range clamp to ``max - top_db`` over the whole input."""
+    db = 10.0 * torch.log10(torch.clamp(spectrogram, min=amin))
+    if top_db is not None:
+        db = torch.maximum(db, db.max() - top_db)
+    return db
 
 
 def log_mel_spectrogram(audio, n_mels: int = 80, sample_rate: int = 16000,

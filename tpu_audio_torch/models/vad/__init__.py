@@ -1,6 +1,6 @@
 """VAD / diarization task module: model registry + factory (port of
-tpu_audio.models.vad.load_model; the families ported are Silero VAD and
-Sortformer)."""
+tpu_audio.models.vad.load_model: Silero VAD, Sortformer, SmartTurn and FSMN
+VAD)."""
 
 from __future__ import annotations
 
@@ -12,14 +12,18 @@ _REGISTRY: dict[str, str] = {
     "silero_vad": "tpu_audio_torch.models.vad.silero:SileroVAD",
     "silero": "tpu_audio_torch.models.vad.silero:SileroVAD",
     "sortformer": "tpu_audio_torch.models.vad.sortformer:Sortformer",
+    "smart_turn": "tpu_audio_torch.models.vad.smart_turn:SmartTurn",
+    "fsmn": "tpu_audio_torch.models.vad.fsmn_vad:FSMNVAD",
+    "fsmn_vad": "tpu_audio_torch.models.vad.fsmn_vad:FSMNVAD",
+    "smartturn": "tpu_audio_torch.models.vad.smart_turn:SmartTurn",
 }
 
 
 def load_model(repo_or_path: str, **kwargs):
-    """Load a VAD or diarization model from a local checkpoint directory;
-    ``kwargs`` (``device``; Sortformer also ``dtype``) go to the family's
-    ``from_pretrained``. Other families (FSMN VAD, SmartTurn) raise a
-    ``ValueError`` naming the ported ones."""
+    """Load a VAD, endpointing or diarization model from a local checkpoint
+    directory; ``kwargs`` (``device``; Sortformer, SmartTurn and FSMN also
+    ``dtype``) go to the family's ``from_pretrained``. An unknown family
+    raises a ``ValueError`` naming the ported ones."""
     model_dir = hub.resolve_model_dir(repo_or_path)
     model_type = hub.resolve_model_type(hub.load_config(model_dir))
     if model_type not in _REGISTRY:
