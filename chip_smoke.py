@@ -260,6 +260,26 @@ kernel 7's short calls then read "not measured".)
    route on FSMN; walls, device ms and events, bounds, peak memory. Each
    model's card-against-CPU limit must lie below its TF32 control
    (``tf32_leak``). ``python3 chip_smoke.py --turn-lid`` runs it alone.
+23. ``[sts]`` (run sixth, after phase 22; no kernel of the port runs there,
+   and the counters must stay at 0): DeepFilterNet3 at
+   ``DeepFilterNetConfig()``'s widths (64 channels, 32 ERB bands, 96 deep-filter
+   bins, hidden 256, fft 960 / hop 480 at 48 kHz, order 5, lookahead 2; GRU
+   layers 1, 2 and 2; grouped linears in 4 groups) from seeded random weights
+   in f32 under PyTorch's default cuDNN flags: ``bench_deepfilternet``'s
+   protocol (10 s of seeded noise x 0.1 through ``enhance``, a warm-up, the
+   fastest of 3 walls: the RTF) and the 2 s noisy clip, each against the
+   port's CPU run (STS_CARD_ATOL, below the TF32 control), at most 1% of the
+   samples at +-1 and the ERB gains not all within 1e-3 of 0 or 1; one call's
+   device ms and events in a marked window, the bound; the streamer over the
+   10 s in chunks of 16 hops, every chunk's hops under
+   ``torch.cuda.set_sync_debug_mode("error")``, within 5e-4 of the card's
+   offline output, the 2 s clip in the JAX test's chunk sizes, the length of
+   ``enhance_streaming``'s output, host ms a hop against the 10 ms hop, one
+   chunk's device ms, events and busy share; ``/v1/audio/enhance`` alone and
+   with four concurrent requests and ``cli/sts.py`` in ``short`` and
+   ``stream`` modes, each equal to ``enhance``'s PCM16 samples (the stream
+   within 5e-4); the peak device memory. ``python3 chip_smoke.py --sts`` runs
+   it alone.
 
 Each kernel's record carries its bound on the H100 (``bound_ms``: the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate
@@ -738,6 +758,19 @@ SMART_TURN_BATCH_ATOL = 1e-5  # batched rows against each alone (tests/test_smar
 # channels); tests/test_ecapa.py's 0.05 holds on its narrow fixture only. A
 # clip that fills its bucket: that test's 1e-4
 ECAPA_SOLO_ATOL, ECAPA_FILLED_ATOL = 0.25, 1e-4
+# the [sts] phase: DeepFilterNet3 at DeepFilterNetConfig()'s widths from seeded
+# random weights (f32), bench_deepfilternet's protocol (bench.py:1101-1206): 10 s
+# of seeded noise x 0.1, a warm-up and the fastest of 3 walls; the streamer in
+# chunks of 16 hops (the JAX streamer's scan_block); the 2 s noisy clip
+NOISY = ROOT / "tests" / "media" / "noisy_48k.wav"
+STS_SECONDS, STS_TIMED, STS_BLOCK = 10.0, 3, 16
+STS_HTTP_S = (2.0, 3.0, 2.5, 1.5)  # concurrent enhance requests (seconds of the noise)
+STS_STREAM_ATOL = 5e-4  # the streamer against offline (tests/test_deepfilternet.py's)
+# card against the port's CPU run (enhance's samples), between the sound readings
+# and the TF32 control's (tf32_leak), which sts_phase checks lies above it
+STS_CARD_ATOL = 1e-4
+STS_SATURATED = 0.01  # at most this share of output samples at +-1
+STS_HOP_BUDGET_MS = 10.0  # a 480-sample hop at 48 kHz
 # the standing mutation check (--mutations): for each kernel, its source,
 # the function here that runs its check alone, and its mutations (name,
 # original text, mutated text); a kernel ported later adds its entry
@@ -6793,20 +6826,21 @@ def speech_signal(seconds: float):
     return np.tile(unit, -(-n // unit.shape[0]))[:n]
 
 
-def wav_body(audio) -> bytes:
-    """WAV bytes (PCM16, 16 kHz) of ``audio``, as a client posts them."""
+def wav_body(audio, rate: int = 16000) -> bytes:
+    """WAV bytes (PCM16, ``rate``) of ``audio``, as a client posts them."""
     buf = io.BytesIO()
     with wave.open(buf, "wb") as w:
         w.setnchannels(1)
         w.setsampwidth(2)
-        w.setframerate(16000)
+        w.setframerate(rate)
         w.writeframes((audio * 32767).clip(-32768, 32767).astype("<i2").tobytes())
     return buf.getvalue()
 
 
-def posted(server, path: str, bodies: list) -> tuple[list, float]:
+def posted(server, path: str, bodies: list, read=json.loads) -> tuple[list, float]:
     """POST each of ``bodies`` to ``path`` on ``server`` at once (a thread
-    each, released together): (JSON answers in order, wall seconds)."""
+    each, released together): (answers in order, each body read by ``read``,
+    JSON by default; wall seconds)."""
     url = f"http://127.0.0.1:{server.server_address[1]}{path}"
     out = [None] * len(bodies)
     start = threading.Barrier(len(bodies))
@@ -6815,7 +6849,7 @@ def posted(server, path: str, bodies: list) -> tuple[list, float]:
         start.wait()
         req = urllib.request.Request(url, data=bodies[i], headers={"Content-Type": "audio/wav"})
         with urllib.request.urlopen(req, timeout=300) as r:
-            out[i] = json.loads(r.read())
+            out[i] = read(r.read())
 
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -7293,6 +7327,360 @@ def turn_lid_main(smi: str) -> int:
     out, k1 = turn_lid_phase(torch.device("cuda", 0), smi)
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"turn_lid": out, "kernel1": k1}))
+    return 0
+
+
+# -- [sts]: DeepFilterNet3 speech enhancement ------------------------------------
+
+
+def dfn_flops(model, frames: int) -> tuple[float, float]:
+    """Multiply-adds x 2 of DeepFilterNet's network a frame, times
+    ``frames``, and a frame's alone: each convolution counted on a one-frame
+    run of ``_net`` on ``model`` (output elements x its kernel's inputs), the
+    transposed convolutions from their weights (each of the ``conv_ch``
+    input channels at ``nb_erb / 4`` or ``nb_erb / 2`` bins feeds ``O/g x kT
+    x kF`` outputs), grouped linears, GRU layers (input and hidden
+    products), the mask's lift to every bin and the deep filter's complex
+    taps; the FFTs and elementwise work left out."""
+    import torch
+
+    from tpu_audio_torch.models.sts import deepfilternet as TD
+
+    cfg, p = model.config, model.params
+    macs = [0]
+
+    def conv(name, x, fs):
+        w = p[f"{name}.weight"]
+        y = TD._conv2d(w, x, fs)
+        macs[0] += y.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+        return y
+
+    with torch.inference_mode():
+        x_erb = torch.zeros((1, 1, 1, cfg.nb_erb), device=model.device)
+        x_df = torch.zeros((1, 2, 1, cfg.nb_df), device=model.device)
+        model._net(x_erb, x_df, conv, {})
+    macs[0] += (p["erb_dec.convt2.0.weight"].numel() * (cfg.nb_erb // 4)
+                + p["erb_dec.convt1.0.weight"].numel() * (cfg.nb_erb // 2))
+    macs[0] += sum(w.numel() for k, w in p.items()
+                   if w.dim() == 3 or ".gru.weight_" in k)  # grouped linears, GRUs
+    macs[0] += cfg.nb_erb * cfg.freq_bins + 4 * cfg.df_order * cfg.nb_df
+    return 2.0 * macs[0] * frames, 2.0 * macs[0]
+
+
+def write_safetensors(path: Path, flat: dict) -> None:
+    """A flat dict of f32 tensors as one safetensors file (8-byte header
+    length, the JSON header, the raw little-endian buffers)."""
+    import numpy as np
+
+    header, blobs, off = {}, [], 0
+    for k, v in flat.items():
+        a = np.ascontiguousarray(v.detach().cpu().numpy().astype("<f4"))
+        header[k] = {"dtype": "F32", "shape": list(a.shape), "data_offsets": [off, off + a.nbytes]}
+        blobs.append(a.tobytes())
+        off += a.nbytes
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    path.write_bytes(len(head).to_bytes(8, "little") + head + b"".join(blobs))
+
+
+def sts_streamed(streamer, audio, sizes) -> "np.ndarray":
+    """``audio`` through ``streamer`` in chunks of ``sizes`` (the rest in one
+    more), then its flush."""
+    import numpy as np
+
+    outs, pos = [], 0
+    for size in sizes:
+        outs.append(streamer.process_chunk(audio[pos: pos + size]))
+        pos += size
+    if pos < len(audio):
+        outs.append(streamer.process_chunk(audio[pos:]))
+    outs.append(streamer.flush())
+    return np.concatenate([o for o in outs if len(o)])
+
+
+def sts_offline(card, cpu, noise, wav, smi: str) -> dict:
+    """``bench_deepfilternet``'s offline protocol on the card (a warm-up,
+    the fastest of STS_TIMED walls over STS_SECONDS of noise: the RTF) and
+    ``enhance`` on the 2 s noisy clip, each against the port's CPU run and
+    the TF32 controls; the share of samples at +-1 and of ERB gains within
+    1e-3 of 0 or 1 (a spy on ``_net``); one call's device ms and events in a
+    marked window; the bound."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    gains = []
+    net = card._net
+
+    def spy(*args, **kwargs):
+        out = net(*args, **kwargs)
+        gains.append(out[0])
+        return out
+
+    card._net = spy
+    try:
+        out, walls = timed_walls(lambda: card.enhance(noise), card.device, STS_TIMED)
+        g = gains[0].float()
+        near = float(((g < 1e-3) | (g > 1 - 1e-3)).float().mean())
+        g_stats = dict(mean=float(g.mean()), std=float(g.std()), near_0_or_1=near)
+    finally:
+        del card._net
+    runs = {}
+    for label, a, got in (("noise", noise, out), ("noisy clip", wav, card.enhance(wav))):
+        ref = cpu.enhance(a)
+        with tf32_leak():
+            leak = float(np.abs(card.enhance(a) - ref).max())
+        with tf32_leak(matmul=True):
+            leak_mm = float(np.abs(card.enhance(a) - ref).max())
+        runs[label] = dict(card_vs_cpu=float(np.abs(got - ref).max()), tf32_control=leak,
+                           tf32_matmul_control=leak_mm, saturated=float(np.mean(np.abs(got) >= 1.0)),
+                           rms_in=float(np.sqrt(np.mean(a * a))),
+                           rms_out=float(np.sqrt(np.mean(got * got))))
+        check(got.shape == a.shape and bool(np.isfinite(got).all()), f"sts {label}: output "
+              f"{got.shape} finite {np.isfinite(got).all()}")
+        check(runs[label]["saturated"] <= STS_SATURATED, f"sts {label}: "
+              f"{runs[label]['saturated']:.4f} of the samples at +-1")
+    check(near < 1.0, "sts: every ERB gain within 1e-3 of 0 or 1")
+    laps = {"walls, CPU runs and controls": time.perf_counter() - t0}
+    wall_ms, busy_ms, events = profiled(lambda: card.enhance(noise), card.device, "sts enhance")
+    laps["profiled call"] = time.perf_counter() - t0
+    frames = 1 + -(-(noise.shape[0] + card.config.hop_size) // card.config.hop_size)
+    flops, frame_flops = dfn_flops(card, frames)
+    n_params = sum(t.numel() for t in card.params.values())
+    b_ms, b_by = bound(4 * (2 * noise.shape[0] + n_params), f32_ops=flops)
+    rtf = min(walls) / STS_SECONDS
+    res = dict(walls_s=walls, rtf=rtf, realtime_x=1.0 / rtf, frames=frames, gains=g_stats,
+               runs=runs, profiled_wall_ms=wall_ms, busy_ms=busy_ms, device_events=events,
+               gflop=flops / 1e9, frame_mflop=frame_flops / 1e6, params=n_params,
+               bound_ms=b_ms, bound_by=b_by, laps_s=laps)
+    for label, r in runs.items():
+        print(f"[sts {label}] card against CPU {r['card_vs_cpu']:.3e} (atol {STS_CARD_ATOL}; "
+              f"TF32 control {r['tf32_control']:.3e}, with TF32 matmuls "
+              f"{r['tf32_matmul_control']:.3e}); {r['saturated']:.5f} of samples at +-1; rms "
+              f"{r['rms_in']:.4f} in, {r['rms_out']:.4f} out")
+    print(f"[sts enhance] {STS_SECONDS:.0f} s ({frames} frames): walls "
+          f"{[round(w * 1e3, 3) for w in walls]} ms, RTF {rtf:.6f} ({1 / rtf:.1f}x real time); "
+          f"ERB gains mean {g_stats['mean']:.4f} std {g_stats['std']:.4f}, {near:.4f} within 1e-3 "
+          f"of 0 or 1; profiled: {events} device events, busy {fmt(busy_ms)} of {wall_ms:.3f} ms; "
+          f"bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.3f} GFLOP f32, {n_params} params); "
+          f"seconds from the part's start: {laps} ({smi})")
+    return res
+
+
+def sync_guarded(streamer):
+    """``streamer`` with every chunk's hops (its ``_run_frames``) under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host read between hops
+    raises."""
+    import torch
+
+    real = streamer._run_frames
+
+    def guarded(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    streamer._run_frames = guarded
+    return streamer
+
+
+def sts_stream(card, noise, wav, off_noise, off_wav, smi: str) -> dict:
+    """The streamer over the noise in chunks of STS_BLOCK hops (a warm-up on
+    a chunk and a flush, then ``reset``), every chunk's hops under
+    ``torch.cuda.set_sync_debug_mode("error")`` (only the upload and the one
+    readback run outside), against the card's offline output within
+    STS_STREAM_ATOL; the 2 s clip in the JAX test's chunk sizes; the length
+    of ``enhance_streaming``'s output; host ms a hop against the hop's
+    budget, and one chunk's device ms, events and busy share in a marked
+    window, beside the bound a hop (the weights read once a hop)."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.models.sts import deepfilternet as TD
+
+    cfg = card.config
+    hop, chunk = cfg.hop_size, cfg.hop_size * STS_BLOCK
+    streamer = sync_guarded(TD.DeepFilterNetStreamer(card))
+    streamer.process_chunk(noise[: chunk + cfg.fft_size])
+    streamer.flush()
+    streamer.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sts_streamed(streamer, noise, [chunk] * (len(noise) // chunk))
+    stream_s = time.perf_counter() - t0
+    hops = streamer._s
+    err = float(np.abs(got - off_noise).max()) if got.shape == off_noise.shape else math.inf
+    summary = streamer.profiling_summary()
+    got_clip = sts_streamed(sync_guarded(TD.DeepFilterNetStreamer(card)), wav,
+                            [hop, 173, 999, hop * 13])
+    clip_err = (float(np.abs(got_clip - off_wav).max()) if got_clip.shape == off_wav.shape
+                else math.inf)
+    gen_len = sum(len(c) for c in card.enhance_streaming(wav))
+    # one chunk in a marked window, mid-stream (the state after 8 chunks)
+    streamer.reset()
+    for i in range(8):
+        streamer.process_chunk(noise[i * chunk: (i + 1) * chunk])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    streamer.process_chunk(noise[8 * chunk: 9 * chunk])
+    chunk_wall = time.perf_counter() - t1
+    spans = marked_spans(lambda: streamer.process_chunk(noise[9 * chunk: 10 * chunk]),
+                         "sts stream chunk")
+    busy = None if spans is None else interval_union(spans) / 1e3
+    events = 0 if spans is None else len(spans)
+    n_params = sum(t.numel() for t in card.params.values())
+    _, frame_flops = dfn_flops(card, 1)
+    hb_ms, hb_by = bound(4 * (n_params + cfg.fft_size + hop), f32_ops=frame_flops)
+    host_ms = stream_s * 1e3 / hops
+    res = dict(hops=hops, stream_s=stream_s, host_ms_a_hop=host_ms,
+               hop_budget_ms=STS_HOP_BUDGET_MS, vs_offline=err, clip_vs_offline=clip_err,
+               enhance_streaming_len=gen_len, clip_len=len(wav),
+               chunk_wall_ms=chunk_wall * 1e3, chunk_busy_ms=busy, chunk_events=events,
+               device_ms_a_hop=None if busy is None else busy / STS_BLOCK,
+               events_a_hop=events / STS_BLOCK,
+               busy_share=None if busy is None else busy / (chunk_wall * 1e3),
+               bound_ms_a_hop=hb_ms, bound_by=hb_by, summary=summary)
+    print(f"[sts stream] {hops} hops in chunks of {STS_BLOCK}, every hop under sync debug "
+          f"'error': {stream_s:.3f} s, {host_ms:.4f} host ms a hop against the "
+          f"{STS_HOP_BUDGET_MS:.0f} ms budget; against offline {err:.3e} (atol "
+          f"{STS_STREAM_ATOL}); the 2 s clip in chunks of hop/173/999/13 hops {clip_err:.3e}; "
+          f"enhance_streaming {gen_len} samples for {len(wav)}; one chunk: {events} device "
+          f"events ({events / STS_BLOCK:.1f} a hop), busy {fmt(busy)} of {chunk_wall * 1e3:.3f} "
+          f"ms (share {fmt_share(res['busy_share'])}); bound a hop {hb_ms:.6f} ms ({hb_by}) "
+          f"({smi})")
+    print(summary)
+    check(err <= STS_STREAM_ATOL, f"sts stream: {err:.3e} from offline")
+    check(clip_err <= STS_STREAM_ATOL, f"sts stream, the 2 s clip: {clip_err:.3e} from offline")
+    check(gen_len == len(wav), f"sts enhance_streaming: {gen_len} samples for {len(wav)}")
+    return res
+
+
+def sts_serve_cli(card, noise, wav) -> dict:
+    """``/v1/audio/enhance`` on the card, one request alone and
+    len(STS_HTTP_S) at once, each answer's PCM16 equal to ``enhance`` on the
+    audio as the server reads it; ``cli/sts.py`` in ``short`` (equal) and
+    ``stream`` (within STS_STREAM_ATOL and one PCM16 step) modes on a
+    checkpoint written from the card's weights."""
+    import numpy as np
+
+    from tpu_audio_torch.cli import sts as cli
+    from tpu_audio_torch.cli.serve import _load_wav_body, build_server
+    from tpu_audio_torch.core.audio_io import float_to_pcm16, load_audio
+
+    sr = card.sample_rate
+
+    def pcm(wav_bytes):
+        with wave.open(io.BytesIO(wav_bytes)) as w:
+            return np.frombuffer(w.readframes(w.getnframes()), "<i2")
+
+    def diff(answer, body) -> int:
+        want = float_to_pcm16(card.enhance(_load_wav_body(body, sr)[0]))
+        check(answer.shape == want.shape, f"enhance route: {answer.shape} against {want.shape}")
+        return int(np.abs(answer.astype(np.int32) - want.astype(np.int32)).max())
+
+    one = wav_body(wav, sr)
+    (alone,), alone_wall = posted(build_server(card, "sts", "dfn3", port=0), "/v1/audio/enhance",
+                                  [one], read=pcm)
+    bodies = [wav_body(noise[i * sr: i * sr + int(sr * s)], sr) for i, s in enumerate(STS_HTTP_S)]
+    answers, wall = posted(build_server(card, "sts", "dfn3", port=0), "/v1/audio/enhance",
+                           bodies, read=pcm)
+    diffs = [diff(alone, one)] + [diff(a, b) for a, b in zip(answers, bodies)]
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        cfg = dataclasses.asdict(card.config)
+        cfg["model_type"] = "deepfilternet3"
+        (d / "config.json").write_text(json.dumps(cfg))
+        write_safetensors(d / "model.safetensors", card.params)
+        outs = {}
+        for mode in ("short", "stream"):
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                check(cli.main([str(NOISY), "--model", str(d), "--mode", mode, "-o",
+                                str(d / f"{mode}.wav")]) == 0, f"cli/sts.py --mode {mode}")
+            outs[mode] = (load_audio(str(d / f"{mode}.wav"))[0], err.getvalue().strip())
+    want = float_to_pcm16(card.enhance(load_audio(str(NOISY), sample_rate=sr)[0]))
+    short = int(np.abs(np.round(outs["short"][0] * 32768).astype(np.int32)
+                       - want.astype(np.int32)).max())
+    stream = float(np.abs(outs["stream"][0] - want / 32768.0).max())
+    res = dict(alone_ms=alone_wall * 1e3, concurrent=len(bodies), concurrent_ms=wall * 1e3,
+               pcm_steps_from_enhance=diffs, cli_short_pcm_steps=short, cli_stream_err=stream,
+               cli_stderr={m: o[1] for m, o in outs.items()})
+    print(f"[sts serve] enhance route: one request in {alone_wall * 1e3:.1f} ms, {len(bodies)} at "
+          f"once in {wall * 1e3:.1f} ms; PCM16 steps from enhance {diffs}; cli/sts.py short "
+          f"{short} steps, stream {stream:.3e} (atol {STS_STREAM_ATOL} + one step); stderr "
+          f"{[o[1] for o in outs.values()]}")
+    check(max(diffs) == 0, f"enhance route: answers {diffs} PCM16 steps from enhance")
+    check(short == 0, f"cli/sts.py short: {short} PCM16 steps from enhance")
+    check(stream <= STS_STREAM_ATOL + 1 / 32768, f"cli/sts.py stream: {stream:.3e} from enhance")
+    return res
+
+
+def sts_phase(dev, smi: str) -> dict:
+    """The ``[sts]`` phase: DeepFilterNet3 at ``DeepFilterNetConfig()``'s
+    widths (conv_ch 64, 32 ERB bands, 96 DF bins, hidden 256, fft 960, hop
+    480 at 48 kHz, order 5, lookahead 2; GRU layers 1, 2, 2; grouped linears
+    in 4 groups) from seeded random weights in f32 under PyTorch's default
+    cuDNN flags (TF32 allowed), so that the model's own
+    ``nn.f32_convolutions`` keeps its convolutions in f32: ``sts_offline``,
+    ``sts_stream``, ``sts_serve_cli``, with every launch counter of the port
+    reset at its start and 0 at its end (no kernel of the port runs here),
+    the card-against-CPU limit below its TF32 control, and the peak device
+    memory."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.core.audio_io import load_audio
+    from tpu_audio_torch.models.sts import deepfilternet as TD
+    from tpu_audio_torch.ops import _lib
+
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        cfg = TD.DeepFilterNetConfig()
+        _lib.reset_launches()
+        card, cpu = card_and_cpu(dev, lambda d, p: TD.DeepFilterNet(
+            cfg, p if p is not None else TD.init_random_params(cfg, seed=0, device=d)))
+        n = int(cfg.sample_rate * STS_SECONDS)
+        noise = np.random.default_rng(0).standard_normal(n).astype(np.float32) * 0.1
+        wav = load_audio(str(NOISY), sample_rate=cfg.sample_rate)[0]
+        offline = sts_offline(card, cpu, noise, wav, smi)
+        t_off = time.perf_counter() - t_phase
+        stream = sts_stream(card, noise, wav, card.enhance(noise), card.enhance(wav), smi)
+        t_stream = time.perf_counter() - t_phase
+        serve = sts_serve_cli(card, noise, wav)
+        no_launches("the [sts] phase")
+        peak = peak_gb()
+        sound = max(r["card_vs_cpu"] for r in offline["runs"].values())
+        leaks = [r["tf32_control"] for r in offline["runs"].values()]
+        print(f"[sts] card against CPU {sound:.3e} <= atol {STS_CARD_ATOL} < TF32 control "
+              f"{min(leaks):.3e}; launch counters {dict(_lib.launches)}; peak {peak:.3f} GB")
+        check(sound <= STS_CARD_ATOL, f"sts: card against CPU {sound:.3e} > {STS_CARD_ATOL}")
+        check(min(leaks) > STS_CARD_ATOL, f"sts: with its convolutions in TF32 the card stays "
+              f"within {STS_CARD_ATOL} of the CPU ({leaks}): the limit would not catch a TF32 leak")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    out = dict(offline=offline, stream=stream, serve=serve, peak_memory_gb=peak,
+               parts_s=dict(offline=t_off, stream=t_stream),
+               phase_s=time.perf_counter() - t_phase, smi=smi)
+    print(f"[sts] phase {out['phase_s']:.1f} s (seconds from its start at the end of each part: "
+          f"{out['parts_s']})")
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sts_main(smi: str) -> int:
+    """``--sts``: the [sts] phase alone, then its JSON as one line (no "ok"
+    line: not the full check). It builds no kernel: none runs there."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = sts_phase(torch.device("cuda", 0), smi)
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"sts": out}))
     return 0
 
 
@@ -8073,7 +8461,7 @@ def main() -> int:
               "--llama-lanes-timing": llama_lanes_timing_main,
               "--kv-mel-timing": kv_mel_timing_main}.get(next(iter(sys.argv[1:]), ""))
     if sys.argv[1:] not in ([], ["--qmm"], ["--qwen3"], ["--parakeet"], ["--vad"],
-                            ["--turn-lid"]) and not timing:
+                            ["--turn-lid"], ["--sts"]) and not timing:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -8100,6 +8488,8 @@ def main() -> int:
         return vad_main(smi.splitlines()[0])
     if sys.argv[1:] == ["--turn-lid"]:
         return turn_lid_main(smi.splitlines()[0])
+    if sys.argv[1:] == ["--sts"]:
+        return sts_main(smi.splitlines()[0])
     if timing:
         return timing(smi.splitlines()[0], [Path(a).resolve() for a in sys.argv[2:]])
     dev = torch.device("cuda", 0)
@@ -8130,6 +8520,10 @@ def main() -> int:
     # the [vad turn lid] phase next, early for the same reason: SmartTurn's
     # kernel-1 launches and every model's device time come from the profiler
     turn_lid, turn_lid_k1 = turn_lid_phase(dev, smi.splitlines()[0])
+    # the [sts] phase next, early for the same reason: its device ms a call
+    # and a streamed chunk come from the profiler (no kernel of the port runs
+    # there)
+    sts = sts_phase(dev, smi.splitlines()[0])
 
     t0 = time.perf_counter()
     cfg, models = build_models(dev)
@@ -8250,6 +8644,7 @@ def main() -> int:
     print(json.dumps({"parakeet": parakeet}))
     print(json.dumps({"vad": vad}))
     print(json.dumps({"turn_lid": turn_lid}))
+    print(json.dumps({"sts": sts}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

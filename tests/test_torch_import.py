@@ -58,6 +58,8 @@ print("ok")
     ["tpu_audio_torch.models.lid", "tpu_audio_torch.models.lid.ecapa_lid",
      "tpu_audio_torch.models.lid.wav2vec2_lid", "tpu_audio_torch.cli.lid",
      "tpu_audio_torch.cli.serve"],
+    ["tpu_audio_torch.models.sts", "tpu_audio_torch.models.sts.deepfilternet",
+     "tpu_audio_torch.cli.sts", "tpu_audio_torch.cli.serve", "tpu_audio_torch.core.dsp"],
 ])
 def test_port_imports_without_jax(mods):
     res = subprocess.run([sys.executable, "-c", _BLOCKER.format(mods=mods)],

@@ -584,10 +584,10 @@ def test_worker_engine_death_unblocks_callers(rich):
 def test_serve_cli_refuses_what_is_not_ported(tmp_path):
     from tpu_audio_torch.cli import serve
 
-    for argv, what in ((["--task", "sts"], "not ported"),
+    for argv, what in ((["--task", "codec"], "not ported"),
                        (["--tp", "2"], "tensor-parallel"),
                        (["--warmup"], "warmup")):
         with pytest.raises(SystemExit, match=what):
             serve.main(["--model", str(tmp_path), *argv])
-    with pytest.raises(NotImplementedError, match="sts"):
-        serve.build_server(None, "sts", "x", port=0)
+    with pytest.raises(NotImplementedError, match="codec"):
+        serve.build_server(None, "codec", "x", port=0)

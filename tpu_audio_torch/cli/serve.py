@@ -1,5 +1,6 @@
-"""Transcription, speech, VAD and language-ID HTTP server on the PyTorch
-port (port of the STT, TTS, VAD and LID routes of tpu_audio.cli.serve).
+"""Transcription, speech, VAD, language-ID and enhancement HTTP server on
+the PyTorch port (port of the STT, TTS, VAD, LID and STS routes of
+tpu_audio.cli.serve).
 Endpoints follow the OpenAI audio API paths:
 
 - ``POST /v1/audio/transcriptions``: body = raw WAV bytes
@@ -24,6 +25,9 @@ Endpoints follow the OpenAI audio API paths:
   "top": [{"language", "confidence"}, ...]}`` (``?top_k=N``, default 5).
   ECAPA-TDNN: concurrent requests go through a micro-batcher (one
   ``predict_batch`` a 4 ms window of up to 16 requests).
+- ``POST /v1/audio/enhance``: raw WAV in (resampled to the model's rate),
+  enhanced WAV out at that rate. STS enhancement models (DeepFilterNet):
+  ``enhance`` under the lock.
 - ``GET /healthz``: liveness + model metadata.
 - ``GET /metrics``: Prometheus text format: per-route request/error counts
   and wall-time totals.
@@ -42,12 +46,13 @@ the model under a lock. Start with:
     python -m tpu_audio_torch.cli.serve --model QWEN3_TTS_DIR --task tts --slots 4
     python -m tpu_audio_torch.cli.serve --model SORTFORMER_DIR --task vad
     python -m tpu_audio_torch.cli.serve --model ECAPA_DIR --task lid
+    python -m tpu_audio_torch.cli.serve --model DEEPFILTERNET_DIR --task sts
 
 The flags are the JAX server's, plus ``--device`` and ``--quantize w8a8``
 (int8 weights: the configuration whose serving tick runs a fused lanes
-kernel). ``--task auto`` finds the task through the port's STT, TTS, VAD and
-LID registries. Other tasks (``sts``, ``codec``), ``--tp > 1`` and
-``--warmup`` are not ported yet and stop with a message.
+kernel). ``--task auto`` finds the task through the port's STT, TTS, VAD,
+LID and STS registries. The ``codec`` task, ``--tp > 1`` and ``--warmup``
+are not ported yet and stop with a message.
 """
 
 from __future__ import annotations
@@ -65,7 +70,7 @@ import numpy as np
 
 __all__ = ["main", "build_server"]
 
-TASKS = ("stt", "tts", "vad", "lid")  # the tasks the port serves
+TASKS = ("stt", "tts", "vad", "lid", "sts")  # the tasks the port serves
 
 
 def _wav_bytes(audio: np.ndarray, sample_rate: int) -> bytes:
@@ -102,8 +107,8 @@ def _ref_audio(req: dict, model):
 
 _KNOWN_ROUTES = (
     "/v1/audio/transcriptions", "/v1/audio/transcriptions/stream",
-    "/v1/audio/speech", "/v1/audio/speech/stream", "/v1/audio/lid",
-    "/v1/audio/vad", "/healthz", "/metrics",
+    "/v1/audio/speech", "/v1/audio/speech/stream", "/v1/audio/enhance",
+    "/v1/audio/lid", "/v1/audio/vad", "/healthz", "/metrics",
 )
 
 
@@ -264,8 +269,9 @@ def build_server(model, task: str, model_name: str,
                  step_tokens: int = 7, fused: str = "auto"):
     """Construct (but don't start) the HTTP server for an STT (``task``
     "stt": Whisper, Parakeet), TTS (``task`` "tts": Orpheus, Qwen3-TTS), VAD
-    (``task`` "vad": Silero, Sortformer, FSMN VAD) or LID (``task`` "lid":
-    ECAPA-TDNN, through a micro-batcher) ``model``.
+    (``task`` "vad": Silero, Sortformer, FSMN VAD), LID (``task`` "lid":
+    ECAPA-TDNN, through a micro-batcher) or STS (``task`` "sts":
+    DeepFilterNet) ``model``.
 
     ``slots > 1`` routes Whisper transcriptions of up to 30 s through a shared
     :class:`~tpu_audio_torch.parallel.continuous_stt.STTEngineWorker`,
@@ -483,6 +489,11 @@ def build_server(model, task: str, model_name: str,
                     audio, _ = _load_wav_body(body, 16000)
                     with lock:
                         self._json(200, _vad_payload(model, audio))
+                elif self.path == "/v1/audio/enhance" and task == "sts":
+                    audio, sr = _load_wav_body(body, model.sample_rate)
+                    with lock:
+                        out = model.enhance(audio)
+                    self._send(200, _wav_bytes(out, sr), "audio/wav")
                 else:
                     failed = True
                     self._json(404, {"error":

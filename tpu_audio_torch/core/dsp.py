@@ -1,10 +1,11 @@
-"""Windows, mel filterbanks, the STFT, power to dB and Whisper's log-mel
-frontend (port of the window, STFT, dB and log-mel parts of
-tpu_audio.core.dsp).
+"""Windows, mel filterbanks, the STFT and its inverse, power to dB and
+Whisper's log-mel frontend (port of the window, STFT, ISTFT, dB and log-mel
+parts of tpu_audio.core.dsp).
 
 Window and filterbank construction is host-side NumPy, identical to the
 JAX package's; the STFT runs through ``torch.stft`` after reflect or
-constant centre padding; Whisper's mel projection and log10 run through
+constant centre padding, and the ISTFT is an overlap-add of the windowed
+``irfft`` frames normalised by the window's sum of squares; Whisper's mel projection and log10 run through
 ``ops.mel.fused_log_mel`` (the CUDA kernel for CUDA tensors). The global
 ``max - 8`` clamp and ``(x + 4) / 4`` normalisation follow as in the JAX
 package.
@@ -20,8 +21,8 @@ import torch
 
 from tpu_audio_torch.ops.mel import fused_log_mel
 
-__all__ = ["hanning_window", "hamming_window", "mel_filters", "stft",
-           "power_to_db", "log_mel_spectrogram"]
+__all__ = ["hanning_window", "hamming_window", "mel_filters", "stft", "irfft",
+           "istft", "power_to_db", "log_mel_spectrogram"]
 
 
 @functools.lru_cache(maxsize=32)
@@ -136,6 +137,42 @@ def stft(audio: torch.Tensor, window: np.ndarray, n_fft: int, hop_length: int,
     spec = torch.stft(x, n_fft, hop_length=hop_length, win_length=n_fft,
                       window=w, center=False, return_complex=True)
     return spec.transpose(0, 1)
+
+
+def irfft(spec: torch.Tensor, n: int, axis: int = -1) -> torch.Tensor:
+    """Inverse real FFT of length ``n`` along ``axis``."""
+    return torch.fft.irfft(spec, n=n, dim=axis)
+
+
+def istft(spec: torch.Tensor, window: np.ndarray, n_fft: int, hop_length: int,
+          length: int | None = None, center: bool = True) -> torch.Tensor:
+    """Inverse STFT of complex ``[n_frames, n_fft//2 + 1]``: each frame's
+    ``irfft`` times the window, overlap-added every ``hop_length`` and
+    divided by the overlap-added squared window, clamped to at least 1e-11
+    (so a window whose edge squares to less, as the vorbis window's does,
+    needs no NOLA check); ``center`` drops ``n_fft//2`` samples at each end,
+    and ``length`` cuts or zero-pads the result."""
+    w = torch.from_numpy(np.asarray(window, np.float32)).to(spec.device)
+    frames = irfft(spec, n=n_fft) * w  # [n_frames, n_fft]
+    n_frames = frames.shape[0]
+    out_len = n_fft + hop_length * (n_frames - 1)
+
+    def overlap_add(cols: torch.Tensor) -> torch.Tensor:
+        # [n_frames, n_fft] -> [out_len]: the column of frame i lands at i * hop
+        return torch.nn.functional.fold(cols.t()[None], (1, out_len), (1, n_fft),
+                                         stride=(1, hop_length)).reshape(out_len)
+
+    sig = overlap_add(frames)
+    wsq = overlap_add((w * w).expand(n_frames, n_fft))
+    sig = sig / torch.clamp(wsq, min=1e-11)
+    if center:
+        pad = n_fft // 2
+        sig = sig[pad: out_len - pad]
+    if length is not None:
+        sig = sig[:length]
+        if sig.shape[0] < length:
+            sig = torch.nn.functional.pad(sig, (0, length - sig.shape[0]))
+    return sig
 
 
 def power_to_db(spectrogram: torch.Tensor, amin: float = 1e-10,

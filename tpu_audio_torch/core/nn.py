@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from tpu_audio_torch.core import quant
 
 __all__ = ["linear", "embedding", "embedding_as_linear", "layer_norm",
-           "rms_norm", "batch_norm", "lstm_cell", "lstm", "conv1d", "conv2d",
+           "rms_norm", "batch_norm", "lstm_cell", "lstm", "gru", "conv1d", "conv2d",
            "conv_transpose1d", "gelu", "silu", "snake", "rope_freqs",
            "apply_rope", "sdpa", "f32_convolutions"]
 
@@ -148,6 +148,40 @@ def lstm(p: dict, x: torch.Tensor, h0: torch.Tensor | None = None,
         ys.append(h)
     out = torch.stack(ys, 1) if ys else x_proj.new_zeros((bsz, 0, hidden))
     return out, (h, c)
+
+
+def gru(p: dict, x: torch.Tensor, h0: torch.Tensor | None = None):
+    """Single-layer GRU over ``[B, T, I]`` in torch gate order (r, z, n),
+    with ``b_hh`` inside the reset gate's product, ``n = tanh(W_in x + b_in
+    + r * (W_hn h + b_hn))``; reads ``weight_ih``/``weight_hh``/``bias_ih``/
+    ``bias_hh`` or their ``_l0`` forms -> ``(outputs [B, T, H], h)``. As in
+    :func:`lstm`, the input projection of every step is one product hoisted
+    out of the recurrence, then one ``addmm`` a step. ``h0`` defaults to
+    zeros."""
+    w_ih = p["weight_ih_l0"] if "weight_ih_l0" in p else p["weight_ih"]
+    w_hh = p["weight_hh_l0"] if "weight_hh_l0" in p else p["weight_hh"]
+    b_ih = p.get("bias_ih_l0", p.get("bias_ih"))
+    b_hh = p.get("bias_hh_l0", p.get("bias_hh"))
+    x_proj = x @ w_ih.t().to(x.dtype)  # [B, T, 3H]
+    if b_ih is not None:
+        x_proj = x_proj + b_ih.to(x.dtype)
+    bsz, hidden = x.shape[0], w_hh.shape[1]
+    h = h0.to(x.dtype) if h0 is not None else x.new_zeros((bsz, hidden))
+    w_hh_t = w_hh.t().to(x.dtype)
+    b_hh = b_hh.to(x.dtype) if b_hh is not None else x.new_zeros((3 * hidden,))
+    ys = []
+    for t in range(x.shape[1]):
+        xt = x_proj[:, t]
+        hp = torch.addmm(b_hh, h, w_hh_t)
+        rz = torch.sigmoid(xt[:, :2 * hidden] + hp[:, :2 * hidden])
+        r, z = rz[:, :hidden], rz[:, hidden:]
+        n = torch.tanh(torch.addcmul(xt[:, 2 * hidden:], r, hp[:, 2 * hidden:]))
+        h = torch.lerp(n, h, z)  # (1 - z) * n + z * h
+        ys.append(h)
+    if len(ys) == 1:  # one step (a streaming hop): a view, no copy
+        return h[:, None], h
+    out = torch.stack(ys, 1) if ys else x_proj.new_zeros((bsz, 0, hidden))
+    return out, h
 
 
 @contextlib.contextmanager
