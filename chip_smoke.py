@@ -192,6 +192,28 @@ kernel 7's short calls then read "not measured".)
    against its bound); two concurrent streamed speech POSTs through
    ``cli.serve.build_server(model, "tts", slots=2)``; the peak device memory.
    ``python3 chip_smoke.py --qwen3`` runs phases 18 and 19 alone.
+19a. ``[qwen3 clone]`` (right after ``[qwen3 serve]``, on the same 8-bit
+   model, TF32 off): voice cloning with a speaker encoder at
+   ``SpeakerEncoderConfig()`` and the speech tokenizer's encoder (Mimi's) at
+   ``encoder_config_from_dict({})``, random from seed 0 in f32, on a 5 s
+   reference at 24 kHz: kernel 1 at the speaker mel's shape (468 x 513 x
+   128) against its plain version, timed, with its bound; the mel, the
+   speaker embedding and the encoder's latent against the CPU, each limit
+   under a TF32 control, the codes equal or parted at witnessed near ties;
+   each encoder's device ms, events, operations and bound; greedy cloned
+   ``generate`` twice (the reference cold, then cached) and
+   ``generate_stream`` once with the counters reset just before and read
+   just after: the prompt's rows (past 64: its prefill dequantizes), kernel
+   7's launches, kernel 1 once on the cold reference only, the same codes
+   in every run; TTFB with the reference cold and cached; the peak device
+   memory.
+19b. ``[mimi]`` (right after, TF32 off; no kernel of the port runs there):
+   Mimi at ``mimi_202407(16)`` from seed 0 in f32: 10 s of speech encoded
+   and decoded against the CPU (codes equal or witnessed, the waveform
+   under its TF32 control), ``decode_step`` in uneven chunks against
+   offline, ``encode_step``'s codes against offline, RTF, and a streamed
+   frame's host and device ms and events. ``python3 chip_smoke.py --clone``
+   runs phases 19a and 19b alone (on a freshly built 8-bit model).
 20. ``[parakeet]`` (run third, after phase 19): Parakeet-TDT-0.6B at its
    published widths (a 24 x 1024 FastConformer behind dw_striding
    subsampling by 8, 1,024 pieces + blank, durations 0-4, a 640-wide LSTM
@@ -349,14 +371,16 @@ mutant must fail its check and every sound copy pass.
 
 TF32 is off for matmuls and convolutions, so float32 references are full
 float32. Any failed check raises and ends the run with a non-zero code.
-The last twelve lines of output are JSON: the generate runs, the long-form
-results, the serving results, the TTS results, the TTS serving results, the
-MLX 4-bit results, the Qwen3-TTS results (its serving under ``serve``), the
-Parakeet results, the VAD results, the FSMN / SmartTurn / LID results, the
-kernels' records (kernel 7's with its Qwen3 launches, ``qwen3_launches`` and
-``qwen3``, and its serving ones, ``qwen3_serve_launches`` and
-``qwen3_serve``; kernel 1's with SmartTurn's, ``smart_turn_launches`` and
-``smart_turn``), then ``{"ok": true,
+The last fourteen lines of output are JSON: the generate runs, the
+long-form results, the serving results, the TTS results, the TTS serving
+results, the MLX 4-bit results, the Qwen3-TTS results (its serving under
+``serve``, cloning under ``clone``), the Parakeet results, the VAD results,
+the FSMN / SmartTurn / LID results, the enhancement results, the Mimi
+results, the kernels' records (kernel 7's with its Qwen3 launches,
+``qwen3_launches`` and ``qwen3``, and its serving ones,
+``qwen3_serve_launches`` and ``qwen3_serve``; kernel 1's with SmartTurn's,
+``smart_turn_launches`` and ``smart_turn``, and the speaker mel's,
+``speaker_mel_launches`` and ``speaker_mel``), then ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside the repository, it
 exits non-zero before printing any of them.
 """
@@ -704,6 +728,34 @@ QWEN3_THROUGHPUT_SLOTS = (4, 8)
 QWEN3_TIMED_TICKS = 8
 QWEN3_BENCH_TEXT = "the quick brown fox jumps over the lazy dog " * 2
 QWEN3_HTTP_FRAMES = 8
+# [qwen3 clone]: voice cloning on the [qwen3 tts] 8-bit model (not built
+# again), with a speaker encoder at SpeakerEncoderConfig() (128 mels,
+# channels 512 x 4 and 1,536, embedding 1,024 = the talker's width) and the
+# speech tokenizer's encoder at encoder_config_from_dict({}) (Mimi's encoder:
+# SEANet 64 filters, ratios 8/6/5/4, 8 x 512 transformer with a 250-frame
+# window, 32 quantizers of 2,048 x 256, 16 valid; 24 kHz to 12.5 Hz), both
+# random from seed 0 in f32; a 5 s reference of the speech signal at 24 kHz
+CLONE_REF_S = 5.0
+CLONE_REF_TEXT = "A reference clip of speech, five seconds long."
+# card against CPU, relative to the largest value: the speaker embedding, and
+# the encoder's latent before the RVQ (f32 sums in another order; the mel
+# through kernel 1 and cuFFT); each under its TF32 control's reading
+CLONE_EMBED_RTOL = 1e-4
+CLONE_LATENT_RTOL = 1e-4
+# [mimi]: Mimi at mimi_202407(16), random from seed 0 in f32; 10 s of the
+# speech signal at 24 kHz offline; decode_step over the offline codes in
+# uneven chunks of these frame counts, cycled; encode_step over uneven
+# chunks of these sample counts, cycled; a frame-by-frame stream of
+# MIMI_STREAM_FRAMES frames timed
+MIMI_SECONDS = 10.0
+MIMI_DECODE_CHUNKS = (1, 3, 2, 7, 5, 11)
+MIMI_ENCODE_CHUNKS = (1000, 4001, 777, 24000, 9600, 1919)
+MIMI_STREAM_FRAMES = 25
+# the waveform card against CPU and streamed against offline, relative to
+# its largest sample (the JAX package's streaming test holds 1e-4 absolute
+# on a fixture whose samples stay below 0.01)
+MIMI_CARD_RTOL = 1e-4
+MIMI_STREAM_RTOL = 1e-4
 # the [parakeet] phase: Parakeet-TDT-0.6B at its published widths (24 x 1024
 # FastConformer, subsampling 8, 1,024 pieces + blank, durations 0-4, a
 # 640-wide LSTM prediction network and joint), bench_parakeet_batch's
@@ -4976,7 +5028,7 @@ def qwen3_generate_phase(model) -> tuple[list, dict, np.ndarray]:
                 launches = dict(_lib.launches)
         finally:
             del model._run_iter
-        codes, prefill_s, gen_s, _ = seen["item"][1]
+        codes, prefill_s, gen_s = seen["item"][1][:3]
         codes = np.stack(codes)
         n_tile = launches.get("quantized_matvec_tile", 0)
         n_decode = launches.get("quantized_matvec_decode", 0)
@@ -5652,7 +5704,606 @@ def qwen3_serve_phase(model, smi: str) -> tuple[dict, dict]:
     return out, k7
 
 
-def qwen3_phase(dev, smi: str) -> tuple[dict, dict]:
+def speech_24k(seconds: float):
+    """``speech_signal`` at 24 kHz (f32 numpy)."""
+    from tpu_audio_torch.core.audio_io import resample_audio
+
+    return resample_audio(speech_signal(seconds), 16000, 24000)[:int(24000 * seconds)]
+
+
+@contextlib.contextmanager
+def counted_flops(out: list):
+    """Add to ``out[0]`` the operations (2 x multiply-adds) of every
+    ``core.nn`` convolution, transposed convolution, linear and attention
+    call inside the block, from their shapes."""
+    from tpu_audio_torch.core import nn
+
+    saved = {k: getattr(nn, k) for k in ("conv1d", "conv_transpose1d", "linear", "sdpa")}
+
+    def conv1d(p, x, *a, **k):
+        y = saved["conv1d"](p, x, *a, **k)
+        out[0] += 2.0 * y.numel() * p["weight"].shape[1] * p["weight"].shape[2]
+        return y
+
+    def conv_transpose1d(p, x, *a, **k):
+        w = p["weight"]
+        out[0] += 2.0 * x.numel() * w.shape[1] * w.shape[2]
+        return saved["conv_transpose1d"](p, x, *a, **k)
+
+    def linear(p, x):
+        y = saved["linear"](p, x)
+        out[0] += 2.0 * y.numel() * x.shape[-1]
+        return y
+
+    def sdpa(q, k, v, *a, **kw):
+        out[0] += 4.0 * q.shape[0] * q.shape[1] * q.shape[2] * k.shape[2] * q.shape[3]
+        return saved["sdpa"](q, k, v, *a, **kw)
+
+    for k, f in (("conv1d", conv1d), ("conv_transpose1d", conv_transpose1d),
+                 ("linear", linear), ("sdpa", sdpa)):
+        setattr(nn, k, f)
+    try:
+        yield
+    finally:
+        for k, f in saved.items():
+            setattr(nn, k, f)
+
+
+def mimi_hop(cfg) -> int:
+    """Samples a Mimi frame (1,920 at 24 kHz and 12.5 Hz)."""
+    return math.prod(cfg.seanet.ratios) * cfg.downsample_stride
+
+
+def rvq_flops(cfg, frames: int) -> float:
+    """The nearest-codebook search of every quantizer over ``frames``
+    frames (2 x frames x bins x dim each)."""
+    return 2.0 * frames * cfg.quantizer_bins * cfg.quantizer_dim * cfg.quantizer_nq
+
+
+def mimi_latent(params: dict, cfg, audio):
+    """Mimi's encoder up to the RVQ: ``audio [B, T]`` -> ``[B, frames,
+    dimension]`` on its device."""
+    from tpu_audio_torch.codecs import mimi as M
+    from tpu_audio_torch.core import nn
+
+    with nn.f32_convolutions():
+        h = M.seanet_encode(params["encoder"], audio[..., None], cfg.seanet)
+        h, _ = M.transformer_forward(params["encoder_transformer"], h, cfg.transformer)
+        s = cfg.downsample_stride
+        return M.s_conv1d(params["downsample"], h, 2 * s, stride=s, pad_mode="edge")
+
+
+def rvq_witness(label: str, quantizer: dict, lat_ref, lat_got, codes_ref, codes_got) -> dict:
+    """Codes ``codes_got`` [B, n, T] against ``codes_ref``: where a frame's
+    codes part, at its first parted codebook both codes must be the two
+    nearest rows from the reference's residual (``lat_ref`` through the
+    reference's codes before it), and their distances must lie within twice
+    the largest difference between the distances from ``lat_ref`` and from
+    ``lat_got`` (float64 on the CPU): a near tie that f32 sums in another
+    order decide. Returns the parted frames and the witnesses."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.codecs import mimi as M
+
+    codes_ref, codes_got = np.asarray(codes_ref), np.asarray(codes_got)
+    n_first = len(quantizer["rvq_first"]["vq"]["layers"])
+    frames = sorted({(b, t) for b, _, t in np.argwhere(codes_got != codes_ref)})
+    seen = []
+    for b, t in frames:
+        k = int(np.flatnonzero(codes_got[b, :, t] != codes_ref[b, :, t])[0])
+        part, i, base = ("rvq_first", k, 0) if k < n_first else ("rvq_rest", k - n_first, n_first)
+        pp = quantizer[part]
+        w = pp["input_proj"]["weight"][:, :, 0].double().cpu()
+        layers = [M._codebook_embed(pp["vq"]["layers"][str(j)]["codebook"]).double().cpu()
+                  for j in range(i + 1)]
+        d = []
+        for lat in (lat_ref, lat_got):
+            r = torch.as_tensor(np.asarray(lat[b, t]), dtype=torch.float64) @ w.T
+            for j in range(i):
+                r = r - layers[j][int(codes_ref[b, base + j, t])]
+            d.append((layers[i] * layers[i]).sum(-1) / 2 - layers[i] @ r)
+        top = torch.argsort(d[0])[:2].tolist()
+        gap = float(d[0][top[1]] - d[0][top[0]])
+        diff = float((d[0] - d[1]).abs().max())
+        seen.append(dict(batch=int(b), frame=int(t), codebook=k, gap=gap, diff=diff))
+        check({int(codes_got[b, k, t]), int(codes_ref[b, k, t])} <= set(top) and gap <= 2 * diff,
+              f"{label}: frame {t} parts at codebook {k} with no near tie (the two nearest "
+              f"{top}, gap {gap:.3e}, the routes' distances differ by {diff:.3e})")
+    print(f"[{label}] codes {codes_got.shape}: {len(frames)} frame(s) of {codes_ref.shape[2]} "
+          f"part, each at a witnessed near tie {[(w['frame'], w['codebook']) for w in seen]}")
+    return dict(parted_frames=len(frames), witnesses=seen)
+
+
+def clone_encoders(model, dev):
+    """The speaker encoder and the speech tokenizer's encoder of
+    [qwen3 clone] on the card, and their CPU copies."""
+    from tpu_audio_torch.codecs import qwen3_codec as QC
+    from tpu_audio_torch.core import loading
+    from tpu_audio_torch.models.tts import qwen3_speaker as QS
+
+    spk_cfg = QS.SpeakerEncoderConfig()
+    check(spk_cfg.enc_dim == model.config.talker.hidden_size,
+          "the speaker embedding is not the talker's width")
+    enc_cfg = QC.encoder_config_from_dict({})
+    spk = QS.Qwen3SpeakerEncoder(spk_cfg, QS.init_random_params(spk_cfg, seed=0, device=dev))
+    enc = QC.Qwen3CodecEncoder(enc_cfg, QC.init_random_encoder_params(enc_cfg, seed=0, device=dev),
+                               valid_num_quantizers=16)
+    return (spk, enc, QS.Qwen3SpeakerEncoder(spk_cfg, loading.to_device(spk.params, "cpu")),
+            QC.Qwen3CodecEncoder(enc_cfg, loading.to_device(enc.params, "cpu"), 16))
+
+
+def speaker_mel_kernel(ref, dev, smi: str) -> dict:
+    """Kernel 1 at the speaker mel's shape (5 s at 24 kHz: 468 frames x 513
+    bins x 128 mels) against its plain version, timed, with its bound."""
+    import torch
+
+    from tpu_audio_torch.core import dsp
+    from tpu_audio_torch.models.tts import qwen3_speaker as QS
+    from tpu_audio_torch.ops import mel as M
+
+    cfg = QS.SpeakerEncoderConfig()
+    spec = dsp.stft(torch.from_numpy(ref).to(dev), dsp.hanning_window(QS.N_FFT, periodic=True),
+                    QS.N_FFT, QS.HOP)[:-1]
+    re, im = spec.real.contiguous(), spec.imag.contiguous()
+    fb = torch.from_numpy(dsp.mel_filters(cfg.sample_rate, QS.N_FFT, cfg.mel_dim, f_min=0.0,
+                                          f_max=cfg.sample_rate / 2.0, norm="slaney",
+                                          mel_scale="slaney")).to(dev)
+    got, want, err = mel_check("speaker mel, 5 s, 128 mels", lambda: M.fused_log_mel(re, im, fb),
+                               re, im, fb)
+    check(got.shape == (ref.shape[0] // QS.HOP, cfg.mel_dim), f"speaker mel {got.shape}")
+    b_ms, b_by = mel_bound(re, im, fb, got)
+    k1 = dict(shape=[re.shape[0], re.shape[1], fb.shape[1]], max_abs_err=err,
+              rel_err=rel_err(got, want), bound_ms=b_ms, bound_by=b_by,
+              ms=cuda_ms(lambda: M.fused_log_mel(re, im, fb)),
+              plain_ms=cuda_ms(lambda: M.fused_log_mel_ref(re, im, fb)),
+              dev_ms=device_ms(lambda: M.fused_log_mel(re, im, fb)),
+              plain_dev_ms=device_ms(lambda: M.fused_log_mel_ref(re, im, fb)))
+    print(f"[qwen3 clone mel] kernel 1 at [{re.shape[0]},{re.shape[1]}]x[{fb.shape[0]},"
+          f"{fb.shape[1]}]: max abs err {err:.3e} (atol {MEL_ATOL}); per call kernel "
+          f"{k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms; device kernel {fmt(k1['dev_ms'])}, "
+          f"plain {fmt(k1['plain_dev_ms'])}; bound {b_ms:.6f} ms ({b_by}) ({smi})")
+    return k1
+
+
+def clone_encoder_checks(spk, enc, spk_cpu, enc_cpu, ref, dev, smi: str) -> dict:
+    """The speaker mel, the embedding and the codes on the card against the
+    CPU (the codes equal, or parted at witnessed near ties, ``rvq_witness``),
+    each limit under its TF32 control (convolutions and matrix products in
+    TF32); kernel 1 once for the embedding and no kernel of the port for the
+    codes; then each encoder's device ms, events and bound."""
+    import torch
+
+    from tpu_audio_torch.models.tts import qwen3_speaker as QS
+    from tpu_audio_torch.ops import _lib
+
+    cfg = spk.config
+    _lib.reset_launches()
+    emb = spk(ref)
+    launches = dict(_lib.launches)
+    check({k: v for k, v in launches.items() if v} == {"fused_log_mel": 1},
+          f"speaker embedding: launches {launches} (kernel 1 once)")
+    emb_cpu = spk_cpu(ref)
+    mel = QS.speaker_mel(ref, cfg, device=dev)
+    mel_err = float((mel.cpu() - QS.speaker_mel(ref, cfg)).abs().max())
+    emb_err = rel_err(emb.cpu(), emb_cpu)
+    _lib.reset_launches()
+    codes = enc.encode(ref)
+    no_launches("the speech tokenizer's encoder")
+    codes_cpu = enc_cpu.encode(ref)
+    x = torch.from_numpy(ref)[None]
+    lat, lat_cpu = mimi_latent(enc.params, enc.config, x.to(dev)).cpu(), mimi_latent(
+        enc_cpu.params, enc.config, x)
+    lat_err = rel_err(lat, lat_cpu)
+    witness = rvq_witness("qwen3 clone codes", enc_cpu.params["quantizer"], lat_cpu.numpy(),
+                          lat.numpy(), codes_cpu.numpy(), codes.cpu().numpy())
+    with tf32_everywhere():
+        emb_leak = rel_err(spk(ref).cpu(), emb_cpu)
+        lat_leak = rel_err(mimi_latent(enc.params, enc.config, x.to(dev)).cpu(), lat_cpu)
+        codes_leak = int((enc.encode(ref).cpu() != codes_cpu).sum())
+    print(f"[qwen3 clone encoders] mel card against CPU {mel_err:.3e} (atol {MEL_ATOL}); "
+          f"embedding {tuple(emb.shape)} rel err {emb_err:.3e} (rtol {CLONE_EMBED_RTOL}; TF32 "
+          f"control {emb_leak:.3e}); codes {tuple(codes.shape)}, latent rel err {lat_err:.3e} "
+          f"(rtol {CLONE_LATENT_RTOL}; TF32 control {lat_leak:.3e}, {codes_leak} codes parted "
+          f"there); launches for the embedding {launches}")
+    check(mel_err <= MEL_ATOL, f"speaker mel card against CPU {mel_err:.3e}")
+    check(emb_err <= CLONE_EMBED_RTOL < emb_leak,
+          f"speaker embedding: {emb_err:.3e} against {CLONE_EMBED_RTOL} < control {emb_leak:.3e}")
+    check(lat_err <= CLONE_LATENT_RTOL < lat_leak,
+          f"codec encoder latent: {lat_err:.3e} against {CLONE_LATENT_RTOL} < control {lat_leak:.3e}")
+    check(codes.shape == (1, enc.valid_num_quantizers, -(-ref.shape[0] // mimi_hop(enc.config))),
+          f"codes {tuple(codes.shape)}")
+    # each encoder alone: device ms and events, operations and bound
+    timings = {}
+    for name, fn, params, io_bytes, extra in (
+            ("speaker", lambda: QS.speaker_encoder_forward(spk.params, mel, cfg), spk.params,
+             nbytes(mel, emb), 0.0),
+            ("codec", lambda: enc.encode(ref), enc.params, 4 * ref.size + 8 * codes.numel(),
+             rvq_flops(enc.config, codes.shape[2]))):
+        ops = [0.0]
+        with counted_flops(ops):
+            fn()
+        ops = ops[0] + extra
+        b_ms, b_by = bound(nbytes(*_tensors(params)) + io_bytes, f32_ops=ops)
+        wall, busy, events = profiled(fn, dev, f"qwen3 clone {name} encoder")
+        timings[name] = dict(wall_ms=wall, device_ms=busy, device_events=events,
+                             gflop=ops / 1e9, bound_ms=b_ms, bound_by=b_by)
+        print(f"[qwen3 clone {name} encoder] {ops / 1e9:.3f} GFLOP f32, bound {b_ms:.4f} ms "
+              f"({b_by}); a call {wall:.3f} ms on the host clock, device busy {fmt(busy)}, "
+              f"{events} device events ({smi})")
+    return dict(mel_card_vs_cpu=mel_err, embedding_rel_err=emb_err, embedding_tf32_control=emb_leak,
+                latent_rel_err=lat_err, latent_tf32_control=lat_leak,
+                codes_parted_tf32_control=codes_leak, codes=witness, encoders=timings,
+                launches=launches)
+
+
+def clone_generate_runs(model, ref) -> tuple[list, int]:
+    """Greedy cloned ``generate`` twice (the first with the reference cache
+    cleared) and ``generate_stream`` once, each with the counters reset just
+    before and read just after: the prompt's rows (past 64: its prefill
+    takes the dequantize route, 4 products a talker layer), kernel 7's
+    decode kernel ``decode`` times a frame taken and its tile ``cp`` times a
+    frame plus the text projection's (3-row tts ids and role header, the
+    texts' rows where 2..64), kernel 1 once on the cold reference and never
+    on a cached one, no GEMV, no other kernel, no plain version. The codes
+    repeat; the stream's chunks are the codec's decode of the codes alone
+    within QWEN3_STREAM_ATOL. Returns the runs and kernel 1's launches."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.core import quant
+    from tpu_audio_torch.core.generation import AudioGenerateParameters, AudioGenerationKind
+    from tpu_audio_torch.ops import _lib, qmm
+
+    n = qwen3_products(model)
+    L = model.config.talker.num_hidden_layers
+    model._ref_context_cache = None
+    prompt = model.prepare_icl_generation_inputs(QWEN3_TEXT, ref, CLONE_REF_TEXT)[0].shape[1]
+    tok = model.tokenizer
+    ref_ids = len(tok.encode(f"<|im_start|>assistant\n{CLONE_REF_TEXT}<|im_end|>\n").ids) - 5
+    tgt_ids = len(tok.encode(f"<|im_start|>assistant\n{QWEN3_TEXT}<|im_end|>\n"
+                             "<|im_start|>assistant\n").ids) - 8
+    text_rows = ref_ids + tgt_ids
+    text_tiles = 4 + (2 if 2 <= text_rows <= qmm.MAX_ROWS else 0)
+    big = 4 * L + (2 if text_rows > qmm.MAX_ROWS else 0)
+    check(prompt - 1 > qmm.MAX_ROWS, f"a {prompt}-row cloned prompt: its prefill takes the tile")
+    gp = AudioGenerateParameters(max_tokens=QWEN3_FRAMES, temperature=0.0,
+                                 repetition_penalty=1.05, repetition_context_size=64)
+    runs, first, k1_launches = [], None, 0
+    matmul = quant.quantized_matmul
+    for run, stream in enumerate((False, False, True)):
+        if run == 0:
+            model._ref_context_cache = None
+        frames, plain, seen, rows = [0], [0], {}, []
+        run_iter = model._run_iter
+
+        def spy(*a, **k):
+            for item in run_iter(*a, **k):
+                seen["item"] = item
+                yield item
+
+        def matmul_spy(x, *a, **k):
+            rows.append(int(np.prod(x.shape[:-1])))
+            return matmul(x, *a, **k)
+
+        model._run_iter, quant.quantized_matmul = spy, matmul_spy
+        kw = dict(ref_audio=ref, ref_text=CLONE_REF_TEXT, generation_parameters=gp)
+        try:
+            with counting(model, "_frame", frames), counting(qmm, "quantized_matvec_ref", plain):
+                _lib.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if stream:
+                    chunks = [e.audio for e in model.generate_stream(QWEN3_TEXT, **kw)
+                              if e.kind == AudioGenerationKind.AUDIO]
+                    wav = np.concatenate(chunks)
+                else:
+                    wav = model.generate(QWEN3_TEXT, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = dict(_lib.launches)
+        finally:
+            del model._run_iter
+            quant.quantized_matmul = matmul
+        codes, prefill_s, gen_s, prompt_rows, ref_codes = seen["item"][1]
+        codes = np.stack(codes)
+        n_tile = launches.get("quantized_matvec_tile", 0)
+        n_decode = launches.get("quantized_matvec_decode", 0)
+        n_gemv = launches.get("quantized_matvec", 0) - n_tile - n_decode
+        n_mel = launches.get("fused_log_mel", 0)
+        n_big = sum(r > qmm.MAX_ROWS for r in rows)
+        want_decode, want_tile = n["decode"] * frames[0], text_tiles + n["cp"] * frames[0]
+        label = "generate_stream" if stream else "generate"
+        print(f"[qwen3 clone {label} run {run}] {prompt_rows}-row prompt ({ref_codes.shape[2]} "
+              f"reference frames), {codes.shape[0]} frames in {wall:.3f} s (prefill "
+              f"{prefill_s * 1e3:.3f} ms, {gen_s * 1e3 / frames[0]:.3f} ms a frame); launches "
+              f"{launches}: decode {n_decode} ({want_decode} expected), tile {n_tile} "
+              f"({want_tile} expected), GEMV {n_gemv}, kernel 1 {n_mel} ({int(run == 0)} "
+              f"expected); {n_big} products dequantized past 64 rows ({big} expected); plain "
+              f"version calls {plain[0]}")
+        check(prompt_rows == prompt and n_decode == want_decode and n_tile == want_tile
+              and n_gemv == 0 and n_mel == int(run == 0) and n_big == big and plain[0] == 0,
+              f"qwen3 clone {label} run {run}: launches {launches}, {n_big} dequantized")
+        check(set(k for k, v in launches.items() if v) <= {
+            "quantized_matvec", "quantized_matvec_tile", "quantized_matvec_decode",
+            "fused_log_mel"}, f"qwen3 clone: another kernel of the port ran: {launches}")
+        check(codes.shape[1:] == (model.config.talker.num_code_groups,)
+              and frames[0] - codes.shape[0] in (0, 1) and codes.shape[0] >= 2,
+              f"qwen3 clone: {codes.shape} codes in {frames[0]} frame steps")
+        check(bool(np.isfinite(wav).all()) and wav.shape[0] > 0, f"qwen3 clone: waveform {wav.shape}")
+        if first is None:
+            first, k1_launches = (codes, wav), n_mel
+        check(np.array_equal(codes, first[0]), "qwen3 clone: greedy codes differ between runs")
+        if stream:
+            alone = model.codec.decode(codes.T[None])[0].float().cpu().numpy()
+            stream_err = float(np.abs(wav - alone).max())
+            print(f"[qwen3 clone stream] {len(chunks)} chunks against the codec's decode of the "
+                  f"codes alone: max abs diff {stream_err:.3e} (atol {QWEN3_STREAM_ATOL})")
+            check(stream_err <= QWEN3_STREAM_ATOL, "qwen3 clone: the stream departs from decode")
+        else:
+            check(np.array_equal(wav, first[1]), "qwen3 clone: waveforms differ between runs")
+        runs.append(dict(api=label, run=run, prompt_rows=prompt_rows,
+                         reference_frames=int(ref_codes.shape[2]), frames=int(codes.shape[0]),
+                         wall_s=wall, prefill_ms=prefill_s * 1e3,
+                         host_ms_a_frame=gen_s * 1e3 / frames[0], samples=int(wav.shape[0]),
+                         launches=launches, dequantized_products=n_big))
+    runs[-1].update(stream_max_abs_diff=stream_err)
+    return runs, k1_launches
+
+
+def clone_ttfb(model, ref) -> dict:
+    """Time to the first audio of a cloned ``generate_stream`` (greedy, the
+    first chunk at QWEN3_TTFB_FRAMES frames), the reference cold (the cache
+    cleared: both encoders run) and cached, in turns: cold, cached, cold,
+    cached; the best of each."""
+    import torch
+
+    from tpu_audio_torch.core.generation import AudioGenerateParameters, AudioGenerationKind
+
+    gp = AudioGenerateParameters(max_tokens=QWEN3_TTFB_FRAMES, temperature=0.0,
+                                 repetition_penalty=1.05,
+                                 streaming_interval=QWEN3_TTFB_FRAMES / 12.5)
+    times = {"cold": [], "cached": []}
+    for which in ("cold", "cached", "cold", "cached"):
+        if which == "cold":
+            model._ref_context_cache = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events = model.generate_stream(QWEN3_TEXT, ref_audio=ref, ref_text=CLONE_REF_TEXT,
+                                       generation_parameters=gp)
+        first = next(e for e in events if e.kind == AudioGenerationKind.AUDIO)
+        times[which].append((time.perf_counter() - t0) * 1e3)
+        events.close()
+        check(first.audio.shape[0] > 0, "qwen3 clone: an empty first chunk")
+    out = {f"ttfb_{k}_ms": min(v) for k, v in times.items()}
+    out.update({f"ttfb_{k}_all_ms": v for k, v in times.items()})
+    print(f"[qwen3 clone ttfb] first audio ({QWEN3_TTFB_FRAMES} frames) with the reference cold "
+          f"{[round(t, 3) for t in times['cold']]} ms, cached "
+          f"{[round(t, 3) for t in times['cached']]} ms")
+    return out
+
+
+@contextlib.contextmanager
+def tf32_everywhere():
+    """The TF32 control of [qwen3 clone] and [mimi], which run with TF32
+    off: cuDNN's and the matrix products' TF32 allowed and the models'
+    ``nn.f32_convolutions`` guard bypassed (``tf32_leak``)."""
+    import torch
+
+    cudnn = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with tf32_leak(matmul=True):
+            yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+
+
+def qwen3_clone_phase(model, dev, smi: str) -> tuple[dict, dict]:
+    """The ``[qwen3 clone]`` phase on the [qwen3 tts] 8-bit model, TF32 off:
+    the encoders attached (``clone_encoders``), kernel 1 at the speaker
+    mel's shape (``speaker_mel_kernel``), the encoders against the CPU and
+    timed (``clone_encoder_checks``), the cloned runs (``clone_generate_runs``)
+    and TTFB (``clone_ttfb``); the model is left without its encoders.
+    Returns the phase's record and kernel 1's fields."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ref = speech_24k(CLONE_REF_S)
+    spk, enc, spk_cpu, enc_cpu = clone_encoders(model, dev)
+    model.speaker_encoder, model.codec_encoder = spk, enc
+    try:
+        k1 = speaker_mel_kernel(ref, dev, smi)
+        encoders = clone_encoder_checks(spk, enc, spk_cpu, enc_cpu, ref, dev, smi)
+        runs, k1_launches = clone_generate_runs(model, ref)
+        ttfb = clone_ttfb(model, ref)
+    finally:
+        model.speaker_encoder = model.codec_encoder = model._ref_context_cache = None
+    peak = peak_gb()
+    out = dict(reference_s=CLONE_REF_S, kernel1=k1, encoders=encoders, runs=runs, ttfb=ttfb,
+               peak_memory_gb=peak, phase_s=time.perf_counter() - t_phase,
+               tf32=dict(cudnn=torch.backends.cudnn.allow_tf32,
+                         matmul=torch.backends.cuda.matmul.allow_tf32), smi=smi)
+    print(f"[qwen3 clone] peak device memory {peak:.2f} GB; phase {out['phase_s']:.1f} s")
+    return out, dict(speaker_mel_launches=k1_launches, speaker_mel=k1)
+
+
+def mimi_phase(dev, smi: str) -> dict:
+    """The ``[mimi]`` phase, TF32 off: Mimi at ``mimi_202407(16)`` from seed
+    0 on the card and a CPU copy; 10 s of speech ``encode`` and ``decode``,
+    card against CPU (codes equal or witnessed, ``rvq_witness``; the
+    waveform within MIMI_CARD_RTOL, under its TF32 control); ``decode_step``
+    in uneven chunks against offline (MIMI_STREAM_RTOL); ``encode_step``'s
+    codes against offline (witnessed from its own latents); RTF, device ms,
+    events, operations and bounds of encode and decode; host and device ms
+    and events a streamed frame. No kernel of the port runs."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.codecs import mimi as M
+    from tpu_audio_torch.ops import _lib
+
+    t_phase = time.perf_counter()
+    cfg = M.mimi_202407(16)
+    card, cpu = card_and_cpu(dev, lambda d, p: M.Mimi(
+        cfg, p if p is not None else M.init_random_params(cfg, seed=0, device=d), device=d))
+    audio = speech_24k(MIMI_SECONDS)
+    x = torch.from_numpy(audio)[None]
+    _lib.reset_launches()
+    codes = card.encode(audio)
+    wav = card.decode(codes)
+    no_launches("[mimi]")
+    codes_cpu = cpu.encode(audio)
+    lat, lat_cpu = mimi_latent(card.params, cfg, x.to(dev)).cpu(), mimi_latent(cpu.params, cfg, x)
+    lat_err = rel_err(lat, lat_cpu)
+    enc_witness = rvq_witness("mimi encode", cpu.params["quantizer"], lat_cpu.numpy(),
+                              lat.numpy(), codes_cpu.numpy(), codes.cpu().numpy())
+    wav = card.decode(codes_cpu)
+    wav_cpu = cpu.decode(codes_cpu)
+    wav_err = rel_err(wav.cpu(), wav_cpu)
+    with tf32_everywhere():
+        wav_leak = rel_err(card.decode(codes_cpu).cpu(), wav_cpu)
+        lat_leak = rel_err(mimi_latent(card.params, cfg, x.to(dev)).cpu(), lat_cpu)
+    frames = codes.shape[2]
+    print(f"[mimi offline] {MIMI_SECONDS} s -> codes {tuple(codes.shape)} -> {tuple(wav.shape)} "
+          f"samples (largest {float(wav_cpu.abs().max()):.4f}); latent rel err {lat_err:.3e} "
+          f"(TF32 control {lat_leak:.3e}); waveform rel err {wav_err:.3e} (rtol "
+          f"{MIMI_CARD_RTOL}; TF32 control {wav_leak:.3e})")
+    hop = mimi_hop(cfg)
+    check(codes.shape == (1, cfg.quantizer_nq, -(-audio.size // hop))
+          and wav.shape == (1, frames * hop)
+          and bool(torch.isfinite(wav).all()), f"mimi: codes {codes.shape}, waveform {wav.shape}")
+    check(wav_err <= MIMI_CARD_RTOL < wav_leak,
+          f"mimi decode: {wav_err:.3e} against {MIMI_CARD_RTOL} < control {wav_leak:.3e}")
+    check(lat_err <= CLONE_LATENT_RTOL < lat_leak,
+          f"mimi latent: {lat_err:.3e} against {CLONE_LATENT_RTOL} < control {lat_leak:.3e}")
+    # decode_step in uneven chunks against offline
+    card.reset_state()
+    pieces, t = [], 0
+    for i in range(frames):
+        if t >= frames:
+            break
+        n = MIMI_DECODE_CHUNKS[i % len(MIMI_DECODE_CHUNKS)]
+        pieces.append(card.decode_step(codes_cpu[:, :, t:t + n]))
+        t += n
+    streamed = torch.cat(pieces, dim=1)
+    stream_err = rel_err(streamed, wav[:, :streamed.shape[1]])
+    print(f"[mimi decode_step] {len(pieces)} chunks of {list(MIMI_DECODE_CHUNKS)} frames "
+          f"(cycled): {streamed.shape[1]} samples against offline rel err {stream_err:.3e} "
+          f"(rtol {MIMI_STREAM_RTOL})")
+    check(streamed.shape[1] == wav.shape[1] and stream_err <= MIMI_STREAM_RTOL,
+          f"mimi decode_step: {tuple(streamed.shape)}, {stream_err:.3e} from offline")
+    # encode_step in uneven chunks: its codes against offline, its latents kept
+    card.reset_state()
+    quantize, lats = M.quantizer_encode, []
+
+    def keep(p, h):
+        lats.append(h)
+        return quantize(p, h)
+
+    M.quantizer_encode = keep
+    try:
+        pieces, s, i = [], 0, 0
+        while s < audio.size:
+            n = MIMI_ENCODE_CHUNKS[i % len(MIMI_ENCODE_CHUNKS)]
+            pieces.append(card.encode_step(audio[None, s:s + n]))
+            s, i = s + n, i + 1
+    finally:
+        M.quantizer_encode = quantize
+    step_codes = torch.cat(pieces, dim=2).cpu().numpy()
+    step_lat = torch.cat(lats, dim=1).cpu().numpy()
+    k = step_codes.shape[2]
+    check(0 < k <= frames, f"mimi encode_step: {k} frames")
+    step_witness = rvq_witness("mimi encode_step", card.params["quantizer"],
+                               lat[:, :k].numpy(), step_lat, codes.cpu().numpy()[:, :, :k],
+                               step_codes)
+    print(f"[mimi encode_step] {i} chunks of {list(MIMI_ENCODE_CHUNKS)} samples (cycled): {k} "
+          f"frames, latent rel err against offline {rel_err(torch.from_numpy(step_lat), lat[:, :k]):.3e}")
+    # RTF, and a streamed frame
+    _, enc_walls = timed_walls(lambda: card.encode(audio), dev, 3)
+    _, dec_walls = timed_walls(lambda: card.decode(codes_cpu), dev, 3)
+    dec = M.MimiStreamingDecoder(card)
+    frame_walls = []
+    for t in range(MIMI_STREAM_FRAMES):
+        t0 = time.perf_counter()
+        dec.decode_frames(codes_cpu[:, :, t:t + 1])
+        frame_walls.append((time.perf_counter() - t0) * 1e3)
+    busy, events = marked_window(lambda: card.decode_step(
+        codes_cpu[:, :, MIMI_STREAM_FRAMES:MIMI_STREAM_FRAMES + 1]), "mimi frame")
+    enc_busy, enc_events = marked_window(lambda: card.encode(audio), "mimi encode")
+    dec_busy, dec_events = marked_window(lambda: card.decode(codes_cpu), "mimi decode")
+    bounds = {}
+    for name, fn, parts, io_bytes, extra in (
+            ("encode", lambda: card.encode(audio),
+             ("encoder", "encoder_transformer", "downsample", "quantizer"),
+             4 * audio.size + 8 * codes.numel(), rvq_flops(cfg, frames)),
+            ("decode", lambda: card.decode(codes_cpu),
+             ("quantizer", "upsample", "decoder_transformer", "decoder"),
+             8 * codes.numel() + nbytes(wav), 0.0)):
+        ops = [0.0]
+        with counted_flops(ops):
+            fn()
+        b_ms, b_by = bound(sum(nbytes(*_tensors(card.params[k])) for k in parts) + io_bytes,
+                           f32_ops=ops[0] + extra)
+        bounds[name] = dict(gflop=(ops[0] + extra) / 1e9, bound_ms=b_ms, bound_by=b_by)
+    print(f"[mimi bound] {MIMI_SECONDS} s: encode {bounds['encode']['gflop']:.3f} GFLOP f32, "
+          f"bound {bounds['encode']['bound_ms']:.4f} ms ({bounds['encode']['bound_by']}); decode "
+          f"{bounds['decode']['gflop']:.3f} GFLOP, bound {bounds['decode']['bound_ms']:.4f} ms "
+          f"({bounds['decode']['bound_by']}) ({smi})")
+    peak = peak_gb()
+    steady = frame_walls[2:]
+    out = dict(seconds=MIMI_SECONDS, codes_shape=list(codes.shape), latent_rel_err=lat_err,
+               latent_tf32_control=lat_leak, encode=enc_witness, decode_rel_err=wav_err,
+               decode_tf32_control=wav_leak, decode_step_rel_err=stream_err,
+               encode_step=step_witness, encode_walls_s=enc_walls, decode_walls_s=dec_walls,
+               rtf_encode=min(enc_walls) / MIMI_SECONDS, rtf_decode=min(dec_walls) / MIMI_SECONDS,
+               encode_device_ms=None if enc_busy is None else enc_busy / 1e3,
+               encode_device_events=enc_events,
+               decode_device_ms=None if dec_busy is None else dec_busy / 1e3,
+               decode_device_events=dec_events, bounds=bounds, frame_host_ms=frame_walls,
+               frame_host_ms_median=statistics.median(steady),
+               frame_device_ms=None if busy is None else busy / 1e3, frame_device_events=events,
+               peak_memory_gb=peak, phase_s=time.perf_counter() - t_phase, smi=smi)
+    print(f"[mimi time] {MIMI_SECONDS} s: encode {min(enc_walls) * 1e3:.3f} ms (RTF "
+          f"{out['rtf_encode']:.5f}; device {fmt(out['encode_device_ms'])}, {enc_events} events), "
+          f"decode {min(dec_walls) * 1e3:.3f} ms (RTF {out['rtf_decode']:.5f}; device "
+          f"{fmt(out['decode_device_ms'])}, {dec_events} events); a streamed frame (80 ms of "
+          f"audio) {out['frame_host_ms_median']:.3f} host ms (median of frames 3-"
+          f"{MIMI_STREAM_FRAMES}, readback included), device {fmt(out['frame_device_ms'])}, "
+          f"{events} events; peak {peak:.3f} GB; phase {out['phase_s']:.1f} s ({smi})")
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def clone_main(smi: str) -> int:
+    """``--clone``: the [qwen3 clone] phase on a freshly built [qwen3 tts]
+    8-bit model, then [mimi], then their JSON and kernel 1's speaker-mel
+    fields as one line (no "ok" line: not the full check)."""
+    import torch
+
+    from tpu_audio_torch.ops import _lib
+
+    t0 = time.perf_counter()
+    _lib.lib()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    q8 = build_qwen3(dev)["8bit"]
+    clone, k1 = qwen3_clone_phase(q8, dev, smi)
+    del q8
+    gc.collect()
+    torch.cuda.empty_cache()
+    mimi = mimi_phase(dev, smi)
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"qwen3_clone": clone, "mimi": mimi, "kernel1": k1}))
+    return 0
+
+
+def qwen3_phase(dev, smi: str, clone: bool = False) -> tuple[dict, dict, dict]:
     """The ``[qwen3 tts]`` phase: builds the bf16 and 8-bit models
     (``build_qwen3``), holds kernel 7 at every Qwen3 shape
     (``qwen3_qmm_checks``), runs the 8-bit greedy ``generate`` twice and
@@ -5660,8 +6311,10 @@ def qwen3_phase(dev, smi: str) -> tuple[dict, dict]:
     the teacher-forced logits (``qwen3_teacher_forced``), a greedy bf16
     ``generate``, and the timings of both (``qwen3_timing``); then the
     ``[qwen3 serve]`` phase on the 8-bit model (``qwen3_serve_phase``, its
-    JSON under ``serve``). Returns the phases' JSON and kernel 7's Qwen3
-    fields for its two records."""
+    JSON under ``serve``) and, with ``clone``, the ``[qwen3 clone]`` phase on
+    it (``qwen3_clone_phase``, under ``clone``). Returns the phases' JSON,
+    kernel 7's Qwen3 fields for its two records and kernel 1's speaker-mel
+    fields (empty without ``clone``)."""
     import numpy as np
     import torch
 
@@ -5725,10 +6378,13 @@ def qwen3_phase(dev, smi: str) -> tuple[dict, dict]:
     k7["quantized_matvec_tile"].update(serve_k7)
     k7["quantized_matvec"]["qwen3_serve_launches"] = out["serve"]["run"]["launches"].get(
         "quantized_matvec_decode", 0)
+    k1 = {}
+    if clone:
+        out["clone"], k1 = qwen3_clone_phase(q8, dev, smi)
     del models, q8, bf16
     gc.collect()
     torch.cuda.empty_cache()
-    return out, k7
+    return out, k7, k1
 
 
 def parakeet_config():
@@ -8409,7 +9065,7 @@ def qwen3_main(smi: str) -> int:
     t0 = time.perf_counter()
     _lib.lib()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
-    out, k7 = qwen3_phase(torch.device("cuda", 0), smi)
+    out, k7, _ = qwen3_phase(torch.device("cuda", 0), smi)
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"qwen3_tts": out, "kernel7": k7}))
     return 0
@@ -8460,7 +9116,7 @@ def main() -> int:
               "--fused-llama-timing": fused_llama_timing_main,
               "--llama-lanes-timing": llama_lanes_timing_main,
               "--kv-mel-timing": kv_mel_timing_main}.get(next(iter(sys.argv[1:]), ""))
-    if sys.argv[1:] not in ([], ["--qmm"], ["--qwen3"], ["--parakeet"], ["--vad"],
+    if sys.argv[1:] not in ([], ["--qmm"], ["--qwen3"], ["--clone"], ["--parakeet"], ["--vad"],
                             ["--turn-lid"], ["--sts"]) and not timing:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -8482,6 +9138,8 @@ def main() -> int:
         return qmm_main(smi.splitlines()[0])
     if sys.argv[1:] == ["--qwen3"]:
         return qwen3_main(smi.splitlines()[0])
+    if sys.argv[1:] == ["--clone"]:
+        return clone_main(smi.splitlines()[0])
     if sys.argv[1:] == ["--parakeet"]:
         return parakeet_main(smi.splitlines()[0])
     if sys.argv[1:] == ["--vad"]:
@@ -8505,10 +9163,12 @@ def main() -> int:
     # events, and kernel 7's short calls then read "not measured"
     records = qmm_phase(dev)
     # the [qwen3 tts] phase next, early for the same reason: it reads kernel
-    # 7's device time a frame from the profiler
-    qwen3, qwen3_k7 = qwen3_phase(dev, smi.splitlines()[0])
+    # 7's device time a frame from the profiler; [qwen3 clone] on its 8-bit
+    # model, then [mimi], read device time from the profiler too
+    qwen3, qwen3_k7, clone_k1 = qwen3_phase(dev, smi.splitlines()[0], clone=True)
     for k, fields in qwen3_k7.items():
         records[k].update(fields)
+    mimi = mimi_phase(dev, smi.splitlines()[0])
     # the [parakeet] phase next, early too: it reads the decode loop's busy
     # share from the profiler
     parakeet, parakeet_k7 = parakeet_phase(dev, smi.splitlines()[0])
@@ -8540,6 +9200,7 @@ def main() -> int:
     kernel_records, enc = kernel_phases(models, cfg, audio, dev)
     records.update(kernel_records)
     records["fused_log_mel"].update(turn_lid_k1)
+    records["fused_log_mel"].update(clone_k1)
     w8 = models["w8_kv8d"]
     records["fused_stack_lanes"] = lanes_phase(w8, cfg, lane_encoders(w8, enc, clips, rng),
                                                dev)
@@ -8631,7 +9292,8 @@ def main() -> int:
                              "library_error", "gemv_ms", "gemv_dev_ms", "gemv_checks",
                              "gemv_rel_err", "qwen3_launches", "qwen3", "qwen3_serve_launches",
                              "qwen3_serve", "parakeet_launches", "parakeet",
-                             "smart_turn_launches", "smart_turn") if f in r})
+                             "smart_turn_launches", "smart_turn", "speaker_mel_launches",
+                             "speaker_mel") if f in r})
         for k, r in records.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"generate": runs, "smi": smi.splitlines()[0]}))
@@ -8645,6 +9307,7 @@ def main() -> int:
     print(json.dumps({"vad": vad}))
     print(json.dumps({"turn_lid": turn_lid}))
     print(json.dumps({"sts": sts}))
+    print(json.dumps({"mimi": mimi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -60,6 +60,9 @@ print("ok")
      "tpu_audio_torch.cli.serve"],
     ["tpu_audio_torch.models.sts", "tpu_audio_torch.models.sts.deepfilternet",
      "tpu_audio_torch.cli.sts", "tpu_audio_torch.cli.serve", "tpu_audio_torch.core.dsp"],
+    ["tpu_audio_torch.codecs.mimi", "tpu_audio_torch.codecs", "tpu_audio_torch.codecs.qwen3_codec",
+     "tpu_audio_torch.models.tts.qwen3_speaker", "tpu_audio_torch.models.tts.qwen3_tts",
+     "tpu_audio_torch.cli.tts", "tpu_audio_torch.convert"],
 ])
 def test_port_imports_without_jax(mods):
     res = subprocess.run([sys.executable, "-c", _BLOCKER.format(mods=mods)],

@@ -1,8 +1,9 @@
 """Neural audio codecs: the token <-> waveform layer (port of
 tpu_audio.codecs). Every codec exposes ``encode`` / ``decode`` /
-``reconstruct`` and ``from_pretrained``. Ported: SNAC, and the Qwen3-TTS
-speech tokenizer's decoder (``qwen3_codec``, which ``Qwen3TTS`` loads from
-its checkpoint and which, as in the JAX package, is not in the registry)."""
+``reconstruct`` and ``from_pretrained``. Ported: SNAC, Mimi, and the Qwen3-TTS
+speech tokenizer (``qwen3_codec``, decoder and encoder, which ``Qwen3TTS``
+loads from its checkpoint and which, as in the JAX package, is not in the
+registry)."""
 
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ class AudioCodecModel(ABC):
 
 _REGISTRY: dict[str, str] = {
     "snac": "tpu_audio_torch.codecs.snac:SNAC",
+    "mimi": "tpu_audio_torch.codecs.mimi:Mimi",
 }
 
 
@@ -43,8 +45,9 @@ def load_codec(repo_or_path: str, codec_type: str | None = None, **kwargs):
     model_dir = hub.resolve_model_dir(repo_or_path)
     if codec_type is None:
         codec_type = hub.load_config(model_dir).get("model_type")
-        if codec_type is None and "snac" in str(repo_or_path).lower():
-            codec_type = "snac"
+        if codec_type is None:  # a registered name in the path
+            name = str(repo_or_path).lower()
+            codec_type = next((key for key in _REGISTRY if key in name), None)
     if codec_type not in _REGISTRY:
         raise NotImplementedError(
             f"codec {codec_type!r} is not ported yet (ported: {sorted(_REGISTRY)})")

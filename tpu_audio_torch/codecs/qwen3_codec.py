@@ -13,8 +13,11 @@ The streaming state is a dict of conv history buffers, transposed-conv
 overlap tails (carried without the bias, so that chunked decode equals
 the whole-sequence decode) and a KV cache for the pre-transformer, written
 in place chunk by chunk. It is consumed in the order in which
-:func:`init_streaming_state` builds it. The encoder half (reference-audio
-cloning) sits over the Mimi codec, which the port does not have yet.
+:func:`init_streaming_state` builds it.
+
+The encoder half (:class:`Qwen3CodecEncoder`, reference-audio cloning) is
+Mimi's encoder (``codecs.mimi.encode_forward``): only its config keys and
+the HF checkpoint's weight names are Qwen3's own.
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ from tpu_audio_torch.core import hub, kv_cache, loading, nn
 
 __all__ = ["Qwen3CodecDecoderConfig", "Qwen3CodecDecoder", "quantizer_decode",
            "causal_conv", "causal_conv_step", "causal_convt", "causal_convt_step",
-           "snake_beta", "decoder_forward", "init_streaming_state", "init_random_params"]
+           "snake_beta", "decoder_forward", "init_streaming_state", "init_random_params",
+           "encoder_config_from_dict", "sanitize_encoder", "Qwen3CodecEncoder",
+           "init_random_encoder_params"]
 
 RESIDUAL_DILATIONS = (1, 3, 9)
 
@@ -463,3 +468,173 @@ class Qwen3CodecDecoder:
         wav, self._stream_state = decoder_forward(self.params, codes, self.config,
                                                   self._stream_state)
         return wav
+
+
+# -- the speech tokenizer's encoder (reference-audio cloning) --------------------------
+
+
+def encoder_config_from_dict(d: dict):
+    """A ``MimiConfig`` from the speech tokenizer config's
+    ``encoder_config`` section (its keys and defaults)."""
+    from tpu_audio_torch.codecs.mimi import MimiConfig, SeanetConfig, TransformerConfig
+
+    e = d.get("encoder_config", {}) or {}
+    seanet = SeanetConfig(
+        dimension=e.get("hidden_size", 512), channels=e.get("audio_channels", 1),
+        nfilters=e.get("num_filters", 64), nresidual_layers=e.get("num_residual_layers", 1),
+        ratios=tuple(e.get("upsampling_ratios", (8, 6, 5, 4))), ksize=e.get("kernel_size", 7),
+        residual_ksize=e.get("residual_kernel_size", 3),
+        last_ksize=e.get("last_kernel_size", 3),
+        dilation_base=e.get("dilation_growth_rate", 2), compress=e.get("compress", 2))
+    transformer = TransformerConfig(
+        d_model=e.get("hidden_size", 512), num_heads=e.get("num_attention_heads", 8),
+        num_layers=e.get("num_hidden_layers", 8),
+        layer_scale=e.get("layer_scale_initial_scale", 0.01),
+        context=e.get("sliding_window", 250), max_period=e.get("rope_theta", 10000.0),
+        dim_feedforward=e.get("intermediate_size", 2048))
+    return MimiConfig(channels=e.get("audio_channels", 1),
+                      sample_rate=e.get("sampling_rate", 24000),
+                      frame_rate=e.get("frame_rate", 12.5), seanet=seanet,
+                      transformer=transformer, quantizer_nq=e.get("num_quantizers", 32),
+                      quantizer_bins=e.get("codebook_size", 2048),
+                      quantizer_dim=e.get("codebook_dim", 256))
+
+
+def sanitize_encoder(flat: dict) -> dict:
+    """The HF speech tokenizer's ``encoder.*`` weights onto the Mimi tree
+    (torch conv layouts ``[O, I, K]`` kept): the SEANet Sequential indices
+    to named layers, the transformer's q/k/v (separate, or one fused
+    ``qkv`` split in thirds) into one ``in_proj``, the EMA codebooks'
+    ``embed_sum``/``cluster_usage``. Other keys are dropped."""
+    conv_map = {0: "encoder.init_conv1d", 3: "encoder.layers.0.downsample",
+                6: "encoder.layers.1.downsample", 9: "encoder.layers.2.downsample",
+                12: "encoder.layers.3.downsample", 14: "encoder.final_conv1d"}
+    residual_layer = {1: 0, 4: 1, 7: 2, 10: 3}
+    residual_block = {1: 0, 3: 1}
+    out: dict = {}
+    qkv: dict[int, dict] = {}
+
+    def strip(key: str) -> str:
+        for pre in ("speech_tokenizer.", "encoder_model.", "decoder_model."):
+            while key.startswith(pre):
+                key = key[len(pre):]
+        return key
+
+    for raw, v in flat.items():
+        k = strip(raw)
+        if not k.startswith("encoder."):
+            continue
+        if "codebook.initialized" in k or k.endswith("codebook.embed"):
+            continue
+        if k.startswith("encoder.encoder.layers."):
+            parts = k.split(".")
+            n = int(parts[3])
+            if ".block." in k and n in residual_layer:
+                bi = residual_block.get(int(parts[5]))
+                if bi is not None:  # the rest name the block's conv level already
+                    out[f"encoder.layers.{residual_layer[n]}.residuals.0.block.{bi}.conv."
+                        + ".".join(parts[6:])] = v
+            elif n in conv_map:
+                out[f"{conv_map[n]}.conv." + ".".join(parts[4:])] = v
+            continue
+        if (k.startswith("encoder.encoder_transformer.layers.")
+                or k.startswith("encoder.encoder_transformer.transformer.layers.")):
+            parts = k.split(".")
+            off = 4 if parts[2] == "transformer" else 3
+            li = int(parts[off])
+            suffix = ".".join(parts[off + 1:])
+            base = f"encoder_transformer.transformer.layers.{li}"
+            if "self_attn.q_proj.weight" in suffix:
+                qkv.setdefault(li, {})["q"] = v
+            elif "self_attn.k_proj.weight" in suffix:
+                qkv.setdefault(li, {})["k"] = v
+            elif "self_attn.v_proj.weight" in suffix:
+                qkv.setdefault(li, {})["v"] = v
+            elif "self_attn.qkv.weight" in suffix:
+                third = v.shape[0] // 3
+                qkv.setdefault(li, {}).update(q=v[:third], k=v[third:2 * third],
+                                              v=v[2 * third:])
+            elif "self_attn.out_proj.weight" in suffix or "self_attn.o_proj.weight" in suffix:
+                out[f"{base}.self_attn.out_proj.weight"] = v
+            elif "mlp.fc1.weight" in suffix:
+                out[f"{base}.gating.linear1.weight"] = v
+            elif "mlp.fc2.weight" in suffix:
+                out[f"{base}.gating.linear2.weight"] = v
+            elif "input_layernorm." in suffix:
+                out[f"{base}.norm1.{suffix.rsplit('.', 1)[1]}"] = v
+            elif "post_attention_layernorm." in suffix:
+                out[f"{base}.norm2.{suffix.rsplit('.', 1)[1]}"] = v
+            elif "self_attn_layer_scale.scale" in suffix:
+                out[f"{base}.layer_scale_1.scale"] = v
+            elif "mlp_layer_scale.scale" in suffix:
+                out[f"{base}.layer_scale_2.scale"] = v
+            continue
+        if k.startswith("encoder.downsample."):
+            out["downsample.conv.conv." + k[len("encoder.downsample."):]] = v
+            continue
+        if k.startswith("encoder.quantizer."):
+            rest = k[len("encoder.quantizer."):]
+            part = ("rvq_first" if ("semantic_residual_vector_quantizer" in rest
+                                    or rest.startswith("rvq_first.")) else "rvq_rest")
+            if "input_proj.weight" in rest or "output_proj.weight" in rest:
+                proj = "input_proj" if "input_proj" in rest else "output_proj"
+                out[f"quantizer.{part}.{proj}.weight"] = v
+                continue
+            if ".layers." in rest and (".codebook." in rest or "._codebook." in rest):
+                li = rest.split(".layers.")[1].split(".")[0]
+                name = rest.rsplit(".", 1)[1]
+                name = "embedding_sum" if name == "embed_sum" else name
+                if name in ("embedding_sum", "cluster_usage"):
+                    out[f"quantizer.{part}.vq.layers.{li}.codebook.{name}"] = v
+    for li, d3 in qkv.items():
+        if {"q", "k", "v"} <= set(d3):
+            out[f"encoder_transformer.transformer.layers.{li}.self_attn.in_proj.weight"] = \
+                torch.cat([d3["q"], d3["k"], d3["v"]], dim=0)
+    return out
+
+
+def init_random_encoder_params(mimi_config, seed: int = 0, dtype=torch.float32,
+                               device=None) -> dict:
+    """Random encoder params in :func:`sanitize_encoder`'s tree: Mimi's
+    encoder half (``codecs.mimi.init_random_params``), without the decoder,
+    the output projections or transformer input/output projections."""
+    from tpu_audio_torch.codecs.mimi import init_random_params as mimi_random
+
+    p = mimi_random(mimi_config, seed=seed, dtype=dtype, device=device)
+    for part in p["quantizer"].values():
+        part.pop("output_proj")
+    return {k: p[k] for k in ("encoder", "encoder_transformer", "downsample", "quantizer")}
+
+
+class Qwen3CodecEncoder:
+    """The speech tokenizer's encoder: waveform -> codes ``[B,
+    valid_num_quantizers, frames]`` (the first codebooks of the split RVQ),
+    in f32 on the params' device."""
+
+    def __init__(self, mimi_config, params: dict, valid_num_quantizers: int = 16,
+                 dtype=torch.float32, device=None):
+        self.config = mimi_config
+        self.params = params if device is None else loading.to_device(params, device)
+        self.valid_num_quantizers = valid_num_quantizers
+        self.dtype = dtype
+
+    @property
+    def sample_rate(self) -> int:
+        return self.config.sample_rate
+
+    @property
+    def device(self) -> torch.device:
+        return self.params["encoder"]["init_conv1d"]["conv"]["conv"]["weight"].device
+
+    @torch.inference_mode()
+    def encode(self, audio) -> torch.Tensor:
+        """Waveform ``[T]`` or ``[B, T]`` -> codes ``[B, n_valid_q, frames]``."""
+        from tpu_audio_torch.codecs.mimi import encode_forward
+
+        x = audio if isinstance(audio, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(audio, np.float32))
+        x = x.to(self.device, self.dtype)
+        if x.ndim == 1:
+            x = x[None]
+        return encode_forward(self.params, x[..., None], self.config)[
+            :, : self.valid_num_quantizers]

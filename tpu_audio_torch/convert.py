@@ -10,8 +10,9 @@ Orpheus and SNAC trees, a Qwen3-TTS talker (stacked layers, the
 ``code_predictor`` subtree with its per-group heads and embeddings, the
 text projection), a Qwen3 speech tokenizer's decoder, a sanitized
 Parakeet tree (encoder, prediction network, joint; dense or with MLX
-packed linears and embedding), and the FSMN VAD, SmartTurn and ECAPA-TDNN
-trees. bfloat16 arrays (numpy dtype ``bfloat16``) keep their
+packed linears and embedding), the FSMN VAD, SmartTurn and ECAPA-TDNN
+trees, Mimi's, and the Qwen3 speech tokenizer's encoder and speaker
+encoder. bfloat16 arrays (numpy dtype ``bfloat16``) keep their
 bits, and uint32 words become int32 of the same bits. The JAX package's
 word-scale planes (``scales_w``) have no counterpart and are dropped.
 """

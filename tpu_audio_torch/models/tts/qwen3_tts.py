@@ -1,8 +1,8 @@
 """Qwen3-TTS: the talker (a Qwen3 transformer emitting codebook 0 of the
 12.5 Hz codec), the code predictor (a small transformer emitting groups
-1..G-1 of each frame) and the speech tokenizer's decoder (port of
-tpu_audio.models.tts.qwen3_tts, without the reference-audio cloning
-path).
+1..G-1 of each frame) and the speech tokenizer's decoder, with
+reference-audio voice cloning on "base" checkpoints (port of
+tpu_audio.models.tts.qwen3_tts).
 
 - The talker is ``models.llama.forward`` with per-head q/k RMSNorm over
   input embeddings. Its interleaved multimodal RoPE reduces to the
@@ -33,6 +33,16 @@ path).
   offset, ``valid_from`` and rotary position in stacked lane caches) and the
   code predictor over all lanes in one fresh cache. On an MLX tree on CUDA
   its products run kernel 7's tile (``n >= 2`` rows).
+- Voice cloning (``ref_audio`` with ``ref_text``) needs the speech
+  tokenizer's encoder (``codecs.qwen3_codec.Qwen3CodecEncoder``, Mimi's)
+  and, on "base" checkpoints, the speaker encoder
+  (``models.tts.qwen3_speaker``; its log-mel runs kernel 1 on the card).
+  The reference clip's codes and speaker embedding (cached for one clip)
+  make an in-context prompt: the reference and target text over codec pad,
+  then the reference frames' summed code embeddings over tts pad, after the
+  codec prefix with the speaker row. ``generate`` decodes the reference
+  codes in front of the new ones and cuts their share of the waveform;
+  ``generate_stream`` decodes the new ones alone.
 """
 
 from __future__ import annotations
@@ -44,12 +54,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tpu_audio_torch.codecs.qwen3_codec import Qwen3CodecDecoder
+from tpu_audio_torch.codecs.qwen3_codec import (Qwen3CodecDecoder, Qwen3CodecEncoder,
+                                                 encoder_config_from_dict, sanitize_encoder)
 from tpu_audio_torch.core import hub, kv_cache, loading, nn, quant
 from tpu_audio_torch.core.generation import (AudioGenerateParameters, AudioGeneration,
                                              AudioGenerationError, AudioGenerationInfo)
 from tpu_audio_torch.core.sampling import _mask_top_k, _mask_top_p, apply_repetition_penalty
 from tpu_audio_torch.models import llama
+from tpu_audio_torch.models.tts import qwen3_speaker
 from tpu_audio_torch.models.tts.llama_tts import _sync
 
 __all__ = ["Qwen3TTS", "Qwen3TTSConfig", "TalkerConfig", "CodePredictorConfig",
@@ -58,7 +70,6 @@ __all__ = ["Qwen3TTS", "Qwen3TTSConfig", "TalkerConfig", "CodePredictorConfig",
 
 CODEC_TOKEN_RATE_HZ = 12.5
 SUPPRESSED_BAND = 1024  # the talker vocabulary's last ids: special tokens, never sampled
-SPEAKER_ENCODER_MARKER = "speaker_encoder"
 
 
 @dataclass
@@ -289,15 +300,21 @@ def init_random_params(config: Qwen3TTSConfig, seed: int = 0, dtype=torch.bfloat
 
 class Qwen3TTS:
     """Qwen3-TTS with ``generate`` / ``generate_stream`` (``custom_voice``
-    speakers and instructions, ``voice_design`` prompts, languages)."""
+    speakers and instructions, ``voice_design`` prompts, languages, and
+    cloning from a reference clip and its text)."""
 
     def __init__(self, config: Qwen3TTSConfig, params: dict, tokenizer=None,
-                 codec: Qwen3CodecDecoder | None = None, dtype=torch.bfloat16):
+                 codec: Qwen3CodecDecoder | None = None, dtype=torch.bfloat16,
+                 codec_encoder: Qwen3CodecEncoder | None = None,
+                 speaker_encoder: qwen3_speaker.Qwen3SpeakerEncoder | None = None):
         self.config = config
         self.params = params
         self.tokenizer = tokenizer
         self.codec = codec
         self.dtype = dtype
+        self.codec_encoder = codec_encoder
+        self.speaker_encoder = speaker_encoder
+        self._ref_context_cache = None  # (SHA-1 of the clip, its context)
         cp = params.get("code_predictor") or {}
         n_heads = len(cp.get("lm_head") or {})
         if n_heads != config.talker.num_code_groups - 1:
@@ -326,9 +343,11 @@ class Qwen3TTS:
     def from_pretrained(cls, repo_or_path: str, dtype=torch.bfloat16,
                         quantize_bits: int | str | None = None, device="cuda") -> "Qwen3TTS":
         """Load a local checkpoint directory onto ``device``: the talker and
-        the code predictor (``talker.*`` keys, layers stacked), and the
-        speech tokenizer's decoder from ``speech_tokenizer/`` (f32) when the
-        directory is there. A ``quantization`` block in the config makes the
+        the code predictor (``talker.*`` keys, layers stacked), the speaker
+        encoder (its ``speaker_encoder`` keys, f32) on a "base" checkpoint,
+        and from ``speech_tokenizer/`` (f32), when the directory is there,
+        the speech tokenizer's decoder and, where it holds ``encoder.*``
+        weights, its encoder. A ``quantization`` block in the config makes the
         packed triples MLX :class:`quant.QuantizedTensor` leaves (and
         ``quantize_bits`` is ignored); otherwise ``quantize_bits=4|8``
         quantizes every eligible weight to MLX grouped-affine (group size
@@ -337,10 +356,12 @@ class Qwen3TTS:
         if quantize_bits not in (None, "w8a8", 4, 8):
             raise ValueError(f"quantize_bits={quantize_bits!r}: 4, 8 or 'w8a8'")
         model_dir = hub.resolve_model_dir(repo_or_path)
-        config = Qwen3TTSConfig.from_dict(hub.load_config(model_dir))
+        cfg_dict = hub.load_config(model_dir)
+        config = Qwen3TTSConfig.from_dict(cfg_dict)
         flat = loading.load_safetensors(model_dir)
         talker = {k[len("talker."):]: v for k, v in flat.items()
-                  if k.startswith("talker.") and SPEAKER_ENCODER_MARKER not in k.split(".")}
+                  if k.startswith("talker.")
+                  and qwen3_speaker.SPEAKER_ENCODER_MARKER not in k.split(".")}
         if not talker:
             raise KeyError(f"{model_dir}: no talker.* weights")
         params = loading.cast_floats(loading.unflatten(talker), dtype)
@@ -363,11 +384,29 @@ class Qwen3TTS:
             from tokenizers import Tokenizer
 
             tokenizer = Tokenizer.from_file(str(Path(model_dir) / "tokenizer.json"))
-        codec = None
+        speaker_encoder = None
+        if cfg_dict.get("tts_model_type", "base") == "base":
+            spk = qwen3_speaker.sanitize_speaker_encoder(flat)
+            if spk:
+                speaker_encoder = qwen3_speaker.Qwen3SpeakerEncoder(
+                    qwen3_speaker.SpeakerEncoderConfig.from_dict(
+                        cfg_dict.get("speaker_encoder_config", {}) or {}),
+                    loading.to_device(loading.cast_floats(loading.unflatten(spk), torch.float32),
+                                      device))
+        codec = codec_encoder = None
         st_dir = Path(model_dir) / "speech_tokenizer"
         if st_dir.is_dir():
             codec = Qwen3CodecDecoder.from_pretrained(str(st_dir), device=device)
-        return cls(config, params, tokenizer, codec, dtype)
+            enc = sanitize_encoder(loading.load_safetensors(st_dir))
+            if enc:
+                st_cfg = hub.load_config(st_dir) if (st_dir / "config.json").exists() else {}
+                codec_encoder = Qwen3CodecEncoder(
+                    encoder_config_from_dict(st_cfg),
+                    loading.cast_floats(loading.unflatten(enc), torch.float32),
+                    valid_num_quantizers=st_cfg.get("encoder_valid_num_quantizers", 16),
+                    device=device)
+        return cls(config, params, tokenizer, codec, dtype, codec_encoder=codec_encoder,
+                   speaker_encoder=speaker_encoder)
 
     # -- prompt building -------------------------------------------------------------
 
@@ -400,24 +439,12 @@ class Qwen3TTS:
                                  self.config.tts_pad_token_id]])
         tts_bos, tts_eos, tts_pad = tts[:, 0:1], tts[:, 1:2], tts[:, 2:3]
 
-        language_id = None
-        if language.lower() != "auto" and tcfg.codec_language_id:
-            language_id = tcfg.codec_language_id.get(language.lower())
         spk_embed = None
         if speaker and tcfg.spk_id:
             spk = tcfg.spk_id.get(speaker.lower())
             if spk is not None:
                 spk_embed = self._codec_embed([[int(spk)]])
-        if language_id is not None:
-            prefill = [tcfg.codec_think_id, tcfg.codec_think_bos_id, language_id,
-                       tcfg.codec_think_eos_id]
-        else:
-            prefill = [tcfg.codec_nothink_id, tcfg.codec_think_bos_id, tcfg.codec_think_eos_id]
-        parts = [self._codec_embed([prefill])]
-        if spk_embed is not None:
-            parts.append(spk_embed)
-        parts.append(self._codec_embed([[tcfg.codec_pad_id, tcfg.codec_bos_id]]))
-        codec_embed = torch.cat(parts, dim=1)
+        codec_embed = self._codec_prefix(language, spk_embed)
 
         pieces = []
         if instruct:
@@ -430,6 +457,101 @@ class Qwen3TTS:
         input_embeds = torch.cat(pieces, dim=1)
         trailing = torch.cat([text_embed[:, 4:max(text_embed.shape[1] - 5, 4)], tts_eos], dim=1)
         return input_embeds, trailing, tts_pad
+
+    # -- reference-audio cloning (in-context prompt) ---------------------------------------
+
+    def _codec_prefix(self, language: str | None, speaker_row: torch.Tensor | None
+                      ) -> torch.Tensor:
+        """The codec prefix ``[1, n, D]``: think / language ids (or
+        nothink), the speaker row when given, then codec pad and bos."""
+        tcfg = self.config.talker
+        language_id = None
+        if language and language.lower() != "auto" and tcfg.codec_language_id:
+            language_id = tcfg.codec_language_id.get(language.lower())
+        if language_id is not None:
+            prefill = [tcfg.codec_think_id, tcfg.codec_think_bos_id, language_id,
+                       tcfg.codec_think_eos_id]
+        else:
+            prefill = [tcfg.codec_nothink_id, tcfg.codec_think_bos_id, tcfg.codec_think_eos_id]
+        parts = [self._codec_embed([prefill])]
+        if speaker_row is not None:
+            parts.append(speaker_row.reshape(1, 1, -1).to(parts[0].dtype))
+        parts.append(self._codec_embed([[tcfg.codec_pad_id, tcfg.codec_bos_id]]))
+        return torch.cat(parts, dim=1)
+
+    def extract_speaker_embedding(self, ref_audio) -> torch.Tensor | None:
+        """Waveform -> ``[1, enc_dim]``, or None without a speaker encoder."""
+        if self.speaker_encoder is None:
+            return None
+        return self.speaker_encoder(np.asarray(ref_audio, np.float32))
+
+    def _reference_audio_context(self, ref_audio):
+        """``(speaker embedding or None, ref_codes [1, nq, T] numpy,
+        codec_embed_icl [1, T + 1, D])`` of a clip, with a one-entry cache
+        keyed on the SHA-1 of its samples' bytes (a hash of the whole clip:
+        clips of one length that start and end alike must not collide)."""
+        import hashlib
+
+        ref_audio = np.asarray(ref_audio, np.float32).reshape(-1)
+        key = hashlib.sha1(ref_audio.tobytes()).hexdigest()
+        if self._ref_context_cache is not None and self._ref_context_cache[0] == key:
+            return self._ref_context_cache[1]
+        spk = self.extract_speaker_embedding(ref_audio)
+        codes = self.codec_encoder.encode(ref_audio)
+        ctx = (spk, codes.cpu().numpy(), self._codec_embed_icl(codes))
+        self._ref_context_cache = (key, ctx)
+        return ctx
+
+    def _codec_embed_icl(self, ref_codes) -> torch.Tensor:
+        """``[codec bos, the sum of each codebook's embedding of the
+        reference codes]``: codebook 0 through the talker's codec
+        embedding, codebook g through the code predictor's ``g - 1``."""
+        tcfg = self.config.talker
+        ref_codes = torch.as_tensor(ref_codes, device=self.device).to(torch.int64)
+        emb = self._codec_embed(ref_codes[:, 0])
+        cp = self.params["code_predictor"]["model"]["codec_embedding"]
+        for i in range(min(tcfg.num_code_groups - 1, ref_codes.shape[1] - 1)):
+            emb = emb + nn.embedding(cp[str(i)], ref_codes[:, i + 1])
+        return torch.cat([self._codec_embed([[tcfg.codec_bos_id]]), emb], dim=1)
+
+    @torch.inference_mode()
+    def prepare_icl_generation_inputs(self, text: str, ref_audio, ref_text: str,
+                                      language: str = "auto"):
+        """The cloning prompt: ``(input_embeds [1, P, D], trailing, tts_pad,
+        ref_codes)``. The prompt is the target's role header, the codec
+        prefix (with the speaker row) over tts pads and bos, the reference
+        and target text (ChatML headers and tails cut) and tts eos over
+        codec pad, then codec bos and the reference frames over tts pad.
+        All the text is in the prompt, so ``trailing`` is ``tts_pad``."""
+        if self.codec_encoder is None:
+            raise AudioGenerationError(
+                "ref_audio cloning requires a speech tokenizer encoder, but this checkpoint "
+                "does not provide one")
+        spk, ref_codes, codec_embed_icl = self._reference_audio_context(ref_audio)
+
+        ref_ids = self.tokenizer.encode(f"<|im_start|>assistant\n{ref_text}<|im_end|>\n").ids
+        n = len(ref_ids)
+        ref_text_ids = ref_ids[min(3, n):max(min(3, n), n - 2)]
+        target_ids = self.tokenizer.encode(f"<|im_start|>assistant\n{text}<|im_end|>\n"
+                                           "<|im_start|>assistant\n").ids
+        tn = len(target_ids)
+        target_text_ids = target_ids[min(3, tn):max(min(3, tn), tn - 5)]
+
+        tts = self._text_embed([[self.config.tts_bos_token_id, self.config.tts_eos_token_id,
+                                 self.config.tts_pad_token_id]])
+        tts_bos, tts_eos, tts_pad = tts[:, 0:1], tts[:, 1:2], tts[:, 2:3]
+        text_embed = torch.cat([self._text_embed([ref_text_ids + target_text_ids]), tts_eos],
+                               dim=1)
+        codec_pad = self._codec_embed([[self.config.talker.codec_pad_id]])
+        icl_input = torch.cat([text_embed + codec_pad.expand_as(text_embed),
+                               codec_embed_icl + tts_pad.expand_as(codec_embed_icl)], dim=1)
+
+        codec_prefix = self._codec_prefix(language, spk)
+        pads = tts_pad.expand(1, codec_prefix.shape[1] - 2, tts_pad.shape[-1])
+        combined = torch.cat([pads, tts_bos], dim=1) + codec_prefix[:, :-1]
+        input_embeds = torch.cat([self._text_embed([target_ids[:3]]), combined, icl_input],
+                                 dim=1)
+        return input_embeds, tts_pad, tts_pad, ref_codes
 
     # -- the frame step -----------------------------------------------------------------
 
@@ -501,19 +623,21 @@ class Qwen3TTS:
                   stream: bool = False, ref_audio=None, ref_text=None):
         """Yields ``("chunk", waveform)`` every ``streaming_interval`` of
         frames when ``stream``, then ``("done", (codes, prefill_s,
-        generate_s, prompt_rows))``; one host read a frame (the EOS test)."""
+        generate_s, prompt_rows, ref_codes))`` (``ref_codes`` None unless
+        cloning); one host read a frame (the EOS test)."""
         if self.tokenizer is None:
             raise AudioGenerationError("tokenizer not loaded")
+        tcfg = self.config.talker
+        dev = self.device
+        ref_codes = None
         if ref_audio is not None or ref_text:
             if ref_audio is None or not ref_text:
                 raise AudioGenerationError("voice cloning requires BOTH ref_audio and ref_text")
-            raise AudioGenerationError(
-                "ref_audio cloning requires a speech tokenizer encoder, which the port does "
-                "not have yet (it loads the speech tokenizer's decoder only)")
-        tcfg = self.config.talker
-        dev = self.device
-        input_embeds, trailing, tts_pad = self.prepare_generation_inputs(
-            text, language or "auto", instruct, speaker)
+            input_embeds, trailing, tts_pad, ref_codes = self.prepare_icl_generation_inputs(
+                text, ref_audio, ref_text, language or "auto")
+        else:
+            input_embeds, trailing, tts_pad = self.prepare_generation_inputs(
+                text, language or "auto", instruct, speaker)
         input_embeds, trailing, tts_pad = (t.to(self.dtype)
                                            for t in (input_embeds, trailing, tts_pad))
         max_tokens = min(gp.max_tokens, max(75, 6 * len(self.tokenizer.encode(text).ids)))
@@ -555,7 +679,7 @@ class Qwen3TTS:
         gen_time = time.perf_counter() - t1
         if stream and len(all_codes) > decoded:
             yield "chunk", self._stream_chunk(all_codes[decoded:])
-        yield "done", (all_codes, prefill_time, gen_time, prefix_len)
+        yield "done", (all_codes, prefill_time, gen_time, prefix_len, ref_codes)
 
     def _stream_chunk(self, frames: list[np.ndarray]) -> np.ndarray:
         wav = self.codec.streaming_step(np.stack(frames, axis=1)[None])  # codes [1, G, t]
@@ -570,13 +694,20 @@ class Qwen3TTS:
         for kind, payload in self._run_iter(text, language, instruct, speaker, gp,
                                             ref_audio=ref_audio, ref_text=ref_text):
             result = payload
-        codes = result[0]
+        codes, ref_codes = result[0], result[4]
         if not codes:
             raise AudioGenerationError("no audio codes generated")
         if self.codec is None:
             raise AudioGenerationError("speech tokenizer decoder not loaded")
-        wav = self.codec.decode(np.stack(codes, axis=1)[None])  # codes [1, G, T]
-        return wav[0].to(torch.float32).cpu().numpy()
+        stacked = np.stack(codes, axis=1)[None]  # codes [1, G, T]
+        if ref_codes is None:
+            return self.codec.decode(stacked)[0].to(torch.float32).cpu().numpy()
+        # the reference codes decoded in front, then their share of the
+        # waveform cut off
+        full = np.concatenate([ref_codes[:, :stacked.shape[1]], stacked], axis=2)
+        audio = self.codec.decode(full)[0].to(torch.float32).cpu().numpy()
+        cut = int(ref_codes.shape[2] / max(full.shape[2], 1) * len(audio))
+        return audio[cut:] if 0 < cut < len(audio) else audio
 
     def generate_stream(self, text: str, voice: str | None = None, ref_audio=None,
                         ref_text: str | None = None, language: str | None = None,
@@ -599,7 +730,7 @@ class Qwen3TTS:
                 yield AudioGeneration.from_audio(payload)
             else:
                 stats = payload
-        codes, prefill_time, gen_time, prefix_len = stats
+        codes, prefill_time, gen_time, prefix_len, _ = stats
         yield AudioGeneration.from_info(AudioGenerationInfo(
             prompt_token_count=prefix_len, generation_token_count=len(codes),
             prompt_time=prefill_time, generate_time=gen_time,
