@@ -34,14 +34,14 @@ so a kernel that reads the wrong bias or LayerNorm row disagrees), and:
    way, against its plain version fed its own codes, and one call at 1 and
    at 4 lanes must launch 14 kernels a layer;
 2. transcribes ``tests/media/speech_16k.wav`` padded to one 30 s window
-   through ``Whisper.generate`` in the w8 kv8d and bf16 kv8d (to 192
+   through ``Whisper.generate`` in the w8 kv8d and bf16 kv8d (to 96
    tokens) configurations, twice each, with every launch counter reset just
    before and read just after, and fails unless each kernel of the path
    launched;
 3. teacher-forces the generated tokens through the kernel path and the
    plain path and compares the logits of every step; then, in the
    ``[whisper longform]`` phase, transcribes a 240 s file of 8 windows
-   (the speech clip, the two-speaker clip, seeded noise) with 224 tokens a
+   (the speech clip, the two-speaker clip, seeded noise) with 112 tokens a
    window through the w8 w8e kv8d model (the int8 encoder quantized on the
    card) in batched windows, with every launch counter reset just before
    and read just after: kernel 1 once a window, one kernel 4 call a step
@@ -302,6 +302,45 @@ kernel 7's short calls then read "not measured".)
    ``stream`` modes, each equal to ``enhance``'s PCM16 samples (the stream
    within 5e-4); the peak device memory. ``python3 chip_smoke.py --sts`` runs
    it alone.
+24. ``[vyvo]`` (run seventh, after phase 23): VyvoTTS (Qwen3 + SNAC) on the
+   backbone of Qwen's published Qwen3-0.6B config (1,024 x 28 layers, 16 / 8
+   heads of 128, ffn 3,072, q/k norms, tied embeddings), its vocabulary
+   widened by the 7 x 4,096 audio codes to 180,352 ids, random weights from
+   seed 0 (the audio band's embedding rows scaled up, so that greedy decoding
+   emits codes), with the SNAC 24 kHz codec. MLX 4-bit (g 64, quantized on
+   the card): greedy ``generate`` twice and ``generate_stream`` once, each
+   with the counters reset just before and read just after (kernel 7's tile
+   4 x 28 + 1 times for the prefill, its decode kernel 113 times a step, no
+   GEMV, no other kernel, no plain call; tokens and waveform repeat); the
+   model cut to 4 layers, teacher-forced logits card against CPU under
+   VYVO_CARD_RTOL and its TF32 control; TTFB, ms a token, device ms and
+   events (``bench_tts_ttfb``'s protocol); ``ContinuousTTS`` at 4 slots on
+   the plain tick, each request's tokens its solo run's. bf16: one greedy
+   ``generate`` and its TTFB and ms a token. Then checkpoints written and
+   loaded through ``VyvoTTS.from_pretrained(quantize_bits="w8a8")``: 2 layers
+   at Qwen3-1.7B's widths decode through kernel 5 (held to its plain version
+   at two offsets, 9 launches a layer, one launch a greedy token), kernel 6
+   at 4 lanes bit-equal to kernel 5 lane by lane and two requests served on
+   the fused tick with their solo tokens; 2 layers at Qwen3-0.6B's widths,
+   which kernel 5 does not take, raise ``NotImplementedError``.
+   ``python3 chip_smoke.py --vyvo`` runs it alone.
+25. ``[whisper kvq]`` (after phase 6, on the whisper-large-v3 models): the
+   quantized self caches through ``Whisper.generate`` (KVQ_ROUTES: int8,
+   hybrid with the split 8 rows past the prompt, int4 on the bf16 tree, int8
+   on the w8 tree), 16 tokens a window, on the 30 s window twice and on 4
+   long-form windows batched, each run with the counters reset just before
+   and read just after: kernel 2 32 times a step at 8 bits and none at 4,
+   kernel 1 once a window, no fused stack, no plain call, tokens repeating;
+   every self-cache row the card wrote equal to ``_quantize`` on the CPU of
+   the rows it computed, bit for bit, on both sides of the hybrid split; the
+   teacher-forced logits' largest gap from the dense route (the quantisation
+   error, recorded); 4 decoder layers in f32 card against CPU under
+   KVQ_CARD_RTOL, below a bf16 control (the TF32 control recorded: one-row
+   products are GEMVs, which TF32 does not round; on the w8 tree the CPU is
+   fed the card's int8 activation codes, each differing code a boundary
+   flip); host and device ms, events, cache bytes and peak memory of a step
+   over a 448-row cache beside the bf16 kv8d step's. ``python3 chip_smoke.py
+   --kvq`` runs it alone.
 
 Each kernel's record carries its bound on the H100 (``bound_ms``: the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate
@@ -371,12 +410,15 @@ mutant must fail its check and every sound copy pass.
 
 TF32 is off for matmuls and convolutions, so float32 references are full
 float32. Any failed check raises and ends the run with a non-zero code.
-The last fourteen lines of output are JSON: the generate runs, the
+The last sixteen lines of output are JSON: the generate runs, the
 long-form results, the serving results, the TTS results, the TTS serving
 results, the MLX 4-bit results, the Qwen3-TTS results (its serving under
 ``serve``, cloning under ``clone``), the Parakeet results, the VAD results,
 the FSMN / SmartTurn / LID results, the enhancement results, the Mimi
-results, the kernels' records (kernel 7's with its Qwen3 launches,
+results, the quantized self caches' results, the VyvoTTS results, the
+kernels' records (kernel 2's with its quantized-cache launches,
+``kvq_launches`` and ``kvq_launches_per_step``; kernels 5, 6 and 7's with
+VyvoTTS's, ``vyvo_launches``, ``vyvo_layer_launches`` and ``vyvo``; kernel 7's with its Qwen3 launches,
 ``qwen3_launches`` and ``qwen3``, and its serving ones,
 ``qwen3_serve_launches`` and ``qwen3_serve``; kernel 1's with SmartTurn's,
 ``smart_turn_launches`` and ``smart_turn``, and the speaker mel's,
@@ -603,8 +645,9 @@ LLAMA_LANES_TIMING_COUNTS = (1, 4, 8, 28)
 # bench_whisper_longfile defaults, bench.py:210), then the bf16 kv8d and
 # bf16 dense routes on its first LONG_BF16_WINDOWS windows with
 # LONG_BF16_TOKENS tokens each (cut: their step is host-bound, ~40 ms; 4
-# windows before, 24.0 s of the phase)
-LONG_WINDOWS, LONG_TOKENS = 8, 224
+# windows before, 24.0 s of the phase). LONG_TOKENS cut to 112 (224 before)
+# to keep the full run in its budget
+LONG_WINDOWS, LONG_TOKENS = 8, 112
 LONG_BF16_WINDOWS, LONG_BF16_TOKENS = 2, 32
 # in turns: the counted batched and per-window runs, then two more
 LONG_TIMED = ("batched", "per-window", "per-window", "batched")
@@ -686,11 +729,11 @@ Q4_PROFILE_TOKENS = 8  # ~1,600 device events a token: a short profiled chunk
 # Qwen3-TTS (BASELINE.json:11: 0.6B, MLX 8-bit, streaming), the [qwen3 tts]
 # phase: the talker's vocabulary reaches past codec_bos_id 4197, as a
 # checkpoint's does (bench.py:536-540; the bare default of 4096 is the EOS id
-# itself); greedy runs of QWEN3_FRAMES frames (1.6 s of audio; 40 before, ~5.9
-# s a run)
+# itself); greedy runs of QWEN3_FRAMES frames (0.96 s of audio; 40, then 20
+# before)
 QWEN3_VOCAB = 4198
 QWEN3_TEXT = TTS_TEXT
-QWEN3_FRAMES = 20
+QWEN3_FRAMES = 12
 QWEN3_TEACHER_FRAMES = 6
 # teacher-forced logits, kernel 7 against its plain version: the prompt and
 # the first talker step run in bf16, where a product's bf16 rounding may
@@ -767,7 +810,7 @@ PARAKEET_LONG_S, PARAKEET_CHUNK_S = 60.0, 20.0  # chunked generate: 4 chunks, 2 
 # the largest: bf16 products rounded by row count (cuBLAS) or by route
 # (kernel 7 against its plain version), as LOGITS_RTOL
 PARAKEET_LOGITS_RTOL = 3e-2
-BF16_GENERATE_TOKENS = 192  # the bf16 kv8d Whisper generate's budget (448, then 224 before)
+BF16_GENERATE_TOKENS = 96  # the bf16 kv8d Whisper generate's budget (448, 224, 192 before)
 # the [vad] phase: bench_vad_silero's and bench_vad_diarization's protocol,
 # 30 s of seeded noise x 0.1, a warm-up and the fastest of 3 walls; Silero
 # also as 4 rows; Sortformer's stream in 5 s chunks
@@ -823,6 +866,65 @@ STS_STREAM_ATOL = 5e-4  # the streamer against offline (tests/test_deepfilternet
 STS_CARD_ATOL = 1e-4
 STS_SATURATED = 0.01  # at most this share of output samples at +-1
 STS_HOP_BUDGET_MS = 10.0  # a 480-sample hop at 48 kHz
+# the [whisper kvq] phase: the quantized self-cache routes of Whisper.generate
+# (name, model, knobs): an int8 self cache beside kernel 2's int8 cross K/V, a
+# hybrid one (dense below the prompt + 8 rows), int4 self cache and cross K/V
+# (dequantized, no kernel 2), and int8 on the w8 decoder; KVQ_TOKENS greedy
+# tokens a window, on the 30 s window and on KVQ_WINDOWS long-form windows
+KVQ_TOKENS, KVQ_WINDOWS = 16, 4
+KVQ_ROUTES = (("int8", "bf16_kv8d", dict(kv_bits=8, quantized_kv_start=0)),
+              ("hybrid8", "bf16_kv8d", dict(kv_bits=8, quantized_kv_start=len(PROMPT) + 8)),
+              ("int4", "bf16_kv8d", dict(kv_bits=4, quantized_kv_start=0)),
+              ("w8 int8", "w8_kv8d", dict(kv_bits=8, quantized_kv_start=0)))
+# card against CPU: the route cut to KVQ_CARD_LAYERS decoder layers in f32,
+# teacher-forced logits relative to their max (on the w8 tree with the CPU fed
+# the card's int8 activation codes). Card and CPU round a few K/V values to
+# neighbouring codes (one int4 step is a fifteenth of its group's range), read
+# at 3.0e-5 (hybrid) to 1.02e-3 (int4) on an NVIDIA H100 80GB HBM3 at 700 W;
+# the bf16 control (the same card run in bf16, the deployed dtype) read 8.7e-3
+# to 6.2e-2 and must lie above the limit. A step's products are one-row GEMVs,
+# which TF32 does not round: its control reads within 3x of the sound run and
+# is recorded, not held
+KVQ_CARD_LAYERS = 4
+KVQ_CARD_RTOL = 3e-3
+# a step timed over a self cache of the decode's full capacity, after
+# KVQ_TIMED_WARM steps (each layer dequantizes its whole capacity a step)
+KVQ_TIMED_CAPACITY = 448
+KVQ_TIMED_WARM, KVQ_TIMED_STEPS = 3, 5
+# the [vyvo] phase: VyvoTTS on the backbone of Qwen's published Qwen3-0.6B
+# config.json (hidden 1,024, 28 layers, 16 / 8 heads of 128, ffn 3,072, rope
+# theta 1e6, RMSNorm eps 1e-6, tied embeddings, q/k norms), its vocabulary of
+# 151,679 ids widened by the 7 x 4,096 audio codes of VYVO_TOKENS and padded
+# to 180,352; no VyvoTTS config.json is in the repository
+VYVO_06B = dict(vocab_size=180352, hidden_size=1024, num_hidden_layers=28,
+                intermediate_size=3072, num_attention_heads=16, num_key_value_heads=8,
+                head_dim=128, rms_norm_eps=1e-6, rope_theta=1e6, tie_word_embeddings=True,
+                qk_norm=True, max_position_embeddings=40960)
+# random weights: the audio band's embedding rows scaled up, so that greedy
+# decoding emits audio codes (the band is 16% of the vocabulary)
+VYVO_BAND_SCALE = 2.0
+VYVO_GENERATE_TOKENS = 98  # 14 frames a greedy generate
+VYVO_REPEAT_TOKENS = 42  # its repeat and stream, held to it on the prefix
+VYVO_SERVE_TOKENS = 14  # a served request's
+VYVO_CARD_LAYERS, VYVO_TEACHER_STEPS = 4, 8
+# teacher-forced logits of the 4-bit model, card against CPU, relative to
+# their max; the TF32 control (kernel 7's plain version on the card, its f32
+# products in TF32) must read above it
+VYVO_CARD_RTOL = 1e-3
+VYVO_SERVE_SLOTS = 4
+# w8a8 trees written as checkpoints and loaded through VyvoTTS.from_pretrained:
+# 2 layers at Qwen3-1.7B's published widths (hidden 2,048 = 16 x 128, 8 KV
+# heads, ffn 6,144), the smallest Qwen3 kernel 5 takes, and 2 layers at
+# Qwen3-0.6B's, which it does not (16 x 128 != 1,024); a small vocabulary
+# with its token table in config.json
+VYVO_SMALL_TABLE = dict(vocab_size=28704, start_of_human=1, end_of_human=2, end_of_text=3,
+                        start_of_speech=4, end_of_speech=5, pad_token=0, audio_start=6,
+                        audio_end=7, audio_token_offset=10, codebook_size=4096)
+VYVO_17B_W8 = dict(hidden_size=2048, num_hidden_layers=2, intermediate_size=6144,
+                   num_attention_heads=16, num_key_value_heads=8, head_dim=128,
+                   rms_norm_eps=1e-6, rope_theta=1e6, tie_word_embeddings=True)
+VYVO_06B_W8 = dict(VYVO_17B_W8, hidden_size=1024, intermediate_size=3072)
+VYVO_W8_TOKENS = 14
 # the standing mutation check (--mutations): for each kernel, its source,
 # the function here that runs its check alone, and its mutations (name,
 # original text, mutated text); a kernel ported later adds its entry
@@ -2981,7 +3083,7 @@ def build_orpheus(dev, **overrides):
     return model
 
 
-def llama_check(name, model, kc, vc, x, off, vf) -> dict:
+def llama_check(name, model, kc, vc, x, off, vf, ties: bool = False) -> dict:
     """Kernel 5 against its plain version on the same inputs, both tapping
     every GEMV input's int8 codes. Run free, newk/newv agree within
     FUSED_LAYER_RTOL up to the first code that differs, and that code is
@@ -3039,7 +3141,10 @@ def llama_check(name, model, kc, vc, x, off, vf) -> dict:
           f"{name} offset {off}: k/v of layers 0-{until - 1}, before any int8 code "
           f"differs, disagree: {layers[:until]}")
     if flip is not None:
-        check(flip["codes"] == 1 and flip["step"] == 1
+        # with ``ties``, llama_lanes_check's rule: several codes may flip at
+        # once where an embedded int8 row's products land on .5 exactly, each
+        # one step at a boundary
+        check((ties or flip["codes"] == 1) and flip["step"] == 1
               and flip["boundary_dist"] <= FLIP_DIST,
               f"{name} offset {off}: the first code difference is not one rounding "
               f"flip: {flip}")
@@ -4608,14 +4713,15 @@ def q4_teacher_forced(model, tokens) -> float:
     return worst
 
 
-def q4_ttfb_phase(model) -> dict:
+def q4_ttfb_phase(model, label: str = "tts q4", ttfb: bool = True) -> dict:
     """bench.py's bench_tts_ttfb(quantize_bits=4) protocol on the band-head
     model: a 64-token prompt bucket, a TTFB_CHUNK-token chunk sampled at T
     0.6 and top-p 0.9 through ``llama.forward`` (kernel 7 for every
     projection and the head), then the SNAC decode of its 4 frames; the
     best of TTFB_REPEATS after a warm-up. Then ms a token (host clock, and
     device time), the busy share and a per-kernel breakdown of one
-    Q4_PROFILE_TOKENS-token chunk, and the prefill's time alone."""
+    Q4_PROFILE_TOKENS-token chunk, and the prefill's time alone. Without
+    ``ttfb``, only the decode chunk's readings."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4643,25 +4749,34 @@ def q4_ttfb_phase(model) -> dict:
                                   f[:, 3:7].reshape(1, -1)], seed=seed)
         return wav.float().cpu().numpy()
 
+    out = {}
     with torch.inference_mode():
-        wav = first_audio(0)
-        times = []
-        for r in range(TTFB_REPEATS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            first_audio(r + 1)
-            times.append(time.perf_counter() - t0)
-        check(wav.shape == (1, TTFB_CHUNK // 7 * 4 * model.codec.config.hop_length)
-              and bool(np.isfinite(wav).all()), f"q4 ttfb waveform {wav.shape}")
-        ttfb = min(times)
-        audio_s = wav.size / model.sample_rate
-        prefills = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            q4_prefill(model, prompt, TTFB_CHUNK + 1, valid_from=0)
-            torch.cuda.synchronize()
-            prefills.append(time.perf_counter() - t0)
+        if ttfb:
+            wav = first_audio(0)
+            times = []
+            for r in range(TTFB_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                first_audio(r + 1)
+                times.append(time.perf_counter() - t0)
+            check(wav.shape == (1, TTFB_CHUNK // 7 * 4 * model.codec.config.hop_length)
+                  and bool(np.isfinite(wav).all()), f"q4 ttfb waveform {wav.shape}")
+            audio_s = wav.size / model.sample_rate
+            prefills = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                q4_prefill(model, prompt, TTFB_CHUNK + 1, valid_from=0)
+                torch.cuda.synchronize()
+                prefills.append(time.perf_counter() - t0)
+            out = dict(ttfb_ms=min(times) * 1e3, ttfb_all_ms=[t * 1e3 for t in times],
+                       prefill_ms=min(prefills) * 1e3, first_audio_s=audio_s,
+                       realtime_x=audio_s / min(times))
+            print(f"[{label} ttfb] bucket {TTFB_BUCKET}, {TTFB_CHUNK}-token chunk (T 0.6, top-p "
+                  f"0.9) + SNAC decode of {TTFB_CHUNK // 7} frames: TTFB {out['ttfb_ms']:.3f} ms "
+                  f"(best of {[f'{t * 1e3:.3f}' for t in times]}), {audio_s:.4f} s of audio: "
+                  f"realtime x {out['realtime_x']:.3f}; the 63-row prefill alone "
+                  f"{out['prefill_ms']:.3f} ms")
         n = Q4_PROFILE_TOKENS
         cache, last = q4_prefill(model, prompt, n + 1, valid_from=0)
 
@@ -4690,17 +4805,10 @@ def q4_ttfb_phase(model) -> dict:
     n_events = sum(c[0] for c in kernels.values())
     k7 = [c for name, c in kernels.items() if "quantized_matvec" in name]  # decode kernel, tile
     k7_ms, k7_n = sum(c[1] for c in k7) / 1e3, sum(c[0] for c in k7)
-    out = dict(ttfb_ms=ttfb * 1e3, ttfb_all_ms=[t * 1e3 for t in times],
-               prefill_ms=min(prefills) * 1e3, first_audio_s=audio_s,
-               realtime_x=audio_s / ttfb, ms_per_token=min(walls) * 1e3 / n,
-               device_ms_per_token=busy_ms / n, kernel7_device_ms_per_token=k7_ms / n,
-               kernel7_launches_per_token=k7_n / n, busy_share=busy_ms / prof_ms,
-               device_events_per_token=n_events / n)
-    print(f"[tts q4 ttfb] bucket {TTFB_BUCKET}, {TTFB_CHUNK}-token chunk (T 0.6, top-p 0.9) + "
-          f"SNAC decode of {TTFB_CHUNK // 7} frames: TTFB {ttfb * 1e3:.3f} ms (best of "
-          f"{[f'{t * 1e3:.3f}' for t in times]}), {audio_s:.4f} s of audio: realtime x "
-          f"{audio_s / ttfb:.3f}; the 63-row prefill alone {min(prefills) * 1e3:.3f} ms")
-    print(f"[tts q4 decode] {n}-token chunk: {min(walls) * 1e3 / n:.4f} ms a token (best of 3, "
+    out.update(ms_per_token=min(walls) * 1e3 / n, device_ms_per_token=busy_ms / n,
+               kernel7_device_ms_per_token=k7_ms / n, kernel7_launches_per_token=k7_n / n,
+               busy_share=busy_ms / prof_ms, device_events_per_token=n_events / n)
+    print(f"[{label} decode] {n}-token chunk: {min(walls) * 1e3 / n:.4f} ms a token (best of 3, "
           f"host clock); under the profiler wall {prof_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"(share {busy_ms / prof_ms:.4f}), {busy_ms / n:.4f} device ms a token of which kernel "
           f"7 {k7_ms / n:.4f} ({k7_n / n:.1f} launches a token); {n_events / n:.1f} device "
@@ -8023,15 +8131,21 @@ def dfn_flops(model, frames: int) -> tuple[float, float]:
     return 2.0 * macs[0] * frames, 2.0 * macs[0]
 
 
-def write_safetensors(path: Path, flat: dict) -> None:
-    """A flat dict of f32 tensors as one safetensors file (8-byte header
-    length, the JSON header, the raw little-endian buffers)."""
+def write_safetensors(path: Path, flat: dict, bf16: bool = False) -> None:
+    """A flat dict of tensors as one safetensors file of f32 (or, with
+    ``bf16``, bf16) tensors (8-byte header length, the JSON header, the raw
+    little-endian buffers)."""
     import numpy as np
+    import torch
 
     header, blobs, off = {}, [], 0
     for k, v in flat.items():
-        a = np.ascontiguousarray(v.detach().cpu().numpy().astype("<f4"))
-        header[k] = {"dtype": "F32", "shape": list(a.shape), "data_offsets": [off, off + a.nbytes]}
+        if bf16:
+            a = v.detach().to(torch.bfloat16).contiguous().view(torch.int16).cpu().numpy()
+        else:
+            a = np.ascontiguousarray(v.detach().cpu().numpy().astype("<f4"))
+        header[k] = {"dtype": "BF16" if bf16 else "F32", "shape": list(a.shape),
+                     "data_offsets": [off, off + a.nbytes]}
         blobs.append(a.tobytes())
         off += a.nbytes
     head = json.dumps(header).encode()
@@ -9099,6 +9213,809 @@ def vad_main(smi: str) -> int:
     return 0
 
 
+def kvq_recorder():
+    """A context that records what ``decode_step_fn`` builds: each self
+    cache ``kv_cache.make_cache_for`` returns, and each write into one, in
+    call order (a step's layers in turn): (kind, offset in its part, the new
+    K and V rows as the card computed them)."""
+    from tpu_audio_torch.core import kv_cache
+
+    caches, writes = [], []
+    make, quant, dense = (kv_cache.make_cache_for, kv_cache._write_quant_layer,
+                          kv_cache._write_dense)
+
+    def made(*a, **k):
+        caches.append(make(*a, **k))
+        return caches[-1]
+
+    def wrote_quant(cache_l, offset, k_new, v_new, n_groups, bits):
+        writes.append(("quant", offset, k_new.clone(), v_new.clone()))
+        return quant(cache_l, offset, k_new, v_new, n_groups, bits)
+
+    def wrote_dense(k_c, v_c, offset, k_new, v_new):
+        writes.append(("dense", offset, k_new.clone(), v_new.clone()))
+        return dense(k_c, v_c, offset, k_new, v_new)
+
+    @contextlib.contextmanager
+    def recording():
+        kv_cache.make_cache_for, kv_cache._write_quant_layer, kv_cache._write_dense = (
+            made, wrote_quant, wrote_dense)
+        try:
+            yield caches, writes
+        finally:
+            kv_cache.make_cache_for, kv_cache._write_quant_layer, kv_cache._write_dense = (
+                make, quant, dense)
+
+    return recording()
+
+
+def kvq_codes_check(cache, writes, n_layers: int) -> dict:
+    """Every row the card wrote into a quantized or hybrid self cache
+    against the CPU: a quantized row's codes, scales and biases equal
+    ``_quantize`` on the CPU of the K/V rows the card computed, bit for bit;
+    a dense row (the hybrid's prefix) equals those rows as stored."""
+    import torch
+
+    from tpu_audio_torch.core import kv_cache
+
+    quant_planes = [getattr(cache, f) for f in ("k_q", "k_scale", "k_bias", "v_q", "v_scale",
+                                                "v_bias")]
+    n = {"quant": 0, "dense": 0}
+    bad = []
+    for i, (kind, off, k, v) in enumerate(writes):
+        li, t = i % n_layers, k.shape[2]
+        if kind == "quant":
+            want = (kv_cache._quantize(k.cpu(), cache.n_groups, cache.bits)
+                    + kv_cache._quantize(v.cpu(), cache.n_groups, cache.bits))
+            got = [p[li][:, :, off:off + t].cpu() for p in quant_planes]
+            ok = all(torch.equal(g, w.to(g.dtype)) for g, w in zip(got, want))
+        else:
+            ok = (torch.equal(cache.k[li][:, :, off:off + t].cpu(), k.cpu().to(cache.k.dtype))
+                  and torch.equal(cache.v[li][:, :, off:off + t].cpu(), v.cpu().to(cache.v.dtype)))
+        n[kind] += 1
+        if not ok:
+            bad.append((kind, li, off))
+    check(not bad, f"self-cache rows the card wrote differ from the CPU's: {bad[:8]}")
+    return n
+
+
+def kvq_steps(step, seq, dev):
+    """Teacher-forced logits [len(seq) - 1, V] of ``step`` along ``seq``."""
+    import torch
+
+    return torch.stack([step(torch.tensor([t], device=dev), i)[0]
+                        for i, t in enumerate(seq[:-1])]).float()
+
+
+def decoder_slice(model, n_layers: int, dtype=None):
+    """The first ``n_layers`` decoder layers of ``model``'s tree in ``dtype``
+    (f32 by default; int8 weights stay int8, their scales f32), and the
+    config for them."""
+    import torch
+
+    from tpu_audio_torch.core import quant
+
+    dtype = dtype or torch.float32
+
+    def f32(t):
+        if isinstance(t, dict):
+            return {k: f32(v) for k, v in t.items()}
+        if isinstance(t, quant.Int8Tensor):
+            return quant.Int8Tensor(t.weight, t.scale.float())
+        return t.to(dtype) if t.is_floating_point() else t
+
+    def first(t):
+        if isinstance(t, dict):
+            return {k: first(v) for k, v in t.items()}
+        if isinstance(t, quant.Int8Tensor):
+            return quant.Int8Tensor(t.weight[:n_layers], t.scale[:n_layers])
+        return t[:n_layers]
+
+    dec = model.params["model"]["decoder"]
+    params = {"model": {"decoder": f32({**dec, "layers": first(dec["layers"])})}}
+    return params, dataclasses.replace(model.config, decoder_layers=n_layers)
+
+
+@contextlib.contextmanager
+def act_codes(taps: list | None, feed: list | None = None):
+    """While open, with ``taps`` a list: every dynamic int8 activation
+    quantization (``quant.quantize_act_int8``, the w8 products') appends
+    its codes, scales and unrounded values ``x / scale`` to ``taps``, on the
+    CPU; with ``feed`` (another run's taps, in the same order) it returns
+    those codes and scales instead of its own."""
+    from tpu_audio_torch.core import quant
+
+    fn = quant.quantize_act_int8
+
+    def tapped(x):
+        xq, xs = fn(x)
+        taps.append((xq.cpu(), xs.cpu(), (x.float() / xs).cpu()))
+        if feed is None:
+            return xq, xs
+        fq, fs, _ = feed[len(taps) - 1]
+        return fq.to(x.device), fs.to(x.device)
+
+    if taps is not None:
+        quant.quantize_act_int8 = tapped
+    try:
+        yield
+    finally:
+        quant.quantize_act_int8 = fn
+
+
+def kvq_card_vs_cpu(model, enc, seq, kw) -> dict:
+    """The route at KVQ_CARD_LAYERS decoder layers in f32, card against
+    CPU on the same weights and encoder output, teacher-forced along
+    ``seq``: the logits' relative error, and two controls' (the same card
+    run with TF32 matrix products, and in bf16, the route's deployed
+    dtype). A decode step's products are one-row GEMVs, which TF32 does not
+    round; the 1,500-row cross projections it does round feed int8 or int4
+    codes. So the TF32 control reads about what the sound run reads, and
+    the limit is held below the bf16 control. On the w8 tree every product
+    quantizes its input to int8 codes (``act_codes``), and one code rounded
+    the other way moves the random-weight stack by ~1e-2: the CPU is fed
+    the card's codes and scales, as the kernels' plain versions are, and
+    every code of the card's differs from the CPU's own rounding only at a
+    boundary (FLIP_DIST), its scale within SCALE_RTOL."""
+    import torch
+
+    from tpu_audio_torch.core import loading
+    from tpu_audio_torch.models.stt import whisper as W
+
+    params, cfg = decoder_slice(model, KVQ_CARD_LAYERS)
+    enc32 = enc.float()
+    cpu_params = loading.to_device(params, "cpu")
+
+    def run(p, e, taps=None, feed=None):
+        with act_codes(taps, feed):
+            step = W.decode_step_fn(p, e, max_total=len(seq), cfg=cfg,
+                                    layers=W._split_layers(p["model"]["decoder"]["layers"]),
+                                    **kw)
+            return kvq_steps(step, seq, e.device).cpu()
+
+    with torch.inference_mode():
+        card_taps, cpu_taps = [], []
+        card = run(params, enc32, card_taps)
+        cpu = run(cpu_params, enc32.cpu(), cpu_taps, feed=card_taps)
+        with tf32_leak(matmul=True):
+            tf32 = run(params, enc32)
+        bf16 = run(decoder_slice(model, KVQ_CARD_LAYERS, torch.bfloat16)[0], enc)
+    check(len(card_taps) == len(cpu_taps), "card and CPU quantized a different number of "
+                                           "activations")
+    flips, worst_dist, scale_rel = 0, 0.0, 0.0
+    for (kq, ks, _), (cq, cs, pre) in zip(card_taps, cpu_taps):
+        diff = kq.int() - cq.int()
+        check(int(diff.abs().max()) <= 1, "a card activation code is more than one step "
+                                          "from the CPU's")
+        if bool(diff.any()):
+            off = pre[diff != 0]
+            flips += int((diff != 0).sum())
+            worst_dist = max(worst_dist, float((off - off.trunc()).abs().sub(0.5).abs().max()))
+        scale_rel = max(scale_rel, float((ks / cs - 1).abs().max()))
+    check(worst_dist <= FLIP_DIST and scale_rel <= SCALE_RTOL,
+          f"card activation codes part from the CPU's away from a rounding boundary "
+          f"({worst_dist:.2e}) or scales {scale_rel:.1e} apart")
+    return dict(rel_err=rel_err(card, cpu), tf32_control=rel_err(tf32, cpu),
+                bf16_control=rel_err(bf16, cpu), act_codes=len(card_taps), act_flips=flips,
+                act_flip_dist=worst_dist, act_scale_rel=scale_rel)
+
+
+def kvq_timing(model, enc, seq, kw, label: str) -> dict:
+    """One window's decode step at a KVQ_TIMED_CAPACITY-row self cache
+    (the layers dequantize their whole capacity each step): host ms a step
+    (median of KVQ_TIMED_STEPS, each synchronized), device ms and events
+    of one step (``marked_window``), the self cache's bytes and the peak
+    device memory from the step function's build on."""
+    import torch
+
+    from tpu_audio_torch.models.stt import whisper as W
+
+    dev = enc.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode(), kvq_recorder() as (caches, _):
+        step = W.decode_step_fn(model.params, enc, max_total=KVQ_TIMED_CAPACITY,
+                                cfg=model.config, layers=model.decoder.split_layers(), **kw)
+        # a hybrid cache's timed steps write its quantized tail
+        warm = max(KVQ_TIMED_WARM, kw.get("quantized_kv_start", 0) % KVQ_TIMED_CAPACITY)
+        toks = (seq * KVQ_TIMED_CAPACITY)[:warm + KVQ_TIMED_STEPS + 2]
+        for i in range(warm):
+            step(torch.tensor([toks[i]], device=dev), i)
+        walls = []
+        for i in range(warm, warm + KVQ_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(torch.tensor([toks[i]], device=dev), i)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        i = warm + KVQ_TIMED_STEPS
+        busy_us, events = marked_window(lambda: step(torch.tensor([toks[i]], device=dev), i),
+                                        f"whisper kvq {label}")
+    cache = caches[-1]
+    out = dict(host_ms=statistics.median(walls), host_ms_all=walls,
+               device_ms=None if busy_us is None else busy_us / 1e3, events=events,
+               cache=type(cache).__name__, cache_mb=nbytes(*(t for t in cache
+                                                             if torch.is_tensor(t))) / 1e6,
+               peak_gb=peak_gb())
+    print(f"[whisper kvq {label} step] capacity {KVQ_TIMED_CAPACITY}: {out['host_ms']:.3f} host "
+          f"ms a step (median of {[f'{w:.2f}' for w in walls]}), device "
+          f"{fmt(out['device_ms'])}, {events} device events; {out['cache']} "
+          f"{out['cache_mb']:.2f} MB; peak {out['peak_gb']:.3f} GB")
+    return out
+
+
+def whisper_kvq_phase(models, cfg, audio, dev, smi: str) -> tuple[dict, dict]:
+    """``[whisper kvq]``: the quantized self-cache routes (KVQ_ROUTES) at
+    whisper-large-v3 width, each on the 30 s window and on a KVQ_WINDOWS
+    long-form batch, with the counters reset just before and read just
+    after each run: greedy ``generate`` twice (equal tokens; kernel 2 32
+    times a step at 8 bits, none at 4; kernel 1 once a window; no fused
+    stack, no plain call); every self-cache row the first run wrote
+    against the CPU bit for bit (``kvq_codes_check``); the teacher-forced
+    logits' largest gap from the dense route (kv_bits None) at full depth,
+    the quantisation error, recorded; the route at KVQ_CARD_LAYERS layers
+    card against CPU under its limit and its TF32 control; and a step at a
+    KVQ_TIMED_CAPACITY-row cache timed beside the bf16 kv8d step. Returns
+    the phase's record and kernel 2's fields."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.core.generation import STTGenerateParameters
+    from tpu_audio_torch.models.stt import whisper as W
+    from tpu_audio_torch.ops import _lib
+    from tpu_audio_torch.ops import fused_decoder as F
+    from tpu_audio_torch.ops import kv_attention as K
+
+    t_phase = time.perf_counter()
+    L = cfg.decoder_layers
+    windows = long_file(KVQ_WINDOWS, np.random.default_rng(7))
+    with torch.inference_mode():
+        enc = models["bf16_kv8d"].encoder(models["bf16_kv8d"].encoder_features(audio))
+    out, k2, forced = {}, {}, {}
+    for name, tree, kw in KVQ_ROUTES:
+        model = models[tree]
+        gp = STTGenerateParameters(max_tokens=KVQ_TOKENS, **kw)
+        rec, first = dict(tree=tree, **kw), None
+        for run, (x, n_win) in enumerate(((audio, 1), (audio, 1), (windows, KVQ_WINDOWS))):
+            steps, plain = [0], [0]
+            ctx = kvq_recorder() if run == 0 else contextlib.nullcontext(([], []))
+            with ctx as (caches, writes), counting(W, "decoder_step", steps), \
+                    counting(K, "decode_attention_int8_ref", plain), \
+                    counting(F, "fused_stack_ref", plain):
+                _lib.reset_launches()
+                o, wall = timed_generate(model, x, gp)
+                launches = dict(_lib.launches)
+            toks = window_tokens(o, n_win)
+            k2_want = L * steps[0] if kw["kv_bits"] == 8 else 0
+            label = f"[whisper kvq {name} {'batch' if n_win > 1 else 'window'} run {run}]"
+            print(f"{label} {sum(map(len, toks))} tokens in {wall:.3f} s ({steps[0]} steps, "
+                  f"{wall * 1e3 / steps[0]:.2f} ms a step); launches {launches}, plain calls "
+                  f"{plain[0]}; first tokens {toks[0][:8]}")
+            check(launches.get("decode_attention_int8", 0) == k2_want,
+                  f"{label}: kernel 2 launched {launches.get('decode_attention_int8', 0)} "
+                  f"times, {k2_want} expected")
+            check(launches.get("fused_log_mel", 0) == n_win and plain[0] == 0 and not any(
+                launches.get(k, 0) for k in ("fused_stack", "fused_stack_lanes")),
+                f"{label}: kernel 1 not once a window, a fused stack, or a plain call")
+            if run == 0:
+                first = toks[0]
+                check(len(caches) == 1 and type(caches[0]).__name__ == (
+                    "HybridKVCache" if 0 < kw["quantized_kv_start"] < len(PROMPT) + KVQ_TOKENS
+                    else "QuantKVCache"), f"{label}: self caches "
+                                          f"{[type(c).__name__ for c in caches]}")
+                rec["codes_checked"] = kvq_codes_check(caches[0], writes, L)
+                print(f"{label} self-cache rows written on the card equal the CPU's bit for "
+                      f"bit: {rec['codes_checked']}")
+                rec.update(window_wall_s=wall, steps=steps[0], launches=launches,
+                           kernel2_per_step=launches.get("decode_attention_int8", 0) / steps[0])
+            elif n_win == 1:
+                check(toks[0] == first, f"{label}: greedy tokens differ between runs")
+                rec["window_wall_s_repeat"] = wall
+            else:
+                rec.update(batch_wall_s=wall, batch_steps=steps[0], batch_launches=launches,
+                           batch_tokens=[len(t) for t in toks])
+        # a tree's routes are forced along its first route's tokens, against
+        # one dense run
+        with torch.inference_mode():
+            if tree not in forced:
+                seq = PROMPT + first
+                forced[tree] = (seq, kvq_steps(W.decode_step_fn(
+                    model.params, enc, max_total=len(seq), cfg=cfg,
+                    layers=model.decoder.split_layers()), seq, dev))
+            seq, dense = forced[tree]
+            got = kvq_steps(W.decode_step_fn(model.params, enc, max_total=len(seq), cfg=cfg,
+                                             layers=model.decoder.split_layers(), **kw), seq, dev)
+        rec["quantisation_rel_err"] = rel_err(got[len(PROMPT) - 1:], dense[len(PROMPT) - 1:])
+        rec["card_vs_cpu"] = kvq_card_vs_cpu(model, enc, seq, kw)
+        cc = rec["card_vs_cpu"]
+        print(f"[whisper kvq {name}] teacher-forced logits against the dense route (the "
+              f"quantisation error, no limit): {rec['quantisation_rel_err']:.3e}; at "
+              f"{KVQ_CARD_LAYERS} layers in f32 card against CPU {cc['rel_err']:.3e} (limit "
+              f"{KVQ_CARD_RTOL}), TF32 control {cc['tf32_control']:.3e}, bf16 control "
+              f"{cc['bf16_control']:.3e}; {cc['act_codes']} int8 activations fed to the CPU, "
+              f"{cc['act_flips']} code(s) rounded the other way, at most "
+              f"{cc['act_flip_dist']:.2e} from a boundary, scales {cc['act_scale_rel']:.1e} apart")
+        check(cc["rel_err"] <= KVQ_CARD_RTOL < cc["bf16_control"],
+              f"[whisper kvq {name}] card against CPU {cc}: not within {KVQ_CARD_RTOL}, or "
+              f"the bf16 control within it")
+        rec["step"] = kvq_timing(model, enc, seq, kw, name)
+        out[name] = rec
+        k2[name] = rec["kernel2_per_step"]
+    out["bf16_kv8d_step"] = kvq_timing(models["bf16_kv8d"], enc, forced["bf16_kv8d"][0],
+                                       dict(kv_bits=8, quantized_kv_start=448), "bf16 kv8d")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[whisper kvq] {smi}: the phase {out['seconds']:.1f} s")
+    return out, dict(kvq_launches_per_step=k2,
+                     kvq_launches=sum(r["launches"].get("decode_attention_int8", 0)
+                                      + r["batch_launches"].get("decode_attention_int8", 0)
+                                      for r in out.values() if isinstance(r, dict)
+                                      and "launches" in r))
+
+
+def build_vyvo(dev):
+    """VyvoTTS at Qwen3-0.6B's published widths (VYVO_06B) from seed-0
+    random weights on the card, seeded non-unit RMSNorm weights (q/k norms
+    included), the audio band's embedding rows scaled by VYVO_BAND_SCALE so
+    that greedy decoding emits audio codes as a trained checkpoint does, and
+    the SNAC 24 kHz codec: the bf16 model and the MLX 4-bit one (every
+    projection and the tied embedding quantized on the card in groups of
+    64), q/k/v and gate/up fused in both."""
+    import torch
+
+    from tpu_audio_torch.core import quant
+    from tpu_audio_torch.models import llama
+    from tpu_audio_torch.models.tts import llama_tts as TT
+    from tpu_audio_torch.models.tts import qwen3_vyvo as TV
+
+    cfg = TT.LlamaTTSConfig(**VYVO_06B)
+    params = llama.init_random_params(cfg, seed=0, dtype=torch.bfloat16, device=dev,
+                                      on_device=True)
+    randomize_norms(params, torch.Generator(device=dev).manual_seed(3))
+    T = TV.VYVO_TOKENS
+    params["model"]["embed_tokens"]["weight"][
+        T.audio_token_offset:T.audio_token_offset + 7 * T.codebook_size] *= VYVO_BAND_SCALE
+    q4 = llama.fuse_projections(quant.quantize_tree(params, bits=4, group_size=64,
+                                                    scheme="mlx"))
+    check(isinstance(q4["model"]["layers"]["self_attn"]["qkv_proj"]["weight"],
+                     quant.QuantizedTensor)
+          and isinstance(q4["model"]["embed_tokens"]["weight"], quant.QuantizedTensor),
+          "VyvoTTS 4-bit: the projections or the embedding are not packed")
+    codec = build_snac(dev)
+    models = {name: TV.VyvoTTS(cfg, tree, tokenizer=ByteTokenizer(), codec=codec,
+                               tokens=T, dtype=torch.bfloat16)
+              for name, tree in (("q4", q4), ("bf16", llama.fuse_projections(params)))}
+    for m in models.values():
+        check(m.config.qk_norm and not TT._fused_route(m.params, cfg, m.device),
+              "VyvoTTS: no q/k norm, or a fused route")
+    return models
+
+
+def vyvo_generate(model, n: int, stream: bool = False):
+    """One greedy ``generate`` (or ``generate_stream``) of ``n`` tokens with
+    the counters reset just before and read just after: (all tokens of the
+    run, the waveform, wall s, prefill s, decode steps, launches, plain
+    calls)."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.core.generation import AudioGenerateParameters, AudioGenerationKind
+    from tpu_audio_torch.ops import _lib, qmm
+
+    gp = AudioGenerateParameters(max_tokens=n, temperature=0.0, repetition_penalty=1.3,
+                                 repetition_context_size=20)
+    steps, plain, seen = [0], [0], {}
+    run_generation = model._run_generation
+
+    def spy(*a, **k):
+        for item in run_generation(*a, **k):
+            seen["item"] = item
+            yield item
+
+    model._run_generation = spy
+    model._decoders.clear()
+    try:
+        with counting(model, "_step_fn", steps), counting(qmm, "quantized_matvec_ref", plain):
+            _lib.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if stream:
+                wav = np.concatenate([e.audio for e in model.generate_stream(
+                    TTS_TEXT, generation_parameters=gp) if e.kind == AudioGenerationKind.AUDIO])
+            else:
+                wav = model.generate(TTS_TEXT, generation_parameters=gp)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_lib.launches)
+    finally:
+        del model._run_generation
+        model._decoders.clear()
+    _, _, (pt, _, _, all_tokens) = seen["item"]
+    return all_tokens, wav, wall, pt, steps[0], launches, plain[0]
+
+
+def vyvo_teacher_forced(model, tokens) -> dict:
+    """The 4-bit model cut to VYVO_CARD_LAYERS layers, card against CPU on
+    the same weights: the prompt's prefill and VYVO_TEACHER_STEPS forced
+    steps along ``tokens``, the step logits (f32 activations from the packed
+    embedding on; kernel 7 on the card, its plain version on the CPU) within
+    VYVO_CARD_RTOL, which the TF32 control (the card on kernel 7's plain
+    version, its f32 products in TF32) must exceed."""
+    import torch
+
+    from tpu_audio_torch.core import loading
+    from tpu_audio_torch.models import llama
+    from tpu_audio_torch.models.tts import qwen3_vyvo as TV
+
+    n = VYVO_CARD_LAYERS
+    cfg = dataclasses.replace(model.config, num_hidden_layers=n)
+    params = {**model.params, "model": {**model.params["model"], "layers": llama._map(
+        lambda t: t[:n], model.params["model"]["layers"])}}
+    prompt = model.prepare_input_ids(TTS_TEXT)
+
+    def forced(params, dev):
+        m = TV.VyvoTTS(cfg, params, tokenizer=ByteTokenizer(), tokens=model.tokens,
+                       dtype=model.dtype)
+        cache, last = q4_prefill(m, prompt, VYVO_TEACHER_STEPS)
+        out = []
+        for t in ([int(last[0])] + list(tokens))[:VYVO_TEACHER_STEPS]:
+            logits, cache = m._step_fn(m.params, torch.tensor([[t]], device=dev), cache)
+            out.append(logits[0].float().cpu())
+        return torch.stack(out)
+
+    with torch.inference_mode():
+        card = forced(params, model.device)
+        cpu = forced(loading.to_device(params, "cpu"), torch.device("cpu"))
+        with plain_kernels(), tf32_leak(matmul=True):
+            control = forced(params, model.device)
+    out = dict(rel_err=rel_err(card, cpu), tf32_control=rel_err(control, cpu))
+    print(f"[vyvo teacher-forced] {n} layers, {VYVO_TEACHER_STEPS} steps: logits card against "
+          f"CPU {out['rel_err']:.3e} (limit {VYVO_CARD_RTOL}), TF32 control (kernel 7's plain "
+          f"version, TF32 products) {out['tf32_control']:.3e}")
+    check(out["rel_err"] <= VYVO_CARD_RTOL < out["tf32_control"],
+          f"vyvo card against CPU {out}: not within {VYVO_CARD_RTOL}, or the control within it")
+    return out
+
+
+def vyvo_serve(model, solo: dict) -> dict:
+    """Q4_SERVE_TEXTS staggered greedy requests of VYVO_SERVE_TOKENS tokens
+    through ``ContinuousTTS`` (the plain tick) at VYVO_SERVE_SLOTS slots, the counters reset just
+    before and read just after: kernel 7's tile 4 x 28 + 1 times a prefill
+    (the full head's logits over the prompt) and its decode kernel 4 x 28 +
+    1 times a lane step, nothing else; each request's tokens equal its solo
+    ``_run_generation``'s (``solo``: text -> tokens), both on 1-row decode
+    kernel steps from the same tile prefill."""
+    import torch
+
+    from tpu_audio_torch.core.generation import AudioGenerateParameters
+    from tpu_audio_torch.ops import _lib, qmm
+    from tpu_audio_torch.parallel.continuous import ContinuousTTS
+
+    L = model.config.num_hidden_layers
+    gp = AudioGenerateParameters(max_tokens=VYVO_SERVE_TOKENS, temperature=0.0,
+                                 repetition_penalty=1.3, repetition_context_size=20)
+    prefills, steps, plain = [0], [0], [0]
+    with counting(model, "_prefill", prefills), counting(model, "_step_fn", steps), \
+            counting(qmm, "quantized_matvec_ref", plain):
+        srv = ContinuousTTS(model, slots=VYVO_SERVE_SLOTS, generation_parameters=gp)
+        check(not srv.fused, "a 4-bit VyvoTTS took the fused tick")
+        _lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [srv.submit(t) for t in Q4_SERVE_TEXTS[:2]]
+        list(srv.step())
+        reqs += [srv.submit(t) for t in Q4_SERVE_TEXTS[2:]]
+        list(srv.run())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_lib.launches)
+    served = [list(r.tokens) for r in reqs]
+    want = {"quantized_matvec_tile": (4 * L + 1) * prefills[0],
+            "quantized_matvec_decode": (4 * L + 1) * steps[0]}
+    want["quantized_matvec"] = sum(want.values())
+    equal = [s == solo[t] for s, t in zip(served, Q4_SERVE_TEXTS)]
+    print(f"[vyvo serve] {len(reqs)} requests, {VYVO_SERVE_SLOTS} slots: "
+          f"{sum(map(len, served))} tokens in {wall:.3f} s ({steps[0]} lane steps, "
+          f"{prefills[0]} prefills); launches {launches} ({want} expected), plain calls "
+          f"{plain[0]}; each request's tokens equal solo's: {equal}")
+    check(launches == want and plain[0] == 0, "vyvo serving launches or plain calls")
+    check(all(equal), "served VyvoTTS tokens differ from solo's")
+    return dict(requests=len(reqs), wall_s=wall, lane_steps=steps[0], launches=launches,
+                equal_to_solo=all(equal))
+
+
+def write_vyvo_checkpoint(path: Path, geometry: dict, dev) -> Path:
+    """A VyvoTTS checkpoint directory at ``geometry`` with a small
+    vocabulary and its token table in config.json (VYVO_SMALL_TABLE), seed-0
+    random bf16 weights drawn on the card, q/k norms 1 + N(0, 0.1)."""
+    import torch
+
+    cfg = {"model_type": "qwen3", **geometry, **VYVO_SMALL_TABLE}
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(cfg))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d, ffn, hd = cfg["hidden_size"], cfg["intermediate_size"], cfg["head_dim"]
+    nq, nkv = cfg["num_attention_heads"] * hd, cfg["num_key_value_heads"] * hd
+
+    def rand(*shape, std=0.02):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    def norm(n):
+        return 1.0 + rand(n, std=0.1)
+
+    flat = {"model.embed_tokens.weight": rand(cfg["vocab_size"], d), "model.norm.weight": norm(d)}
+    for i in range(cfg["num_hidden_layers"]):
+        b = f"model.layers.{i}"
+        flat.update({f"{b}.input_layernorm.weight": norm(d),
+                     f"{b}.post_attention_layernorm.weight": norm(d),
+                     f"{b}.self_attn.q_proj.weight": rand(nq, d),
+                     f"{b}.self_attn.k_proj.weight": rand(nkv, d),
+                     f"{b}.self_attn.v_proj.weight": rand(nkv, d),
+                     f"{b}.self_attn.o_proj.weight": rand(d, nq),
+                     f"{b}.self_attn.q_norm.weight": norm(hd),
+                     f"{b}.self_attn.k_norm.weight": norm(hd),
+                     f"{b}.mlp.gate_proj.weight": rand(ffn, d),
+                     f"{b}.mlp.up_proj.weight": rand(ffn, d),
+                     f"{b}.mlp.down_proj.weight": rand(d, ffn)})
+    write_safetensors(path / "model.safetensors", flat, bf16=True)
+    return path
+
+
+def vyvo_w8a8_phase(dev) -> dict:
+    """The w8a8 VyvoTTS through ``VyvoTTS.from_pretrained``: a 2-layer
+    checkpoint at Qwen3-1.7B's widths (VYVO_17B_W8), which kernel 5 takes,
+    loads with its projections apart and decodes through kernel 5
+    (``llama_check`` at QK_NORM_CHECKS, 9 launches a layer, one launch a
+    greedy token with no plain call); kernel 6 at 4 lanes each bit-equal to
+    kernel 5 (``llama_lanes_check``), and two requests served on the fused
+    tick with the tokens of their solo runs; then a 2-layer checkpoint at
+    Qwen3-0.6B's widths, which kernel 5 does not take (16 x 128 != 1,024):
+    ``from_pretrained(quantize_bits="w8a8")`` raises NotImplementedError."""
+    import torch
+
+    from tpu_audio_torch.core.generation import AudioGenerateParameters
+    from tpu_audio_torch.models.tts import qwen3_vyvo as TV
+    from tpu_audio_torch.ops import _lib
+    from tpu_audio_torch.ops import fused_llama as FL
+    from tpu_audio_torch.parallel.continuous import ContinuousTTS
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, torch.inference_mode():
+        path = write_vyvo_checkpoint(Path(tmp) / "w8", VYVO_17B_W8, dev)
+        model = TV.VyvoTTS.from_pretrained(str(path), codec=build_snac(dev),
+                                           dtype=torch.bfloat16, quantize_bits="w8a8",
+                                           device=dev)
+        model.tokenizer = ByteTokenizer()
+        cfg = model.config
+        check(model._fused_supported() and cfg.qk_norm
+              and "q_proj" in model.params["model"]["layers"]["self_attn"],
+              "w8a8 VyvoTTS at 2,048 wide: not on kernel 5's route")
+        checks = []
+        for i, (off, vf) in enumerate(QK_NORM_CHECKS):
+            kc, vc, x = llama_inputs(model, dev, 30 + i)
+            checks.append(llama_check("vyvo w8a8 L=2", model, kc, vc, x, off, vf, ties=True))
+        pack = model.fused_decoder_pack()
+        kc, vc, x = llama_inputs(model, dev, 5)
+        out["layer_launches"] = stack_launches(
+            lambda: FL.fused_llama_stack(pack, kc, vc, x, LLAMA_TIME_OFFSET, cfg=cfg),
+            cfg.num_hidden_layers, LLAMA_LAYER_LAUNCHES, LLAMA_K5_KERNELS,
+            "vyvo fused_llama_stack")
+        gp = AudioGenerateParameters(max_tokens=VYVO_W8_TOKENS, temperature=0.0,
+                                     repetition_penalty=1.3, repetition_context_size=20)
+        steps, plain = [0], [0]
+        with counting(model, "_fused_step_fn", steps), \
+                counting(FL, "fused_llama_stack_ref", plain):
+            _lib.reset_launches()
+            for *_, (_pt, _gt, plen, toks) in model._run_generation(
+                    TTS_TEXT, None, None, None, gp, VYVO_W8_TOKENS):
+                pass
+            launches = dict(_lib.launches)
+        solo = toks[plen:]
+        print(f"[vyvo w8a8] {len(solo)} greedy tokens through kernel 5: {steps[0]} steps, "
+              f"launches {launches}, plain calls {plain[0]}")
+        check(launches.get("fused_llama_stack", 0) == steps[0] == len(solo) and plain[0] == 0
+              and launches.get("fused_llama_stack", 0) == sum(launches.values()),
+              "w8a8 VyvoTTS: not one kernel 5 launch a token, or another kernel or a plain call")
+        out.update(checks=checks, tokens=len(solo), launches=launches)
+        kc, vc, lanes, offs, x = llama_lane_inputs(model, dev, LANE_SLOTS, 4, 40)
+        out["lanes"] = llama_lanes_check("vyvo w8a8 lanes L=2", model, kc, vc, lanes, offs, x)
+        del kc, vc
+        srv = ContinuousTTS(model, slots=2, generation_parameters=gp)
+        check(srv.fused, "w8a8 VyvoTTS serving did not take the fused tick")
+        lplain = [0]
+        with counting(FL, "fused_llama_stack_lanes_ref", lplain):
+            _lib.reset_launches()
+            reqs = [srv.submit(TTS_TEXT), srv.submit(TTS_TEXT)]
+            list(srv.run())
+            served = dict(_lib.launches)
+        equal = [list(r.tokens) == solo for r in reqs]
+        print(f"[vyvo w8a8 serve] two requests on the fused tick: launches {served}, plain "
+              f"calls {lplain[0]}; tokens equal the solo run's: {equal}")
+        check(served.get("fused_llama_stack_lanes", 0) > 0 and lplain[0] == 0 and all(equal),
+              "w8a8 VyvoTTS serving: kernel 6 not launched, a plain call, or tokens differ")
+        out.update(serve_launches=served, served_equal_solo=all(equal))
+        del model, srv, pack
+        small = write_vyvo_checkpoint(Path(tmp) / "w8_06b", VYVO_06B_W8, dev)
+        try:
+            TV.VyvoTTS.from_pretrained(str(small), dtype=torch.bfloat16, quantize_bits="w8a8",
+                                       device=dev)
+            refused = None
+        except NotImplementedError as e:
+            refused = str(e)
+        print(f"[vyvo w8a8] at Qwen3-0.6B's widths (16 x 128 heads, 1,024 hidden) "
+              f"from_pretrained(quantize_bits='w8a8') on CUDA raises: {refused}")
+        check(refused is not None and "fused_llama_stack" in refused,
+              "w8a8 VyvoTTS at 0.6B widths did not raise on CUDA")
+        out["refused_at_06b"] = True
+    return out
+
+
+def vyvo_phase(dev, smi: str) -> tuple[dict, dict]:
+    """``[vyvo]``: VyvoTTS at Qwen3-0.6B widths (``build_vyvo``). On the
+    MLX 4-bit model: greedy ``generate`` of VYVO_TOKENS twice and
+    ``generate_stream`` once, the counters reset just before and read just
+    after each (kernel 7's tile 4 x 28 + 1 times for the prefill, its
+    decode kernel 113 times a step, no GEMV, no other kernel, no plain
+    call; tokens and waveform repeat, the stream's tokens the same); the
+    4-layer teacher-forced logits card against CPU; TTFB, realtime factor,
+    host and device ms a token (``q4_ttfb_phase``); ``ContinuousTTS`` at 4
+    slots against solo. On the bf16 model one greedy ``generate`` and its
+    ms a token. Then the w8a8 trees (``vyvo_w8a8_phase``). Returns the
+    record and kernel 7's, 5's and 6's fields."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.core.generation import AudioGenerateParameters
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    models = build_vyvo(dev)
+    torch.cuda.synchronize()
+    print(f"[vyvo] Qwen3-0.6B widths, vocabulary {VYVO_06B['vocab_size']}: bf16 and MLX 4-bit "
+          f"(g 64) built on the card with the SNAC 24 kHz codec in "
+          f"{time.perf_counter() - t0:.1f} s")
+    q4 = models["q4"]
+    L, sr = q4.config.num_hidden_layers, q4.sample_rate
+    out, runs, first = {}, [], None
+    for run, (n, stream) in enumerate(((VYVO_GENERATE_TOKENS, False),
+                                       (VYVO_REPEAT_TOKENS, False), (VYVO_REPEAT_TOKENS, True))):
+        toks, wav, wall, pt, steps, launches, plain = vyvo_generate(q4, n, stream)
+        plen = len(q4.prepare_input_ids(TTS_TEXT))
+        gen = toks[plen:]
+        n_tile = launches.get("quantized_matvec_tile", 0)
+        n_dec = launches.get("quantized_matvec_decode", 0)
+        n_gemv = launches.get("quantized_matvec", 0) - n_tile - n_dec
+        frames = len(q4.parse_output(toks)) // 7
+        label = f"[vyvo q4 {'generate_stream' if stream else 'generate'} run {run}]"
+        print(f"{label} {len(gen)} tokens, {frames} frames ({wav.shape[0]} samples) in "
+              f"{wall:.3f} s (prefill {pt * 1e3:.2f} ms, {steps} decode steps at "
+              f"{(wall - pt) * 1e3 / steps:.2f} ms with the codec); RTF "
+              f"{wall / (wav.shape[0] / sr):.3f}; "
+              f"launches {launches}: tile {n_tile} ({4 * L + 1} expected), decode {n_dec} "
+              f"({(4 * L + 1) * steps} expected), GEMV {n_gemv}; plain calls {plain}")
+        check(n_tile == 4 * L + 1 and n_dec == (4 * L + 1) * steps and n_gemv == 0
+              and plain == 0 and set(launches) <= {"quantized_matvec", "quantized_matvec_tile",
+                                                  "quantized_matvec_decode"},
+              f"{label}: kernel 7's launches, another kernel or a plain call")
+        check(frames > 0 and bool(np.isfinite(wav).all())
+              and wav.shape[0] == frames * 4 * q4.codec.config.hop_length,
+              f"{label}: {frames} frames, waveform {wav.shape}")
+        if first is None:
+            first = (gen, wav, launches)
+        # a repeat's waveform is the decode of the first run's prefix
+        want = wav if run == 0 else q4._decode_codes(q4.parse_output(toks[:plen] + first[0][:n]))
+        check(gen == first[0][:n] and (np.array_equal(wav, want) if not stream
+                                       else wav.shape == want.shape),
+              f"{label}: tokens or waveform differ from the first run's prefix")
+        runs.append(dict(api="generate_stream" if stream else "generate", run=run,
+                         tokens=len(gen), steps=steps, frames=frames, wall_s=wall, prefill_s=pt,
+                         ms_per_step_with_codec=(wall - pt) * 1e3 / steps,
+                         rtf=wall / (wav.shape[0] / sr)))
+    out["q4_runs"] = runs
+    out["q4_bound"] = packed_step_bound(q4)
+    print(f"[vyvo q4] a decode step's {out['q4_bound'][2]} kernel-7 products: bound "
+          f"{out['q4_bound'][0]:.4f} ms ({out['q4_bound'][1]})")
+    check(out["q4_bound"][2] == 4 * L + 1, f"{out['q4_bound'][2]} packed products a step")
+    out["q4_teacher_forced"] = vyvo_teacher_forced(q4, first[0])
+    out["q4_ttfb"] = q4_ttfb_phase(q4, label="vyvo q4")
+    solo = {}
+    gp = AudioGenerateParameters(max_tokens=VYVO_SERVE_TOKENS, temperature=0.0,
+                                 repetition_penalty=1.3, repetition_context_size=20)
+    with torch.inference_mode():
+        for text in Q4_SERVE_TEXTS:
+            for *_, (_pt, _gt, plen, toks) in q4._run_generation(text, None, None, None, gp,
+                                                                 VYVO_SERVE_TOKENS):
+                pass
+            solo[text] = toks[plen:]
+    out["q4_serve"] = vyvo_serve(q4, solo)
+    bf16 = models["bf16"]
+    toks, wav, wall, pt, steps, launches, _ = vyvo_generate(bf16, VYVO_GENERATE_TOKENS)
+    check(not launches, f"the bf16 VyvoTTS launched a kernel of the port: {launches}")
+    out["bf16_run"] = dict(tokens=len(toks) - len(bf16.prepare_input_ids(TTS_TEXT)),
+                           wall_s=wall, prefill_s=pt,
+                           ms_per_step_with_codec=(wall - pt) * 1e3 / steps,
+                           rtf=wall / (wav.shape[0] / sr))
+    out["bf16_decode"] = q4_ttfb_phase(bf16, label="vyvo bf16", ttfb=False)
+    print(f"[vyvo bf16 generate] {out['bf16_run']}")
+    del models, q4, bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["w8a8"] = vyvo_w8a8_phase(dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[vyvo] {smi}: the phase {out['seconds']:.1f} s")
+    k7 = dict(vyvo_launches=first[2], vyvo=dict(
+        decode_per_step=first[2].get("quantized_matvec_decode", 0) / runs[0]["steps"],
+        tile_per_prefill=first[2].get("quantized_matvec_tile", 0),
+        device_ms_per_token=out["q4_ttfb"]["device_ms_per_token"],
+        kernel7_device_ms_per_token=out["q4_ttfb"]["kernel7_device_ms_per_token"],
+        bound_ms=out["q4_bound"][0], bound_by=out["q4_bound"][1], products=out["q4_bound"][2]))
+    return out, dict(quantized_matvec=k7,
+                     fused_llama_stack=dict(vyvo_launches=out["w8a8"]["launches"],
+                                            vyvo_layer_launches=out["w8a8"]["layer_launches"]),
+                     fused_llama_stack_lanes=dict(vyvo_launches=out["w8a8"]["serve_launches"]))
+
+
+def packed_step_bound(model) -> tuple[float, str, int]:
+    """The bound of one 1-row decode step's kernel-7 products on ``model``'s
+    packed tree: every packed word, scale and bias read once, x in and y out
+    in f32 per product, a multiply-add a weight in f32; and the count of
+    products (a stacked leaf is one a layer)."""
+    from tpu_audio_torch.core import quant
+
+    def packed(tree):
+        if isinstance(tree, dict):
+            return [q for v in tree.values() for q in packed(v)]
+        return [tree] if isinstance(tree, quant.QuantizedTensor) else []
+
+    nb = ops = products = 0
+    for q in packed(model.params["model"]):
+        n = q.weight.shape[0] if q.weight.ndim == 3 else 1
+        o, i = q.weight.shape[-2], q.weight.shape[-1] * 32 // q.bits
+        nb += nbytes(q.weight, q.scales, q.biases) + 4 * n * (i + o)
+        ops += 2 * n * o * i
+        products += n
+    return (*bound(nb, f32_ops=ops), products)
+
+
+def kvq_main(smi: str) -> int:
+    """``--kvq``: the [whisper kvq] phase alone on freshly built
+    whisper-large-v3 models, then its JSON and kernel 2's fields as one
+    line (no "ok" line: not the full check)."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.core.audio_io import load_audio
+    from tpu_audio_torch.models.stt import whisper as W
+    from tpu_audio_torch.ops import _lib
+
+    t0 = time.perf_counter()
+    _lib.lib()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    dev = torch.device("cuda", 0)
+    cfg, models = build_models(dev)
+    audio = load_audio(str(AUDIO), sample_rate=16000)[0]
+    audio = np.pad(audio, (0, W.CHUNK_LENGTH_SAMPLES - audio.shape[0]))
+    out, k2 = whisper_kvq_phase(models, cfg, audio, dev, smi)
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"whisper_kvq": out, "kernel2": k2}))
+    return 0
+
+
+def vyvo_main(smi: str) -> int:
+    """``--vyvo``: the [vyvo] phase alone, then its JSON and kernels 5, 6
+    and 7's VyvoTTS fields as one line (no "ok" line: not the full check)."""
+    import torch
+
+    from tpu_audio_torch.ops import _lib
+
+    t0 = time.perf_counter()
+    _lib.lib()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    out, k = vyvo_phase(torch.device("cuda", 0), smi)
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"vyvo": out, "kernels": k}))
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -9117,7 +10034,7 @@ def main() -> int:
               "--llama-lanes-timing": llama_lanes_timing_main,
               "--kv-mel-timing": kv_mel_timing_main}.get(next(iter(sys.argv[1:]), ""))
     if sys.argv[1:] not in ([], ["--qmm"], ["--qwen3"], ["--clone"], ["--parakeet"], ["--vad"],
-                            ["--turn-lid"], ["--sts"]) and not timing:
+                            ["--turn-lid"], ["--sts"], ["--kvq"], ["--vyvo"]) and not timing:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -9148,6 +10065,10 @@ def main() -> int:
         return turn_lid_main(smi.splitlines()[0])
     if sys.argv[1:] == ["--sts"]:
         return sts_main(smi.splitlines()[0])
+    if sys.argv[1:] == ["--kvq"]:
+        return kvq_main(smi.splitlines()[0])
+    if sys.argv[1:] == ["--vyvo"]:
+        return vyvo_main(smi.splitlines()[0])
     if timing:
         return timing(smi.splitlines()[0], [Path(a).resolve() for a in sys.argv[2:]])
     dev = torch.device("cuda", 0)
@@ -9184,6 +10105,11 @@ def main() -> int:
     # and a streamed chunk come from the profiler (no kernel of the port runs
     # there)
     sts = sts_phase(dev, smi.splitlines()[0])
+    # the [vyvo] phase next, early too: its TTFB phase reads kernel 7's device
+    # time a token from the profiler; kernels 5 and 6's fields wait for their
+    # records
+    vyvo, vyvo_k = vyvo_phase(dev, smi.splitlines()[0])
+    records["quantized_matvec"].update(vyvo_k["quantized_matvec"])
 
     t0 = time.perf_counter()
     cfg, models = build_models(dev)
@@ -9234,6 +10160,10 @@ def main() -> int:
                                        * 0.1).astype(np.float32))
     http = http_phase(w8, clips)
 
+    # -- the quantized self caches: [whisper kvq] on the same two models ------
+    kvq, kvq_k2 = whisper_kvq_phase(models, cfg, audio, dev, smi.splitlines()[0])
+    records["decode_attention_int8"].update(kvq_k2)
+
     for cfg_name, model in models.items():
         profile_window(cfg_name, model, audio, gp)
     whisper_q4 = build_whisper_q4(models["bf16_kv8d"].params, cfg, dev)  # for phase 17
@@ -9258,6 +10188,8 @@ def main() -> int:
     records["fused_llama_stack_lanes"] = llama_lanes_phase(orpheus, dev)
     tts_serve, tts_serve_launches = tts_serve_phase(orpheus)
     records["fused_llama_stack_lanes"]["launches"] = tts_serve_launches["fused_llama_stack_lanes"]
+    for k in ("fused_llama_stack", "fused_llama_stack_lanes"):
+        records[k].update(vyvo_k[k])
     tts_serving = dict(serve=tts_serve, throughput=tts_throughput_phase(orpheus),
                        http=tts_http_phase(orpheus),
                        checks=records["fused_llama_stack_lanes"]["checks"])
@@ -9293,7 +10225,8 @@ def main() -> int:
                              "gemv_rel_err", "qwen3_launches", "qwen3", "qwen3_serve_launches",
                              "qwen3_serve", "parakeet_launches", "parakeet",
                              "smart_turn_launches", "smart_turn", "speaker_mel_launches",
-                             "speaker_mel") if f in r})
+                             "speaker_mel", "kvq_launches", "kvq_launches_per_step",
+                             "vyvo_launches", "vyvo", "vyvo_layer_launches") if f in r})
         for k, r in records.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"generate": runs, "smi": smi.splitlines()[0]}))
@@ -9308,6 +10241,8 @@ def main() -> int:
     print(json.dumps({"turn_lid": turn_lid}))
     print(json.dumps({"sts": sts}))
     print(json.dumps({"mimi": mimi}))
+    print(json.dumps({"whisper_kvq": kvq}))
+    print(json.dumps({"vyvo": vyvo}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -63,6 +63,9 @@ print("ok")
     ["tpu_audio_torch.codecs.mimi", "tpu_audio_torch.codecs", "tpu_audio_torch.codecs.qwen3_codec",
      "tpu_audio_torch.models.tts.qwen3_speaker", "tpu_audio_torch.models.tts.qwen3_tts",
      "tpu_audio_torch.cli.tts", "tpu_audio_torch.convert"],
+    ["tpu_audio_torch.models.tts.qwen3_vyvo", "tpu_audio_torch.models.tts",
+     "tpu_audio_torch.core.kv_cache", "tpu_audio_torch.models.llama",
+     "tpu_audio_torch.cli.tts", "tpu_audio_torch.cli.serve"],
 ])
 def test_port_imports_without_jax(mods):
     res = subprocess.run([sys.executable, "-c", _BLOCKER.format(mods=mods)],

@@ -269,16 +269,8 @@ def test_generate_greedy_tokens_match_jax(fused_model, monkeypatch, route):
         assert events[-1]["output"].text == want.text
 
 
-def test_unported_options_raise(fused_model):
-    cfg, trees, audio = fused_model
-    tm = TW.Whisper(TW.WhisperConfig(**FUSED),
-                    from_jax_params(jax_tree_to_numpy(trees[False])),
-                    FakeWhisperTokenizer(vocab=cfg.vocab_size),
-                    dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="kv_bits=4"):
-        tm.generate(audio, TParams(max_tokens=2, kv_bits=4))
-    with pytest.raises(NotImplementedError, match="self-attention caches"):
-        tm.generate(audio, TParams(max_tokens=2, kv_bits=8))
+def test_unported_options_raise():
+    # kv_bits=4 and quantized self caches are ported: tests/test_torch_whisper_kvq.py
     with pytest.raises(ValueError, match="scheme"):
         tquant.quantize_tree({}, scheme="int3")
     with pytest.raises(FileNotFoundError):

@@ -38,12 +38,13 @@ def main(argv=None):
     parser.add_argument("--output", default=None, help="write result to file")
     parser.add_argument("--verbose", action="store_true")
     parser.add_argument("--kv-bits", type=int, default=None, choices=[4, 8],
-                        help="quantize the decode KV (8 = int8 symmetric; 4 is "
-                        "not ported yet)")
+                        help="quantize the decode KV (8 = int8 symmetric, 4 = "
+                        "packed affine int4)")
     parser.add_argument("--kv-group-size", type=int, default=64)
     parser.add_argument("--quantized-kv-start", type=int, default=0,
                         help="keep self-cache positions below this index full "
-                        "precision (>= the decode length: dense self cache)")
+                        "precision (0: quantized self cache; >= the decode "
+                        "length: dense self cache)")
     parser.add_argument("--no-batch-windows", action="store_true",
                         help="decode 30 s windows one by one instead of up to 8 "
                         "in one batch; greedy output is the same")

@@ -235,11 +235,12 @@ def layer_list(layers) -> list[dict]:
     return [_map(lambda a, i=i: a[i], layers) for i in range(n)]
 
 
-def forward(params, tokens, cache: kv_cache.KVCache | None, cfg: LlamaConfig,
+def forward(params, tokens, cache, cfg: LlamaConfig,
             inputs_embeds=None, return_hidden: bool = False,
             attn_mask=None, causal: bool = True):
     """Decoder forward over ``tokens [B, T]`` (or ``inputs_embeds
-    [B, T, D]``) appending to ``cache`` (written in place).
+    [B, T, D]``) appending to ``cache`` (a dense, quantized or hybrid
+    ``kv_cache`` cache, written in place).
 
     Returns ``(logits [B, T, V], cache)``, or the final-normed hidden
     states with ``return_hidden``. Left padding from prompt bucketing is
@@ -288,8 +289,11 @@ def forward(params, tokens, cache: kv_cache.KVCache | None, cfg: LlamaConfig,
 def make_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                valid_from: int = 0, kv_bits: int | None = None,
                kv_group_size: int = 64, quantized_kv_start: int = 0,
-               device=None) -> kv_cache.KVCache:
-    """The decode cache (dense; see ``kv_cache.make_cache_for``)."""
+               device=None):
+    """The decode cache for the ``kv_bits`` knobs (``kv_cache.make_cache_for``:
+    dense, int8, int4 or hybrid). With a multi-token prefill and
+    ``quantized_kv_start > 0``, pass ``quantized_kv_start=max(start,
+    prefill_len)`` so the prefill lies in the dense prefix."""
     return kv_cache.make_cache_for(
         cfg.num_hidden_layers, batch, cfg.num_key_value_heads,
         cfg.resolved_head_dim, max_len, dtype, kv_bits=kv_bits,

@@ -28,8 +28,13 @@ first two routes: each linear of a decode step runs the grouped-affine
 GEMV kernel (``ops.qmm``), and the encoder's 1,500-row products
 dequantize and multiply.
 
-Not ported yet (each raises ``NotImplementedError``): ``kv_bits=4``,
-int8/hybrid self caches.
+Every other ``kv_bits`` combination takes the self cache of
+``kv_cache.make_cache_for`` (int8 for ``quantized_kv_start <= 0``, int4 at
+``kv_bits=4``, hybrid for a start inside the decode length), written and
+read through ``kv_cache.make_layer_updater`` as in the JAX package: a
+layer's new row is quantized, then its whole capacity is dequantized and
+attended. Beside such a cache, 8-bit cross K/V stay on the int8 attention
+kernel; 4-bit cross K/V (``"quant"``) are dequantized and attended.
 """
 
 from __future__ import annotations
@@ -245,18 +250,21 @@ def _cross_kv(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
     return torch.stack(ks), torch.stack(vs)
 
 
-def decoder_step(params: dict, tokens: torch.Tensor, pos: int,
-                 cache: kv_cache.KVCache, cross: tuple, cfg: WhisperConfig,
-                 cross_mode: str = "dense", layers: list[dict] | None = None):
+def decoder_step(params: dict, tokens: torch.Tensor, pos: int, cache, cross: tuple,
+                 cfg: WhisperConfig, cross_mode: str = "dense",
+                 layers: list[dict] | None = None):
     """One decode step: tokens ``[B, T]`` at positions ``pos..pos+T``.
-    Returns ``(logits [B, T, V], cache)``; the cache is updated in place and
+    Returns ``(logits [B, T, V], cache)``; the cache (dense, quantized or
+    hybrid, ``kv_cache.make_layer_updater``) is updated in place and
     returned with its offset advanced.
 
     ``cross_mode``: ``"dense"`` (``cross = (k, v)``, each
-    ``[L, B, H, S, Dh]``) or ``"int8"`` (``cross`` = the six
+    ``[L, B, H, S, Dh]``), ``"int8"`` (``cross`` = the six 8-bit
     ``_quantize`` planes ``(kc, ks, kb, vc, vs, vb)``, each
     ``[L, B*H, S, .]`` with row b's heads at ``b*H .. b*H + H``, read by
-    one int8 attention call a layer over all B*H heads; requires T = 1)."""
+    one int8 attention call a layer over all B*H heads; requires T = 1) or
+    ``"quant"`` (the six ``_quantize`` planes at any width, each
+    ``[L, B, H, S, .]``, dequantized and attended)."""
     p = params["model"]["decoder"]
     if layers is None:
         layers = _split_layers(p["layers"])
@@ -270,15 +278,15 @@ def decoder_step(params: dict, tokens: torch.Tensor, pos: int,
     hd = d // n_heads
     mask = kv_cache.attention_mask(cache, t)
     off = cache.offset
+    cache_xs, cache_update, _ = kv_cache.make_layer_updater(cache)
     for li, lp in enumerate(layers):
         h = nn.layer_norm(lp["self_attn_layer_norm"], x)
         ap = lp["self_attn"]
         q = _heads(nn.linear(ap["q_proj"], h), n_heads)
-        cache.k[li, :, :, off : off + t] = _heads(nn.linear(ap["k_proj"], h),
-                                                  n_heads).to(cache.k.dtype)
-        cache.v[li, :, :, off : off + t] = _heads(nn.linear(ap["v_proj"], h),
-                                                  n_heads).to(cache.v.dtype)
-        o = nn.sdpa(q, cache.k[li].to(x.dtype), cache.v[li].to(x.dtype), mask=mask)
+        _, k_full, v_full = cache_update(
+            cache_xs[li], off, _heads(nn.linear(ap["k_proj"], h), n_heads),
+            _heads(nn.linear(ap["v_proj"], h), n_heads), x.dtype)
+        o = nn.sdpa(q, k_full, v_full, mask=mask)
         x = x + nn.linear(ap["out_proj"], _merge(o))
 
         h = nn.layer_norm(lp["encoder_attn_layer_norm"], x)
@@ -288,6 +296,9 @@ def decoder_step(params: dict, tokens: torch.Tensor, pos: int,
             o = K.decode_attention_int8(
                 q.reshape(b * n_heads, 1, hd), *(c[li] for c in cross), cross[0].shape[2],
                 sm_scale=1.0 / math.sqrt(hd)).reshape(b, n_heads, 1, hd).to(x.dtype)
+        elif cross_mode == "quant":
+            o = nn.sdpa(q, kv_cache._dequantize(*(c[li] for c in cross[:3]), x.dtype),
+                        kv_cache._dequantize(*(c[li] for c in cross[3:]), x.dtype))
         else:
             o = nn.sdpa(q, cross[0][li], cross[1][li])
         x = x + nn.linear(cp["out_proj"], _merge(o))
@@ -525,9 +536,11 @@ def decode_step_fn(params, enc_out, *, max_total: int, cfg: WhisperConfig,
     """``step(tokens [B], position) -> logits [B, V] f32`` over
     :func:`decoder_step` for the B windows of ``enc_out [B, S, D]``, one row
     each (the step of the JAX package's ``_decode_loop`` and
-    ``_decode_loop_batched``). ``kv_bits=8`` stores the cross K/V as int8
-    (``kv_cache._quantize``), read beside a dense self cache by one int8
-    attention call a layer over the heads of all B windows."""
+    ``_decode_loop_batched``). The self cache is
+    ``kv_cache.make_cache_for``'s for the knobs. ``kv_bits=8`` stores the
+    cross K/V as int8 (``kv_cache._quantize``), read by one int8 attention
+    call a layer over the heads of all B windows; ``kv_bits=4`` stores them
+    as packed int4, dequantized and attended (``"quant"``)."""
     b = enc_out.shape[0]
     n_heads = cfg.decoder_attention_heads
     head_dim = cfg.d_model // n_heads
@@ -540,10 +553,12 @@ def decode_step_fn(params, enc_out, *, max_total: int, cfg: WhisperConfig,
         quantized_kv_start=quantized_kv_start, device=enc_out.device)
     if kv_bits:
         n_groups = head_dim // min(kv_group_size, head_dim)
-        # [L, B, H, S, .] -> [L, B*H, S, .]: the windows' heads side by side
-        cross = tuple(t.flatten(1, 2) for t in kv_cache._quantize(cross_k, n_groups, kv_bits)
-                      + kv_cache._quantize(cross_v, n_groups, kv_bits))
-        mode = "int8"
+        cross = (kv_cache._quantize(cross_k, n_groups, kv_bits)
+                 + kv_cache._quantize(cross_v, n_groups, kv_bits))
+        mode = "quant"
+        if kv_bits == 8:
+            # [L, B, H, S, .] -> [L, B*H, S, .]: the windows' heads side by side
+            cross, mode = tuple(t.flatten(1, 2) for t in cross), "int8"
     else:
         cross, mode = (cross_k, cross_v), "dense"
     state = {"cache": cache}
@@ -775,11 +790,6 @@ class Whisper(tnn.Module):
 
     # -- generation -----------------------------------------------------------
 
-    def _check_params(self, params: STTGenerateParameters) -> None:
-        if params.kv_bits == 4:
-            raise NotImplementedError(
-                "kv_bits=4 (packed int4 KV) is not ported yet; use 8 or None")
-
     def generate(self, audio: np.ndarray,
                  generation_parameters: STTGenerateParameters | None = None
                  ) -> STTOutput:
@@ -797,6 +807,11 @@ class Whisper(tnn.Module):
         - kv8d (``kv_bits=8``, dense self cache): :func:`decoder_step` at B
           rows, its cross attention one int8 attention call a layer over
           the B*H heads of the group;
+        - a quantized or hybrid self cache (``kv_bits`` 8 or 4 with
+          ``quantized_kv_start`` below the decode length):
+          :func:`decoder_step` at B rows through ``make_layer_updater``,
+          its cross attention on the int8 kernel at 8 bits and dequantized
+          at 4;
         - w8 kv8d on a decoder shape the fused kernels take: the windows
           are the lanes of ``ops.fused_decoder.fused_stack_lanes``, one
           call a step for the group (a lone window takes ``fused_stack``).
@@ -807,7 +822,6 @@ class Whisper(tnn.Module):
         independent, and the JAX package's buckets only spared XLA
         recompiles."""
         params = generation_parameters or STTGenerateParameters()
-        self._check_params(params)
         tokenizer = self.tokenizer
         if tokenizer is None:
             raise RuntimeError("tokenizer not loaded; use from_pretrained")
@@ -848,7 +862,6 @@ class Whisper(tnn.Module):
         ``{"type": "result", "output": STTOutput}``. The windows decode one
         at a time, as in the JAX package."""
         params = generation_parameters or STTGenerateParameters()
-        self._check_params(params)
         tokenizer = self.tokenizer
         if tokenizer is None:
             raise RuntimeError("tokenizer not loaded; use from_pretrained")

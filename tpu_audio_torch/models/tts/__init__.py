@@ -1,6 +1,6 @@
 """TTS task module: model registry + factory (port of
 tpu_audio.models.tts.load_model; the families ported: Orpheus / Llama
-TTS and Qwen3-TTS)."""
+TTS, VyvoTTS and Qwen3-TTS)."""
 
 from __future__ import annotations
 
@@ -8,10 +8,13 @@ import importlib
 
 from tpu_audio_torch.core import hub
 
+# in the JAX registry's order, which the repo-name fallback follows
 _REGISTRY: dict[str, str] = {
     "llama_tts": "tpu_audio_torch.models.tts.llama_tts:LlamaTTS",
-    "orpheus": "tpu_audio_torch.models.tts.llama_tts:LlamaTTS",
+    "qwen3": "tpu_audio_torch.models.tts.qwen3_vyvo:VyvoTTS",
     "qwen3_tts": "tpu_audio_torch.models.tts.qwen3_tts:Qwen3TTS",
+    "orpheus": "tpu_audio_torch.models.tts.llama_tts:LlamaTTS",
+    "vyvo": "tpu_audio_torch.models.tts.qwen3_vyvo:VyvoTTS",
 }
 
 

@@ -303,43 +303,16 @@ class LlamaTTS:
         cfg_dict = hub.load_config(model_dir)
         config = LlamaTTSConfig.from_dict(cfg_dict)
         config.quantization = cfg_dict.get("quantization")
-        if quantize_bits not in (None, "w8a8", 4, 8):
-            raise ValueError(f"quantize_bits={quantize_bits!r}: 4, 8 or 'w8a8'")
-        params = loading.load_params(model_dir, sanitize=lambda w: llama.sanitize(w, config),
-                                     dtype=dtype, expected_prefixes=("model",))
-        params = loading.to_device(llama.maybe_stack(params), device)
-        if config.quantization:
-            q = config.quantization
-            params = quant.tag_quantized(params, q.get("group_size", 64), q.get("bits", 4))
-        elif quantize_bits == "w8a8":
-            params = quant.quantize_tree(params, scheme="w8a8")
-        elif quantize_bits:
-            params = quant.quantize_tree(params, bits=quantize_bits, scheme="mlx")
-        if not _fused_route(params, config, torch.device(device)):
-            params = llama.fuse_projections(params)
-        tokenizer = None
-        if (Path(model_dir) / "tokenizer.json").exists():
-            from tokenizers import Tokenizer
-
-            tokenizer = Tokenizer.from_file(str(Path(model_dir) / "tokenizer.json"))
-        if codec is None:
-            # the SNAC codec beside the checkpoint, when it is there; token
-            # generation works without it
-            from tpu_audio_torch.codecs import load_codec
-
-            snac_dir = Path(snac_repo or config.snac_repo)
-            if snac_dir.is_dir():
-                codec = load_codec(str(snac_dir), codec_type="snac", device=device)
+        params = load_tree(model_dir, config, dtype, quantize_bits, device)
         tokens = OrpheusTokens()
         if config.vocab_size < tokens.audio_token_offset:
             if cfg_dict.get("audio_token_offset") is None:
                 raise ValueError("vocab smaller than the Orpheus token table; set "
                                  "audio_token_offset etc. in config.json")
-            tokens = OrpheusTokens(**{k: cfg_dict[k] for k in (
-                "start_of_human", "end_of_human", "end_of_text", "start_of_speech",
-                "end_of_speech", "pad_token", "audio_start", "audio_end",
-                "audio_token_offset")}, codebook_size=cfg_dict.get("codebook_size", 4096))
-        return cls(config, params, tokenizer, codec, tokens, dtype,
+            tokens = config_tokens(cfg_dict)
+        if codec is None:
+            codec = snac_beside(snac_repo or config.snac_repo, device)
+        return cls(config, params, load_tokenizer(model_dir), codec, tokens, dtype,
                    audio_band_head=audio_band_head)
 
     @property
@@ -523,6 +496,58 @@ class LlamaTTS:
                 break
         if info is not None:
             yield AudioGeneration.from_info(info)
+
+
+def load_tree(model_dir, config: LlamaTTSConfig, dtype, quantize_bits, device,
+              fuse: bool = True) -> dict:
+    """A checkpoint's parameter tree on ``device``: MLX-tagged when the
+    config has ``quantization``, else quantized by ``quantize_bits`` (4, 8
+    or ``"w8a8"``). With ``fuse``, q/k/v and gate/up are fused into one
+    product each, except on a tree the fused kernel decodes. On CUDA a
+    w8a8 tree that kernel does not take raises (``_fused_route``)."""
+    if quantize_bits not in (None, "w8a8", 4, 8):
+        raise ValueError(f"quantize_bits={quantize_bits!r}: 4, 8 or 'w8a8'")
+    params = loading.load_params(model_dir, sanitize=lambda w: llama.sanitize(w, config),
+                                 dtype=dtype, expected_prefixes=("model",))
+    params = loading.to_device(llama.maybe_stack(params), device)
+    if config.quantization:
+        q = config.quantization
+        params = quant.tag_quantized(params, q.get("group_size", 64), q.get("bits", 4))
+    elif quantize_bits == "w8a8":
+        params = quant.quantize_tree(params, scheme="w8a8")
+    elif quantize_bits:
+        params = quant.quantize_tree(params, bits=quantize_bits, scheme="mlx")
+    if not _fused_route(params, config, torch.device(device)) and fuse:
+        params = llama.fuse_projections(params)
+    return params
+
+
+def load_tokenizer(model_dir):
+    """The checkpoint's ``tokenizer.json``, or None."""
+    path = Path(model_dir) / "tokenizer.json"
+    if not path.exists():
+        return None
+    from tokenizers import Tokenizer
+
+    return Tokenizer.from_file(str(path))
+
+
+def snac_beside(snac_dir, device):
+    """The SNAC codec in ``snac_dir`` when that directory is there, else
+    None (token generation works without it)."""
+    if not Path(snac_dir).is_dir():
+        return None
+    from tpu_audio_torch.codecs import load_codec
+
+    return load_codec(str(snac_dir), codec_type="snac", device=device)
+
+
+def config_tokens(cfg_dict: dict) -> OrpheusTokens:
+    """The special-token table a small-vocabulary config.json states."""
+    return OrpheusTokens(**{k: cfg_dict[k] for k in (
+        "start_of_human", "end_of_human", "end_of_text", "start_of_speech",
+        "end_of_speech", "pad_token", "audio_start", "audio_end",
+        "audio_token_offset")}, codebook_size=cfg_dict.get("codebook_size", 4096))
 
 
 def _fused_tree(params: dict, cfg) -> bool:
