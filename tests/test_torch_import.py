@@ -66,6 +66,9 @@ print("ok")
     ["tpu_audio_torch.models.tts.qwen3_vyvo", "tpu_audio_torch.models.tts",
      "tpu_audio_torch.core.kv_cache", "tpu_audio_torch.models.llama",
      "tpu_audio_torch.cli.tts", "tpu_audio_torch.cli.serve"],
+    ["tpu_audio_torch.models.stt.qwen3_asr", "tpu_audio_torch.models.stt.streaming",
+     "tpu_audio_torch.parallel.continuous_stt", "tpu_audio_torch.cli.stt",
+     "tpu_audio_torch.models.stt", "tpu_audio_torch.cli.serve"],
 ])
 def test_port_imports_without_jax(mods):
     res = subprocess.run([sys.executable, "-c", _BLOCKER.format(mods=mods)],

@@ -33,9 +33,10 @@ Endpoints follow the OpenAI audio API paths:
   and wall-time totals.
 
 With ``--slots N`` (N > 1) concurrent requests share continuously batched
-decode lanes: Whisper transcriptions of up to 30 s through
-``parallel.continuous_stt.STTEngineWorker`` (other STT models, such as
-Parakeet, answer every request through ``generate`` under the lock), Orpheus speech through
+decode lanes: Whisper transcriptions of up to 30 s and Qwen3-ASR ones of up
+to 20 s through ``parallel.continuous_stt.STTEngineWorker`` (Qwen3-ASR on
+``ContinuousQwen3ASR``; other STT models, such as Parakeet, answer every
+request through ``generate`` under the lock), Orpheus speech through
 ``parallel.continuous.TTSEngineWorker`` and Qwen3-TTS speech through
 ``parallel.continuous_qwen3.Qwen3TTSEngineWorker`` (one lane-batched frame
 a tick; no reference-audio cloning), with the sampling parameters then
@@ -268,12 +269,13 @@ def build_server(model, task: str, model_name: str,
                  slots: int = 1, generation_parameters=None,
                  step_tokens: int = 7, fused: str = "auto"):
     """Construct (but don't start) the HTTP server for an STT (``task``
-    "stt": Whisper, Parakeet), TTS (``task`` "tts": Orpheus, Qwen3-TTS), VAD
+    "stt": Whisper, Parakeet, Qwen3-ASR), TTS (``task`` "tts": Orpheus, Qwen3-TTS), VAD
     (``task`` "vad": Silero, Sortformer, FSMN VAD), LID (``task`` "lid":
     ECAPA-TDNN, through a micro-batcher) or STS (``task`` "sts":
     DeepFilterNet) ``model``.
 
-    ``slots > 1`` routes Whisper transcriptions of up to 30 s through a shared
+    ``slots > 1`` routes Whisper transcriptions of up to 30 s, and Qwen3-ASR
+    ones of up to its engine's window (20 s), through a shared
     :class:`~tpu_audio_torch.parallel.continuous_stt.STTEngineWorker`,
     Orpheus speech through a shared
     :class:`~tpu_audio_torch.parallel.continuous.TTSEngineWorker` and
@@ -291,13 +293,18 @@ def build_server(model, task: str, model_name: str,
     metrics = _Metrics()
     stt_worker = tts_worker = None
     if slots > 1 and task == "stt":
+        from tpu_audio_torch.models.stt.qwen3_asr import Qwen3ASR
         from tpu_audio_torch.models.stt.whisper import Whisper
 
-        if isinstance(model, Whisper):  # other STT models answer through generate
-            from tpu_audio_torch.parallel.continuous_stt import STTEngineWorker
+        # other STT models answer through generate
+        if isinstance(model, (Whisper, Qwen3ASR)):
+            from tpu_audio_torch.parallel.continuous_stt import (ContinuousQwen3ASR,
+                                                                 STTEngineWorker)
 
-            stt_worker = STTEngineWorker(model, slots=slots, step_tokens=step_tokens,
-                                         fused=fused)
+            # Qwen3-ASR's engine takes no fused tick
+            engine = ({"engine_cls": ContinuousQwen3ASR} if isinstance(model, Qwen3ASR)
+                      else {"fused": fused})
+            stt_worker = STTEngineWorker(model, slots=slots, step_tokens=step_tokens, **engine)
     elif slots > 1 and task == "tts":
         from tpu_audio_torch.models.tts.qwen3_tts import Qwen3TTS
 

@@ -1,11 +1,16 @@
 """STT command line on the PyTorch port: wav -> text.
 
 Usage: ``python -m tpu_audio_torch.cli.stt audio.wav --model <dir>`` (a
-Whisper or Parakeet checkpoint), with the flags of ``tpu_audio.cli.stt``
-(``--format txt|srt|json``, ``--stream``, ``--chunk-duration``,
-``--kv-bits``, ``--quantized-kv-start``, ...) plus ``--device``. A model
-ignores the flags it has no use for (Parakeet: the language, task,
-temperature and KV flags).
+Whisper, Parakeet or Qwen3-ASR checkpoint), with the flags of
+``tpu_audio.cli.stt`` (``--format txt|srt|json``, ``--stream``,
+``--chunk-duration``, ``--kv-bits``, ``--quantized-kv-start``, ...) plus
+``--device``. A model ignores the flags it has no use for (Parakeet: the
+language, task, temperature and KV flags).
+
+``--stream`` on a model with ``encode_single_window`` (Qwen3-ASR) runs the
+live ``StreamingInferenceSession`` on 1 s feeds: confirmed text as it is
+promoted (``--verbose`` also prints each display update) and a ``[stream]
+RTF`` line; other models print ``generate_stream``'s text.
 """
 
 from __future__ import annotations
@@ -21,6 +26,37 @@ def _format_srt_time(t: float) -> str:
     s = int(t % 60)
     ms = int((t - int(t)) * 1000)
     return f"{h:02}:{m:02}:{s:02},{ms:03}"
+
+
+def _live_session(model, audio, args):
+    """The live session over ``audio`` at 1 s feeds: confirmed text as it
+    comes, then the session's RTF and decode passes on stderr."""
+    from tpu_audio_torch.core.generation import STTOutput
+    from tpu_audio_torch.models.stt.streaming import EventKind, StreamingInferenceSession
+
+    session = StreamingInferenceSession(model, language=args.language)
+    chunk = 16000  # 1 s
+    confirmed, stats = "", {}
+
+    def consume(events):
+        nonlocal confirmed, stats
+        for ev in events:
+            if ev.kind == EventKind.DISPLAY_UPDATE and args.verbose:
+                print(f"[display] {ev.confirmed_text} | {ev.text}", file=sys.stderr)
+            elif ev.kind in (EventKind.CONFIRMED, EventKind.ENDED):
+                if ev.confirmed_text:
+                    print(ev.confirmed_text, flush=True)
+                    confirmed = ev.confirmed_text
+            elif ev.kind == EventKind.STATS:
+                stats = ev.stats
+
+    for s in range(0, len(audio), chunk):
+        consume(session.feed_audio(audio[s:s + chunk]))
+    consume(session.stop())
+    print(f"[stream] RTF {stats.get('real_time_factor', 0):.3f} "
+          f"({stats.get('decode_passes', 0)} passes)", file=sys.stderr)
+    return STTOutput(text=confirmed, total_time=stats.get("wall_seconds", 0.0),
+                     generation_time=stats.get("decode_time", 0.0))
 
 
 def main(argv=None):
@@ -65,7 +101,9 @@ def main(argv=None):
         quantized_kv_start=args.quantized_kv_start,
         batch_windows=not args.no_batch_windows,
     )
-    if args.stream:
+    if args.stream and hasattr(model, "encode_single_window"):
+        output = _live_session(model, audio, args)
+    elif args.stream:
         output = None
         for event in model.generate_stream(audio, params):
             if event["type"] == "token":

@@ -5,7 +5,9 @@ parts of tpu_audio.core.dsp).
 Window and filterbank construction is host-side NumPy, identical to the
 JAX package's; the STFT runs through ``torch.stft`` after reflect or
 constant centre padding, and the ISTFT is an overlap-add of the windowed
-``irfft`` frames normalised by the window's sum of squares; Whisper's mel projection and log10 run through
+``irfft`` frames normalised by the window's sum of squares. The mel
+projection and log10 of Whisper's frontend and of the generic
+``mel_spectrogram`` (symmetric Hann, HTK filters) run through
 ``ops.mel.fused_log_mel`` (the CUDA kernel for CUDA tensors). The global
 ``max - 8`` clamp and ``(x + 4) / 4`` normalisation follow as in the JAX
 package.
@@ -22,7 +24,7 @@ import torch
 from tpu_audio_torch.ops.mel import fused_log_mel
 
 __all__ = ["hanning_window", "hamming_window", "mel_filters", "stft", "irfft",
-           "istft", "power_to_db", "log_mel_spectrogram"]
+           "istft", "power_to_db", "log_mel_spectrogram", "mel_spectrogram"]
 
 
 @functools.lru_cache(maxsize=32)
@@ -210,3 +212,26 @@ def log_mel_spectrogram(audio, n_mels: int = 80, sample_rate: int = 16000,
     log_spec = torch.maximum(log_spec, log_spec.max() - 8.0)
     log_spec = (log_spec + 4.0) / 4.0
     return log_spec.t()
+
+
+def mel_spectrogram(audio, sample_rate: int, n_fft: int, hop_length: int, n_mels: int,
+                    device=None) -> torch.Tensor:
+    """The generic normalised log-mel ``[n_frames, n_mels]`` (Qwen3-ASR's
+    frontend): symmetric Hann window, reflect-padded STFT with every frame
+    kept, HTK-scale filters with slaney norm, log10 clamped to ``max - 8``
+    and normalised as ``(x + 4) / 4``. A 2-D input is returned as it is (an
+    existing spectrogram); below one frame the result is empty
+    ``[0, n_mels]``. ``device`` as in :func:`log_mel_spectrogram`."""
+    if not isinstance(audio, torch.Tensor):
+        audio = torch.from_numpy(np.ascontiguousarray(audio, np.float32))
+    audio = audio.to(device or audio.device)
+    if audio.ndim != 1:
+        return audio
+    if audio.shape[0] + 2 * (n_fft // 2) < n_fft:
+        return torch.zeros((0, n_mels), dtype=torch.float32, device=audio.device)
+    freqs = stft(audio, hanning_window(n_fft, periodic=False), n_fft, hop_length)
+    filters = torch.from_numpy(mel_filters(sample_rate, n_fft, n_mels, norm="slaney",
+                                           mel_scale="htk")).to(audio.device)
+    log_spec = fused_log_mel(freqs.real.contiguous(), freqs.imag.contiguous(), filters)
+    log_spec = torch.maximum(log_spec, log_spec.max() - 8.0)
+    return (log_spec + 4.0) / 4.0

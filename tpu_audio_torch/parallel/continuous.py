@@ -147,7 +147,9 @@ def llama_lanes(cfg, max_len: int, params, dtype=None, step: Callable | None = N
     caches: ``step(params, tok [1, 1], cache) -> (logits [1, V], cache)``
     (default: ``llama.forward``'s last-position logits) and
     ``prefill(params, ids [1, T], cache) -> (_, cache)`` (default:
-    ``llama.forward``). The caches are a ``kv_cache.FusedLaneRow`` whose
+    ``llama.forward``); on an engine with a ``context_template``,
+    ``prefill`` also takes the lane's context rows (a tuple, one row of each
+    context tensor). The caches are a ``kv_cache.FusedLaneRow`` whose
     ``k``/``v`` are head-major ``[slots, L, 1, n_kv, S, hd]`` (one
     ``KVCache`` row per slot, not the fused kernels' position-major
     layout), with ``offset`` and ``valid_from`` ``[slots]`` int64. They
@@ -173,7 +175,8 @@ def llama_lanes(cfg, max_len: int, params, dtype=None, step: Callable | None = N
     def prefill_fn(params, cache, slot, ids, valid_from, ctx):
         cache.valid_from[slot] = int(valid_from)
         ids = torch.from_numpy(ids.astype(np.int64)).to(lead.device)[None]
-        return prefill(params, ids, row(cache, slot, 0))[1].offset
+        lane_ctx = () if ctx is None else (tuple(c[slot] for c in ctx),)
+        return prefill(params, ids, row(cache, slot, 0), *lane_ctx)[1].offset
 
     def cache_factory(slots):
         def zeros(dt, *shape):

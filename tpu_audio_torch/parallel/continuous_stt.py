@@ -1,6 +1,6 @@
-"""Continuous batching for Whisper transcription serving (port of
-tpu_audio.parallel.continuous_stt: ``ContinuousSTT`` and
-``STTEngineWorker``).
+"""Continuous batching for transcription serving (port of
+tpu_audio.parallel.continuous_stt: ``ContinuousSTT`` for Whisper,
+``ContinuousQwen3ASR`` for Qwen3-ASR, and ``STTEngineWorker``).
 
 Concurrent transcription requests share one decode tick through
 :class:`ContinuousBatcher`'s per-request context: each lane carries its
@@ -25,6 +25,10 @@ while whisper's suppression rules ride the engine's ``logits_hook``
   after another through the one-window ``whisper.decoder_step`` with dense
   cross K/V: the same tokens, without a kernel that shares the weight
   sweep.
+- Qwen3-ASR (``ContinuousQwen3ASR``): a lane's context is its request's
+  merged prompt embeddings, prefilled through
+  ``llama.forward(inputs_embeds=...)``; the plain tick decodes lane by lane
+  through ``llama.forward``, as solo ``generate`` does.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch
 from tpu_audio_torch.core import kv_cache, nn, quant
 from tpu_audio_torch.core.generation import STTOutput, STTSegment
 from tpu_audio_torch.core.sampling import SamplingParams
+from tpu_audio_torch.models import llama
 from tpu_audio_torch.models.stt import whisper as W
 from tpu_audio_torch.ops import fused_decoder as F
 from tpu_audio_torch.parallel.continuous import (
@@ -47,9 +52,10 @@ from tpu_audio_torch.parallel.continuous import (
     EngineWorkerBase,
     GenRequest,
     coerce_fused_flag,
+    llama_lanes,
 )
 
-__all__ = ["ContinuousSTT", "STTEngineWorker"]
+__all__ = ["ContinuousSTT", "ContinuousQwen3ASR", "STTEngineWorker"]
 
 log = logging.getLogger(__name__)
 
@@ -320,6 +326,121 @@ class ContinuousSTT:
             generation_time=wall, total_time=wall)
 
 
+class ContinuousQwen3ASR:
+    """Continuous batching for Qwen3-ASR: a lane's conditioning is its
+    request's merged prompt embeddings (the text template with the audio
+    tower's features over the audio placeholders), ``[L - 1, hidden]`` in
+    the model's dtype, and the prefill runs ``llama.forward(inputs_embeds=
+    ...)`` into the lane's slot.
+
+    Every request is cut or zero-padded to one ``window_s``, so that the
+    prompt length (its audio placeholder count, from the whole window's mel
+    length) is one shape: the single prefill bucket, no left padding, the
+    positions of a solo decode. Language forcing changes the prompt length
+    in this model, so it is set per engine (None: detected from the
+    output); the engine transcribes only.
+
+    >>> srv = ContinuousQwen3ASR(model, slots=4)
+    >>> r = srv.submit(audio)
+    >>> srv.drain()
+    >>> srv.result(r.request_id).text
+    """
+
+    EOS_IDS = (151645, 151643)  # <|im_end|>, <|endoftext|>
+
+    def __init__(self, model, *, slots: int = 4, window_s: float = 20.0,
+                 max_tokens: int = 96, step_tokens: int = 8, temperature: float = 0.0,
+                 seed: int = 0, language: str | None = None,
+                 min_tick_tokens: int | None = None, pipeline: bool = True):
+        from tpu_audio_torch.models.stt.qwen3_asr import SAMPLE_RATE
+
+        if model.tokenizer is None:
+            raise RuntimeError("tokenizer not loaded; use from_pretrained")
+        self.model = model
+        self.language = language
+        self.window = int(window_s * SAMPLE_RATE)
+        self._sr = SAMPLE_RATE
+        # one window length -> one mel length -> one prompt length
+        _, self._n_audio = model.preprocess_audio(np.zeros((self.window,), np.float32))
+        L = len(model.build_prompt(self._n_audio, language=language))
+        tcfg = model.config.text
+        max_total = L + max_tokens + 1
+
+        def prefill(params, ids, cache, ctx):
+            return llama.forward(params, None, cache, tcfg, inputs_embeds=ctx[0][None])
+
+        self.engine = ContinuousBatcher(
+            model.params, slots=slots, max_len=max_total, stop_token=self.EOS_IDS[0],
+            sampling=SamplingParams(temperature=temperature, repetition_penalty=1.0),
+            prefill_buckets=(L,), seed=seed,
+            **llama_lanes(tcfg, max_total, model.params, model.dtype, step=model._step_fn,
+                          prefill=prefill),
+            step_tokens=step_tokens,
+            context_template=(torch.empty((L - 1, tcfg.hidden_size), dtype=model.dtype,
+                                          device="meta"),),
+            min_tick_tokens=(4 * step_tokens if min_tick_tokens is None
+                             else min_tick_tokens),
+            pipeline=pipeline)
+        self.max_tokens = max_tokens
+        self._meta: dict[int, _Meta] = {}
+
+    @torch.no_grad()
+    def submit(self, audio, language: str | None = None, task: str = "transcribe",
+               max_tokens: int | None = None, seed: int = 0) -> GenRequest:
+        """Encode one window-sized request and queue its decode. Language
+        forcing is per engine in this model (it changes the prompt length):
+        a request's differing ``language`` raises, as does any task but
+        transcription."""
+        if language is not None and language != self.language:
+            raise ValueError("Qwen3-ASR language forcing is per-engine; rebuild the "
+                             f"engine with language={language!r}")
+        if task != "transcribe":
+            raise ValueError("Qwen3-ASR serves transcription only")
+        model = self.model
+        audio = np.asarray(audio, np.float32).reshape(-1)[: self.window]
+        seconds = len(audio) / self._sr
+        if len(audio) < self.window:
+            audio = np.pad(audio, (0, self.window - len(audio)))
+        mel, n_audio = model.preprocess_audio(audio)
+        feats = model.encode_audio(mel)
+        ids = np.asarray([model.build_prompt(n_audio, language=self.language)], np.int32)
+        embeds = model._merge_audio_features(ids, feats)
+        req = self.engine.submit(ids[0], max_new=max_tokens or self.max_tokens, seed=seed,
+                                 context=(embeds[0, :-1].to(model.dtype),))
+        self._meta[req.request_id] = _Meta(audio_seconds=seconds,
+                                           t_submit=time.perf_counter())
+        return req
+
+    def step(self):
+        """One engine tick -> ``(request_id, token)`` pairs."""
+        return self.engine.step()
+
+    def drain(self):
+        """Run until every submitted request finishes."""
+        for _ in self.engine.run():
+            pass
+
+    def cancel(self, request_id: int) -> bool:
+        self._meta.pop(request_id, None)
+        return self.engine.cancel(request_id)
+
+    def result(self, request_id: int) -> STTOutput:
+        """A finished request's tokens as an STTOutput."""
+        req = self.engine.requests[request_id]
+        if not req.done:
+            raise RuntimeError(f"request {request_id} still decoding")
+        meta = self._meta.pop(request_id, None)
+        gen = [t for t in req.tokens if t not in self.EOS_IDS]
+        decoded = self.model.tokenizer.decode(gen, skip_special_tokens=True)
+        lang, text = self.model._parse_output(decoded, self.language)
+        wall = (time.perf_counter() - meta.t_submit) if meta else 0.0
+        end = meta.audio_seconds if meta else 0.0
+        return STTOutput(text=text, language=lang,
+                         segments=[STTSegment(text=text, start=0.0, end=end, tokens=gen)],
+                         generation_token_count=len(gen), generation_time=wall,
+                         total_time=wall)
+
+
 class STTEngineWorker(EngineWorkerBase):
     """Thread multiplexing concurrent transcription callers onto one
     :class:`ContinuousSTT`:
@@ -329,8 +450,9 @@ class STTEngineWorker(EngineWorkerBase):
 
     Encodes happen on the engine thread as requests arrive; the decode
     loops of all in-flight requests share the continuously batched tick.
-    ``engine_cls`` picks the engine (:class:`ContinuousSTT`, the only one
-    ported)."""
+    ``engine_cls`` picks the engine for the model family
+    (:class:`ContinuousSTT` for Whisper, the default, and
+    :class:`ContinuousQwen3ASR` for Qwen3-ASR)."""
 
     _thread_name = "stt-engine"
 
