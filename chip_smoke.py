@@ -695,7 +695,7 @@ DEVICE_BUSY = 0.7
 TTS_TEXT = "The quick brown fox jumps over the lazy dog, twice."
 TTS_TOKENS = 280         # 40 frames of 7
 TTS_TEACHER_STEPS = 8
-TTFB_CHUNK, TTFB_BUCKET, TTFB_REPEATS = 28, 64, 3  # bench_tts_ttfb's protocol
+TTFB_CHUNK, TTFB_BUCKET, TTFB_REPEATS = 28, 64, 2  # bench_tts_ttfb's protocol (3 repeats before)
 TTS_PROFILE_TOKENS = 32
 # Orpheus serving: kernel 6 at LLAMA_LANE_COUNTS lanes over a LANE_SLOTS-slot
 # state (LANE_ORDER), and at its lane limit over a state of that many slots;
@@ -972,8 +972,40 @@ ASR_CARD_LAYERS, ASR_TEACHER_STEPS = 4, 4
 # card reads 1.3e-6 and 1.1e-5
 ASR_CARD_RTOL = 1e-4
 ASR_STREAM_SECONDS, ASR_STREAM_TOKENS = 10.0, 6
-ASR_SERVE_SLOTS, ASR_SERVE_TOKENS = 4, 10
+ASR_SERVE_SLOTS, ASR_SERVE_TOKENS = 4, 8  # one 8-step tick a request (10 before)
 ASR_SERVE_SECONDS = (20.0, 13.0, 6.5, 2.5)
+# [qwen3 align] (inside [qwen3 asr], on its model): the forced aligner's
+# timestamp head at the JAX default classify_num, seed 0, MLX 4-bit g 64; a
+# 20 s clip of 12 words (a ~300-row prompt: its products dequantize) and a
+# 2 s clip of 4 words (a 64-row bucket: kernel 7's tile)
+ALIGN_CLASSES = 5000
+ALIGN_LONG = (20.0, ("the", "quick", "brown", "fox", "jumps", "over", "the", "lazy", "dog",
+                     "and", "runs", "away"))
+ALIGN_SHORT = (2.0, ("hello", "world", "quick", "fox"))
+# classifier logits of the 4 + 4 layer f32 aligner, card against CPU,
+# relative to their max; the TF32 control must read above it
+ALIGN_CARD_RTOL = 1e-4
+# [cohere]: CohereConfig()'s widths (no Cohere config.json is in the
+# repository), seed 0, bf16 and MLX 4-bit g 64 packed on the card
+COHERE_SECONDS = 30.0  # one chunk (max_audio_clip_s): 400 encoder rows
+COHERE_SHORT_SECONDS = 3.0  # one 400-frame bucket: 50 encoder rows, cross K/V on the tile
+COHERE_TOKENS = 24  # a greedy generate's (random weights emit no eos)
+COHERE_PROFILE_TOKENS = 8
+COHERE_CARD_SECONDS = 8.0
+COHERE_CARD_ENC_LAYERS, COHERE_CARD_DEC_LAYERS, COHERE_CARD_TOKENS = 4, 2, 6
+# features, encoder output and step logits of the 4 + 2 layer f32 model,
+# card against CPU, relative to their max; each TF32 control must read above.
+# The features' control (TF32 in the filters' product alone) reads ~1.5e-4,
+# so their limit sits lower, as far above their sound reading (~5e-6)
+COHERE_CARD_RTOL = 1e-4
+COHERE_FEATURES_RTOL = 5e-5
+COHERE_STREAM_SECONDS, COHERE_STREAM_TOKENS = 10.0, 6
+COHERE_HTTP_SECONDS, COHERE_HTTP_POSITIONS = 4.0, 64
+# the stub tokenizer's special ids (the real table is in tokenizer_config.json)
+COHERE_SPECIALS = {"<|endoftext|>": 3, "<|startofcontext|>": 7, "<|startoftranscript|>": 4,
+                   "<|emo:undefined|>": 16, "<|en|>": 62, "<|pnc|>": 5, "<|nopnc|>": 6,
+                   "<|noitn|>": 9, "<|notimestamp|>": 11, "<|timestamp|>": 10,
+                   "<|nodiarize|>": 13}
 # the standing mutation check (--mutations): for each kernel, its source,
 # the function here that runs its check alone, and its mutations (name,
 # original text, mutated text); a kernel ported later adds its entry
@@ -1314,7 +1346,7 @@ def profile_window(name, model, audio, gp) -> None:
     out = model.generate(audio, p)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         model.generate(audio, p)
         torch.cuda.synchronize()
@@ -2590,7 +2622,7 @@ def lanes_step_timing(w8e, enc, cfg, max_total: int, dev) -> dict:
                    layer_launches=per_layer)
         step_b()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(8):
                 step_b()
@@ -2943,7 +2975,7 @@ def throughput_phase(w8, audio) -> list[dict]:
         del srv
         tok_s, tick, srv = measure(slots)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             srv.step()
             torch.cuda.synchronize()
@@ -3641,7 +3673,7 @@ def tts_ttfb_phase(model) -> dict:
         for lead, leading in STACK_READS:
             a = args()
             _lib.reset_launches()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 time.sleep(lead)
                 markers(leading)
                 t0 = time.perf_counter()
@@ -4154,7 +4186,7 @@ def tts_throughput_phase(model) -> list[dict]:
         want = step_tokens * LLAMA_LANES_LAYER_LAUNCHES * model.config.num_hidden_layers
         for lead, _ in STACK_READS[:3]:
             eng = engine(slots)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 time.sleep(lead)
                 t0 = time.perf_counter()
                 eng.step()
@@ -4848,7 +4880,7 @@ def q4_ttfb_phase(model, label: str = "tts q4", ttfb: bool = True) -> dict:
             walls.append(time.perf_counter() - t0)
         a = args()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             dec(*a)
             torch.cuda.synchronize()
@@ -5345,7 +5377,7 @@ def qwen3_timing(model, label: str) -> dict:
             c.cpu()
             emb = pad + s
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             markers(STACK_READS[0][1])
             t0 = time.perf_counter()
             for _ in range(k):
@@ -5735,7 +5767,7 @@ def qwen3_serve_throughput(model, smi: str) -> list:
         torch.cuda.synchronize()
         tick = (time.perf_counter() - t0) / QWEN3_TIMED_TICKS
         emitted = sum(len(r.codes) for r in reqs) - before
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             srv.step()
             torch.cuda.synchronize()
@@ -6816,13 +6848,13 @@ def parakeet_batch_phase(model, clips) -> dict:
     check(same_lattices(lattice, calls[0][0]), "parakeet bf16: the split run's lattice differs")
     split = dict(frontend_ms=ev[0].elapsed_time(ev[1]), encoder_ms=ev[1].elapsed_time(ev[2]),
                  decode_ms=ev[2].elapsed_time(ev[3]))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         markers(STACK_READS[0][1])
         t0 = time.perf_counter()
         dec(model.params, feats, lens)
         prof_wall = time.perf_counter() - t0
     busy_us, n_events = device_busy(prof)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         markers(STACK_READS[0][1])
         model._encode(model.params, batch, lengths)
         torch.cuda.synchronize()
@@ -10337,6 +10369,25 @@ def asr_decode_profile(model, audio, smi: str) -> dict:
     return out
 
 
+def asr_cut(model, n: int):
+    """``model``'s config and tree cut to its first ``n`` audio and text
+    layers, in f32 (packed leaves stay packed; an ``lm_head`` is kept)."""
+    import torch
+
+    from tpu_audio_torch.core import loading
+    from tpu_audio_torch.models import llama
+
+    cfg = dataclasses.replace(
+        model.config, audio=dataclasses.replace(model.config.audio, encoder_layers=n),
+        text=dataclasses.replace(model.config.text, num_hidden_layers=n))
+    p = model.params
+    tower = {**p["audio_tower"], "layers": {str(i): p["audio_tower"]["layers"][str(i)]
+                                            for i in range(n)}}
+    cut = {**p, "audio_tower": tower, "model": {
+        **p["model"], "layers": llama._map(lambda t: t[:n], p["model"]["layers"])}}
+    return cfg, loading.cast_floats(cut, torch.float32)
+
+
 def asr_card_vs_cpu(model, audio, tokens) -> dict:
     """The model cut to ASR_CARD_LAYERS audio and text layers, in f32, card
     against CPU on the same weights and ``audio`` (one whole window): the
@@ -10354,14 +10405,7 @@ def asr_card_vs_cpu(model, audio, tokens) -> dict:
     from tpu_audio_torch.models.stt import qwen3_asr as QA
 
     n = ASR_CARD_LAYERS
-    cfg = dataclasses.replace(
-        model.config, audio=dataclasses.replace(model.config.audio, encoder_layers=n),
-        text=dataclasses.replace(model.config.text, num_hidden_layers=n))
-    tower = {**model.params["audio_tower"],
-             "layers": {str(i): model.params["audio_tower"]["layers"][str(i)] for i in range(n)}}
-    params = loading.cast_floats({"audio_tower": tower, "model": {
-        **model.params["model"],
-        "layers": llama._map(lambda t: t[:n], model.params["model"]["layers"])}}, torch.float32)
+    cfg, params = asr_cut(model, n)
 
     def run(params, dev):
         m = QA.Qwen3ASR(cfg, params, model.tokenizer, torch.float32)
@@ -10563,6 +10607,185 @@ def asr_serve(model) -> dict:
                 equal_to_solo=[s == t for s, t in zip(served, solo)], parted=parted)
 
 
+class Qwen3AlignTokenizer(Qwen3AsrTokenizer):
+    """``Qwen3AsrTokenizer`` with ``<timestamp>`` (151705) and the aligned
+    clips' words as ids of their own, so that a word is one prompt row."""
+
+    SPECIALS = {**Qwen3AsrTokenizer.SPECIALS, "<timestamp>": 151705}
+    WORDS = {**Qwen3AsrTokenizer.WORDS,
+             **{w: 30000 + i for i, w in enumerate(sorted(set(ALIGN_LONG[1] + ALIGN_SHORT[1])))}}
+
+
+def build_qwen3_aligner(model):
+    """``model``'s tree (no second copy) with a seed-0 timestamp head of
+    ALIGN_CLASSES x hidden, N(0, 1/hidden), MLX 4-bit in groups of 64, as a
+    ``Qwen3ForcedAligner`` with ``Qwen3AlignTokenizer``."""
+    import torch
+
+    from tpu_audio_torch.core import quant
+    from tpu_audio_torch.models.stt.qwen3_aligner import Qwen3ForcedAligner
+
+    h = model.config.text.hidden_size
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    head = torch.randn((ALIGN_CLASSES, h), generator=gen, device=model.device).mul_(h ** -0.5)
+    w = quant.QuantizedTensor(*quant.quantize_mlx(head.to(torch.bfloat16), 64, 4), 64, 4)
+    cfg = dataclasses.replace(model.config, classify_num=ALIGN_CLASSES)
+    return Qwen3ForcedAligner(cfg, {**model.params, "lm_head": {"weight": w}},
+                              Qwen3AlignTokenizer(), model.dtype)
+
+
+def align_logits(aligner, audio, text: str, pad: bool = True):
+    """The aligner's prompt for ``audio`` and ``text`` through the steps of
+    ``generate`` (``Qwen3ForcedAligner.prompt``, its rows padded to the
+    64-row bucket or not, then ``qwen3_aligner._logits``): (f32 logits of the
+    valid rows ``[n, classes]``, the timestamp positions)."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.models.stt import qwen3_aligner as QA
+
+    with torch.no_grad():
+        _, ids, emb = aligner.prompt(audio, text, pad=pad)
+        logits = QA._logits(aligner.params, emb, aligner.config.text)[0, :ids.shape[1]].float()
+    return logits, np.where(ids[0] == aligner.config.timestamp_token_id)[0]
+
+
+def classes_or_witness(label: str, got, want) -> list:
+    """The argmax classes of two logits ``[n, C]`` equal, or parted only
+    where ``want``'s two best lie within the two logits' largest
+    difference on that row; the parted rows."""
+    import torch
+
+    a, b = got.argmax(-1), want.argmax(-1)
+    parted = []
+    for r in torch.nonzero(a != b).flatten().tolist():
+        top = torch.topk(want[r], 2)
+        gap = float(top.values[0] - top.values[1])
+        diff = float((got[r] - want[r]).abs().max())
+        ok = {int(a[r]), int(b[r])} == set(top.indices.tolist()) and gap <= diff
+        print(f"[qwen3 align witness] {label}: row {r} parts ({int(a[r])} against {int(b[r])}): "
+              f"the top two {gap:.4e} apart, the logits {diff:.4e} apart: "
+              f"{'a near tie' if ok else 'NOT a near tie'}")
+        check(ok, f"qwen3 align {label}: row {r}'s classes differ, not at a near tie")
+        parted.append(dict(row=r, margin=gap, max_diff=diff))
+    return parted
+
+
+def align_card_vs_cpu(aligner, audio, text: str) -> dict:
+    """The aligner cut to ASR_CARD_LAYERS audio and text layers in f32,
+    card against CPU on the same weights (the head packed), the prompt
+    padded to its 64-row bucket (the card's products on kernel 7's tile
+    with f32 x): the valid rows' classifier logits within ALIGN_CARD_RTOL
+    of the CPU's relative to their max, under the TF32 control; the
+    classes equal or parted at a witnessed near tie."""
+    import torch
+
+    from tpu_audio_torch.core import loading
+    from tpu_audio_torch.models.stt.qwen3_aligner import Qwen3ForcedAligner
+
+    n = ASR_CARD_LAYERS
+    cfg, params = asr_cut(aligner, n)
+
+    def run(params):
+        return align_logits(Qwen3ForcedAligner(cfg, params, aligner.tokenizer, torch.float32),
+                            audio, text)[0].cpu()
+
+    card = run(params)
+    cpu = run(loading.to_device(params, "cpu"))
+    with plain_kernels(), tf32_everywhere():
+        control = run(params)
+    out = dict(rows=card.shape[0], rel_err=rel_err(card, cpu), tf32_control=rel_err(control, cpu),
+               parted=classes_or_witness("card against CPU", card, cpu))
+    print(f"[qwen3 align card vs CPU] {n} audio and {n} text layers in f32, "
+          f"{len(audio) / 16000:g} s, {card.shape[0]} valid rows of a 64-row bucket: logits "
+          f"{out['rel_err']:.3e} (TF32 control {out['tf32_control']:.3e}, limit "
+          f"{ALIGN_CARD_RTOL}); classes parted at {len(out['parted'])} rows")
+    check(bool(torch.isfinite(card).all()) and out["rel_err"] <= ALIGN_CARD_RTOL
+          < out["tf32_control"], f"qwen3 align card against CPU {out}: not within "
+          f"{ALIGN_CARD_RTOL}, or the TF32 control within it")
+    return out
+
+
+def qwen3_align(model, smi: str) -> dict:
+    """``[qwen3 align]`` on ``model``'s tree (``build_qwen3_aligner``):
+    kernel 1 at the 2 s clip's shape and kernel 7's tile at the 64-row
+    bucket (bf16 x, as ``generate`` casts the prompt) against their plain
+    versions; ``generate`` on ALIGN_LONG (its prompt past 64 rows: kernel 1
+    once, no kernel 7) and ALIGN_SHORT (kernel 1 once, the tile 4 x L + 1
+    times, no decode kernel), the counters reset just before and read just
+    after, no plain call, the items in order; the short prompt's classes
+    unpadded against padded; card against CPU (``align_card_vs_cpu``)."""
+    import torch
+
+    from tpu_audio_torch.core import dsp
+    from tpu_audio_torch.ops import mel as M
+
+    aligner = build_qwen3_aligner(model)
+    L = aligner.config.text.num_hidden_layers
+    dev = aligner.device
+    short = asr_signal(ALIGN_SHORT[0], 6)
+    spec = dsp.stft(torch.from_numpy(short).to(dev), dsp.hanning_window(400), 400, 160)
+    re, im = spec.real.contiguous(), spec.imag.contiguous()
+    fb = torch.from_numpy(dsp.mel_filters(16000, 400, 128, norm="slaney",
+                                          mel_scale="htk")).to(dev)
+    got, want, err = mel_check(f"qwen3 align mel, {ALIGN_SHORT[0]:g} s",
+                               lambda: M.fused_log_mel(re, im, fb), re, im, fb)
+    b_ms, b_by = mel_bound(re, im, fb, got)
+    k1 = dict(shape=[re.shape[0], re.shape[1], fb.shape[1]], max_abs_err=err, bound_ms=b_ms,
+              bound_by=b_by, ms=cuda_ms(lambda: M.fused_log_mel(re, im, fb)),
+              plain_ms=cuda_ms(lambda: M.fused_log_mel_ref(re, im, fb)))
+    p = aligner.params["model"]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    k7 = []
+    for name, w in [(n, p["layers"][a][n]["weight"].map(lambda t: t[0]))
+                    for a, names in (("self_attn", ("qkv_proj", "o_proj")),
+                                     ("mlp", ("gate_up_proj", "down_proj"))) for n in names] + [
+            ("timestamp head", aligner.params["lm_head"]["weight"])]:
+        x = torch.randn((64, w.weight.shape[-1] * 32 // w.bits), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        e, _, ran = qmm_check(f"qwen3 align {name} [64]", x, w.weight, w.scales, w.biases,
+                              w.group_size, w.bits)
+        check(ran == "tile", f"qwen3 align {name} at 64 rows ran the {ran}, not the tile")
+        k7.append(dict(shape=name, rows=64, o=w.weight.shape[0], i=x.shape[1], rel_err=e))
+    print(f"[qwen3 align kernels] kernel 1 at {k1['shape']}: max abs err {err:.3e}, per call "
+          f"kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, bound {b_ms:.6f} ms "
+          f"({b_by}); kernel 7's tile at the 64-row bucket with bf16 x on {len(k7)} shapes, rel "
+          f"err up to {max(c['rel_err'] for c in k7):.3e} (rtol {QMM_BF16_RTOL}) ({smi})")
+    runs = {}
+    for label, (seconds, words) in (("long", ALIGN_LONG), ("short", ALIGN_SHORT)):
+        audio = short if label == "short" else asr_signal(seconds, 5)
+        text = " ".join(words)
+        aligner.generate(audio, text=text)  # warm
+        res, wall, launches, _, plain, _ = asr_counted(
+            aligner, lambda: aligner.generate(audio, text=text))
+        seq = [t for i in res.items for t in (i.start_time, i.end_time)]
+        n_tile = launches.get("quantized_matvec_tile", 0)
+        print(f"[qwen3 align {label}] {seconds:g} s, {len(words)} words: a {res.prompt_tokens}-row "
+              f"prompt in {wall * 1e3:.1f} ms (host clock, encode and classify); launches "
+              f"{launches} (tile {4 * L + 1 if res.prompt_tokens <= 64 else 0} expected); plain "
+              f"calls {plain}; items {[(i.text, i.start_time, i.end_time) for i in res.items]}")
+        check(launches.get("fused_log_mel") == 1 and plain == 0
+              and not launches.get("quantized_matvec_decode")
+              and launches.get("quantized_matvec", 0) == n_tile
+              and n_tile == (4 * L + 1 if res.prompt_tokens <= 64 else 0),
+              f"qwen3 align {label}: kernel 1 or 7's launches, or a plain call")
+        check((res.prompt_tokens <= 64) == (label == "short"),
+              f"qwen3 align {label}: a {res.prompt_tokens}-row prompt")
+        check([i.text for i in res.items] == list(words) and seq == sorted(seq),
+              f"qwen3 align {label}: the items are not the words in order")
+        runs[label] = dict(seconds=seconds, words=len(words), prompt_rows=res.prompt_tokens,
+                           host_ms=wall * 1e3, launches=launches)
+    text = " ".join(ALIGN_SHORT[1])
+    padded, ts = align_logits(aligner, short, text)
+    unpadded, _ = align_logits(aligner, short, text, pad=False)
+    parted = classes_or_witness("unpadded against padded", unpadded, padded)
+    print(f"[qwen3 align bucket] {padded.shape[0]} valid rows unpadded against the 64-row "
+          f"bucket: classes parted at {len(parted)} rows ({len(ts)} timestamp rows)")
+    card = align_card_vs_cpu(aligner, short, text)
+    return dict(runs=runs, kernel1=k1, kernel7=k7, bucket_parted=parted, card_vs_cpu=card,
+                classes=ALIGN_CLASSES)
+
+
 def qwen3_asr_phase(dev, smi: str) -> tuple[dict, dict]:
     """``[qwen3 asr]``: Qwen3-ASR (``build_qwen3_asr``) on the MLX 4-bit
     tree. Kernels 1 and 7 against their plain versions at the path's shapes
@@ -10573,7 +10796,9 @@ def qwen3_asr_phase(dev, smi: str) -> tuple[dict, dict]:
     4 + 4 layers in f32 card against CPU (``asr_card_vs_cpu``); the
     streaming session over ASR_STREAM_SECONDS (``asr_stream``);
     ``ContinuousQwen3ASR`` against solo (``asr_serve``); the peak device
-    memory. Returns the record and kernels 1 and 7's fields."""
+    memory; ``[qwen3 align]`` (``qwen3_align``) on the same tree between
+    the card-against-CPU check and the session. Returns the record and
+    kernels 1 and 7's fields."""
     import torch
 
     t_phase = time.perf_counter()
@@ -10603,6 +10828,8 @@ def qwen3_asr_phase(dev, smi: str) -> tuple[dict, dict]:
     out["card_vs_cpu"] = asr_card_vs_cpu(model, asr_signal(ASR_CARD_SECONDS, 1),
                                          gen["first_tokens"])
     parts["card vs CPU"] = time.perf_counter() - t_phase
+    out["align"] = qwen3_align(model, smi)
+    parts["align"] = time.perf_counter() - t_phase
     out["stream"] = asr_stream(model, asr_signal(ASR_STREAM_SECONDS, 2))
     parts["stream"] = time.perf_counter() - t_phase
     out["serve"] = asr_serve(model)
@@ -10619,12 +10846,19 @@ def qwen3_asr_phase(dev, smi: str) -> tuple[dict, dict]:
         kernel7_device_ms_per_token=out["decode"]["kernel7_device_ms_per_token"],
         bound_ms=out["decode"]["bound_ms"], bound_by=out["decode"]["bound_by"],
         products=out["decode"]["products"], checks=checks["k7"]))
+    align = out["align"]
     tile = dict(qwen3_asr_launches=out["stream"]["launches"].get("quantized_matvec_tile", 0),
                 qwen3_asr=dict(tile_passes=out["stream"]["tile_passes"],
-                               per_pass=4 * L + 1))
+                               per_pass=4 * L + 1),
+                qwen3_align_launches={k: r["launches"].get("quantized_matvec_tile", 0)
+                                      for k, r in align["runs"].items()},
+                qwen3_align=dict(checks=align["kernel7"], rows=64))
     k1 = dict(qwen3_asr_launches=gen["launches"].get("fused_log_mel", 0),
               qwen3_asr=dict(checks["k1"], stream_launches=out["stream"]["launches"].get(
-                  "fused_log_mel", 0)))
+                  "fused_log_mel", 0)),
+              qwen3_align_launches={k: r["launches"].get("fused_log_mel", 0)
+                                    for k, r in align["runs"].items()},
+              qwen3_align=align["kernel1"])
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -10645,6 +10879,541 @@ def qwen3_asr_main(smi: str) -> int:
     out, k = qwen3_asr_phase(torch.device("cuda", 0), smi)
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"qwen3_asr": out, "kernels": k}, default=str))
+    return 0
+
+
+class CohereStubPieces:
+    """The SentencePiece stand-in of the stub Cohere tokenizer: an id
+    decodes as ``w<id>``."""
+
+    def decode(self, ids):
+        return " ".join(f"w{i}" for i in ids)
+
+
+def cohere_tokenizer():
+    """A ``CohereTokenizer`` over COHERE_SPECIALS and ``CohereStubPieces``
+    (no tokenizer.model is in the repository)."""
+    from tpu_audio_torch.models.stt.cohere import CohereTokenizer
+
+    tok = CohereTokenizer.__new__(CohereTokenizer)
+    tok.sp = CohereStubPieces()
+    tok.special = dict(COHERE_SPECIALS)
+    tok.special_ids = set(tok.special.values())
+    return tok
+
+
+def build_cohere(dev):
+    """Cohere Transcribe at ``CohereConfig()``'s widths from seed-0 random
+    weights on the card (``cohere.init_random_params``, bf16), and the same
+    tree quantized on the card to MLX 4-bit in groups of 64 by
+    ``quant.quantize_tree``'s predicate: (bf16 model, 4-bit model, the
+    packed leaves' paths)."""
+    import torch
+
+    from tpu_audio_torch.core import quant
+    from tpu_audio_torch.models.stt import cohere as CO
+
+    cfg = CO.CohereConfig()
+    params = CO.init_random_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    q4 = quant.quantize_tree(params, bits=4, group_size=64, scheme="mlx")
+
+    def packed(tree, path=""):
+        if isinstance(tree, dict):
+            return [p for k, v in tree.items() for p in packed(v, f"{path}.{k}" if path else k)]
+        return [path] if isinstance(tree, quant.QuantizedTensor) else []
+
+    paths = packed(q4)
+    dec = q4["decoder"]
+    check(isinstance(dec["core"]["layers"]["0"]["first_sub_layer"]["q_proj"]["weight"],
+                     quant.QuantizedTensor)
+          and isinstance(dec["embedding"]["token_embedding"]["weight"], quant.QuantizedTensor)
+          and isinstance(q4["lm_head"]["weight"], quant.QuantizedTensor)
+          and not isinstance(q4["encoder"]["layers"]["0"]["conv"]["pointwise_conv1"]["weight"],
+                             quant.QuantizedTensor),
+          "Cohere 4-bit: the products, the embedding or the head not packed as the predicate says")
+    tok = cohere_tokenizer()
+    return (CO.CohereTranscribe(cfg, params, tok, torch.bfloat16),
+            CO.CohereTranscribe(cfg, q4, tok, torch.bfloat16), paths)
+
+
+def cohere_counted(model, fn):
+    """``fn()`` with the counters reset just before and read just after:
+    (result, wall s, launches, one-token decoder passes, plain calls of
+    kernels 1 and 7, and each ``streaming_decode_token_ids`` call's (audio
+    seconds, tile launches))."""
+    import torch
+
+    from tpu_audio_torch.models.stt import cohere as CO
+    from tpu_audio_torch.ops import _lib, mel, qmm
+
+    steps, plain, calls = [0], [0], []
+    passes = CO._decoder_pass
+    decode = model.streaming_decode_token_ids
+
+    def step_spy(params, tokens, *a, **k):
+        steps[0] += tokens.shape[1] == 1
+        return passes(params, tokens, *a, **k)
+
+    def call_spy(audio, *a, **k):
+        tile = _lib.launches["quantized_matvec_tile"]
+        out = decode(audio, *a, **k)
+        calls.append((len(audio) / 16000, _lib.launches["quantized_matvec_tile"] - tile))
+        return out
+
+    CO._decoder_pass = step_spy
+    model.streaming_decode_token_ids = call_spy
+    try:
+        with counting(qmm, "quantized_matvec_ref", plain), counting(mel, "fused_log_mel_ref",
+                                                                    plain):
+            _lib.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_lib.launches)
+    finally:
+        CO._decoder_pass = passes
+        del model.streaming_decode_token_ids
+    return out, wall, launches, steps[0], plain[0], calls
+
+
+def cohere_short_tiles(cfg) -> int:
+    """Kernel 7's tile launches besides the prefill's on a chunk of 50
+    encoder rows (one 400-frame bucket): the subsampling's output, each
+    conformer layer's 8 products but the position projection (2 x 50 - 1
+    rows: dequantized), and each decoder layer's cross K and V."""
+    return 1 + 8 * cfg.encoder.n_layers + 2 * cfg.decoder.num_layers
+
+
+def cohere_step_products(model) -> list:
+    """The packed products of one decode step: each layer's self q/k/v/out,
+    cross q/out and feed-forward pair, and the head."""
+    layers = model.params["decoder"]["core"]["layers"]
+    out = []
+    for i in range(model.config.decoder.num_layers):
+        lp = layers[str(i)]
+        out += [lp["first_sub_layer"][n]["weight"] for n in ("q_proj", "k_proj", "v_proj",
+                                                              "out_proj")]
+        out += [lp["second_sub_layer"][n]["weight"] for n in ("q_proj", "out_proj")]
+        out += [lp["third_sub_layer"][n]["weight"] for n in ("dense_in", "dense_out")]
+    return out + [model.params["lm_head"]["weight"]]
+
+
+def cohere_kernel_checks(q4) -> list:
+    """Kernel 7 against its plain version at each packed product's shape of
+    decoder layer 0 and the head: the decode kernel at 1 row and the tile at
+    the prompt's 9 rows (f32 x: the packed embedding's residual stream);
+    and the tile at a short chunk's 50 encoder rows (bf16 x) at each shape
+    the encoder gives it there: the cross K and V (1,024 -> 1,024), encoder
+    layer 0's feed-forward pair (1,024 -> 4,096 -> 1,024) and the
+    subsampling's output (4,096 -> 1,024)."""
+    import torch
+
+    dev = q4.device
+    lp = q4.params["decoder"]["core"]["layers"]["0"]
+    shapes = [(f"{sub} {n}", lp[sub][n]["weight"]) for sub, names in (
+        ("first_sub_layer", ("q_proj", "out_proj")), ("second_sub_layer", ("q_proj",)),
+        ("third_sub_layer", ("dense_in", "dense_out"))) for n in names]
+    shapes.append(("head", q4.params["lm_head"]["weight"]))
+    rows = len(q4.tokenizer.build_prompt())
+    gen = torch.Generator(device=dev).manual_seed(19)
+    out = []
+    cases = [(name, w, r, torch.float32, k) for name, w in shapes
+             for r, k in ((1, "decode"), (rows, "tile"))]
+    enc = q4.params["encoder"]
+    ff1 = enc["layers"]["0"]["feed_forward1"]
+    cases += [(name, w, 50, torch.bfloat16, "tile") for name, w in (
+        ("second_sub_layer k_proj", lp["second_sub_layer"]["k_proj"]["weight"]),
+        ("encoder feed_forward1 linear1", ff1["linear1"]["weight"]),
+        ("encoder feed_forward1 linear2", ff1["linear2"]["weight"]),
+        ("subsampling out", enc["subsampling"]["out"]["weight"]))]
+    for name, w, r, dt, kernel in cases:
+        x = torch.randn((r, w.weight.shape[-1] * 32 // w.bits), generator=gen,
+                        device=dev).to(dt)
+        e, _, ran = qmm_check(f"cohere {name} [{r}]", x, w.weight, w.scales, w.biases,
+                              w.group_size, w.bits)
+        check(ran == kernel, f"cohere {name} at {r} rows ran the {ran}, not the {kernel}")
+        out.append(dict(shape=name, rows=r, x=str(dt).split(".")[-1], kernel=ran,
+                        o=w.weight.shape[0], i=x.shape[1], rel_err=e))
+    print(f"[cohere qmm] kernel 7 at the decoder's {len(shapes)} product shapes (4-bit, g 64): "
+          f"the decode kernel at 1 row and the tile at {rows} rows with f32 x, rel err up to "
+          f"{max(c['rel_err'] for c in out if c['x'] == 'float32'):.3e} (rtol {QMM_RTOL}); the "
+          f"tile at 50 rows with bf16 x on the cross K/V's, the encoder's feed-forward and the "
+          f"subsampling's shapes {[round(c['rel_err'], 6) for c in out if c['rows'] == 50]} "
+          f"(rtol {QMM_BF16_RTOL})")
+    return out
+
+
+def cohere_generate_runs(model, audio, label: str, packed: bool) -> list:
+    """Greedy ``generate`` of COHERE_TOKENS on ``audio`` twice, the counters
+    reset just before and read just after each: on the bf16 tree no kernel
+    of the port; on the 4-bit tree kernel 7's tile 8 x L + 1 times for the
+    prompt's prefill (the cross K/V of 400 encoder rows dequantize), its
+    decode kernel 8 x L + 1 times a decode step, no GEMV, no plain call; the
+    tokens repeat."""
+    from tpu_audio_torch.core.generation import STTGenerateParameters
+
+    per = 8 * model.config.decoder.num_layers + 1
+    seconds = len(audio) / 16000
+    runs, first = [], None
+    for run in range(2):
+        out, wall, launches, steps, plain, _ = cohere_counted(
+            model, lambda: model.generate(audio, STTGenerateParameters(max_tokens=COHERE_TOKENS)))
+        n_dec = launches.get("quantized_matvec_decode", 0)
+        n_tile = launches.get("quantized_matvec_tile", 0)
+        print(f"[cohere {label} generate run {run}] {seconds:g} s: {out.generation_token_count} "
+              f"tokens in {wall:.3f} s ({steps} decode steps); RTF {wall / seconds:.4f}; "
+              f"launches {launches}" + (f": decode kernel {n_dec} ({per * steps} expected, "
+                                        f"{n_dec / max(steps, 1):.1f} a token), tile {n_tile} "
+                                        f"({per} expected)" if packed else "")
+              + f"; plain calls {plain}; text {out.text[:60]!r}")
+        if packed:
+            check(n_dec == per * steps and n_tile == per
+                  and launches.get("quantized_matvec") == n_dec + n_tile and plain == 0
+                  and set(launches) <= {"quantized_matvec", "quantized_matvec_tile",
+                                        "quantized_matvec_decode"},
+                  f"cohere {label}: kernel 7's launches, another kernel or a plain call")
+        else:
+            check(not any(launches.values()) and plain == 0,
+                  f"cohere {label}: a kernel of the port ran on the bf16 tree: {launches}")
+        check(steps == COHERE_TOKENS and 0 < out.generation_token_count <= COHERE_TOKENS,
+              f"cohere {label}: {steps} steps, {out.generation_token_count} tokens")
+        if first is None:
+            first = out.text
+        check(out.text == first, f"cohere {label} run {run}: the text differs from run 0's")
+        runs.append(dict(run=run, tokens=out.generation_token_count, steps=steps, wall_s=wall,
+                         rtf=wall / seconds, launches=launches))
+    return runs
+
+
+def cohere_decode_profile(q4, audio, smi: str) -> dict:
+    """A greedy decode of COHERE_PROFILE_TOKENS tokens after the 4-bit
+    model's prefill of ``audio``'s chunk: ms a token on the host clock (best
+    of 3), then under the profiler the device busy ms, events and kernel
+    7's share a token against the bound of one step's packed products (each
+    word, scale and bias read once, f32 x in and y out); the encoder's ms a
+    call on the chunk (CUDA events) and its device ms (one marked profiler
+    window)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n = COHERE_PROFILE_TOKENS
+    with torch.no_grad():
+        enc, enc_len = q4._encode_audio(audio)
+        prompt = q4.tokenizer.build_prompt()
+
+        def state():
+            return q4._prefill(prompt, enc, enc_len, len(prompt) + n + 1)
+
+        walls = []
+        for _ in range(3):
+            s = state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q4._decode(*s, n)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        s = state()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            q4._decode(*s, n)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+    kernels = by_kernel(prof)
+    busy_ms = sum(c[1] for c in kernels.values()) / 1e3
+    events = sum(c[0] for c in kernels.values())
+    k7 = [c for name, c in kernels.items() if "quantized_matvec" in name]
+    k7_ms, k7_n = sum(c[1] for c in k7) / 1e3, sum(c[0] for c in k7)
+    products = cohere_step_products(q4)
+    nb = sum(nbytes(w.weight, w.scales, w.biases) + 4 * (w.weight.shape[1] * 32 // w.bits
+                                                          + w.weight.shape[0])
+             for w in products)
+    ops = sum(2 * w.weight.shape[0] * w.weight.shape[1] * 32 // w.bits for w in products)
+    b_ms, b_by = bound(nb, f32_ops=ops)
+    enc_ms = cuda_ms(lambda: q4._encode_audio(audio), reps=3, warmup=1)
+    enc_us, enc_events = marked_window(lambda: q4._encode_audio(audio), "cohere encoder")
+    enc_dev = None if enc_us is None else enc_us / 1e3
+    out = dict(ms_per_token=min(walls) * 1e3 / n, device_ms_per_token=busy_ms / n,
+               kernel7_device_ms_per_token=k7_ms / n, kernel7_launches_per_token=k7_n / n,
+               busy_share=busy_ms / prof_ms, device_events_per_token=events / n, bound_ms=b_ms,
+               bound_by=b_by, products=len(products), encoder_device_ms=enc_dev,
+               encoder_events=enc_events, encoder_ms=enc_ms, encoder_rows=enc.shape[1])
+    print(f"[cohere decode] {n}-token decode after the {len(prompt)}-row prefill on "
+          f"{len(audio) / 16000:g} s: {out['ms_per_token']:.4f} ms a token (best of 3, host "
+          f"clock); under the profiler wall {prof_ms:.3f} ms, device busy {busy_ms:.3f} ms (share "
+          f"{out['busy_share']:.4f}), {busy_ms / n:.4f} device ms a token of which kernel 7 "
+          f"{k7_ms / n:.4f} ({k7_n / n:.1f} launches a token) against the bound of its "
+          f"{len(products)} products {b_ms:.4f} ms ({b_by}); {events / n:.1f} device events a "
+          f"token; the encoder on {enc.shape[1]} rows {fmt(enc_dev)} device ({enc_events} "
+          f"events), {enc_ms:.3f} ms a call (CUDA events) ({smi})")
+    print_kernels(kernels, n, top=8)
+    return out
+
+
+def cohere_card_vs_cpu(model, audio) -> dict:
+    """The 4-bit model cut to COHERE_CARD_ENC_LAYERS encoder and
+    COHERE_CARD_DEC_LAYERS decoder layers in f32 (the products stay
+    packed), card against CPU on the same weights and ``audio``: the
+    features, the encoder output and COHERE_CARD_TOKENS step logits along
+    the CPU's greedy tokens (kernel 7 on the card, its plain version on the
+    CPU), each within its limit (COHERE_FEATURES_RTOL for the features,
+    COHERE_CARD_RTOL else) of the CPU's relative to its max, each under its
+    TF32 control; the greedy tokens equal, or parted where
+    the CPU's two best logits lie within the two logits' difference."""
+    import torch
+
+    from tpu_audio_torch.core import loading
+    from tpu_audio_torch.models.stt import cohere as CO
+
+    ne, nd, steps = COHERE_CARD_ENC_LAYERS, COHERE_CARD_DEC_LAYERS, COHERE_CARD_TOKENS
+    cfg = dataclasses.replace(
+        model.config, encoder=dataclasses.replace(model.config.encoder, n_layers=ne),
+        decoder=dataclasses.replace(model.config.decoder, num_layers=nd))
+    p = model.params
+    params = loading.cast_floats({
+        "encoder": {"subsampling": p["encoder"]["subsampling"],
+                    "layers": {str(i): p["encoder"]["layers"][str(i)] for i in range(ne)}},
+        "decoder": {"embedding": p["decoder"]["embedding"], "core": {
+            "layers": {str(i): p["decoder"]["core"]["layers"][str(i)] for i in range(nd)},
+            "final_layer_norm": p["decoder"]["core"]["final_layer_norm"]}},
+        "lm_head": p["lm_head"]}, torch.float32)
+
+    def run(params, row=None):
+        m = CO.CohereTranscribe(cfg, params, model.tokenizer, torch.float32)
+        with torch.no_grad():
+            feats = CO.cohere_features(torch.from_numpy(audio).to(m.device), 16000,
+                                       cfg.encoder.feat_in)
+            enc, n = m._encode_audio(audio)
+            prompt = m.tokenizer.build_prompt()
+            greedy = m._decode(*m._prefill(prompt, enc, n, len(prompt) + steps + 1), steps)[0]
+            logits, cache, ck, cv, mask = m._prefill(prompt, enc, n, len(prompt) + steps + 1)
+            out = [logits[0]]
+            for t in (greedy if row is None else row)[:steps - 1]:
+                lg, cache = CO._decoder_pass(m.params, torch.tensor([[t]], device=m.device),
+                                             m._table, cache, ck, cv, mask, cfg)
+                out.append(lg[0, -1])
+        return dict(features=feats.cpu(), encoder=enc[0].cpu(),
+                    logits=torch.stack(out).float().cpu()), greedy
+
+    cpu, cpu_greedy = run(loading.to_device(params, "cpu"))
+    card, card_greedy = run(params, cpu_greedy)
+    with plain_kernels(), tf32_everywhere():
+        control, _ = run(params, cpu_greedy)
+    out = {k: dict(rel_err=rel_err(card[k], cpu[k]), tf32_control=rel_err(control[k], cpu[k]),
+                   limit=COHERE_FEATURES_RTOL if k == "features" else COHERE_CARD_RTOL)
+           for k in card}
+    parted = None
+    if card_greedy != cpu_greedy:
+        s = next(i for i in range(steps) if card_greedy[i] != cpu_greedy[i])
+        top = torch.topk(cpu["logits"][s], 2)
+        gap = float(top.values[0] - top.values[1])
+        diff = float((card["logits"][s] - cpu["logits"][s]).abs().max())
+        parted = dict(token=s, margin=gap, max_diff=diff)
+        check({card_greedy[s], cpu_greedy[s]} == set(top.indices.tolist()) and gap <= diff,
+              f"cohere card against CPU: greedy tokens part at {s}, not at a near tie {parted}")
+    out["greedy"] = dict(equal=card_greedy == cpu_greedy, tokens=len(cpu_greedy), parted=parted)
+    print(f"[cohere card vs CPU] {ne} encoder and {nd} decoder layers in f32 (4-bit products), "
+          f"{len(audio) / 16000:g} s ({card['encoder'].shape[0]} encoder rows), {steps} steps: "
+          + "; ".join(f"{k} {out[k]['rel_err']:.3e} (TF32 control {out[k]['tf32_control']:.3e}, "
+                      f"limit {out[k]['limit']})" for k in card)
+          + f"; greedy tokens equal: {card_greedy == cpu_greedy}")
+    for k in card:
+        check(bool(torch.isfinite(card[k]).all()) and card[k].shape == cpu[k].shape
+              and out[k]["rel_err"] <= out[k]["limit"] < out[k]["tf32_control"],
+              f"cohere {k} card against CPU {out[k]}: not within its limit, or the TF32 "
+              f"control within it")
+    return out
+
+
+def cohere_stream(q4, audio) -> dict:
+    """``StreamingInferenceSession`` (the Cohere core) over ``audio`` at 1 s
+    feeds, COHERE_STREAM_TOKENS tokens a pass, on a clock that moves 1 s a
+    feed; the counters reset just before and read just after: kernel 7's
+    decode kernel 8 x L + 1 times a decode step, its tile 8 x L + 1 times a
+    pass's prefill and ``cohere_short_tiles`` more where the pass's audio
+    fits one 400-frame bucket (the encoder and cross K/V on 50 rows), no
+    plain call. The event kinds are
+    the session's, a window and the rest are finalized, and the ended text
+    is the completed text."""
+    from tpu_audio_torch.models.stt.streaming import (EventKind, StreamingConfig,
+                                                      StreamingInferenceSession, concat_text)
+
+    L = q4.config.decoder.num_layers
+    clock = StepClock()
+    session = StreamingInferenceSession(
+        q4, config=StreamingConfig(max_tokens_per_pass=COHERE_STREAM_TOKENS), clock=clock)
+
+    def feed_all():
+        events = []
+        for s in range(0, len(audio), 16000):
+            events += session.feed_audio(audio[s:s + 16000])
+            clock.advance(1.0)
+        return events + session.stop()
+
+    events, wall, launches, steps, plain, calls = cohere_counted(q4, feed_all)
+    core = session.core
+    kinds = [e.kind.value for e in events]
+    stats = [e.stats for e in events if e.kind == EventKind.STATS][-1]
+    n_dec = launches.get("quantized_matvec_decode", 0)
+    seconds = len(audio) / 16000
+    print(f"[cohere stream] {seconds:g} s at 1 s feeds: {stats['decode_passes']} passes "
+          f"({steps} decode steps) in {wall:.3f} s: session RTF {wall / seconds:.4f}, "
+          f"{stats['decode_time'] * 1e3 / max(1, len(calls)):.1f} ms a pass; "
+          f"{core._finalized_windows} windows finalized; pass audio s and tiles "
+          f"{[(round(a, 2), t) for a, t in calls]}; launches {launches} (decode kernel "
+          f"{(8 * L + 1) * steps} expected); plain calls {plain}; events "
+          f"{' '.join(k[:4] for k in kinds)}; ended {events[-1].text[:60]!r}")
+    check(type(core).__name__ == "_CohereStreamingCore" and kinds[-1] == "ended"
+          and "display_update" in kinds and "stats" in kinds
+          and set(kinds) <= {k.value for k in EventKind}, f"cohere stream: event kinds {kinds}")
+    check(events[-1].text == events[-1].confirmed_text
+          == concat_text(core.state.completed_text, core.state.confirmed_text)
+          and core._finalized_windows >= 2 and core.state.completed_text,
+          "cohere stream: windows not finalized, or the ended text is not the session's")
+    # a pass's audio under 4 s is 400 mel frames or fewer: 50 encoder rows
+    extra = cohere_short_tiles(q4.config)
+    check(n_dec == (8 * L + 1) * steps and plain == 0
+          and all(t == 8 * L + 1 + (extra if a < 4.0 else 0) for a, t in calls)
+          and launches.get("quantized_matvec") == n_dec + sum(t for _, t in calls),
+          "cohere stream: kernel 7's launches or a plain call")
+    return dict(seconds=seconds, wall_s=wall, rtf=wall / seconds, passes=stats["decode_passes"],
+                steps=steps, windows=core._finalized_windows,
+                ms_per_pass=stats["decode_time"] * 1e3 / max(1, len(calls)), kinds=kinds,
+                launches=launches)
+
+
+def cohere_http(q4) -> dict:
+    """One ``/v1/audio/transcriptions`` POST of COHERE_HTTP_SECONDS to the
+    server on 127.0.0.1 (``--slots 2``: no engine for Cohere, the locked
+    ``generate`` with its default budget, which max_sequence_length sets:
+    the served model is the 4-bit tree with COHERE_HTTP_POSITIONS
+    positions, so that random weights, which emit no eos, stop at 54
+    tokens)."""
+    import json as _json
+
+    from tpu_audio_torch.cli.serve import build_server
+    from tpu_audio_torch.models.stt.cohere import CohereTranscribe
+
+    cfg = dataclasses.replace(q4.config, decoder=dataclasses.replace(
+        q4.config.decoder, max_sequence_length=COHERE_HTTP_POSITIONS))
+    served = CohereTranscribe(cfg, q4.params, q4.tokenizer, q4.dtype)
+    server = build_server(served, "stt", "cohere-random", port=0, slots=2)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        check(server.stt_worker is None, "cohere serve: an engine was built")
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/v1/audio/transcriptions",
+            data=wav_body(asr_signal(COHERE_HTTP_SECONDS, 8)),
+            headers={"Content-Type": "audio/wav"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            body, code = _json.loads(r.read()), r.status
+        wall = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    words = len(body.get("text", "").split())
+    print(f"[cohere http] one {COHERE_HTTP_SECONDS:g} s POST: HTTP {code} in {wall:.3f} s, "
+          f"{words} words, {len(body.get('segments', []))} segment(s)")
+    check(code == 200 and 0 < words <= COHERE_HTTP_POSITIONS - 10
+          and len(body["segments"]) == 1,
+          f"cohere http: {code} {str(body)[:120]}")
+    return dict(code=code, wall_s=wall, words=words)
+
+
+def cohere_phase(dev, smi: str) -> tuple[dict, dict]:
+    """``[cohere]``: Cohere Transcribe (``build_cohere``) in bf16 and MLX
+    4-bit. Kernel 7 at the decoder's product shapes (``cohere_kernel_checks``);
+    greedy ``generate`` on COHERE_SECONDS twice on each tree and once on a
+    COHERE_SHORT_SECONDS chunk of the 4-bit tree, with their launches
+    (``cohere_generate_runs``); a decode token's host and device ms, events
+    and kernel 7's share against its bound, and the encoder's device ms
+    (``cohere_decode_profile``); 4 + 2 layers in f32 card against CPU
+    (``cohere_card_vs_cpu``); the streaming session (``cohere_stream``); one
+    request through the server (``cohere_http``); the peak device memory.
+    Returns the record and kernel 7's fields."""
+    import torch
+
+    from tpu_audio_torch.core.generation import STTGenerateParameters
+    from tpu_audio_torch.models import llama
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    bf16, q4, packed = build_cohere(dev)
+    torch.cuda.synchronize()
+    e, d = q4.config.encoder, q4.config.decoder
+    n_params = sum(t.numel() for t in llama._leaves(bf16.params))
+    print(f"[cohere] encoder {e.n_layers} x {e.d_model} ({e.n_heads} heads, ffn "
+          f"{e.d_model * e.ff_expansion_factor}, conv kernel {e.conv_kernel_size}, "
+          f"{e.subsampling_conv_channels} subsampling channels), decoder {d.num_layers} x "
+          f"{d.hidden_size} (inner {d.inner_size}), vocabulary {q4.config.vocab_size}: "
+          f"{n_params / 1e9:.3f} B parameters, bf16 and MLX 4-bit (g 64, {len(packed)} packed "
+          f"leaves) built on the card in {time.perf_counter() - t_phase:.1f} s ({smi})")
+    out = dict(params=n_params, packed_leaves=len(packed))
+    parts = {"build": time.perf_counter() - t_phase}
+    checks = cohere_kernel_checks(q4)
+    parts["kernels"] = time.perf_counter() - t_phase
+    audio = asr_signal(COHERE_SECONDS, 3)
+    out["bf16_runs"] = cohere_generate_runs(bf16, audio, "bf16", packed=False)
+    out["q4_runs"] = cohere_generate_runs(q4, audio, "4-bit", packed=True)
+    short, wall, launches, steps, plain, _ = cohere_counted(q4, lambda: q4.generate(
+        asr_signal(COHERE_SHORT_SECONDS, 4), STTGenerateParameters(max_tokens=COHERE_TOKENS)))
+    L = d.num_layers
+    extra = cohere_short_tiles(q4.config)
+    print(f"[cohere 4-bit short] {COHERE_SHORT_SECONDS:g} s: {short.generation_token_count} "
+          f"tokens in {wall:.3f} s; launches {launches} (tile {8 * L + 1 + extra} expected: the "
+          f"prefill's {8 * L + 1}, and on the 50 encoder rows the encoder's {extra - 2 * L} and "
+          f"the cross K/V's {2 * L}); plain calls {plain}")
+    check(launches.get("quantized_matvec_tile") == 8 * L + 1 + extra and plain == 0
+          and launches.get("quantized_matvec_decode") == (8 * L + 1) * steps,
+          "cohere 4-bit short chunk: kernel 7's launches or a plain call")
+    out["short"] = dict(seconds=COHERE_SHORT_SECONDS, wall_s=wall, launches=launches)
+    parts["generate"] = time.perf_counter() - t_phase
+    out["decode"] = cohere_decode_profile(q4, audio, smi)
+    parts["decode profile"] = time.perf_counter() - t_phase
+    out["card_vs_cpu"] = cohere_card_vs_cpu(q4, asr_signal(COHERE_CARD_SECONDS, 1))
+    parts["card vs CPU"] = time.perf_counter() - t_phase
+    out["stream"] = cohere_stream(q4, asr_signal(COHERE_STREAM_SECONDS, 2))
+    parts["stream"] = time.perf_counter() - t_phase
+    out["http"] = cohere_http(q4)
+    out["peak_gb"] = peak_gb()
+    out["seconds"] = parts["http"] = time.perf_counter() - t_phase
+    print(f"[cohere] peak device memory {out['peak_gb']:.2f} GB; the phase {out['seconds']:.1f} s "
+          f"(seconds from its start at the end of each part: "
+          f"{json.dumps({k: round(v, 1) for k, v in parts.items()})}) ({smi})")
+    first = out["q4_runs"][0]
+    k7 = dict(cohere_launches=first["launches"].get("quantized_matvec_decode", 0), cohere=dict(
+        decode_per_step=first["launches"].get("quantized_matvec_decode", 0) / first["steps"],
+        device_ms_per_token=out["decode"]["device_ms_per_token"],
+        kernel7_device_ms_per_token=out["decode"]["kernel7_device_ms_per_token"],
+        bound_ms=out["decode"]["bound_ms"], bound_by=out["decode"]["bound_by"],
+        products=out["decode"]["products"], checks=[c for c in checks if c["rows"] == 1]))
+    tile = dict(cohere_launches=dict(prefill=first["launches"].get("quantized_matvec_tile", 0),
+                                     short_chunk=launches.get("quantized_matvec_tile", 0)),
+                cohere=dict(checks=[c for c in checks if c["rows"] > 1]))
+    del bf16, q4
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, dict(quantized_matvec=k7, quantized_matvec_tile=tile)
+
+
+def cohere_main(smi: str) -> int:
+    """``--cohere``: the [cohere] phase alone, then its JSON and kernel 7's
+    Cohere fields as one line (no "ok" line: not the full check)."""
+    import torch
+
+    from tpu_audio_torch.ops import _lib
+
+    t0 = time.perf_counter()
+    _lib.lib()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    out, k = cohere_phase(torch.device("cuda", 0), smi)
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"cohere": out, "kernels": k}, default=str))
     return 0
 
 
@@ -10707,7 +11476,7 @@ def main() -> int:
               "--kv-mel-timing": kv_mel_timing_main}.get(next(iter(sys.argv[1:]), ""))
     if sys.argv[1:] not in ([], ["--qmm"], ["--qwen3"], ["--clone"], ["--parakeet"], ["--vad"],
                             ["--turn-lid"], ["--sts"], ["--kvq"], ["--vyvo"],
-                            ["--qwen3-asr"]) and not timing:
+                            ["--qwen3-asr"], ["--cohere"]) and not timing:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -10744,6 +11513,8 @@ def main() -> int:
         return vyvo_main(smi.splitlines()[0])
     if sys.argv[1:] == ["--qwen3-asr"]:
         return qwen3_asr_main(smi.splitlines()[0])
+    if sys.argv[1:] == ["--cohere"]:
+        return cohere_main(smi.splitlines()[0])
     if timing:
         return timing(smi.splitlines()[0], [Path(a).resolve() for a in sys.argv[2:]])
     dev = torch.device("cuda", 0)
@@ -10757,6 +11528,14 @@ def main() -> int:
     drawer = threading.Thread(target=lambda: drawn.update(params=W.init_params(
         stack_config(), seed=0, dtype=torch.bfloat16, device="cpu")), daemon=True)
     drawer.start()
+    # seconds of each phase (its checks included), from the previous mark
+    phase_s, mark = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = round(now - mark[0], 1)
+        mark[0] = now
+
     t0 = time.perf_counter()
     _lib.lib()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
@@ -10764,47 +11543,64 @@ def main() -> int:
     drawer.join()
     print(f"whisper-large-v3's weights drawn on the host {time.perf_counter() - t0:.2f} s after "
           f"the build started")
+    lap("build")
 
     # phase 15 first: late in this process torch.profiler loses device
     # events, and kernel 7's short calls then read "not measured"
     records = qmm_phase(dev)
+    lap("qmm")
     # the [qwen3 tts] phase next, early for the same reason: it reads kernel
     # 7's device time a frame from the profiler; [qwen3 clone] on its 8-bit
     # model, then [mimi], read device time from the profiler too
     qwen3, qwen3_k7, clone_k1 = qwen3_phase(dev, smi.splitlines()[0], clone=True)
     for k, fields in qwen3_k7.items():
         records[k].update(fields)
+    lap("qwen3 tts, serve, clone")
     mimi = mimi_phase(dev, smi.splitlines()[0])
+    lap("mimi")
     # the [parakeet] phase next, early too: it reads the decode loop's busy
     # share from the profiler
     parakeet, parakeet_k7 = parakeet_phase(dev, smi.splitlines()[0])
     for k, fields in parakeet_k7.items():
         records[k].update(fields)
+    lap("parakeet")
     # the [vad] phase next, early too: it reads device time a chunk from the
     # profiler (no kernel of the port runs there)
     vad = vad_phase(dev, smi.splitlines()[0])
+    lap("vad")
     # the [vad turn lid] phase next, early for the same reason: SmartTurn's
     # kernel-1 launches and every model's device time come from the profiler
     turn_lid, turn_lid_k1 = turn_lid_phase(dev, smi.splitlines()[0])
+    lap("vad turn lid")
     # the [sts] phase next, early for the same reason: its device ms a call
     # and a streamed chunk come from the profiler (no kernel of the port runs
     # there)
     sts = sts_phase(dev, smi.splitlines()[0])
+    lap("sts")
     # the [vyvo] phase next, early too: its TTFB phase reads kernel 7's device
     # time a token from the profiler; kernels 5 and 6's fields wait for their
     # records
     vyvo, vyvo_k = vyvo_phase(dev, smi.splitlines()[0])
     records["quantized_matvec"].update(vyvo_k["quantized_matvec"])
+    lap("vyvo")
     # the [qwen3 asr] phase next, early too: its decode profile reads kernel
     # 7's device time a token; kernel 1's fields wait for its record
     qwen3_asr, asr_k = qwen3_asr_phase(dev, smi.splitlines()[0])
     for k in ("quantized_matvec", "quantized_matvec_tile"):
         records[k].update(asr_k[k])
+    lap("qwen3 asr, align")
+    # the [cohere] phase next, early too: its decode profile reads kernel 7's
+    # device time a token
+    cohere, cohere_k = cohere_phase(dev, smi.splitlines()[0])
+    for k in ("quantized_matvec", "quantized_matvec_tile"):
+        records[k].update(cohere_k[k])
+    lap("cohere")
 
     t0 = time.perf_counter()
     cfg, models = build_models(dev, drawn.pop("params"))
     torch.cuda.synchronize()
     print(f"whisper-large-v3 built on the card in {time.perf_counter() - t0:.1f} s")
+    lap("whisper build")
 
     audio, sr = load_audio(str(AUDIO), sample_rate=16000)
     speech = audio
@@ -10822,6 +11618,7 @@ def main() -> int:
     records["fused_stack_lanes"] = lanes_phase(w8, cfg, lane_encoders(w8, enc, clips, rng),
                                                dev)
     records["fused_stack_lanes"].update(fused_lanes_phase(dev))
+    lap("whisper kernels, lanes")
     for k, r in records.items():
         if k.startswith("quantized_matvec"):
             continue
@@ -10836,6 +11633,7 @@ def main() -> int:
         check(launches.get(k, 0) > 0, f"kernel {k} not launched on the main path")
         records[k]["launches"] = launches[k]
     teacher_forced(models, outputs, enc, cfg)
+    lap("whisper generate")
 
     # -- long-form: a 240 s file's batched windows (w8 w8e kv8d), bf16 routes --
     longform, long_launches = longform_phase(models, cfg, dev, smi.splitlines()[0])
@@ -10843,6 +11641,7 @@ def main() -> int:
         check(long_launches[k] > 0, f"kernel {k} not launched on the long-form path")
         records[k]["longform_launches"] = long_launches[k]
     records["decode_attention_int8"]["longform"] = longform["kv_heads"]
+    lap("whisper longform")
 
     # -- the serving path: ContinuousSTT over the w8 model --------------------
     serve, serve_launches = serve_phase(w8, clips)
@@ -10850,10 +11649,12 @@ def main() -> int:
     throughput = throughput_phase(w8, (rng.standard_normal(W.CHUNK_LENGTH_SAMPLES)
                                        * 0.1).astype(np.float32))
     http = http_phase(w8, clips)
+    lap("whisper serve")
 
     # -- the quantized self caches: [whisper kvq] on the same two models ------
     kvq, kvq_k2 = whisper_kvq_phase(models, cfg, audio, dev, smi.splitlines()[0])
     records["decode_attention_int8"].update(kvq_k2)
+    lap("whisper kvq")
 
     for cfg_name, model in models.items():
         profile_window(cfg_name, model, audio, gp)
@@ -10861,6 +11662,7 @@ def main() -> int:
     del models, model, w8, outputs, enc
     gc.collect()
     torch.cuda.empty_cache()
+    lap("whisper profile")
 
     # -- Orpheus-3B: kernel 5 and offline synthesis ---------------------------
     t0 = time.perf_counter()
@@ -10874,6 +11676,7 @@ def main() -> int:
     records["fused_llama_stack"]["launches"] = tts_launches["fused_llama_stack"]
     tts = dict(runs=tts_runs, teacher_forced=tts_teacher_forced(orpheus, tts_tokens),
                ttfb=tts_ttfb_phase(orpheus), checks=records["fused_llama_stack"]["checks"])
+    lap("orpheus")
 
     # -- Orpheus serving: kernel 6 and ContinuousTTS over the same model ------
     records["fused_llama_stack_lanes"] = llama_lanes_phase(orpheus, dev)
@@ -10887,6 +11690,7 @@ def main() -> int:
     del orpheus
     gc.collect()
     torch.cuda.empty_cache()
+    lap("orpheus serve")
 
     # -- MLX 4-bit: Orpheus-3B 4-bit offline and served, Whisper q4 ----------
     t0 = time.perf_counter()
@@ -10904,6 +11708,7 @@ def main() -> int:
                ttfb=q4_ttfb_phase(q4), serve=q4_serve_phase(q4),
                whisper=q4_whisper_phase(whisper_q4, audio))
     del q4, q4_full, whisper_q4
+    lap("mlx 4-bit")
 
     kernels = [dict(name=k, **{f: r[f] for f in (
         "route", "source", "replaces", "launches", "max_abs_err", "rel_err", "ms",
@@ -10918,7 +11723,8 @@ def main() -> int:
                              "smart_turn_launches", "smart_turn", "speaker_mel_launches",
                              "speaker_mel", "kvq_launches", "kvq_launches_per_step",
                              "vyvo_launches", "vyvo", "vyvo_layer_launches",
-                             "qwen3_asr_launches", "qwen3_asr") if f in r})
+                             "qwen3_asr_launches", "qwen3_asr", "qwen3_align_launches",
+                             "qwen3_align", "cohere_launches", "cohere") if f in r})
         for k, r in records.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"generate": runs, "smi": smi.splitlines()[0]}))
@@ -10936,6 +11742,9 @@ def main() -> int:
     print(json.dumps({"whisper_kvq": kvq}))
     print(json.dumps({"vyvo": vyvo}))
     print(json.dumps({"qwen3_asr": qwen3_asr}))
+    print(json.dumps({"cohere": cohere}))
+    print(json.dumps({"phase_seconds": phase_s,
+                      "total_s": round(time.perf_counter() - t_start, 1)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -69,6 +69,9 @@ print("ok")
     ["tpu_audio_torch.models.stt.qwen3_asr", "tpu_audio_torch.models.stt.streaming",
      "tpu_audio_torch.parallel.continuous_stt", "tpu_audio_torch.cli.stt",
      "tpu_audio_torch.models.stt", "tpu_audio_torch.cli.serve"],
+    ["tpu_audio_torch.models.stt.qwen3_aligner", "tpu_audio_torch.models.stt.cohere",
+     "tpu_audio_torch.core.spm", "tpu_audio_torch.models.stt.streaming",
+     "tpu_audio_torch.cli.stt", "tpu_audio_torch.cli.tts", "tpu_audio_torch.cli.serve"],
 ])
 def test_port_imports_without_jax(mods):
     res = subprocess.run([sys.executable, "-c", _BLOCKER.format(mods=mods)],

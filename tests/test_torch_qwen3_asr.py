@@ -447,8 +447,8 @@ def test_load_model_and_refusals(dirs, tmp_path):
     """``load_model`` builds a Qwen3ASR with stacked, fused text layers and
     the packed leaves of a ``quantization`` block; a ``thinker.`` prefix
     is stripped; the registry's repo-name fallback finds ``qwen3_asr``; a
-    forced-aligner directory name raises naming the unported family, as
-    does ``quantize``."""
+    forced-aligner directory name loads the aligner; ``quantize``
+    raises."""
     _, tm = _models(dirs["q4"])
     assert isinstance(tm, TQ.Qwen3ASR) and tm.config.text.qk_norm
     layers = tm.params["model"]["layers"]
@@ -475,9 +475,13 @@ def test_load_model_and_refusals(dirs, tmp_path):
                                      TParams(max_tokens=4)) == \
         tr.decode_features_tokens(tr.encode_audio(tr.preprocess_audio(x)[0]),
                                   TParams(max_tokens=4))
+    # a forced-aligner directory name loads the aligner (the registry's
+    # qwen3_forced_aligner) on Qwen3-ASR's loader
+    from tpu_audio_torch.models.stt.qwen3_aligner import Qwen3ForcedAligner
+
     aligner = shutil.copytree(dirs["fixture"], tmp_path / "qwen3-forced-aligner")
-    with pytest.raises(ValueError, match="qwen3_forced_aligner"):
-        tload_model(str(aligner), device="cpu")
+    loaded = tload_model(str(aligner), device="cpu")
+    assert isinstance(loaded, Qwen3ForcedAligner) and isinstance(loaded, TQ.Qwen3ASR)
     with pytest.raises(ValueError, match="quantize"):
         tload_model(str(dirs["fixture"]), device="cpu", quantize="w8a8")
 

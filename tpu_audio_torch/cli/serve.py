@@ -35,9 +35,11 @@ Endpoints follow the OpenAI audio API paths:
 With ``--slots N`` (N > 1) concurrent requests share continuously batched
 decode lanes: Whisper transcriptions of up to 30 s and Qwen3-ASR ones of up
 to 20 s through ``parallel.continuous_stt.STTEngineWorker`` (Qwen3-ASR on
-``ContinuousQwen3ASR``; other STT models, such as Parakeet, answer every
-request through ``generate`` under the lock), Orpheus speech through
-``parallel.continuous.TTSEngineWorker`` and Qwen3-TTS speech through
+``ContinuousQwen3ASR``; other STT models, such as Parakeet and Cohere
+Transcribe, answer every request through ``generate`` under the lock, and
+a Qwen3 forced aligner, which needs a transcript, answers with an error),
+Orpheus speech through ``parallel.continuous.TTSEngineWorker`` and
+Qwen3-TTS speech through
 ``parallel.continuous_qwen3.Qwen3TTSEngineWorker`` (one lane-batched frame
 a tick; no reference-audio cloning), with the sampling parameters then
 fixed per server; otherwise, and for longer audio, requests take turns on
@@ -269,7 +271,7 @@ def build_server(model, task: str, model_name: str,
                  slots: int = 1, generation_parameters=None,
                  step_tokens: int = 7, fused: str = "auto"):
     """Construct (but don't start) the HTTP server for an STT (``task``
-    "stt": Whisper, Parakeet, Qwen3-ASR), TTS (``task`` "tts": Orpheus, Qwen3-TTS), VAD
+    "stt": Whisper, Parakeet, Qwen3-ASR, Cohere Transcribe), TTS (``task`` "tts": Orpheus, Qwen3-TTS), VAD
     (``task`` "vad": Silero, Sortformer, FSMN VAD), LID (``task`` "lid":
     ECAPA-TDNN, through a micro-batcher) or STS (``task`` "sts":
     DeepFilterNet) ``model``.
@@ -293,11 +295,15 @@ def build_server(model, task: str, model_name: str,
     metrics = _Metrics()
     stt_worker = tts_worker = None
     if slots > 1 and task == "stt":
+        from tpu_audio_torch.models.stt.qwen3_aligner import Qwen3ForcedAligner
         from tpu_audio_torch.models.stt.qwen3_asr import Qwen3ASR
         from tpu_audio_torch.models.stt.whisper import Whisper
 
-        # other STT models answer through generate
-        if isinstance(model, (Whisper, Qwen3ASR)):
+        # other STT models answer through generate; so does a forced aligner
+        # (a Qwen3ASR whose head classifies times, not tokens): its locked
+        # generate names the missing transcript
+        if (isinstance(model, (Whisper, Qwen3ASR))
+                and not isinstance(model, Qwen3ForcedAligner)):
             from tpu_audio_torch.parallel.continuous_stt import (ContinuousQwen3ASR,
                                                                  STTEngineWorker)
 

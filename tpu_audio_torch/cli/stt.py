@@ -1,16 +1,21 @@
 """STT command line on the PyTorch port: wav -> text.
 
 Usage: ``python -m tpu_audio_torch.cli.stt audio.wav --model <dir>`` (a
-Whisper, Parakeet or Qwen3-ASR checkpoint), with the flags of
+Whisper, Parakeet, Qwen3-ASR or Cohere Transcribe checkpoint), with the flags of
 ``tpu_audio.cli.stt`` (``--format txt|srt|json``, ``--stream``,
 ``--chunk-duration``, ``--kv-bits``, ``--quantized-kv-start``, ...) plus
 ``--device``. A model ignores the flags it has no use for (Parakeet: the
 language, task, temperature and KV flags).
 
-``--stream`` on a model with ``encode_single_window`` (Qwen3-ASR) runs the
+``--stream`` on a model with a streaming core (Qwen3-ASR's
+``encode_single_window``, Cohere's ``streaming_decode_token_ids``) runs the
 live ``StreamingInferenceSession`` on 1 s feeds: confirmed text as it is
 promoted (``--verbose`` also prints each display update) and a ``[stream]
 RTF`` line; other models print ``generate_stream``'s text.
+
+A forced aligner (a directory named like ``Qwen3-ForcedAligner``) aligns
+``--text`` to the audio and prints its words with their times as segments
+(``--format srt|json``); it takes no ``--stream``.
 """
 
 from __future__ import annotations
@@ -69,6 +74,8 @@ def main(argv=None):
     parser.add_argument("--temperature", type=float, default=0.0)
     parser.add_argument("--format", default="txt", choices=["txt", "srt", "json"])
     parser.add_argument("--stream", action="store_true", help="stream per-chunk text")
+    parser.add_argument("--text", default=None,
+                        help="alignment text (required for forced aligner models)")
     parser.add_argument("--chunk-duration", type=float, default=None,
                         help="chunking window in seconds (Parakeet; default 1200)")
     parser.add_argument("--output", default=None, help="write result to file")
@@ -101,7 +108,24 @@ def main(argv=None):
         quantized_kv_start=args.quantized_kv_start,
         batch_windows=not args.no_batch_windows,
     )
-    if args.stream and hasattr(model, "encode_single_window"):
+    from tpu_audio_torch.models.stt.qwen3_aligner import Qwen3ForcedAligner
+
+    if isinstance(model, Qwen3ForcedAligner):
+        if args.stream:
+            parser.error("--stream is not supported for forced aligner models")
+        if not args.text:
+            parser.error("--text is required when using a forced aligner model")
+        from tpu_audio_torch.core.generation import STTOutput, STTSegment
+
+        aligned = model.generate(audio, text=args.text, language=args.language or "English")
+        output = STTOutput(
+            text=aligned.text,
+            segments=[STTSegment(text=i.text, start=i.start_time, end=i.end_time)
+                      for i in aligned.items],
+            language=args.language, prompt_token_count=aligned.prompt_tokens,
+            total_time=aligned.total_time, generation_time=aligned.total_time)
+    elif args.stream and (hasattr(model, "encode_single_window")
+                          or hasattr(model, "streaming_decode_token_ids")):
         output = _live_session(model, audio, args)
     elif args.stream:
         output = None

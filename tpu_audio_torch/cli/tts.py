@@ -12,7 +12,9 @@ band; ``--quantize 4|8`` quantizes a full-precision checkpoint to MLX
 grouped-affine 4/8-bit, the layout of the reference's own Orpheus
 checkpoints, which load as they are). ``--stream`` writes the audio as it is generated; ``--benchmark``
 reports the time to the first audio (TTFB) and the real-time multiple.
-Runs on ``cuda`` unless ``--device`` says otherwise.
+``--timestamps [ALIGNER]`` then aligns the text to the written audio with a
+Qwen3 forced aligner checkpoint and prints each word's times. Runs on
+``cuda`` unless ``--device`` says otherwise (the aligner too).
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ def main(argv=None):
     parser.add_argument("--timestamps", nargs="?", default=None,
                         const="mlx-community/Qwen3-ForcedAligner-0.6B-4bit",
                         metavar="ALIGNER",
-                        help="word timestamps of the generated audio (not ported yet)")
+                        help="word timestamps of the generated audio (a Qwen3 forced "
+                             "aligner checkpoint)")
     parser.add_argument("--raw-ipa", action="store_true",
                         help="treat the input text as raw IPA phonemes")
     parser.add_argument("--quantize", choices=("4", "8", "w8a8"), default=None,
@@ -56,8 +59,6 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the plain versions)")
     args = parser.parse_args(argv)
-    if args.timestamps:
-        raise SystemExit("--timestamps: not ported yet (needs the Qwen3 forced aligner)")
 
     import numpy as np
 
@@ -132,6 +133,18 @@ def main(argv=None):
         dur = len(audio) / model.sample_rate
         print(f"[tts] {dur:.2f}s audio in {wall:.2f}s (RTFx {dur / wall:.2f}x) -> "
               f"{args.output}", file=sys.stderr)
+
+    if args.timestamps:
+        from tpu_audio_torch.core.audio_io import resample_audio
+        from tpu_audio_torch.models.stt import load_model as load_stt
+
+        aligner = load_stt(args.timestamps, device=args.device)
+        wav, sr = load_audio(args.output)
+        aligned = aligner.generate(resample_audio(wav, sr, 16000), text=args.text,
+                                   language="English")
+        print("Timestamps:")
+        for item in aligned.items:
+            print(f"  [{item.start_time:.3f}s - {item.end_time:.3f}s] {item.text}")
     return 0
 
 

@@ -11,8 +11,10 @@ Orpheus and SNAC trees, a Qwen3-TTS talker (stacked layers, the
 text projection), a Qwen3 speech tokenizer's decoder, a sanitized
 Parakeet tree (encoder, prediction network, joint; dense or with MLX
 packed linears and embedding), the FSMN VAD, SmartTurn and ECAPA-TDNN
-trees, Mimi's, and the Qwen3 speech tokenizer's encoder and speaker
-encoder. bfloat16 arrays (numpy dtype ``bfloat16``) keep their
+trees, Mimi's, the Qwen3 speech tokenizer's encoder and speaker
+encoder, a Qwen3-ASR or forced-aligner tree (its ``lm_head`` timestamp
+head too), and a sanitized Cohere Transcribe tree (encoder, decoder,
+head; dense or with MLX packed linears and embedding). bfloat16 arrays (numpy dtype ``bfloat16``) keep their
 bits, and uint32 words become int32 of the same bits. The JAX package's
 word-scale planes (``scales_w``) have no counterpart and are dropped.
 """

@@ -1,6 +1,6 @@
 """STT task module: model registry + factory (port of
-tpu_audio.models.stt.load_model; the families ported are Whisper, Parakeet
-and Qwen3-ASR)."""
+tpu_audio.models.stt.load_model; the families ported are Whisper, Parakeet,
+Qwen3-ASR, the Qwen3 forced aligner and Cohere Transcribe)."""
 
 from __future__ import annotations
 
@@ -12,6 +12,9 @@ _REGISTRY: dict[str, str] = {
     "whisper": "tpu_audio_torch.models.stt.whisper:Whisper",
     "parakeet": "tpu_audio_torch.models.stt.parakeet:Parakeet",
     "qwen3_asr": "tpu_audio_torch.models.stt.qwen3_asr:Qwen3ASR",
+    "qwen3_forced_aligner": "tpu_audio_torch.models.stt.qwen3_aligner:Qwen3ForcedAligner",
+    "cohere_asr": "tpu_audio_torch.models.stt.cohere:CohereTranscribe",
+    "cohere": "tpu_audio_torch.models.stt.cohere:CohereTranscribe",
 }
 
 
@@ -23,14 +26,12 @@ def load_model(repo_or_path: str, **kwargs):
     """Load an STT model from a local checkpoint directory; ``kwargs``
     (``dtype``, ``device``, ``quantize``) go to the family's
     ``from_pretrained``. A forced-aligner checkpoint shares Qwen3-ASR's
-    config and is told apart by its name, as in the JAX package; the
-    aligner is not ported, so such a name raises rather than load it as a
-    Qwen3-ASR without its timestamp head."""
+    config and is told apart by its name, as in the JAX package."""
     model_dir = hub.resolve_model_dir(repo_or_path)
     if "forcedalign" in _squash(repo_or_path):
-        raise ValueError(f"{repo_or_path}: model_type 'qwen3_forced_aligner' is not ported "
-                         f"(ported: {sorted(_REGISTRY)})")
-    model_type = hub.resolve_model_type(hub.load_config(model_dir))
+        model_type = "qwen3_forced_aligner"
+    else:
+        model_type = hub.resolve_model_type(hub.load_config(model_dir))
     if model_type not in _REGISTRY:
         name = _squash(repo_or_path)
         model_type = next((k for k in _REGISTRY if _squash(k) in name), model_type)

@@ -121,7 +121,7 @@ class Qwen3ASRConfig:
     audio_token_id: int = 151646
     support_languages: list = field(default_factory=list)
     quantization: dict | None = None
-    # the forced aligner's head (inert here: the aligner is not ported)
+    # the forced aligner's timestamp head (models.stt.qwen3_aligner; unused by Qwen3-ASR)
     classify_num: int = 5000
     timestamp_token_id: int = 151705
     timestamp_segment_time: float = 80.0

@@ -1,6 +1,6 @@
 """Streaming STT: incremental mel -> window encoder -> a session that
 promotes provisional tokens to confirmed ones (port of
-tpu_audio.models.stt.streaming with its Qwen3-ASR core).
+tpu_audio.models.stt.streaming with its Qwen3-ASR and Cohere cores).
 
 - :class:`IncrementalMelSpectrogram`: overlap-save mel over a rolling
   buffer, the first chunk reflect-prefixed; each ``process`` that yields
@@ -18,7 +18,10 @@ tpu_audio.models.stt.streaming with its Qwen3-ASR core).
   tokens are confirmed after ``min_agreement_passes`` identical passes and
   ``delay_seconds`` of age; completed windows are finalized by a one-shot
   decode appended to the completed text. Passes run inline in
-  ``feed_audio``, paced by an injectable ``clock``.
+  ``feed_audio``, paced by an injectable ``clock``. A model with
+  ``streaming_decode_token_ids`` (Cohere Transcribe) gets the raw-audio
+  core instead: 8 s windows that overlap, partial passes over the pending
+  audio with the confirmed tokens forced, the same promotion.
 
 Mel frames and encoder features stay on the model's device.
 """
@@ -574,12 +577,123 @@ class _QwenStreamingCore:
 
 
 # ---------------------------------------------------------------------------
+# The Cohere core
+# ---------------------------------------------------------------------------
+
+
+class _CohereStreamingCore:
+    """Cohere Transcribe core: raw audio in 8 s windows that overlap by
+    ``encoder_window_overlap_seconds``; partial passes re-decode the pending
+    audio with the confirmed tokens forced (``streaming_decode_token_ids``)
+    and promote tokens as the Qwen3-ASR core does; a completed window is
+    finalized by a decode of its own appended to the completed text."""
+
+    WINDOW_SECONDS = 8.0
+
+    def __init__(self, model, config: StreamingConfig, clock=time.monotonic):
+        self.model = model
+        self.config = config
+        self.clock = clock
+        self.sample_rate = model.config.sample_rate
+        self.window_samples = int(self.sample_rate * self.WINDOW_SECONDS)
+        self.overlap_samples = max(0, min(
+            round(config.encoder_window_overlap_seconds * self.sample_rate),
+            self.window_samples - 1))
+        self.state = _SharedState()
+        self._pending = np.zeros((0,), np.float32)
+        self._total_samples = 0
+        self._finalized_windows = 0
+        self._wall_start = clock()
+        self._last_decode: float | None = None
+        self._decode_time = 0.0
+        self._passes = 0
+        self._tokens = 0
+
+    def _decode_text(self, ids: list[int]) -> str:
+        return self.model.streaming_decode_text(ids)
+
+    def feed_audio(self, samples) -> list[TranscriptionEvent]:
+        events: list[TranscriptionEvent] = []
+        samples = np.asarray(samples, np.float32)
+        self._pending = np.concatenate([self._pending, samples])
+        self._total_samples += len(samples)
+        now = self.clock()
+        if len(self._pending) >= self.window_samples:
+            window = self._pending[:self.window_samples]
+            self._pending = self._pending[max(0, self.window_samples - self.overlap_samples):]
+            self._finalized_windows += 1
+            self._last_decode = now
+            self._finalize_window(window, events)
+            return events
+        if len(self._pending) < self.sample_rate // 2:
+            return events
+        if (self._last_decode is not None and now - self._last_decode
+                < max(0.2, self.config.decode_interval_seconds)):
+            return events
+        self._last_decode = now
+        t0 = time.perf_counter()
+        ids, _ = self.model.streaming_decode_token_ids(self._pending, self.config,
+                                                       self.state.confirmed_ids)
+        self._decode_time += time.perf_counter() - t0
+        self._passes += 1
+        self._tokens += max(0, len(ids) - len(self.state.confirmed_ids))
+        _promote_tokens(self.state, ids, now, self.config.delay_seconds,
+                        max(1, self.config.min_agreement_passes), self._decode_text, events)
+        events.append(self._stats_event())
+        return events
+
+    def _finalize_window(self, window: np.ndarray, events: list):
+        t0 = time.perf_counter()
+        ids, _ = self.model.streaming_decode_token_ids(window, self.config, [])
+        self._decode_time += time.perf_counter() - t0
+        self._passes += 1
+        self._tokens += len(ids)
+        self.state.completed_text = concat_text(self.state.completed_text,
+                                                self._decode_text(ids))
+        self.state.reset_window()
+        events.append(TranscriptionEvent(EventKind.DISPLAY_UPDATE, text="",
+                                         confirmed_text=self.state.completed_text))
+        events.append(self._stats_event())
+
+    def _stats_event(self) -> TranscriptionEvent:
+        audio_s = self._total_samples / self.sample_rate
+        wall = self.clock() - self._wall_start
+        return TranscriptionEvent(EventKind.STATS, stats={
+            "encoded_window_count": max(self._finalized_windows,
+                                        int(np.ceil(audio_s / self.WINDOW_SECONDS))),
+            "audio_seconds": audio_s,
+            "wall_seconds": wall,
+            "real_time_factor": (wall / audio_s) if audio_s else 0.0,
+            "tokens_per_second": (self._tokens / self._decode_time
+                                  if self._decode_time else 0.0),
+            "decode_passes": self._passes,
+            "decode_time": self._decode_time,
+        })
+
+    def stop(self) -> list[TranscriptionEvent]:
+        events: list[TranscriptionEvent] = []
+        if len(self._pending) > 0:
+            self._finalized_windows += 1
+            self._finalize_window(self._pending, events)
+            self._pending = np.zeros((0,), np.float32)
+        if self.state.provisional_ids:
+            self.state.confirmed_ids.extend(self.state.provisional_ids)
+            self.state.provisional_ids = []
+        self.state.confirmed_text = self._decode_text(self.state.confirmed_ids)
+        final = concat_text(self.state.completed_text, self.state.confirmed_text)
+        events.append(self._stats_event())
+        events.append(TranscriptionEvent(EventKind.ENDED, text=final, confirmed_text=final))
+        return events
+
+
+# ---------------------------------------------------------------------------
 # Facade
 # ---------------------------------------------------------------------------
 
 
 class StreamingInferenceSession:
-    """The streaming session over a model's core (ported: Qwen3-ASR's).
+    """The streaming session over a model's core (ported: Qwen3-ASR's and
+    Cohere Transcribe's).
 
     ``feed_audio(samples)`` / ``stop()`` return the events each call made
     (decode passes run inline, paced by ``clock``); ``stream()`` wraps the
@@ -606,6 +720,8 @@ class StreamingInferenceSession:
     def _select_core(model, config, clock):
         if hasattr(model, "encode_single_window"):
             return _QwenStreamingCore(model, config, clock)
+        if hasattr(model, "streaming_decode_token_ids"):
+            return _CohereStreamingCore(model, config, clock)
         raise TypeError(
             "StreamingInferenceSession requires a Qwen3ASR, CohereTranscribe,"
             f" or MossTranscribeDiarize model; got {type(model).__name__}")
