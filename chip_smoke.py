@@ -314,7 +314,9 @@ kernel 7's short calls then read "not measured".)
    GEMV, no other kernel, no plain call; tokens and waveform repeat); the
    model cut to 4 layers, teacher-forced logits card against CPU under
    VYVO_CARD_RTOL and its TF32 control; TTFB, ms a token, device ms and
-   events (``bench_tts_ttfb``'s protocol); ``ContinuousTTS`` at 4 slots on
+   events (``bench_tts_ttfb``'s protocol); ``core.generation.pcm_stream`` at
+   16 kHz against one ``PCMStreamConverter`` pass over the same streamed
+   audio, within one int16 step; ``ContinuousTTS`` at 4 slots on
    the plain tick, each request's tokens its solo run's. bf16: one greedy
    ``generate`` and its TTFB and ms a token. Then checkpoints written and
    loaded through ``VyvoTTS.from_pretrained(quantize_bits="w8a8")``: 2 layers
@@ -364,6 +366,38 @@ kernel 7's short calls then read "not measured".)
    through ``ContinuousQwen3ASR`` at 4 slots, each request's tokens its
    solo decode's or parted at a witnessed near tie; the peak device memory.
    ``python3 chip_smoke.py --qwen3-asr`` runs it alone.
+27. ``[moss]`` (run after ``[cohere]``): MOSS-Transcribe-Diarize with the
+   Whisper encoder that ``MossTranscribeDiarizeConfig.from_dict`` falls back
+   to (1,024 x 24 layers, 16 heads, ffn 4,096, 80 mels) and ``[qwen3
+   asr]``'s Qwen3 decoder (``LlamaConfig()``'s vocabulary cannot hold
+   MOSS's token ids), random weights from seed 0 packed to MLX 4-bit (g 64)
+   on the card, a stub tokenizer with the ChatML, audio and digit ids.
+   Kernel 1 on a 30 s window and kernel 7's decode kernel at each packed
+   decoder product against their plain versions; greedy ``generate`` on
+   30 s and 65 s (three windows, 813 audio rows with digit markers every
+   5 s) twice each with the counters reset just before and read just after
+   (kernel 1 once a window, the decode kernel 113 times a step, no tile, no
+   plain call; tokens repeating; where each loop stopped); a decode token's
+   host and device ms and kernel 7's share against its bound, the
+   encoder's and the prefill's device ms; 4 + 4 layers in f32 card against
+   CPU (the adaptor's output, step logits) under MOSS_CARD_RTOL and its
+   TF32 control, greedy tokens equal or parted at a witnessed near tie;
+   the streaming session over 10 s at 1 s feeds (every pass capped here at
+   MOSS_STREAM_TOKENS); one ``/v1/audio/transcriptions`` request through
+   ``serve --slots 2`` (no engine); the peak device memory. ``python3
+   chip_smoke.py --moss`` runs it alone.
+28. ``[wav2vec2]`` (run after phase 27; no kernel of the port runs there):
+   ``cli/stt.py`` under ``TPU_AUDIO_PROFILE`` on a 2-layer full-width
+   checkpoint it writes (the trace holds its label and CUDA kernels); then
+   wav2vec2 at ``Wav2Vec2Config()``'s widths (1,024 x 24 layers, the
+   7-layer 512-channel frontend, stable LN, CTC vocabulary 32) with a
+   126-label LID head on the same trunk, random weights from seed 0 in f32:
+   ``generate`` on 30 s twice (1,499 frames, no kernel launched) and
+   ``predict``'s top 5; 4 layers card against CPU (CTC and LID logits under
+   W2V_CARD_RTOL and their TF32 controls, the text and top 5 equal);
+   ``serve --task lid`` (no batcher: ``predict`` under the lock) and
+   ``--task stt``, one request each; the peak device memory. ``python3
+   chip_smoke.py --wav2vec2`` runs it alone.
 
 Each kernel's record carries its bound on the H100 (``bound_ms``: the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate
@@ -433,14 +467,16 @@ mutant must fail its check and every sound copy pass.
 
 TF32 is off for matmuls and convolutions, so float32 references are full
 float32. Any failed check raises and ends the run with a non-zero code.
-The last seventeen lines of output are JSON: the generate runs, the
+The last twenty-one lines of output are JSON: the generate runs, the
 long-form results, the serving results, the TTS results, the TTS serving
 results, the MLX 4-bit results, the Qwen3-TTS results (its serving under
 ``serve``, cloning under ``clone``), the Parakeet results, the VAD results,
 the FSMN / SmartTurn / LID results, the enhancement results, the Mimi
 results, the quantized self caches' results, the VyvoTTS results, the
-Qwen3-ASR results, the kernels' records (kernels 1 and 7's with Qwen3-ASR's,
-``qwen3_asr_launches`` and ``qwen3_asr``; kernel 2's with its quantized-cache launches,
+Qwen3-ASR results, the Cohere results, the MOSS results, the wav2vec2
+results, each phase's seconds, the kernels' records (kernels 1 and 7's with
+Qwen3-ASR's, ``qwen3_asr_launches`` and ``qwen3_asr``, Cohere's and MOSS's,
+``cohere_launches``, ``cohere``, ``moss_launches`` and ``moss``; kernel 2's with its quantized-cache launches,
 ``kvq_launches`` and ``kvq_launches_per_step``; kernels 5, 6 and 7's with
 VyvoTTS's, ``vyvo_launches``, ``vyvo_layer_launches`` and ``vyvo``; kernel 7's with its Qwen3 launches,
 ``qwen3_launches`` and ``qwen3``, and its serving ones,
@@ -1006,6 +1042,39 @@ COHERE_SPECIALS = {"<|endoftext|>": 3, "<|startofcontext|>": 7, "<|startoftransc
                    "<|emo:undefined|>": 16, "<|en|>": 62, "<|pnc|>": 5, "<|nopnc|>": 6,
                    "<|noitn|>": 9, "<|notimestamp|>": 11, "<|timestamp|>": 10,
                    "<|nodiarize|>": 13}
+# [moss]: MOSS-Transcribe-Diarize. No MOSS config.json is in the repository:
+# the audio widths are those MossTranscribeDiarizeConfig.from_dict falls back
+# to (24 x 1,024, 16 heads, ffn 4,096, 80 mels, 1,500 positions) and the text
+# decoder is ASR_TEXT's Qwen3 (28 x 2,048, vocabulary 151,936, q/k norms), as
+# LlamaConfig()'s 128,256 rows cannot hold MOSS's token ids; the adaptor maps
+# 4 x 1,024 -> 2,048 -> 2,048. Seed 0, bf16, MLX 4-bit g 64 packed on the card
+MOSS_AUDIO = dict(num_mel_bins=80, d_model=1024, encoder_layers=24, encoder_attention_heads=16,
+                  encoder_ffn_dim=4096, max_source_positions=1500)
+MOSS_SECONDS = (30.0, 65.0)  # one Whisper window; three (375 + 375 + 63 audio rows)
+MOSS_TOKENS = 24  # a greedy generate's budget (random weights emit no EOS)
+MOSS_PROFILE_TOKENS = 8
+MOSS_CARD_SECONDS = 8.0
+MOSS_CARD_LAYERS, MOSS_CARD_TOKENS = 4, 6
+# adaptor output and step logits of the 4 + 4 layer f32 model, card against
+# CPU, relative to their max; each TF32 control must read above it
+MOSS_CARD_RTOL = 1e-4
+# the session's passes are capped here (its final passes take no cap in the
+# port, as in the JAX package, and random weights emit no EOS)
+MOSS_STREAM_SECONDS, MOSS_STREAM_TOKENS = 10.0, 8
+MOSS_HTTP_SECONDS = 6.0
+# [wav2vec2]: Wav2Vec2Config()'s widths (24 x 1,024, 16 heads, ffn 4,096, the
+# 7-layer 512-channel frontend, layer-norm frontend, stable LN, CTC vocabulary
+# 32) with a LID head of MMS-LID-126's 126 labels on the same trunk; seed 0,
+# f32, TF32 off
+W2V_SECONDS = 30.0
+W2V_LABELS = 126
+W2V_CARD_SECONDS, W2V_CARD_LAYERS = 8.0, 4
+# CTC and LID logits of the 4-layer f32 model, card against CPU, relative to
+# their max; each TF32 control must read above it
+W2V_CARD_RTOL = 1e-4
+W2V_TRACE_LAYERS, W2V_TRACE_SECONDS = 2, 5.0  # the maybe_trace checkpoint
+# [vyvo]'s pcm_stream: tokens of the streamed generation, the output rate
+PCM_TOKENS, PCM_RATE = 42, 16000
 # the standing mutation check (--mutations): for each kernel, its source,
 # the function here that runs its check alone, and its mutations (name,
 # original text, mutated text); a kernel ported later adds its entry
@@ -9718,6 +9787,53 @@ def vyvo_generate(model, n: int, stream: bool = False):
     return all_tokens, wav, wall, pt, steps[0], launches, plain[0]
 
 
+def vyvo_pcm_stream(model) -> dict:
+    """``core.generation.pcm_stream`` on the 4-bit model: PCM_TOKENS greedy
+    tokens streamed, resampled from the model's 24 kHz to PCM_RATE and
+    quantized to int16 chunk by chunk. The chunks joined equal one
+    ``PCMStreamConverter`` push and finish over the model's own streamed
+    audio of that call (recorded as ``pcm_stream`` consumed it), converted
+    to int16, within one int16 step."""
+    import numpy as np
+
+    from tpu_audio_torch.core.audio_io import float_to_pcm16
+    from tpu_audio_torch.core.audio_stream import PCMStreamConverter
+    from tpu_audio_torch.core.generation import (AudioGenerateParameters, AudioGenerationKind,
+                                                 pcm_stream)
+
+    gp = AudioGenerateParameters(max_tokens=PCM_TOKENS, temperature=0.0,
+                                 repetition_penalty=1.3, repetition_context_size=20)
+    heard, stream = [], model.generate_stream
+
+    def spy(*a, **k):
+        for ev in stream(*a, **k):
+            if ev.kind == AudioGenerationKind.AUDIO:
+                heard.append(np.asarray(ev.audio, np.float32))
+            yield ev
+
+    model.generate_stream = spy
+    try:
+        t0 = time.perf_counter()
+        chunks = list(pcm_stream(model, TTS_TEXT, out_rate=PCM_RATE, generation_parameters=gp))
+        wall = time.perf_counter() - t0
+    finally:
+        del model.generate_stream
+    conv = PCMStreamConverter(PCM_RATE)
+    audio = np.concatenate(heard)
+    want = float_to_pcm16(np.concatenate([conv.push(audio, model.sample_rate), conv.finish()]))
+    got = np.concatenate(chunks)
+    diff = int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max()) if got.size else -1
+    print(f"[vyvo pcm_stream] {len(chunks)} int16 chunks at {PCM_RATE} Hz ({got.size} samples "
+          f"from {audio.size} at {model.sample_rate} Hz, {len(heard)} audio events) in "
+          f"{wall:.3f} s; against one converter push and finish over the joined audio: max "
+          f"diff {diff} int16 step(s)")
+    check(all(c.dtype == np.int16 for c in chunks) and got.shape == want.shape
+          and got.size > 0 and 0 <= diff <= 1,
+          f"vyvo pcm_stream: {got.shape} against {want.shape}, max diff {diff}")
+    return dict(chunks=len(chunks), samples=int(got.size), audio_events=len(heard),
+                max_diff=diff, wall_s=wall)
+
+
 def vyvo_teacher_forced(model, tokens) -> dict:
     """The 4-bit model cut to VYVO_CARD_LAYERS layers, card against CPU on
     the same weights: the prompt's prefill and VYVO_TEACHER_STEPS forced
@@ -9942,7 +10058,8 @@ def vyvo_phase(dev, smi: str) -> tuple[dict, dict]:
     decode kernel 113 times a step, no GEMV, no other kernel, no plain
     call; tokens and waveform repeat, the stream's tokens the same); the
     4-layer teacher-forced logits card against CPU; TTFB, realtime factor,
-    host and device ms a token (``q4_ttfb_phase``); ``ContinuousTTS`` at 4
+    host and device ms a token (``q4_ttfb_phase``); ``pcm_stream`` against
+    one converter pass (``vyvo_pcm_stream``); ``ContinuousTTS`` at 4
     slots against solo. On the bf16 model one greedy ``generate`` of
     VYVO_REPEAT_TOKENS tokens and its ms a token. Then the w8a8 trees (``vyvo_w8a8_phase``). Returns the
     record and kernel 7's, 5's and 6's fields."""
@@ -10002,6 +10119,7 @@ def vyvo_phase(dev, smi: str) -> tuple[dict, dict]:
     check(out["q4_bound"][2] == 4 * L + 1, f"{out['q4_bound'][2]} packed products a step")
     out["q4_teacher_forced"] = vyvo_teacher_forced(q4, first[0])
     out["q4_ttfb"] = q4_ttfb_phase(q4, label="vyvo q4")
+    out["pcm_stream"] = vyvo_pcm_stream(q4)
     solo = {}
     gp = AudioGenerateParameters(max_tokens=VYVO_SERVE_TOKENS, temperature=0.0,
                                  repetition_penalty=1.3, repetition_context_size=20)
@@ -11417,6 +11535,897 @@ def cohere_main(smi: str) -> int:
     return 0
 
 
+class MossTokenizer(Qwen3AsrTokenizer):
+    """Stub tokenizer for MOSS's prompt: the ChatML specials and
+    ``<|audio_pad|>`` (151671), ``<|audio_start|>`` / ``<|audio_end|>`` at
+    Qwen3's ids, a word of letters with its leading space one id (1,000 +
+    its CRC-32 mod 100,000), any other byte (the digits of the time markers
+    among them) its own id, so that the default prompt has about the real
+    tokenizer's 70 rows.
+    ``decode`` writes bytes as themselves and other ids as ``w<id>``."""
+
+    SPECIALS = {"<|im_start|>": 151644, "<|im_end|>": 151645, "<|audio_pad|>": 151671,
+                "<|audio_start|>": 151669, "<|audio_end|>": 151670}
+
+    def encode(self, text):
+        import re
+        import zlib
+
+        ids = []
+        for piece in re.findall("|".join(map(re.escape, self.SPECIALS)) + r"| ?[A-Za-z]+|.",
+                                text, re.DOTALL):
+            if piece in self.SPECIALS:
+                ids.append(self.SPECIALS[piece])
+            elif piece.strip().isalpha():
+                ids.append(1000 + zlib.crc32(piece.encode()) % 100000)
+            else:
+                ids += list(piece.encode())
+        return self._Ids(ids)
+
+    def decode(self, ids, skip_special_tokens=True):
+        special = set(self.SPECIALS.values()) | {151643}
+        return "".join(chr(i) if i < 128 else f" w{i} " for i in ids
+                       if not (skip_special_tokens and i in special))
+
+
+def build_moss(dev):
+    """MOSS-Transcribe-Diarize at MOSS_AUDIO's and ASR_TEXT's widths from
+    seed-0 random weights on the card (``moss_diarize.init_random_params``,
+    bf16), the text decoder's RMSNorm weights 1 + N(0, 0.1), quantized on
+    the card to MLX 4-bit in groups of 64 by ``quant.quantize_tree``'s
+    predicate (the encoder's and the adaptor's linears too; the convs,
+    positions and norms dense), the text decoder's q/k/v and gate/up fused;
+    the stub tokenizer. Returns the model and the packed leaves' paths."""
+    import torch
+
+    from tpu_audio_torch.core import quant
+    from tpu_audio_torch.models import llama
+    from tpu_audio_torch.models.stt import moss_diarize as MD
+    from tpu_audio_torch.models.stt import whisper as W
+
+    cfg = MD.MossTranscribeDiarizeConfig(text=llama.LlamaConfig(**ASR_TEXT),
+                                         audio=W.WhisperConfig(**MOSS_AUDIO))
+    params = MD.init_random_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    randomize_norms(params["language_model"]["model"], torch.Generator(device=dev).manual_seed(3))
+    q4 = quant.quantize_tree(params, bits=4, group_size=64, scheme="mlx")
+    q4["language_model"] = llama.fuse_projections(q4["language_model"])
+
+    def packed(tree, path=""):
+        if isinstance(tree, dict):
+            return [p for k, v in tree.items() for p in packed(v, f"{path}.{k}" if path else k)]
+        return [path] if isinstance(tree, quant.QuantizedTensor) else []
+
+    paths = packed(q4)
+    lm, enc = q4["language_model"]["model"], q4["whisper"]["model"]["encoder"]
+    check(isinstance(lm["layers"]["self_attn"]["qkv_proj"]["weight"], quant.QuantizedTensor)
+          and isinstance(lm["embed_tokens"]["weight"], quant.QuantizedTensor)
+          and isinstance(q4["vq_adaptor"]["fc1"]["weight"], quant.QuantizedTensor)
+          and isinstance(enc["layers"]["fc1"]["weight"], quant.QuantizedTensor)
+          and not isinstance(enc["conv1"]["weight"], quant.QuantizedTensor)
+          and not isinstance(enc["embed_positions"]["weight"], quant.QuantizedTensor),
+          "MOSS 4-bit: the products, the embedding or the convs not packed as the predicate "
+          "says")
+    return MD.MossTranscribeDiarize(cfg, q4, MossTokenizer(), torch.bfloat16), paths
+
+
+def moss_stop(tokens: list, count: int, max_new: int) -> str:
+    """Where a MOSS loop stopped: its budget, the degenerate-tail guard (3
+    or fewer distinct tokens in the last 24) or an EOS id."""
+    if count >= max_new:
+        return "max_new"
+    if count >= 24 and len(set(tokens[count - 24:count])) <= 3:
+        return "guard"
+    return "eos"
+
+
+def moss_counted(model, fn):
+    """``fn()`` with the counters reset just before and read just after:
+    (result, wall s, launches, decode steps, plain calls of kernels 1 and 7,
+    and each ``_decode`` call's (tokens, count, budget, prompt rows, tile
+    launches))."""
+    import torch
+
+    from tpu_audio_torch.ops import _lib, mel, qmm
+
+    steps, plain, calls = [0], [0], []
+    decode = model._decode
+
+    def spy(params, embeds, cache, max_new, *a, **k):
+        tile = _lib.launches["quantized_matvec_tile"]
+        toks, count = decode(params, embeds, cache, max_new, *a, **k)
+        calls.append((toks[:count].tolist(), count, max_new, embeds.shape[1],
+                      _lib.launches["quantized_matvec_tile"] - tile))
+        return toks, count
+
+    model._decode = spy
+    try:
+        with counting(model, "_step", steps), counting(qmm, "quantized_matvec_ref", plain), \
+                counting(mel, "fused_log_mel_ref", plain):
+            _lib.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_lib.launches)
+    finally:
+        del model._decode
+    return out, wall, launches, steps[0], plain[0], calls
+
+
+def moss_step_products(model) -> int:
+    return 4 * model.config.text.num_hidden_layers + 1  # q/k/v, o, gate/up, down; the head
+
+
+def moss_kernel_checks(model, smi: str) -> dict:
+    """Kernel 1 on a 30 s window's STFT (periodic Hann, 201 bins, 80 slaney
+    mels: ``dsp.log_mel_spectrogram``'s shapes) against its plain version,
+    timed, with its bound; kernel 7's decode kernel at 1 row with f32 x (a
+    decode step's residual stream on the packed embedding) at each packed
+    product of decoder layer 0 and the tied head, and its tile with bf16 x
+    at the adaptor's two products on a 2 s pass's 25 audio rows."""
+    import torch
+
+    from tpu_audio_torch.core import dsp
+    from tpu_audio_torch.ops import mel as M
+
+    dev = model.device
+    audio = torch.from_numpy(asr_signal(30.0, 5)).to(dev)
+    spec = dsp.stft(audio, dsp.hanning_window(400, periodic=True), 400, 160)[:-1]
+    re, im = spec.real.contiguous(), spec.imag.contiguous()
+    fb = torch.from_numpy(dsp.mel_filters(16000, 400, model.config.audio.num_mel_bins,
+                                          f_min=0.0, f_max=8000.0, norm="slaney",
+                                          mel_scale="slaney")).to(dev)
+    got, want, err = mel_check("moss 30 s window, 80 slaney mels",
+                               lambda: M.fused_log_mel(re, im, fb), re, im, fb)
+    b_ms, b_by = mel_bound(re, im, fb, got)
+    k1 = dict(shape=[re.shape[0], re.shape[1], fb.shape[1]], max_abs_err=err,
+              rel_err=rel_err(got, want), bound_ms=b_ms, bound_by=b_by,
+              ms=cuda_ms(lambda: M.fused_log_mel(re, im, fb)),
+              plain_ms=cuda_ms(lambda: M.fused_log_mel_ref(re, im, fb)),
+              dev_ms=device_ms(lambda: M.fused_log_mel(re, im, fb)),
+              plain_dev_ms=device_ms(lambda: M.fused_log_mel_ref(re, im, fb)))
+    print(f"[moss mel] kernel 1 at [{re.shape[0]},{re.shape[1]}]x[{fb.shape[0]},{fb.shape[1]}]: "
+          f"max abs err {err:.3e} (atol {MEL_ATOL}); per call kernel {k1['ms']:.4f} ms, plain "
+          f"{k1['plain_ms']:.4f} ms; device kernel {fmt(k1['dev_ms'])}, plain "
+          f"{fmt(k1['plain_dev_ms'])}; bound {b_ms:.6f} ms ({b_by}) ({smi})")
+    p = model.params["language_model"]["model"]
+    layer = [(n, p["layers"][a][n]["weight"].map(lambda t: t[0]))
+             for a, names in (("self_attn", ("qkv_proj", "o_proj")),
+                              ("mlp", ("gate_up_proj", "down_proj"))) for n in names]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    out = []
+    for name, w in layer + [("head", p["embed_tokens"]["weight"])]:
+        x = torch.randn((1, w.weight.shape[-1] * 32 // w.bits), generator=gen, device=dev)
+        e, _, ran = qmm_check(f"moss {name} [1]", x, w.weight, w.scales, w.biases,
+                              w.group_size, w.bits)
+        check(ran == "decode", f"moss {name} at 1 row ran the {ran}, not the decode kernel")
+        out.append(dict(shape=name, rows=1, x="float32", kernel=ran, o=w.weight.shape[0],
+                        i=x.shape[1], rel_err=e))
+    # a 2 s streaming pass: 25 audio rows through the adaptor's products
+    rows = model._audio_token_length(32000)
+    for name in ("fc1", "fc2"):
+        w = model.params["vq_adaptor"][name]["weight"]
+        x = torch.randn((rows, w.weight.shape[-1] * 32 // w.bits), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        e, _, ran = qmm_check(f"moss adaptor {name} [{rows}]", x, w.weight, w.scales, w.biases,
+                              w.group_size, w.bits)
+        check(ran == "tile", f"moss adaptor {name} at {rows} rows ran the {ran}, not the tile")
+        out.append(dict(shape=f"adaptor {name}", rows=rows, x="bfloat16", kernel=ran,
+                        o=w.weight.shape[0], i=x.shape[1], rel_err=e))
+    dec = [c for c in out if c["rows"] == 1]
+    print(f"[moss qmm] kernel 7's decode kernel at the text decoder's {len(dec)} product "
+          f"shapes (4-bit, g 64, 1 row, f32 x): rel err up to "
+          f"{max(c['rel_err'] for c in dec):.3e} (rtol {QMM_RTOL}); the tile at the adaptor's "
+          f"2 products at {rows} rows (a 2 s pass) with bf16 x: "
+          f"{[round(c['rel_err'], 6) for c in out if c['rows'] > 1]} (rtol {QMM_BF16_RTOL})")
+    return dict(k1=k1, k7=dec, k7b=[c for c in out if c["rows"] > 1])
+
+
+def moss_generate_runs(model) -> tuple[list, dict]:
+    """Greedy ``generate`` with a MOSS_TOKENS budget on each of MOSS_SECONDS
+    twice, the counters reset just before and read just after each: kernel
+    1 once a 30 s window, kernel 7's decode kernel 113 times a decode step,
+    no tile (the prompts' prefills, the encoder's and the adaptor's rows
+    are more than 64: they dequantize), no GEMV, no plain call; the tokens
+    repeat. The prompt's rows, its audio rows and where each loop
+    stopped."""
+    from tpu_audio_torch.core.generation import STTGenerateParameters
+
+    per = moss_step_products(model)
+    runs, first = [], {}
+    for seconds in MOSS_SECONDS:
+        audio = asr_signal(seconds, 6)
+        windows = -(-len(audio) // 480000)
+        audio_rows = sum(model._audio_token_length(min(480000, len(audio) - s))
+                         for s in range(0, len(audio), 480000))
+        for run in range(2):
+            out, wall, launches, steps, plain, calls = moss_counted(
+                model, lambda: model.generate(audio, STTGenerateParameters(max_tokens=MOSS_TOKENS)))
+            (toks, count, max_new, rows, _), = calls
+            stop = moss_stop(toks, count, max_new)
+            n_dec = launches.get("quantized_matvec_decode", 0)
+            label = f"[moss generate {seconds:g} s run {run}]"
+            print(f"{label} {count} tokens in {wall:.3f} s ({steps} decode steps, loop stopped "
+                  f"at {stop}); a {rows}-row prompt ({audio_rows} audio rows over {windows} "
+                  f"window(s)); RTF {wall / seconds:.4f}; launches {launches}: kernel 1 "
+                  f"{launches.get('fused_log_mel', 0)} ({windows} expected), decode kernel "
+                  f"{n_dec} ({per * steps} expected), tile "
+                  f"{launches.get('quantized_matvec_tile', 0)}; plain calls {plain}; text "
+                  f"{out.text[:60]!r}")
+            check(launches.get("fused_log_mel") == windows and n_dec == per * steps
+                  and not launches.get("quantized_matvec_tile")
+                  and launches.get("quantized_matvec") == n_dec and plain == 0
+                  and set(launches) <= {"fused_log_mel", "quantized_matvec",
+                                        "quantized_matvec_tile", "quantized_matvec_decode"},
+                  f"{label}: kernel 1 or 7's launches, another kernel or a plain call")
+            check(rows > 64 and count <= steps <= max_new and out.prompt_token_count == rows
+                  and (stop != "max_new" or steps == MOSS_TOKENS),
+                  f"{label}: {count} tokens, {steps} steps, a {rows}-row prompt")
+            key = seconds
+            if key not in first:
+                first[key] = (toks, launches, steps, rows, stop)
+            check(toks == first[key][0], f"{label}: tokens differ from the first run's")
+            runs.append(dict(seconds=seconds, run=run, tokens=count, steps=steps,
+                             prompt_rows=rows, audio_rows=audio_rows, windows=windows, stop=stop,
+                             wall_s=wall, rtf=wall / seconds, launches=launches,
+                             text=out.text[:80], segments=len(out.segments)))
+    return runs, dict(first_tokens=first[MOSS_SECONDS[0]][0],
+                      launches=first[MOSS_SECONDS[0]][1], steps=first[MOSS_SECONDS[0]][2])
+
+
+def moss_decode_profile(model, smi: str) -> dict:
+    """On a 30 s clip's prompt: ``_decode`` with MOSS_PROFILE_TOKENS tokens
+    and with none (the prefill and its first pick alone), each timed on
+    the host clock (best of 3) and profiled once (device activity only):
+    a decode token's host ms, device ms, events and kernel 7's share are
+    their differences a token, beside the bound of one step's 113 packed
+    products; the encoder's device ms a 30 s window (``encode_audio``: the
+    mel, the encoder, the adaptor; one marked window) and the prefill's."""
+    import types
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_audio_torch.models import llama
+
+    n, dev, tcfg = MOSS_PROFILE_TOKENS, model.device, model.config.text
+    lm = model.params["language_model"]
+    audio = asr_signal(30.0, 7)
+    with torch.no_grad():
+        feats = model.encode_audio(audio)
+        ids = np.asarray([model.build_prompt(feats.shape[0])], np.int32)
+        emb = model._inject_audio(ids, feats).to(model.dtype)
+
+        def cache():
+            return llama.make_cache(tcfg, 1, ids.shape[1] + n + 1, model.dtype, device=dev)
+
+        def timed(k):
+            walls = []
+            for _ in range(3):
+                c = cache()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model._decode(lm, emb, c, k)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            c = cache()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                model._decode(lm, emb, c, k)
+                torch.cuda.synchronize()
+            kernels = by_kernel(prof)
+            k7 = [v for name, v in kernels.items() if "quantized_matvec" in name]
+            return (min(walls) * 1e3, sum(v[1] for v in kernels.values()) / 1e3,
+                    sum(v[0] for v in kernels.values()), sum(v[1] for v in k7) / 1e3,
+                    sum(v[0] for v in k7), kernels)
+
+        full, none = timed(n), timed(0)
+        enc_us, enc_events = marked_window(lambda: model.encode_audio(audio), "moss encoder")
+        pre_us, pre_events = marked_window(
+            lambda: llama.forward(lm, None, cache(), tcfg, inputs_embeds=emb), "moss prefill")
+    b_ms, b_by, products = packed_step_bound(types.SimpleNamespace(params=lm))
+    out = dict(ms_per_token=(full[0] - none[0]) / n, device_ms_per_token=(full[1] - none[1]) / n,
+               device_events_per_token=(full[2] - none[2]) / n,
+               kernel7_device_ms_per_token=(full[3] - none[3]) / n,
+               kernel7_launches_per_token=(full[4] - none[4]) / n, bound_ms=b_ms, bound_by=b_by,
+               products=products, prompt_rows=int(ids.shape[1]),
+               encoder_device_ms=None if enc_us is None else enc_us / 1e3,
+               encoder_events=enc_events,
+               prefill_device_ms=None if pre_us is None else pre_us / 1e3,
+               prefill_events=pre_events, prefill_host_ms=none[0], prefill_device_ms_sum=none[1])
+    print(f"[moss decode] {n}-token decode after a {ids.shape[1]}-row prompt (the difference "
+          f"of {n} and 0 tokens): {out['ms_per_token']:.4f} host ms a token (best of 3), "
+          f"{out['device_ms_per_token']:.4f} device ms a token of which kernel 7 "
+          f"{out['kernel7_device_ms_per_token']:.4f} ({out['kernel7_launches_per_token']:.1f} "
+          f"launches a token) against the bound of its {products} products {b_ms:.4f} ms "
+          f"({b_by}); {out['device_events_per_token']:.1f} device events a token; encode_audio "
+          f"on a 30 s window {fmt(out['encoder_device_ms'])} device ({enc_events} events); the "
+          f"prefill {fmt(out['prefill_device_ms'])} device ({pre_events} events), host "
+          f"{none[0]:.3f} ms with its first pick ({smi})")
+    print_kernels(full[5], n, top=8)
+    check(products == moss_step_products(model), f"{products} packed products a step")
+    return out
+
+
+def moss_cut(model, n: int):
+    """``model``'s config and tree cut to its first ``n`` encoder and text
+    layers, in f32 (packed leaves stay packed)."""
+    import torch
+
+    from tpu_audio_torch.core import loading
+    from tpu_audio_torch.models import llama
+
+    cfg = dataclasses.replace(
+        model.config, audio=dataclasses.replace(model.config.audio, encoder_layers=n),
+        text=dataclasses.replace(model.config.text, num_hidden_layers=n))
+    p = model.params
+    enc = p["whisper"]["model"]["encoder"]
+    lm = p["language_model"]
+    cut = {"whisper": {"model": {"encoder": {**enc, "layers": llama._map(
+               lambda t: t[:n], enc["layers"])}}},
+           "vq_adaptor": p["vq_adaptor"],
+           "language_model": {**lm, "model": {**lm["model"], "layers": llama._map(
+               lambda t: t[:n], lm["model"]["layers"])}}}
+    return cfg, loading.cast_floats(cut, torch.float32)
+
+
+def moss_card_vs_cpu(model) -> dict:
+    """The 4-bit model cut to MOSS_CARD_LAYERS encoder and text layers in
+    f32 (the products stay packed), card against CPU on the same weights
+    and MOSS_CARD_SECONDS of audio: the adaptor's output (the audio rows)
+    and MOSS_CARD_TOKENS step logits (the prefill's last, then along the
+    CPU's greedy tokens; kernels 1 and 7 on the card, their plain versions
+    on the CPU), each within MOSS_CARD_RTOL of the CPU's relative to its
+    max and under its TF32 control; the greedy tokens equal, or parted
+    where the CPU's two best logits lie within the two logits'
+    difference."""
+    import numpy as np
+    import torch
+
+    from tpu_audio_torch.core import loading
+    from tpu_audio_torch.models import llama
+    from tpu_audio_torch.models.stt import moss_diarize as MD
+
+    steps = MOSS_CARD_TOKENS
+    cfg, params = moss_cut(model, MOSS_CARD_LAYERS)
+    audio = asr_signal(MOSS_CARD_SECONDS, 1)
+
+    def run(params, row=None):
+        m = MD.MossTranscribeDiarize(cfg, params, model.tokenizer, torch.float32)
+        lm = m.params["language_model"]
+        with torch.no_grad():
+            feats = m.encode_audio(audio)
+            ids = np.asarray([m.build_prompt(feats.shape[0])], np.int32)
+            emb = m._inject_audio(ids, feats)
+
+            def cache():
+                return llama.make_cache(cfg.text, 1, ids.shape[1] + steps + 1, torch.float32,
+                                        device=m.device)
+
+            toks, count = m._decode(lm, emb, cache(), steps)
+            greedy = toks[:count].tolist()
+            logits, c = llama.forward(lm, None, cache(), cfg.text, inputs_embeds=emb)
+            out = [logits[0, -1]]
+            for t in (greedy if row is None else row)[:steps - 1]:
+                lg, c = m._step(lm, torch.tensor([[t]], device=m.device), c)
+                out.append(lg[0])
+        return dict(adaptor=feats.float().cpu(), logits=torch.stack(out).float().cpu()), greedy
+
+    cpu, cpu_greedy = run(loading.to_device(params, "cpu"))
+    card, card_greedy = run(params, cpu_greedy)
+    with plain_kernels(), tf32_everywhere():
+        control, _ = run(params, cpu_greedy)
+    out = {k: dict(rel_err=rel_err(card[k], cpu[k]), tf32_control=rel_err(control[k], cpu[k]))
+           for k in card}
+    parted = None
+    if card_greedy != cpu_greedy:
+        s = next(i for i in range(min(len(card_greedy), len(cpu_greedy)))
+                 if card_greedy[i] != cpu_greedy[i])
+        top = torch.topk(cpu["logits"][s], 2)
+        gap = float(top.values[0] - top.values[1])
+        diff = float((card["logits"][s] - cpu["logits"][s]).abs().max())
+        parted = dict(token=s, margin=gap, max_diff=diff)
+        check({card_greedy[s], cpu_greedy[s]} == set(top.indices.tolist()) and gap <= diff,
+              f"moss card against CPU: greedy tokens part at {s}, not at a near tie {parted}")
+    out["greedy"] = dict(equal=card_greedy == cpu_greedy, tokens=len(cpu_greedy), parted=parted)
+    print(f"[moss card vs CPU] {MOSS_CARD_LAYERS} encoder and {MOSS_CARD_LAYERS} text layers in "
+          f"f32 (4-bit products), {MOSS_CARD_SECONDS:g} s ({card['adaptor'].shape[0]} audio "
+          f"rows), {steps} steps: " + "; ".join(
+              f"{k} {out[k]['rel_err']:.3e} (TF32 control {out[k]['tf32_control']:.3e})"
+              for k in card) + f" (limit {MOSS_CARD_RTOL}); greedy tokens equal: "
+          f"{card_greedy == cpu_greedy} {parted or ''}")
+    for k in card:
+        check(bool(torch.isfinite(card[k]).all()) and card[k].shape == cpu[k].shape
+              and out[k]["rel_err"] <= MOSS_CARD_RTOL < out[k]["tf32_control"],
+              f"moss {k} card against CPU {out[k]}: not within {MOSS_CARD_RTOL}, or the TF32 "
+              f"control within it")
+    return out
+
+
+class MossCapped:
+    """The MOSS model as the streaming session sees it, with every pass's
+    tokens capped at MOSS_STREAM_TOKENS: the port's final passes take no
+    cap (as the JAX package's), and random weights emit no EOS. Records
+    each pass's (seconds, the session's cap)."""
+
+    def __init__(self, model):
+        self.model, self.sample_rate, self.passes = model, model.sample_rate, []
+
+    def streaming_transcribe_window(self, samples, offset_seconds=0.0, language=None,
+                                    max_tokens=None):
+        self.passes.append((len(samples) / self.sample_rate, max_tokens))
+        return self.model.streaming_transcribe_window(
+            samples, offset_seconds=offset_seconds, language=language,
+            max_tokens=min(max_tokens or MOSS_STREAM_TOKENS, MOSS_STREAM_TOKENS))
+
+
+def moss_stream(model) -> dict:
+    """``StreamingInferenceSession`` (the MOSS core: 4 s windows) over
+    MOSS_STREAM_SECONDS at 1 s feeds, on a clock that moves 1 s a feed,
+    through ``MossCapped``; the counters reset just before and read just
+    after: kernel 1 once a pass, kernel 7's decode kernel 113 times a
+    decode step, its tile twice a pass of 64 audio rows or fewer (the
+    adaptor's products), no plain call. Partial and final passes run, at
+    least two windows are finalized, and the ended text is the completed
+    text."""
+    from tpu_audio_torch.models.stt.streaming import (EventKind, StreamingConfig,
+                                                      StreamingInferenceSession)
+
+    per = moss_step_products(model)
+    audio = asr_signal(MOSS_STREAM_SECONDS, 2)
+    capped = MossCapped(model)
+    clock = StepClock()
+    session = StreamingInferenceSession(capped, config=StreamingConfig(), clock=clock)
+
+    def feed_all():
+        events = []
+        for s in range(0, len(audio), 16000):
+            events += session.feed_audio(audio[s:s + 16000])
+            clock.advance(1.0)
+        return events + session.stop()
+
+    events, wall, launches, steps, plain, calls = moss_counted(model, feed_all)
+    core = session.core
+    kinds = [e.kind.value for e in events]
+    stats = [e.stats for e in events if e.kind == EventKind.STATS][-1]
+    n_dec = launches.get("quantized_matvec_decode", 0)
+    partial = sum(1 for _, cap in capped.passes if cap is not None)
+    # a pass of 64 audio rows or fewer (5.1 s) runs the adaptor's two
+    # products on kernel 7's tile; its prompt is longer: it dequantizes
+    tiles = sum(2 for a, _ in capped.passes
+                if 2 <= model._audio_token_length(round(a * 16000)) <= 64)
+    print(f"[moss stream] {MOSS_STREAM_SECONDS:g} s at 1 s feeds, core "
+          f"{type(core).__name__}: {len(capped.passes)} passes ({partial} partial; seconds and "
+          f"the session's caps {[(round(a, 2), c) for a, c in capped.passes]}, every pass capped "
+          f"here at {MOSS_STREAM_TOKENS}), {steps} decode steps in {wall:.3f} s: session RTF "
+          f"{wall / MOSS_STREAM_SECONDS:.4f}, {stats['decode_time'] * 1e3 / len(calls):.1f} ms "
+          f"a pass; {core._finalized_windows} windows finalized; loops stopped at "
+          f"{[moss_stop(t, c, m) for t, c, m, _, _ in calls]}; launches {launches} (decode "
+          f"kernel {per * steps}, tile {tiles} expected); plain calls {plain}; events "
+          f"{' '.join(k[:4] for k in kinds)}; ended {events[-1].text[:60]!r}")
+    check(type(core).__name__ == "_MossStreamingCore" and kinds[-1] == "ended"
+          and "display_update" in kinds and "stats" in kinds
+          and set(kinds) <= {k.value for k in EventKind}, f"moss stream: event kinds {kinds}")
+    check(events[-1].text == events[-1].confirmed_text == core.completed_text
+          and core._finalized_windows >= 2 and partial >= 1 and len(calls) == len(capped.passes),
+          "moss stream: no partial pass, windows not finalized, or the ended text is not the "
+          "session's")
+    check(launches.get("fused_log_mel") == len(calls) and n_dec == per * steps
+          and launches.get("quantized_matvec_tile", 0) == tiles and plain == 0
+          and launches.get("quantized_matvec") == n_dec + tiles,
+          f"moss stream: kernel 1 or 7's launches ({tiles} tiles expected), or a plain call")
+    return dict(seconds=MOSS_STREAM_SECONDS, wall_s=wall, rtf=wall / MOSS_STREAM_SECONDS,
+                passes=len(capped.passes), partial_passes=partial, steps=steps,
+                windows=core._finalized_windows,
+                ms_per_pass=stats["decode_time"] * 1e3 / len(calls), kinds=kinds,
+                launches=launches)
+
+
+def moss_http(model) -> dict:
+    """One ``/v1/audio/transcriptions`` POST of MOSS_HTTP_SECONDS to the
+    server on 127.0.0.1 (``--slots 2``: no engine for MOSS, the locked
+    ``generate``); the served model is the same tree whose ``generate``
+    defaults to a MOSS_TOKENS budget (the port's default, 2,048, would run
+    to its end on random weights). Segments carry a speaker where the text
+    has tags."""
+    import json as _json
+
+    from tpu_audio_torch.cli.serve import build_server
+    from tpu_audio_torch.core.generation import STTGenerateParameters
+    from tpu_audio_torch.models.stt import moss_diarize as MD
+
+    class Served(MD.MossTranscribeDiarize):
+        def generate(self, audio, generation_parameters=None, prompt=None):
+            return super().generate(audio, generation_parameters
+                                    or STTGenerateParameters(max_tokens=MOSS_TOKENS), prompt)
+
+    served = Served.__new__(Served)
+    served.__dict__.update(model.__dict__)
+    server = build_server(served, "stt", "moss-random", port=0, slots=2)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        check(server.stt_worker is None, "moss serve: an engine was built")
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/v1/audio/transcriptions",
+            data=wav_body(asr_signal(MOSS_HTTP_SECONDS, 8)),
+            headers={"Content-Type": "audio/wav"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            body, code = _json.loads(r.read()), r.status
+        wall = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    segs = body.get("segments", [])
+    tagged = [s for s in segs if s["text"].startswith("[S")]
+    print(f"[moss http] one {MOSS_HTTP_SECONDS:g} s POST: HTTP {code} in {wall:.3f} s, "
+          f"{len(body.get('text', ''))} characters, {len(segs)} segment(s), {len(tagged)} with "
+          f"a speaker (random weights write no tags unless by chance): "
+          f"{body.get('text', '')[:60]!r}")
+    check(code == 200 and body.get("text") and len(segs) >= 1
+          and all(s["end"] >= s["start"] for s in segs), f"moss http: {code} {str(body)[:120]}")
+    return dict(code=code, wall_s=wall, segments=len(segs), speaker_segments=len(tagged))
+
+
+def moss_phase(dev, smi: str) -> tuple[dict, dict]:
+    """``[moss]``: MOSS-Transcribe-Diarize (``build_moss``) on the MLX 4-bit
+    tree. Kernels 1 and 7 against their plain versions at the path's shapes
+    (``moss_kernel_checks``); greedy ``generate`` on 30 s and 65 s twice
+    each with its launches (``moss_generate_runs``); a decode token's host
+    and device ms, events and kernel 7's share against its bound, the
+    encoder's and the prefill's device ms (``moss_decode_profile``); 4 + 4
+    layers in f32 card against CPU (``moss_card_vs_cpu``); the streaming
+    session (``moss_stream``); one request through the server
+    (``moss_http``); the peak device memory. Returns the record and kernels
+    1 and 7's fields."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, packed = build_moss(dev)
+    torch.cuda.synchronize()
+    a, t = model.config.audio, model.config.text
+    enc = sum(p.startswith("whisper") for p in packed)
+    print(f"[moss] Whisper encoder {a.encoder_layers} x {a.d_model} ({a.encoder_attention_heads} "
+          f"heads, ffn {a.encoder_ffn_dim}, {a.num_mel_bins} mels), adaptor "
+          f"{a.d_model * model.config.audio_merge_size} -> {t.hidden_size}, Qwen3 decoder "
+          f"{t.num_hidden_layers} x {t.hidden_size} (vocabulary {t.vocab_size}) MLX 4-bit (g 64) "
+          f"built on the card in {time.perf_counter() - t_phase:.1f} s: {len(packed)} packed "
+          f"leaves ({enc} in the encoder) ({smi})")
+    out = dict(packed_leaves=len(packed), packed_in_encoder=enc)
+    parts = {"build": time.perf_counter() - t_phase}
+    checks = moss_kernel_checks(model, smi)
+    parts["kernels"] = time.perf_counter() - t_phase
+    out["runs"], gen = moss_generate_runs(model)
+    parts["generate"] = time.perf_counter() - t_phase
+    out["decode"] = moss_decode_profile(model, smi)
+    parts["decode profile"] = time.perf_counter() - t_phase
+    out["card_vs_cpu"] = moss_card_vs_cpu(model)
+    parts["card vs CPU"] = time.perf_counter() - t_phase
+    out["stream"] = moss_stream(model)
+    parts["stream"] = time.perf_counter() - t_phase
+    out["http"] = moss_http(model)
+    out["peak_gb"] = peak_gb()
+    out["seconds"] = parts["http"] = time.perf_counter() - t_phase
+    print(f"[moss] peak device memory {out['peak_gb']:.2f} GB; the phase {out['seconds']:.1f} s "
+          f"(seconds from its start at the end of each part: "
+          f"{json.dumps({k: round(v, 1) for k, v in parts.items()})}) ({smi})")
+    k7 = dict(moss_launches=gen["launches"].get("quantized_matvec_decode", 0), moss=dict(
+        decode_per_step=gen["launches"].get("quantized_matvec_decode", 0) / gen["steps"],
+        device_ms_per_token=out["decode"]["device_ms_per_token"],
+        kernel7_device_ms_per_token=out["decode"]["kernel7_device_ms_per_token"],
+        bound_ms=out["decode"]["bound_ms"], bound_by=out["decode"]["bound_by"],
+        products=out["decode"]["products"], checks=checks["k7"]))
+    tile = dict(moss_launches=dict(generate=gen["launches"].get("quantized_matvec_tile", 0),
+                                   stream=out["stream"]["launches"].get(
+                                       "quantized_matvec_tile", 0)),
+                moss=dict(checks=checks["k7b"], per_short_pass=2))
+    k1 = dict(moss_launches=gen["launches"].get("fused_log_mel", 0), moss=dict(
+        checks["k1"], windows_65s=[r["launches"].get("fused_log_mel", 0) for r in out["runs"]
+                                   if r["seconds"] == MOSS_SECONDS[1]][0]))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, dict(quantized_matvec=k7, quantized_matvec_tile=tile, fused_log_mel=k1)
+
+
+W2V_VOCAB = ["<pad>", "<s>", "</s>", "<unk>", "|"] + list("etaonihsrdlumwcfgypbvkjxqz'-")
+
+
+def build_wav2vec2(dev, cfg=None):
+    """wav2vec2 at ``cfg``'s widths (``Wav2Vec2Config()`` by default) from
+    seed-0 random weights on the card in f32, with the CTC head and a LID
+    head of W2V_LABELS on the same trunk: (``Wav2Vec2CTC``,
+    ``Wav2Vec2LID``)."""
+    import torch
+
+    from tpu_audio_torch.models.lid.wav2vec2_lid import Wav2Vec2LID
+    from tpu_audio_torch.models.stt import wav2vec2 as WV
+
+    cfg = cfg or WV.Wav2Vec2Config()
+    params = WV.init_random_params(cfg, seed=0, dtype=torch.float32, device=dev,
+                                   num_labels=W2V_LABELS)
+    vocab = dict(enumerate(W2V_VOCAB[:cfg.vocab_size]))
+    return (WV.Wav2Vec2CTC(cfg, params, vocab, dtype=torch.float32),
+            Wav2Vec2LID(cfg, params, {i: f"lang{i:03d}" for i in range(W2V_LABELS)},
+                        torch.float32))
+
+
+def w2v_counted(fn):
+    """``fn()`` with the counters reset just before and read just after:
+    (result, wall s, launches)."""
+    import torch
+
+    from tpu_audio_torch.ops import _lib
+
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {k: v for k, v in _lib.launches.items() if v}
+
+
+def w2v_runs(ctc, lid) -> dict:
+    """``generate`` on W2V_SECONDS twice and ``predict`` (top 5) once, the
+    counters reset just before and read just after each: no kernel of the
+    port launches; the text repeats; the CTC frames; the logits' device ms
+    and events (one marked window each)."""
+    import torch
+
+    audio = asr_signal(W2V_SECONDS, 9)
+    runs, first = [], None
+    for run in range(2):
+        out, wall, launches = w2v_counted(lambda: ctc.generate(audio))
+        print(f"[wav2vec2 generate run {run}] {W2V_SECONDS:g} s: {out.generation_token_count} "
+              f"CTC tokens in {wall:.3f} s; RTF {wall / W2V_SECONDS:.4f}; launches {launches}; "
+              f"text {out.text[:60]!r}")
+        check(not launches, f"wav2vec2 generate launched a kernel of the port: {launches}")
+        first = out.text if first is None else first
+        check(out.text == first, "wav2vec2: the text differs from run 0's")
+        runs.append(dict(run=run, tokens=out.generation_token_count, wall_s=wall,
+                         rtf=wall / W2V_SECONDS))
+    frames = int(ctc.logits(audio).shape[1])
+    ctc_us, ctc_events = marked_window(lambda: ctc.logits(audio), "wav2vec2 ctc")
+    pred, wall, launches = w2v_counted(lambda: lid.predict(audio, top_k=5))
+    lid_us, lid_events = marked_window(lambda: lid.logits(audio), "wav2vec2 lid")
+    top = [(p.language, round(p.confidence, 6)) for p in pred.top_languages]
+    out = dict(runs=runs, frames=frames, ctc_device_ms=None if ctc_us is None else ctc_us / 1e3,
+               ctc_events=ctc_events, predict_wall_s=wall, top5=top,
+               lid_device_ms=None if lid_us is None else lid_us / 1e3, lid_events=lid_events)
+    print(f"[wav2vec2] {W2V_SECONDS:g} s -> {frames} frames; CTC logits "
+          f"{fmt(out['ctc_device_ms'])} device ({ctc_events} events); predict in {wall:.3f} s, "
+          f"launches {launches}, LID logits {fmt(out['lid_device_ms'])} device ({lid_events} "
+          f"events); top 5 {top}")
+    check(frames == 1499 and not launches and len(top) == 5
+          and bool(torch.isfinite(torch.tensor([c for _, c in top])).all()),
+          f"wav2vec2: {frames} frames, predict launches {launches}, top {top}")
+    return out
+
+
+def w2v_card_vs_cpu(ctc) -> dict:
+    """The trunk cut to W2V_CARD_LAYERS layers in f32, card against CPU on
+    the same weights and W2V_CARD_SECONDS: the CTC and LID logits within
+    W2V_CARD_RTOL of the CPU's relative to their max, each under its TF32
+    control (TF32 products and convolutions); the CTC text equal; the top-5
+    languages in the same order, or parted only where the CPU's two
+    probabilities lie within the two routes' difference of the logits."""
+    import torch
+
+    from tpu_audio_torch.core import loading
+    from tpu_audio_torch.models.lid.wav2vec2_lid import Wav2Vec2LID
+    from tpu_audio_torch.models.stt import wav2vec2 as WV
+
+    n = W2V_CARD_LAYERS
+    cfg = dataclasses.replace(ctc.config, num_hidden_layers=n)
+    p = ctc.params
+    enc = p["wav2vec2"]["encoder"]
+    cut = {**p, "wav2vec2": {**p["wav2vec2"], "encoder": {
+        **enc, "layers": {str(i): enc["layers"][str(i)] for i in range(n)}}}}
+    audio = asr_signal(W2V_CARD_SECONDS, 10)
+
+    def run(params):
+        c = WV.Wav2Vec2CTC(cfg, params, ctc.vocab)
+        lid = Wav2Vec2LID(cfg, params, {i: f"lang{i:03d}" for i in range(W2V_LABELS)})
+        return (dict(ctc=c.logits(audio)[0].cpu(), lid=lid.logits(audio)[0].cpu()),
+                c.generate(audio).text, [q.language for q in lid.predict(audio).top_languages])
+
+    cpu, cpu_text, cpu_top = run(loading.to_device(cut, "cpu"))
+    card, card_text, card_top = run(cut)
+    with tf32_everywhere():
+        control, _, _ = run(cut)
+    out = {k: dict(rel_err=rel_err(card[k], cpu[k]), tf32_control=rel_err(control[k], cpu[k]))
+           for k in card}
+    parted = None
+    if card_top != cpu_top:
+        s = next(i for i in range(5) if card_top[i] != cpu_top[i])
+        probs = torch.softmax(cpu["lid"], -1)
+        ids = [int(l[4:]) for l in (card_top[s], cpu_top[s])]
+        gap = float((probs[ids[0]] - probs[ids[1]]).abs())
+        diff = float((torch.softmax(card["lid"], -1) - probs).abs().max())
+        parted = dict(rank=s, margin=gap, max_diff=diff)
+        check(gap <= diff, f"wav2vec2 card against CPU: top 5 part at rank {s}, not at a near "
+                           f"tie {parted}")
+    out["text_equal"], out["top5_equal"], out["top5_parted"] = (card_text == cpu_text,
+                                                               card_top == cpu_top, parted)
+    print(f"[wav2vec2 card vs CPU] {n} layers in f32, {W2V_CARD_SECONDS:g} s: " + "; ".join(
+        f"{k} logits {v['rel_err']:.3e} (TF32 control {v['tf32_control']:.3e})"
+        for k, v in out.items() if isinstance(v, dict) and "rel_err" in v)
+          + f" (limit {W2V_CARD_RTOL}); CTC text equal {card_text == cpu_text}; top 5 equal "
+            f"{card_top == cpu_top} {parted or ''}")
+    for k in card:
+        check(bool(torch.isfinite(card[k]).all()) and card[k].shape == cpu[k].shape
+              and out[k]["rel_err"] <= W2V_CARD_RTOL < out[k]["tf32_control"],
+              f"wav2vec2 {k} card against CPU {out[k]}: not within {W2V_CARD_RTOL}, or the TF32 "
+              f"control within it")
+    check(card_text == cpu_text, "wav2vec2 card against CPU: the CTC text differs")
+    return out
+
+
+def w2v_http(ctc, lid) -> dict:
+    """``serve --task lid`` on MMS-LID (no ``predict_batch``: no batcher,
+    ``predict`` under the lock) answers one ``/v1/audio/lid?top_k=5`` POST
+    as ``predict`` on the audio the server read; ``--task stt`` on the CTC
+    model one ``/v1/audio/transcriptions`` POST as ``generate``."""
+    import json as _json
+
+    from tpu_audio_torch.cli.serve import _load_wav_body, build_server
+
+    body = wav_body(asr_signal(6.0, 11))
+    heard = _load_wav_body(body, 16000)[0]
+    out = {}
+    for task, model, path in (("lid", lid, "/v1/audio/lid?top_k=5"),
+                              ("stt", ctc, "/v1/audio/transcriptions")):
+        server = build_server(model, task, "wav2vec2-random", port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            if task == "lid":
+                check(server.lid_batcher is None, "wav2vec2 serve: a LID batcher was built")
+            req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}{path}",
+                                         data=body, headers={"Content-Type": "audio/wav"})
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=600) as r:
+                out[task] = (_json.loads(r.read()), r.status, time.perf_counter() - t0)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+    (lid_body, lid_code, lid_wall), (stt_body, stt_code, stt_wall) = out["lid"], out["stt"]
+    want = lid.predict(heard, top_k=5)
+    text = ctc.generate(heard).text
+    print(f"[wav2vec2 http] /v1/audio/lid: HTTP {lid_code} in {lid_wall:.3f} s, top "
+          f"{[t['language'] for t in lid_body.get('top', [])]}; /v1/audio/transcriptions: HTTP "
+          f"{stt_code} in {stt_wall:.3f} s, {len(stt_body.get('text', ''))} characters")
+    check(lid_code == 200 and [t["language"] for t in lid_body["top"]]
+          == [q.language for q in want.top_languages]
+          and abs(lid_body["confidence"] - round(want.confidence, 6)) <= 1e-6,
+          f"wav2vec2 http lid: {lid_code} {str(lid_body)[:120]}")
+    check(stt_code == 200 and stt_body["text"] == text,
+          f"wav2vec2 http stt: {stt_code} {str(stt_body)[:120]}")
+    return dict(lid_code=lid_code, lid_wall_s=lid_wall, stt_code=stt_code, stt_wall_s=stt_wall)
+
+
+def w2v_trace(dev) -> dict:
+    """``cli/stt.py`` under ``TPU_AUDIO_PROFILE``: a W2V_TRACE_LAYERS-layer
+    checkpoint at ``Wav2Vec2Config()``'s widths written to a temporary
+    directory (seed 0, f32, the checkpoint's keys) and a W2V_TRACE_SECONDS
+    WAV; the trace file ``stt_generate.<pid>.json`` holds the label and at
+    least one CUDA kernel event."""
+    import os
+
+    from tpu_audio_torch.cli import stt
+    from tpu_audio_torch.core import loading
+    from tpu_audio_torch.core.audio_io import save_wav
+    from tpu_audio_torch.models.stt import wav2vec2 as WV
+
+    cfg = WV.Wav2Vec2Config(num_hidden_layers=W2V_TRACE_LAYERS)
+    ctc, _ = build_wav2vec2(dev, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp) / "w2v"
+        d.mkdir()
+        flat = {k: v for k, v in loading.flatten(ctc.params).items()
+                if not k.startswith(("projector", "classifier"))}
+        write_safetensors(d / "model.safetensors", flat)
+        (d / "config.json").write_text(json.dumps({**dataclasses.asdict(cfg),
+                                                   "model_type": "wav2vec2"}))
+        (d / "vocab.json").write_text(json.dumps({t: i for i, t in enumerate(W2V_VOCAB)}))
+        wav = Path(tmp) / "in.wav"
+        save_wav(str(wav), asr_signal(W2V_TRACE_SECONDS, 12), 16000)
+        trace = Path(tmp) / "trace"
+        os.environ["TPU_AUDIO_PROFILE"] = str(trace)
+        try:
+            t0 = time.perf_counter()
+            code = stt.main([str(wav), "--model", str(d)])
+            wall = time.perf_counter() - t0
+        finally:
+            del os.environ["TPU_AUDIO_PROFILE"]
+        files = list(trace.glob("stt_generate.*.json"))
+        events = json.loads(files[0].read_text())["traceEvents"] if len(files) == 1 else []
+    names = {e.get("name") for e in events}
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"[wav2vec2 trace] cli/stt.py on a {W2V_TRACE_LAYERS}-layer checkpoint under "
+          f"TPU_AUDIO_PROFILE: exit {code} in {wall:.3f} s; {len(files)} trace file(s), "
+          f"{len(events)} events, {kernels} CUDA kernel events, label present: "
+          f"{'stt_generate' in names}")
+    check(code == 0 and len(files) == 1 and "stt_generate" in names and kernels >= 1,
+          "wav2vec2 trace: no trace file, no label or no CUDA kernel event")
+    return dict(files=len(files), events=len(events), kernel_events=kernels, wall_s=wall)
+
+
+def wav2vec2_phase(dev, smi: str) -> dict:
+    """``[wav2vec2]``: wav2vec2 CTC and MMS-LID (``build_wav2vec2``) at
+    ``Wav2Vec2Config()``'s widths in f32: ``maybe_trace`` through
+    ``cli/stt.py`` (``w2v_trace``); ``generate`` twice and ``predict``
+    (``w2v_runs``); 4 layers card against CPU (``w2v_card_vs_cpu``); the
+    servers (``w2v_http``); the peak device memory. No kernel of the port
+    runs on this path."""
+    import torch
+
+    from tpu_audio_torch.core import loading
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"trace": w2v_trace(dev)}
+    parts = {"trace": time.perf_counter() - t_phase}
+    ctc, lid = build_wav2vec2(dev)
+    c = ctc.config
+    n_params = sum(t.numel() for t in loading.flatten(ctc.params).values())
+    print(f"[wav2vec2] {c.num_hidden_layers} x {c.hidden_size} ({c.num_attention_heads} heads, "
+          f"ffn {c.intermediate_size}), frontend {len(c.conv_dim)} x {c.conv_dim[0]} "
+          f"({c.feat_extract_norm} norm), stable LN {c.do_stable_layer_norm}, CTC vocabulary "
+          f"{c.vocab_size}, LID {W2V_LABELS} labels: {n_params / 1e6:.1f} M parameters in f32 "
+          f"built on the card ({smi})")
+    out["params"] = n_params
+    parts["build"] = time.perf_counter() - t_phase
+    out.update(w2v_runs(ctc, lid))
+    parts["runs"] = time.perf_counter() - t_phase
+    out["card_vs_cpu"] = w2v_card_vs_cpu(ctc)
+    parts["card vs CPU"] = time.perf_counter() - t_phase
+    out["http"] = w2v_http(ctc, lid)
+    out["peak_gb"] = peak_gb()
+    out["seconds"] = parts["http"] = time.perf_counter() - t_phase
+    print(f"[wav2vec2] peak device memory {out['peak_gb']:.2f} GB; the phase "
+          f"{out['seconds']:.1f} s (seconds from its start at the end of each part: "
+          f"{json.dumps({k: round(v, 1) for k, v in parts.items()})}) ({smi})")
+    del ctc, lid
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moss_main(smi: str) -> int:
+    """``--moss``: the [moss] phase alone, then its JSON and kernels 1 and
+    7's MOSS fields as one line (no "ok" line: not the full check)."""
+    import torch
+
+    from tpu_audio_torch.ops import _lib
+
+    t0 = time.perf_counter()
+    _lib.lib()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    out, k = moss_phase(torch.device("cuda", 0), smi)
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"moss": out, "kernels": k}, default=str))
+    return 0
+
+
+def wav2vec2_main(smi: str) -> int:
+    """``--wav2vec2``: the [wav2vec2] phase alone (no kernel build), then its
+    JSON as one line (no "ok" line: not the full check)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = wav2vec2_phase(torch.device("cuda", 0), smi)
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"wav2vec2": out}, default=str))
+    return 0
+
+
 def kvq_main(smi: str) -> int:
     """``--kvq``: the [whisper kvq] phase alone on freshly built
     whisper-large-v3 models, then its JSON and kernel 2's fields as one
@@ -11476,7 +12485,8 @@ def main() -> int:
               "--kv-mel-timing": kv_mel_timing_main}.get(next(iter(sys.argv[1:]), ""))
     if sys.argv[1:] not in ([], ["--qmm"], ["--qwen3"], ["--clone"], ["--parakeet"], ["--vad"],
                             ["--turn-lid"], ["--sts"], ["--kvq"], ["--vyvo"],
-                            ["--qwen3-asr"], ["--cohere"]) and not timing:
+                            ["--qwen3-asr"], ["--cohere"], ["--moss"], ["--wav2vec2"]) \
+            and not timing:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -11515,6 +12525,10 @@ def main() -> int:
         return qwen3_asr_main(smi.splitlines()[0])
     if sys.argv[1:] == ["--cohere"]:
         return cohere_main(smi.splitlines()[0])
+    if sys.argv[1:] == ["--moss"]:
+        return moss_main(smi.splitlines()[0])
+    if sys.argv[1:] == ["--wav2vec2"]:
+        return wav2vec2_main(smi.splitlines()[0])
     if timing:
         return timing(smi.splitlines()[0], [Path(a).resolve() for a in sys.argv[2:]])
     dev = torch.device("cuda", 0)
@@ -11595,6 +12609,16 @@ def main() -> int:
     for k in ("quantized_matvec", "quantized_matvec_tile"):
         records[k].update(cohere_k[k])
     lap("cohere")
+    # the [moss] phase next, early too: its decode profile reads kernel 7's
+    # device time a token; kernel 1's fields wait for its record
+    moss, moss_k = moss_phase(dev, smi.splitlines()[0])
+    for k in ("quantized_matvec", "quantized_matvec_tile"):
+        records[k].update(moss_k[k])
+    lap("moss")
+    # the [wav2vec2] phase next, early too: its trace and device times come
+    # from the profiler (no kernel of the port runs there)
+    wav2vec2 = wav2vec2_phase(dev, smi.splitlines()[0])
+    lap("wav2vec2")
 
     t0 = time.perf_counter()
     cfg, models = build_models(dev, drawn.pop("params"))
@@ -11614,6 +12638,7 @@ def main() -> int:
     records["fused_log_mel"].update(turn_lid_k1)
     records["fused_log_mel"].update(clone_k1)
     records["fused_log_mel"].update(asr_k["fused_log_mel"])
+    records["fused_log_mel"].update(moss_k["fused_log_mel"])
     w8 = models["w8_kv8d"]
     records["fused_stack_lanes"] = lanes_phase(w8, cfg, lane_encoders(w8, enc, clips, rng),
                                                dev)
@@ -11724,7 +12749,8 @@ def main() -> int:
                              "speaker_mel", "kvq_launches", "kvq_launches_per_step",
                              "vyvo_launches", "vyvo", "vyvo_layer_launches",
                              "qwen3_asr_launches", "qwen3_asr", "qwen3_align_launches",
-                             "qwen3_align", "cohere_launches", "cohere") if f in r})
+                             "qwen3_align", "cohere_launches", "cohere", "moss_launches",
+                             "moss") if f in r})
         for k, r in records.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"generate": runs, "smi": smi.splitlines()[0]}))
@@ -11743,6 +12769,8 @@ def main() -> int:
     print(json.dumps({"vyvo": vyvo}))
     print(json.dumps({"qwen3_asr": qwen3_asr}))
     print(json.dumps({"cohere": cohere}))
+    print(json.dumps({"moss": moss}, default=str))
+    print(json.dumps({"wav2vec2": wav2vec2}, default=str))
     print(json.dumps({"phase_seconds": phase_s,
                       "total_s": round(time.perf_counter() - t_start, 1)}))
     print(json.dumps({"kernels": kernels}))

@@ -72,6 +72,11 @@ print("ok")
     ["tpu_audio_torch.models.stt.qwen3_aligner", "tpu_audio_torch.models.stt.cohere",
      "tpu_audio_torch.core.spm", "tpu_audio_torch.models.stt.streaming",
      "tpu_audio_torch.cli.stt", "tpu_audio_torch.cli.tts", "tpu_audio_torch.cli.serve"],
+    ["tpu_audio_torch.models.stt.moss_diarize", "tpu_audio_torch.models.stt.wav2vec2",
+     "tpu_audio_torch.models.lid.wav2vec2_lid", "tpu_audio_torch.core.audio_stream",
+     "tpu_audio_torch.core.profiling", "tpu_audio_torch.core.generation",
+     "tpu_audio_torch.cli.stt", "tpu_audio_torch.cli.tts", "tpu_audio_torch.cli.lid",
+     "tpu_audio_torch.cli.serve"],
 ])
 def test_port_imports_without_jax(mods):
     res = subprocess.run([sys.executable, "-c", _BLOCKER.format(mods=mods)],

@@ -1,7 +1,7 @@
 """Language-ID command line on the PyTorch port: wav -> top-k languages.
 
 Usage: ``python -m tpu_audio_torch.cli.lid audio.wav --model <dir>`` (an
-ECAPA-TDNN checkpoint), with the flags of ``tpu_audio.cli.lid``
+ECAPA-TDNN or MMS-LID wav2vec2 checkpoint), with the flags of ``tpu_audio.cli.lid``
 (``--top-k``) plus ``--device``.
 """
 

@@ -24,7 +24,8 @@ Endpoints follow the OpenAI audio API paths:
 - ``POST /v1/audio/lid``: raw WAV in; JSON ``{"language", "confidence",
   "top": [{"language", "confidence"}, ...]}`` (``?top_k=N``, default 5).
   ECAPA-TDNN: concurrent requests go through a micro-batcher (one
-  ``predict_batch`` a 4 ms window of up to 16 requests).
+  ``predict_batch`` a 4 ms window of up to 16 requests); MMS-LID
+  (wav2vec2), which has no ``predict_batch``: ``predict`` under the lock.
 - ``POST /v1/audio/enhance``: raw WAV in (resampled to the model's rate),
   enhanced WAV out at that rate. STS enhancement models (DeepFilterNet):
   ``enhance`` under the lock.
@@ -35,8 +36,9 @@ Endpoints follow the OpenAI audio API paths:
 With ``--slots N`` (N > 1) concurrent requests share continuously batched
 decode lanes: Whisper transcriptions of up to 30 s and Qwen3-ASR ones of up
 to 20 s through ``parallel.continuous_stt.STTEngineWorker`` (Qwen3-ASR on
-``ContinuousQwen3ASR``; other STT models, such as Parakeet and Cohere
-Transcribe, answer every request through ``generate`` under the lock, and
+``ContinuousQwen3ASR``; other STT models, such as Parakeet, Cohere
+Transcribe, MOSS-Transcribe-Diarize and wav2vec2 CTC, answer every request
+through ``generate`` under the lock, and
 a Qwen3 forced aligner, which needs a transcript, answers with an error),
 Orpheus speech through ``parallel.continuous.TTSEngineWorker`` and
 Qwen3-TTS speech through
@@ -49,6 +51,7 @@ the model under a lock. Start with:
     python -m tpu_audio_torch.cli.serve --model QWEN3_TTS_DIR --task tts --slots 4
     python -m tpu_audio_torch.cli.serve --model SORTFORMER_DIR --task vad
     python -m tpu_audio_torch.cli.serve --model ECAPA_DIR --task lid
+    python -m tpu_audio_torch.cli.serve --model MMS_LID_DIR --task lid
     python -m tpu_audio_torch.cli.serve --model DEEPFILTERNET_DIR --task sts
 
 The flags are the JAX server's, plus ``--device`` and ``--quantize w8a8``
@@ -271,10 +274,12 @@ def build_server(model, task: str, model_name: str,
                  slots: int = 1, generation_parameters=None,
                  step_tokens: int = 7, fused: str = "auto"):
     """Construct (but don't start) the HTTP server for an STT (``task``
-    "stt": Whisper, Parakeet, Qwen3-ASR, Cohere Transcribe), TTS (``task`` "tts": Orpheus, Qwen3-TTS), VAD
-    (``task`` "vad": Silero, Sortformer, FSMN VAD), LID (``task`` "lid":
-    ECAPA-TDNN, through a micro-batcher) or STS (``task`` "sts":
-    DeepFilterNet) ``model``.
+    "stt": Whisper, Parakeet, Qwen3-ASR, Cohere Transcribe,
+    MOSS-Transcribe-Diarize, wav2vec2 CTC), TTS (``task`` "tts": Orpheus,
+    Qwen3-TTS), VAD (``task`` "vad": Silero, Sortformer, FSMN VAD), LID
+    (``task`` "lid": ECAPA-TDNN through a micro-batcher, MMS-LID through
+    ``predict`` under the lock) or STS (``task`` "sts": DeepFilterNet)
+    ``model``.
 
     ``slots > 1`` routes Whisper transcriptions of up to 30 s, and Qwen3-ASR
     ones of up to its engine's window (20 s), through a shared
@@ -325,7 +330,10 @@ def build_server(model, task: str, model_name: str,
             tts_worker = TTSEngineWorker(model, slots=slots,
                                          generation_parameters=generation_parameters,
                                          step_tokens=step_tokens, fused=fused)
-    lid_batcher = _LIDBatcher(model) if task == "lid" else None
+    # a model with predict_batch (ECAPA) takes the micro-batcher; one
+    # without it (MMS-LID) answers each request under the lock
+    lid_batcher = (_LIDBatcher(model) if task == "lid" and hasattr(model, "predict_batch")
+                   else None)
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -491,7 +499,11 @@ def build_server(model, task: str, model_name: str,
 
                     top_k = int(parse_qs(urlparse(self.path).query).get("top_k", ["5"])[0])
                     audio, _ = _load_wav_body(body, 16000)
-                    out = lid_batcher.predict(audio, top_k)
+                    if lid_batcher is not None:
+                        out = lid_batcher.predict(audio, top_k)
+                    else:
+                        with lock:
+                            out = model.predict(audio, top_k=top_k)
                     self._json(200, {
                         "language": out.language,
                         "confidence": round(out.confidence, 6),

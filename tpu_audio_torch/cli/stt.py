@@ -1,17 +1,22 @@
 """STT command line on the PyTorch port: wav -> text.
 
 Usage: ``python -m tpu_audio_torch.cli.stt audio.wav --model <dir>`` (a
-Whisper, Parakeet, Qwen3-ASR or Cohere Transcribe checkpoint), with the flags of
+Whisper, Parakeet, Qwen3-ASR, Cohere Transcribe, MOSS-Transcribe-Diarize or
+wav2vec2 CTC checkpoint), with the flags of
 ``tpu_audio.cli.stt`` (``--format txt|srt|json``, ``--stream``,
 ``--chunk-duration``, ``--kv-bits``, ``--quantized-kv-start``, ...) plus
 ``--device``. A model ignores the flags it has no use for (Parakeet: the
 language, task, temperature and KV flags).
 
 ``--stream`` on a model with a streaming core (Qwen3-ASR's
-``encode_single_window``, Cohere's ``streaming_decode_token_ids``) runs the
-live ``StreamingInferenceSession`` on 1 s feeds: confirmed text as it is
-promoted (``--verbose`` also prints each display update) and a ``[stream]
-RTF`` line; other models print ``generate_stream``'s text.
+``encode_single_window``, Cohere's ``streaming_decode_token_ids``, MOSS's
+``streaming_transcribe_window``) runs the live ``StreamingInferenceSession``
+on 1 s feeds: confirmed text as it comes (``--verbose`` also prints each
+display update) and a ``[stream] RTF`` line; other models print
+``generate_stream``'s text.
+
+With ``TPU_AUDIO_PROFILE=<dir>`` the transcription runs under a
+``torch.profiler`` trace labelled ``stt_generate`` (``core.profiling``).
 
 A forced aligner (a directory named like ``Qwen3-ForcedAligner``) aligns
 ``--text`` to the audio and prints its words with their times as segments
@@ -108,8 +113,13 @@ def main(argv=None):
         quantized_kv_start=args.quantized_kv_start,
         batch_windows=not args.no_batch_windows,
     )
+    import contextlib
+
+    from tpu_audio_torch.core.profiling import maybe_trace
     from tpu_audio_torch.models.stt.qwen3_aligner import Qwen3ForcedAligner
 
+    prof = contextlib.ExitStack()
+    prof.enter_context(maybe_trace("stt_generate", device=args.device))
     if isinstance(model, Qwen3ForcedAligner):
         if args.stream:
             parser.error("--stream is not supported for forced aligner models")
@@ -125,7 +135,8 @@ def main(argv=None):
             language=args.language, prompt_token_count=aligned.prompt_tokens,
             total_time=aligned.total_time, generation_time=aligned.total_time)
     elif args.stream and (hasattr(model, "encode_single_window")
-                          or hasattr(model, "streaming_decode_token_ids")):
+                          or hasattr(model, "streaming_decode_token_ids")
+                          or hasattr(model, "streaming_transcribe_window")):
         output = _live_session(model, audio, args)
     elif args.stream:
         output = None
@@ -137,6 +148,7 @@ def main(argv=None):
         print()
     else:
         output = model.generate(audio, params)
+    prof.close()
 
     if args.format == "txt":
         text = output.text

@@ -14,7 +14,9 @@ checkpoints, which load as they are). ``--stream`` writes the audio as it is gen
 reports the time to the first audio (TTFB) and the real-time multiple.
 ``--timestamps [ALIGNER]`` then aligns the text to the written audio with a
 Qwen3 forced aligner checkpoint and prints each word's times. Runs on
-``cuda`` unless ``--device`` says otherwise (the aligner too).
+``cuda`` unless ``--device`` says otherwise (the aligner too). With
+``TPU_AUDIO_PROFILE=<dir>`` the generation runs under a ``torch.profiler``
+trace labelled ``tts_generate`` (``core.profiling``).
 """
 
 from __future__ import annotations
@@ -97,6 +99,12 @@ def main(argv=None):
     if args.ref_audio:
         ref_audio, _ = load_audio(args.ref_audio, sample_rate=model.sample_rate)
 
+    import contextlib
+
+    from tpu_audio_torch.core.profiling import maybe_trace
+
+    prof = contextlib.ExitStack()
+    prof.enter_context(maybe_trace("tts_generate", device=args.device))
     if args.stream or args.benchmark:
         t0 = time.perf_counter()
         ttfb = None
@@ -133,6 +141,7 @@ def main(argv=None):
         dur = len(audio) / model.sample_rate
         print(f"[tts] {dur:.2f}s audio in {wall:.2f}s (RTFx {dur / wall:.2f}x) -> "
               f"{args.output}", file=sys.stderr)
+    prof.close()
 
     if args.timestamps:
         from tpu_audio_torch.core.audio_io import resample_audio

@@ -13,8 +13,11 @@ Parakeet tree (encoder, prediction network, joint; dense or with MLX
 packed linears and embedding), the FSMN VAD, SmartTurn and ECAPA-TDNN
 trees, Mimi's, the Qwen3 speech tokenizer's encoder and speaker
 encoder, a Qwen3-ASR or forced-aligner tree (its ``lm_head`` timestamp
-head too), and a sanitized Cohere Transcribe tree (encoder, decoder,
-head; dense or with MLX packed linears and embedding). bfloat16 arrays (numpy dtype ``bfloat16``) keep their
+head too), a sanitized Cohere Transcribe tree (encoder, decoder,
+head; dense or with MLX packed linears and embedding), a sanitized
+MOSS-Transcribe-Diarize tree (the stacked Whisper encoder, ``vq_adaptor``
+and the fused ``language_model``; dense or MLX-packed), and a wav2vec2
+tree (CTC or LID heads, MMS adapter layers). bfloat16 arrays (numpy dtype ``bfloat16``) keep their
 bits, and uint32 words become int32 of the same bits. The JAX package's
 word-scale planes (``scales_w``) have no counterpart and are dropped.
 """

@@ -1,6 +1,6 @@
 """Generation event, parameter and result types (port of
 tpu_audio.core.generation: the TTS events and parameters, ``samples_stream``,
-and the STT parameters and results)."""
+``pcm_stream``, and the STT parameters and results)."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import numpy as np
 
 __all__ = ["AudioGenerateParameters", "AudioGeneration", "AudioGenerationError",
            "AudioGenerationInfo", "AudioGenerationKind", "STTGenerateParameters",
-           "STTOutput", "STTSegment", "samples_stream", "validate_kv_bits"]
+           "STTOutput", "STTSegment", "pcm_stream", "samples_stream", "validate_kv_bits"]
 
 
 class AudioGenerationError(RuntimeError):
@@ -87,6 +87,36 @@ def samples_stream(model, text: str, **kwargs) -> Iterator[np.ndarray]:
     for event in model.generate_stream(text, **kwargs):
         if event.kind == AudioGenerationKind.AUDIO and event.audio is not None:
             yield np.asarray(event.audio, np.float32)
+
+
+def pcm_stream(model, text: str, out_rate: int | None = None,
+               dtype=np.int16, **kwargs) -> Iterator[np.ndarray]:
+    """Yield playback-ready PCM chunks: the model's audio resampled to
+    ``out_rate`` through a stateful
+    :class:`~tpu_audio_torch.core.audio_stream.PCMStreamConverter` and
+    quantized to ``dtype`` (int16 by default; ``np.float32`` skips the
+    quantization)."""
+    from tpu_audio_torch.core.audio_io import float_to_pcm16
+    from tpu_audio_torch.core.audio_stream import PCMStreamConverter
+
+    sr = int(getattr(model, "sample_rate", 24000))
+    out_rate = int(out_rate or sr)
+    conv = PCMStreamConverter(out_rate=out_rate) if out_rate != sr else None
+
+    def emit(x: np.ndarray) -> np.ndarray | None:
+        if x.size == 0:
+            return None
+        return float_to_pcm16(x) if dtype == np.int16 else x.astype(dtype)
+
+    for chunk in samples_stream(model, text, **kwargs):
+        out = conv.push(chunk, sr) if conv is not None else chunk
+        pcm = emit(np.asarray(out, np.float32))
+        if pcm is not None:
+            yield pcm
+    if conv is not None:
+        pcm = emit(conv.finish())
+        if pcm is not None:
+            yield pcm
 
 
 @dataclass

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from tpu_audio_torch.core import quant
 
 __all__ = ["linear", "embedding", "embedding_as_linear", "layer_norm",
-           "rms_norm", "batch_norm", "lstm_cell", "lstm", "gru", "conv1d", "conv2d",
+           "rms_norm", "group_norm", "batch_norm", "lstm_cell", "lstm", "gru", "conv1d", "conv2d",
            "conv_transpose1d", "gelu", "silu", "snake", "rope_freqs",
            "apply_rope", "sdpa", "f32_convolutions"]
 
@@ -85,6 +85,25 @@ def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
     y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
     return (y * p["weight"].to(torch.float32)).to(x.dtype)
+
+
+def group_norm(p: dict | None, x: torch.Tensor, num_groups: int,
+               eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over channels-last ``[B, ..., C]`` (statistics over the
+    positions and the channels of each group), computed in f32, returned
+    in ``x.dtype``."""
+    *lead, c = x.shape
+    xf = x.to(torch.float32).reshape(*lead, num_groups, c // num_groups)
+    axes = tuple(range(1, len(lead))) + (len(lead) + 1,)
+    mean = xf.mean(dim=axes, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=axes, keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(*lead, c)
+    if p is not None:
+        if "weight" in p:
+            y = y * p["weight"].to(torch.float32)
+        if "bias" in p:
+            y = y + p["bias"].to(torch.float32)
+    return y.to(x.dtype)
 
 
 def batch_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """STT task module: model registry + factory (port of
 tpu_audio.models.stt.load_model; the families ported are Whisper, Parakeet,
-Qwen3-ASR, the Qwen3 forced aligner and Cohere Transcribe)."""
+Qwen3-ASR, the Qwen3 forced aligner, Cohere Transcribe, wav2vec2 CTC and
+MOSS-Transcribe-Diarize)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,9 @@ _REGISTRY: dict[str, str] = {
     "qwen3_forced_aligner": "tpu_audio_torch.models.stt.qwen3_aligner:Qwen3ForcedAligner",
     "cohere_asr": "tpu_audio_torch.models.stt.cohere:CohereTranscribe",
     "cohere": "tpu_audio_torch.models.stt.cohere:CohereTranscribe",
+    "wav2vec2": "tpu_audio_torch.models.stt.wav2vec2:Wav2Vec2CTC",
+    "moss_transcribe_diarize": "tpu_audio_torch.models.stt.moss_diarize:MossTranscribeDiarize",
+    "mosstranscribediarize": "tpu_audio_torch.models.stt.moss_diarize:MossTranscribeDiarize",
 }
 
 

@@ -1,6 +1,6 @@
 """Streaming STT: incremental mel -> window encoder -> a session that
 promotes provisional tokens to confirmed ones (port of
-tpu_audio.models.stt.streaming with its Qwen3-ASR and Cohere cores).
+tpu_audio.models.stt.streaming with its Qwen3-ASR, Cohere and MOSS cores).
 
 - :class:`IncrementalMelSpectrogram`: overlap-save mel over a rolling
   buffer, the first chunk reflect-prefixed; each ``process`` that yields
@@ -21,7 +21,10 @@ tpu_audio.models.stt.streaming with its Qwen3-ASR and Cohere cores).
   ``feed_audio``, paced by an injectable ``clock``. A model with
   ``streaming_decode_token_ids`` (Cohere Transcribe) gets the raw-audio
   core instead: 8 s windows that overlap, partial passes over the pending
-  audio with the confirmed tokens forced, the same promotion.
+  audio with the confirmed tokens forced, the same promotion. A model with
+  ``streaming_transcribe_window`` (MOSS-Transcribe-Diarize) gets the
+  text-level core: 3-6 s windows finalized whole, partial passes over the
+  pending tail between them, no token promotion.
 
 Mel frames and encoder features stay on the model's device.
 """
@@ -687,13 +690,128 @@ class _CohereStreamingCore:
 
 
 # ---------------------------------------------------------------------------
+# The MOSS core
+# ---------------------------------------------------------------------------
+
+
+class _MossStreamingCore:
+    """MOSS-Transcribe-Diarize core: text-level, with no token promotion.
+    Windows of ``clamp(max_decode_windows * 4, 3, 6)`` s are consumed and
+    finalized by a pass of their own (no token cap) whose text is appended
+    with ``"\\n"``; between them a partial pass over the last 1.25-2.5 s of
+    pending audio runs at most once per ``max(1, decode_interval_seconds)``,
+    capped at ``min(max_tokens_per_pass, max(48, ceil(16 * seconds)))``
+    tokens. Timestamps are shifted by each pass's offset in the stream."""
+
+    def __init__(self, model, config: StreamingConfig, clock=time.monotonic):
+        self.model = model
+        self.config = config
+        self.clock = clock
+        self.sample_rate = model.sample_rate
+        window_seconds = max(3.0, min(6.0, max(1, config.max_decode_windows) * 4.0))
+        self.window_samples = max(self.sample_rate, round(window_seconds * self.sample_rate))
+        self.min_partial_samples = max(self.sample_rate, round(1.25 * self.sample_rate))
+        self.partial_samples = max(self.min_partial_samples,
+                                   round(min(window_seconds, 2.5) * self.sample_rate))
+        self.completed_text = ""
+        self.provisional_text = ""
+        self._pending = np.zeros((0,), np.float32)
+        self._pending_start = 0
+        self._total_samples = 0
+        self._finalized_windows = 0
+        self._wall_start = clock()
+        self._last_decode: float | None = None
+        self._decode_time = 0.0
+        self._passes = 0
+
+    def _display(self, events: list):
+        confirmed = self.completed_text
+        if confirmed and self.provisional_text and not self.provisional_text.startswith("\n"):
+            confirmed = confirmed + "\n"
+        events.append(TranscriptionEvent(EventKind.DISPLAY_UPDATE, text=self.provisional_text,
+                                         confirmed_text=confirmed))
+
+    def _window_pass(self, samples: np.ndarray, offset: float, final: bool, events: list):
+        seconds = len(samples) / self.sample_rate
+        max_tokens = None if final else min(self.config.max_tokens_per_pass,
+                                            max(48, int(np.ceil(seconds * 16.0))))
+        t0 = time.perf_counter()
+        text = self.model.streaming_transcribe_window(
+            samples, offset_seconds=offset, language=self.config.language,
+            max_tokens=max_tokens)
+        self._decode_time += time.perf_counter() - t0
+        self._passes += 1
+        text = text.strip()
+        if final:
+            if text:
+                self.completed_text = (text if not self.completed_text
+                                       else self.completed_text + "\n" + text)
+            self.provisional_text = ""
+        else:
+            self.provisional_text = text
+        self._display(events)
+        events.append(self._stats_event(seconds))
+
+    def feed_audio(self, samples) -> list[TranscriptionEvent]:
+        events: list[TranscriptionEvent] = []
+        samples = np.asarray(samples, np.float32)
+        self._pending = np.concatenate([self._pending, samples])
+        self._total_samples += len(samples)
+        now = self.clock()
+        if len(self._pending) >= self.window_samples:
+            window = self._pending[:self.window_samples]
+            offset = self._pending_start / self.sample_rate
+            self._pending = self._pending[self.window_samples:]
+            self._pending_start += self.window_samples
+            self._finalized_windows += 1
+            self._last_decode = now
+            self._window_pass(window, offset, final=True, events=events)
+            return events
+        if len(self._pending) < self.min_partial_samples:
+            return events
+        if (self._last_decode is not None and now - self._last_decode
+                < max(1.0, self.config.decode_interval_seconds)):
+            return events
+        self._last_decode = now
+        count = min(len(self._pending), self.partial_samples)
+        start = len(self._pending) - count
+        offset = (self._pending_start + start) / self.sample_rate
+        self._window_pass(self._pending[start:], offset, final=False, events=events)
+        return events
+
+    def _stats_event(self, window_seconds: float) -> TranscriptionEvent:
+        audio_s = self._total_samples / self.sample_rate
+        wall = self.clock() - self._wall_start
+        return TranscriptionEvent(EventKind.STATS, stats={
+            "encoded_window_count": max(self._finalized_windows,
+                                        int(np.ceil(audio_s / max(window_seconds, 1e-3)))),
+            "audio_seconds": audio_s,
+            "wall_seconds": wall,
+            "real_time_factor": (wall / audio_s) if audio_s else 0.0,
+            "decode_passes": self._passes,
+            "decode_time": self._decode_time,
+        })
+
+    def stop(self) -> list[TranscriptionEvent]:
+        events: list[TranscriptionEvent] = []
+        if len(self._pending) > 0:
+            offset = self._pending_start / self.sample_rate
+            self._finalized_windows += 1
+            self._window_pass(self._pending, offset, final=True, events=events)
+            self._pending = np.zeros((0,), np.float32)
+        final = self.completed_text or self.provisional_text
+        events.append(TranscriptionEvent(EventKind.ENDED, text=final, confirmed_text=final))
+        return events
+
+
+# ---------------------------------------------------------------------------
 # Facade
 # ---------------------------------------------------------------------------
 
 
 class StreamingInferenceSession:
-    """The streaming session over a model's core (ported: Qwen3-ASR's and
-    Cohere Transcribe's).
+    """The streaming session over a model's core: Qwen3-ASR's, Cohere
+    Transcribe's or MOSS-Transcribe-Diarize's.
 
     ``feed_audio(samples)`` / ``stop()`` return the events each call made
     (decode passes run inline, paced by ``clock``); ``stream()`` wraps the
@@ -722,6 +840,8 @@ class StreamingInferenceSession:
             return _QwenStreamingCore(model, config, clock)
         if hasattr(model, "streaming_decode_token_ids"):
             return _CohereStreamingCore(model, config, clock)
+        if hasattr(model, "streaming_transcribe_window"):
+            return _MossStreamingCore(model, config, clock)
         raise TypeError(
             "StreamingInferenceSession requires a Qwen3ASR, CohereTranscribe,"
             f" or MossTranscribeDiarize model; got {type(model).__name__}")
